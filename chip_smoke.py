@@ -8,20 +8,31 @@ Run from the repository root, on a machine with one card:
 Phases, in order; any failure exits non-zero:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off for fp32 products;
-  2. build: compile every kernel in skypilot_tpu_torch/csrc/ (one nvcc
-     per source, all at once) and print the build seconds;
+  2. build: compile every kernel source in skypilot_tpu_torch/csrc/ (one
+     nvcc per source, all at once) and print the build seconds;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the main path's shapes and in the window / segment /
+     card, at the main paths' shapes and in the window / segment /
      softcap / int8 / ragged-length cases, in bf16 and fp32, with each
-     error beside its tolerance; kernel, plain and library times and the
-     least time the card could take (bound);
-  4. main path: Llama-3-8B (bf16, random weights from a seeded
+     error beside its tolerance (gradients blockwise, and two planted
+     gradient faults must be rejected); kernel, plain and library times
+     and the least time the card could take (bound): the flash forward,
+     the flash backward pair (dK/dV, dQ), dense decode;
+  4. serving main path: Llama-3-8B (bf16, random weights from a seeded
      torch.Generator) served by InferenceEngine + Orchestrator: 16
-     prompts of ~1000 tokens, 64 new tokens each; the kernels' launch
-     counts are zeroed just before and read just after;
-  5. small end to end: an fp32 model at LLAMA_TINY widths with prefill
-     bucket 1024 (so the flash kernel runs) served on the card and on
-     the CPU (plain versions); the greedy tokens must be identical.
+     prompts of ~1000 tokens, 64 new tokens each;
+  5. small serving end to end: an fp32 model at LLAMA_TINY widths with
+     prefill bucket 1024 (so the flash kernel runs) served on the card and
+     on the CPU (plain versions); the greedy tokens must be identical;
+  6. training main path: Llama-3-1B (LLAMA3_1B, all 16 layers, bf16,
+     random weights) trained by Trainer through measure_throughput at
+     seq 8192, global batch 4, remat 'qkvo_gup', adafactor: 2 warm-up
+     and 5 measured steps on one repeated batch; the loss must be finite
+     and fall;
+  7. small training check: LLAMA_TINY widths in fp32 at seq 1024 with EOS
+     packing, adamw, accum_steps=2: three steps on the card (kernels) and
+     on the CPU (plain versions) must agree.
+Before each main path (4 and 6) every kernel's launch count is set to 0;
+just after, the kernels of that path must each have run.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -60,11 +71,28 @@ PEAK_BYTES_PER_S = 3.35e12
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
 LSE_ATOL = 1e-3
+# Gradients, backward kernels vs the plain backward, judged in each block
+# of 64 rows of one head against the reference's own size there
+# (flash_ops.gradient_errors): attention gradients shrink along the
+# sequence, so one absolute tolerance would pass a wrong later block.
+# Limits on the blockwise relative error ||got-want||/||want|| and on the
+# largest element error over the block's RMS. fp32 sums over up to S rows
+# in another order. bf16 also rounds P and dS to bf16 before their
+# products (as the Pallas kernels do) and the gradient on the way out.
+# Over the cases below, on an H100, the kernels read at most 3.7e-3 and
+# 7.0e-2 in bf16, 9.4e-7 and 2.9e-5 in fp32; a 10 % error confined to
+# some blocks reads 0.1 and above (the planted faults below).
+GRAD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GRAD_ELEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.15}
 
 REPLACES = {
     'flash_fwd': 'skypilot_tpu/ops/flash_attention.py:64',
+    'flash_bwd_dkv': 'skypilot_tpu/ops/flash_attention.py:300',
+    'flash_bwd_dq': 'skypilot_tpu/ops/flash_attention.py:360',
     'decode_attention': 'skypilot_tpu/ops/decode_attention.py:73',
 }
+SERVE_KERNELS = ('flash_fwd', 'decode_attention')
+TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
 
 
 def log(msg: str) -> None:
@@ -114,25 +142,58 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
+def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor,
+                 dtype) -> float:
+    """A gradient against the plain backward's, blockwise (see
+    GRAD_NORM_TOL) → its largest absolute error."""
+    norm_err, elem_err = flash_ops.gradient_errors(got, want)
+    max_err = float((got.float() - want.float()).abs().max())
+    log(f'  {name}: block rel err {norm_err:.3e} (limit '
+        f'{GRAD_NORM_TOL[dtype]:g}), element err / block rms '
+        f'{elem_err:.3e} (limit {GRAD_ELEM_TOL[dtype]:g}); mean |ref| '
+        f'{float(want.float().abs().mean()):.3e}, max_abs_err '
+        f'{max_err:.3e}')
+    if not (norm_err <= GRAD_NORM_TOL[dtype]
+            and elem_err <= GRAD_ELEM_TOL[dtype]):
+        raise AssertionError(f'{name}: kernel disagrees with the plain '
+                             f'backward (block rel err {norm_err:.3e}, '
+                             f'element err {elem_err:.3e})')
+    return max_err
+
+
+def expect_rejected(name: str, got: torch.Tensor, want: torch.Tensor,
+                    dtype) -> None:
+    """A planted fault must fail compare_grad: the check can see it."""
+    try:
+        compare_grad(f'planted fault, {name}', got, want, dtype)
+    except AssertionError:
+        log('    rejected, as it must be')
+        return
+    raise AssertionError(f'the gradient check passed a planted fault: '
+                         f'{name}')
+
+
 def rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device='cuda').to(dtype)
 
 
 # ---- phase 3: kernel checks ----
 
+def segments_for(b, s):
+    """Three packed documents per row, boundaries differing by row."""
+    cuts = torch.tensor([[s // 3 + 7 * i, 2 * s // 3 - 5 * i]
+                         for i in range(b)], device='cuda')
+    pos = torch.arange(s, device='cuda')[None, :]
+    return ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()
+            ).to(torch.int32).contiguous()
+
+
 def flash_case(gen, label, dtype, b, s, h, h_kv, d, causal=True,
                window=None, segments=False, softcap=None, scale=None):
     q = rand(gen, (b, s, h, d), dtype)
     k = rand(gen, (b, s, h_kv, d), dtype)
     v = rand(gen, (b, s, h_kv, d), dtype)
-    seg = None
-    if segments:
-        # Three packed documents per row, boundaries differing by row.
-        cuts = torch.tensor([[s // 3 + 7 * i, 2 * s // 3 - 5 * i]
-                             for i in range(b)], device='cuda')
-        pos = torch.arange(s, device='cuda')[None, :]
-        seg = ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()
-               ).to(torch.int32).contiguous()
+    seg = segments_for(b, s) if segments else None
     kw = dict(causal=causal, window=window, softcap=softcap,
               scale_override=scale)
     out, lse = flash_ops._flash_fwd(q, k, v, seg, **kw)
@@ -190,6 +251,130 @@ def check_flash(gen) -> dict:
             'bound_by': bound_by, 'library_ms': library_ms}
 
 
+def flash_bwd_case(gen, label, dtype, b, s, h, h_kv, d, causal=True,
+                   window=None, segments=False, softcap=None, scale=None):
+    """Both backward kernels vs the plain backward on one forward's
+    output and LSE → (inputs, {kernel name: max error})."""
+    q, dout = (rand(gen, (b, s, h, d), dtype) for _ in range(2))
+    k, v = (rand(gen, (b, s, h_kv, d), dtype) for _ in range(2))
+    seg = segments_for(b, s) if segments else None
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale_override=scale)
+    out, lse = flash_ops._flash_fwd(q, k, v, seg, **kw)
+    dq = flash_ops._flash_bwd_dq(q, k, v, seg, out, dout, lse, **kw)
+    dk, dv = flash_ops._flash_bwd_dkv(q, k, v, seg, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    ref = flash_ops.flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, causal=causal, window=window,
+        segment_ids=seg, logit_softcap=softcap, scale=scale)
+    errs = {'flash_bwd_dq': compare_grad(f'bwd {label} dq', dq, ref[0],
+                                         dtype)}
+    errs['flash_bwd_dkv'] = max(
+        compare_grad(f'bwd {label} dk', dk, ref[1], dtype),
+        compare_grad(f'bwd {label} dv', dv, ref[2], dtype))
+    return (q, k, v, seg, out, dout, lse, kw), errs
+
+
+def check_flash_bwd(gen) -> dict:
+    log('[3] flash backward (dK/dV, dQ): kernels vs plain version')
+    for dtype in (torch.bfloat16, torch.float32):
+        name = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        flash_bwd_case(gen, f'{name} B2 S1024 H16/8 D128 causal', dtype,
+                       2, 1024, 16, 8, 128)
+        flash_bwd_case(gen, f'{name} window=100 S300', dtype, 2, 300, 4, 2,
+                       64, window=100)
+        flash_bwd_case(gen, f'{name} segments S300', dtype, 2, 300, 4, 2,
+                       64, segments=True)
+        flash_bwd_case(gen, f'{name} softcap=30 scale=0.1 S300', dtype, 2,
+                       300, 4, 2, 64, softcap=30.0, scale=0.1)
+        flash_bwd_case(gen, f'{name} non-causal S200 D32', dtype, 2, 200, 4,
+                       1, 32, causal=False)
+        flash_bwd_case(gen, f'{name} D16 S1024 (LLAMA_TINY widths)', dtype,
+                       2, 1024, 4, 2, 16)
+    # The training path's shape: B4 S8192 H16/8 D128 bf16, causal. The
+    # plain backward holds several fp32 [B, H, S, S] tensors (17 GB each
+    # at B4), so the comparison and its timing run on batch row 0 only.
+    dtype = torch.bfloat16
+    b, s, h, h_kv, d = 4, 8192, 16, 8, 128
+    q, dout = (rand(gen, (b, s, h, d), dtype) for _ in range(2))
+    k, v = (rand(gen, (b, s, h_kv, d), dtype) for _ in range(2))
+    out, lse = flash_ops._flash_fwd(q, k, v, None)
+    row0 = [t[:1].contiguous() for t in (q, k, v, out, dout, lse)]
+    dq = flash_ops._flash_bwd_dq(q, k, v, None, out, dout, lse)
+    dk, dv = flash_ops._flash_bwd_dkv(q, k, v, None, out, dout, lse)
+    torch.cuda.synchronize()
+    ref = flash_ops.flash_attention_bwd_plain(*row0)
+    label = 'bf16 main-path B4 S8192 H16/8 D128 (row 0 vs plain)'
+    errs = {'flash_bwd_dq': compare_grad(f'bwd {label} dq', dq[:1], ref[0],
+                                         dtype),
+            'flash_bwd_dkv': max(
+                compare_grad(f'bwd {label} dk', dk[:1], ref[1], dtype),
+                compare_grad(f'bwd {label} dv', dv[:1], ref[2], dtype))}
+    # The check must see a fault confined to the later rows, where the
+    # gradients are smallest: dK 10 % low past row 4096, and dQ from an
+    # LSE 0.1 too high on one 64-row tile (P 10 % low there).
+    bad_dk = dk[:1].clone()
+    bad_dk[:, s // 2:] *= 0.9
+    expect_rejected('dk x 0.9 past row 4096', bad_dk, ref[1], dtype)
+    bad_lse = row0[5].clone()
+    bad_lse[:, :, 6016:6080] += 0.1
+    bad_dq = flash_ops._flash_bwd_dq(*row0[:3], None, *row0[3:5], bad_lse)
+    expect_rejected('dq with the LSE + 0.1 on rows 6016-6079', bad_dq,
+                    ref[0], dtype)
+    del ref, bad_dk, bad_dq
+    args = (q, k, v, None, out, dout, lse)
+    ms = {'flash_bwd_dq': time_ms(lambda: flash_ops._flash_bwd_dq(*args),
+                                  iters=5, warmup=1),
+          'flash_bwd_dkv': time_ms(
+              lambda: flash_ops._flash_bwd_dkv(*args), iters=5, warmup=1)}
+    plain_b1_ms = time_ms(lambda: flash_ops.flash_attention_bwd_plain(
+        *row0), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # Yardstick only: PyTorch's fused attention backward (its flash or
+    # memory-efficient backend, never the math one, which would hold the
+    # S x S matrix), for dq, dk and dv together.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dout_t, retain_graph=True), iters=5,
+        warmup=1)
+    del lib_out, qt, kt, vt
+    elem = q.element_size()
+    causal_pairs = s * (s + 1) / 2
+    product = 2.0 * b * h * d * causal_pairs
+    inputs = (2 * q.numel() + k.numel() + v.numel() + dout.numel()) * elem \
+        + lse.numel() * 4
+    work = {'flash_bwd_dkv': (inputs + (k.numel() + v.numel()) * elem,
+                              4 * product),
+            'flash_bwd_dq': (inputs + q.numel() * elem, 3 * product)}
+    records = {}
+    for name, (nbytes, flops) in work.items():
+        bound, bound_by = bound_ms(nbytes, flops, dtype)
+        log(f'  {name} main-path timing: kernel {ms[name]:.4f} ms, bound '
+            f'{bound:.4f} ms ({bound_by}); '
+            f'{flops / ms[name] / 1e9:.2f} TFLOP/s')
+        records[name] = {
+            'name': name, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+            'replaces': REPLACES[name], 'max_abs_err': errs[name],
+            'ms': ms[name], 'plain_ms': plain_b1_ms,
+            'plain_shape': 'B1 (dq, dk and dv together)',
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms,
+            'library_call': 'backward of F.scaled_dot_product_attention('
+                            'is_causal=True, enable_gqa=True): dq, dk, dv'}
+    log(f'  plain backward at B1 (dq, dk, dv together) {plain_b1_ms:.4f} '
+        f'ms; SDPA backward (library, B4) {library_ms:.4f} ms')
+    return records
+
+
 def decode_case(gen, label, q_dtype, kv_dtype, lengths, b=16, max_len=2048,
                 h=32, h_kv=8, d=128, window=None, softcap=None,
                 scale=None):
@@ -207,10 +392,15 @@ def decode_case(gen, label, q_dtype, kv_dtype, lengths, b=16, max_len=2048,
     torch.cuda.synchronize()
     ref = decode_ops.decode_attention_plain(q, k, v, lens, **kw)
     err = compare(f'decode {label}', out, ref, q_dtype)
-    if any(n == 0 for n in lengths):
-        zero = [i for i, n in enumerate(lengths) if n == 0]
-        if bool(out[zero].float().abs().max() != 0):
-            raise AssertionError('decode: a length-0 slot must give zeros')
+    empty = [i for i, n in enumerate(lengths) if n == 0]
+    if empty:
+        # The JAX kernel's answer for a length-0 slot: the mean of its
+        # first min(256, max_len) V rows, dequantized.
+        v_rows = v[0].float() * v[1] if kv_dtype == torch.int8 else v.float()
+        mean = v_rows[empty, :min(decode_ops.EMPTY_SLOT_ROWS, max_len)].mean(
+            dim=1).repeat_interleave(h // h_kv, dim=1)[:, None]
+        compare(f'decode {label}, length-0 slots vs mean of first rows',
+                out[empty], mean, q_dtype)
     return (q, k, v, lens, kw), err
 
 
@@ -279,7 +469,25 @@ def check_decode(gen) -> dict:
             'bound_by': bound_by, 'library_ms': library_ms}
 
 
-# ---- phase 4: main path ----
+def zero_launches() -> None:
+    for kern in kernels.REGISTRY:
+        kern.launches = 0
+
+
+def check_launches(path: str, launches: dict, wanted, n_layers: int) -> None:
+    """The path's kernels each ran a positive multiple of n_layers times;
+    every other kernel not at all."""
+    for name, n in launches.items():
+        if name in wanted and (n == 0 or n % n_layers):
+            raise AssertionError(f'{name}: {n} launches on the {path} path '
+                                 f'(want a positive multiple of {n_layers} '
+                                 'layers)')
+        if name not in wanted and n:
+            raise AssertionError(f'{name}: {n} launches on the {path} '
+                                 'path, which should not run it')
+
+
+# ---- phase 4: serving main path ----
 
 def main_path(records: dict) -> None:
     from skypilot_tpu_torch.infer import engine as engine_lib
@@ -305,8 +513,7 @@ def main_path(records: dict) -> None:
                for n in rng.integers(960, 1025, 16)]
     new_tokens = 64
     torch.cuda.reset_peak_memory_stats()
-    for kern in kernels.REGISTRY:
-        kern.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     requests = [orch.submit(orch_lib.Request(prompt_tokens=p,
                                              max_new_tokens=new_tokens))
@@ -321,12 +528,9 @@ def main_path(records: dict) -> None:
             raise AssertionError(
                 f'request {r.request_id}: error={r.error}, '
                 f'{len(r.output_tokens)} tokens')
-    for name, n in launches.items():
-        if n == 0 or n % cfg.n_layers:
-            raise AssertionError(f'{name}: {n} launches on the main path '
-                                 f'(want a positive multiple of '
-                                 f'{cfg.n_layers} layers)')
-        records[name]['launches'] = n
+    check_launches('serving', launches, SERVE_KERNELS, cfg.n_layers)
+    for name in SERVE_KERNELS:
+        records[name]['launches_by_path'] = {'serve': launches[name]}
     out_tokens = sum(len(r.output_tokens) for r in requests)
     ttft = [r.first_token_at - r.submitted_at for r in requests]
     log(f'  16 requests x {new_tokens} tokens done in {dt:.3f} s: '
@@ -377,11 +581,125 @@ def small_end_to_end() -> None:
     if outputs['cuda'] != outputs['cpu']:
         raise AssertionError('greedy tokens differ between the card and '
                              'the CPU')
-    if not all(used.values()):
+    if not all(used[name] for name in SERVE_KERNELS):
+        raise AssertionError(f'a kernel did not run on the card: {used}')
+
+
+# ---- phase 6: training main path ----
+
+def train_main_path(records: dict) -> None:
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True,
+                              remat_policy='qkvo_gup')
+    # The learning rate only sets how fast the repeated batch's loss
+    # falls (the check below); it does not change the step's work.
+    tcfg = trainer_lib.TrainConfig(model=cfg, global_batch_size=4,
+                                   seq_len=8192, optimizer='adafactor',
+                                   learning_rate=3e-3, warmup_steps=2)
+    log(f'[6] training main path: Llama-3-1B bf16 ({cfg.n_layers} layers, '
+        f'd_model {cfg.d_model}, vocab {cfg.vocab_size}), seq '
+        f'{tcfg.seq_len}, batch {tcfg.global_batch_size}, remat '
+        f'{cfg.remat_policy}, {tcfg.optimizer}; random init')
+    trainer = trainer_lib.Trainer(tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    result = trainer_lib.measure_throughput(trainer, num_steps=5, warmup=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('training', launches, TRAIN_KERNELS, cfg.n_layers)
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['train'] = (
+            launches[name])
+    first, last = result['first_loss'], result['loss']
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f'training loss {first} -> {last}: want finite '
+                             'and falling on the repeated batch')
+    tflops = result['model_tflops_per_sec_per_chip']
+    log(f'  7 steps (2 warm-up + 5 measured) in {dt:.3f} s with init: '
+        f'{result["tokens_per_sec"]:.1f} tokens/s, step '
+        f'{result["step_time_s"]:.4f} s, model {tflops:.2f} TFLOP/s = '
+        f'{tflops / (PEAK_FLOPS[torch.bfloat16] / 1e12):.4f} of the bf16 '
+        f'peak; loss {first:.4f} -> {last:.4f}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+        f'{launches} on {nvidia_smi_line()}')
+    log(f'  measure_throughput: {json.dumps(result)}')
+    del trainer
+    torch.cuda.empty_cache()
+
+
+# ---- phase 7: small training check, card vs CPU ----
+
+# Card vs CPU after three fp32 steps: the kernels and the plain versions
+# sum in other orders (~1e-6 relative); Adam normalizes each element by
+# its own gradient history, which carries a nearly cancelling gradient's
+# relative error into the update, up to a few % of one step at lr 1e-3.
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-4
+
+
+def small_train_check() -> None:
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    eos = 7
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32,
+                              packing_reset_eos=eos)
+    tcfg = trainer_lib.TrainConfig(model=cfg, global_batch_size=2,
+                                   seq_len=1024, optimizer='adamw',
+                                   accum_steps=2, learning_rate=1e-3,
+                                   warmup_steps=2)
+    log('[7] small training check: fp32 LLAMA_TINY widths, seq 1024, EOS '
+        'packing, adamw, accum_steps=2, 3 steps: card (kernels) vs CPU '
+        '(plain versions)')
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    cpu_params = llama.init(cfg, gen, device='cpu')
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 1024))
+    tokens[rng.random(tokens.shape) < 0.01] = eos
+    batch = {'tokens': torch.from_numpy(tokens),
+             'targets': torch.from_numpy(np.roll(tokens, -1, axis=1))}
+    runs = {}
+    before = {k.name: k.launches for k in kernels.REGISTRY}
+    for device in ('cuda', 'cpu'):
+        tr = trainer_lib.Trainer(tcfg, device=device)
+        state = tr.init_state(to_device(
+            {k: (v.clone() if torch.is_tensor(v) else
+                 {kk: vv.clone() for kk, vv in v.items()})
+             for k, v in cpu_params.items()}, device))
+        on_device = {k: v.to(device) for k, v in batch.items()}
+        metrics = []
+        for _ in range(3):
+            state, m = tr.step(state, on_device)
+            metrics.append((float(m['loss']), float(m['grad_norm'])))
+        runs[device] = (metrics, trainer_lib.param_leaves(state['params']))
+    used = {k.name: k.launches - before[k.name] for k in kernels.REGISTRY}
+    log(f'  card (loss, grad_norm) {runs["cuda"][0]}')
+    log(f'  cpu  (loss, grad_norm) {runs["cpu"][0]}; card kernel launches '
+        f'{used}')
+    for (lc, nc), (lp, npl) in zip(runs['cuda'][0], runs['cpu'][0]):
+        if abs(lc - lp) > TRAIN_LOSS_ATOL or abs(nc - npl) > (
+                TRAIN_NORM_RTOL * abs(npl)):
+            raise AssertionError('loss or grad norm differs between the '
+                                 'card and the CPU')
+    err = max(float((pc.detach().cpu() - pp.detach()).abs().max())
+              for pc, pp in zip(runs['cuda'][1], runs['cpu'][1]))
+    log(f'  final params: max_abs_err={err:.3e} (tolerance '
+        f'atol={TRAIN_PARAM_ATOL:g}); losses atol {TRAIN_LOSS_ATOL:g}, '
+        f'grad norms rtol {TRAIN_NORM_RTOL:g}')
+    if err > TRAIN_PARAM_ATOL:
+        raise AssertionError('parameters differ between the card and the '
+                             'CPU after three steps')
+    if not all(used[name] for name in TRAIN_KERNELS):
         raise AssertionError(f'a kernel did not run on the card: {used}')
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device; none found.')
     log(f'[1] device: {torch.cuda.get_device_name(0)} x '
@@ -394,21 +712,28 @@ def main() -> int:
     log('  TF32 off for fp32 matmuls and cuDNN')
     t0 = time.perf_counter()
     seconds = kernels.build_all()
-    log(f'[2] built {len(seconds)} kernels in '
-        f'{time.perf_counter() - t0:.2f} s wall: {seconds}')
-    for kern in kernels.REGISTRY:
-        regs = re.findall(r'Used (\d+) registers', kern.build_log)
-        spills = re.findall(r'(\d+) bytes spill stores', kern.build_log)
+    log(f'[2] built {len(kernels.REGISTRY)} kernels from {len(seconds)} '
+        f'sources in {time.perf_counter() - t0:.2f} s wall: {seconds}')
+    logs = {kern.source: kern.build_log for kern in kernels.REGISTRY}
+    for source, build_log in sorted(logs.items()):
+        regs = re.findall(r'Used (\d+) registers', build_log)
+        spills = re.findall(r'(\d+) bytes spill stores', build_log)
         if regs:
-            log(f'  {kern.name}: {len(regs)} instantiations, at most '
+            log(f'  {source}: {len(regs)} kernel instantiations, at most '
                 f'{max(map(int, regs))} registers, '
                 f'{sum(map(int, spills))} bytes spilled')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
-    records = {'flash_fwd': check_flash(gen),
+    records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),
                'decode_attention': check_decode(gen)}
     main_path(records)
     small_end_to_end()
+    train_main_path(records)
+    small_train_check()
+    for rec in records.values():
+        rec['launches'] = sum(rec['launches_by_path'].values())
+    log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '
+        '(limit 1200 s)')
     print(json.dumps({'kernels': list(records.values())}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -3,8 +3,9 @@
 A second package beside ``skypilot_tpu`` (the JAX reference, which stays
 as it is). It imports torch and numpy, never jax, and nothing of
 ``skypilot_tpu``. Layout mirrors the reference: ``ops/`` (attention and
-the kernel wrappers), ``models/``, ``infer/``, with the hand-written
-CUDA kernels under ``csrc/``.
+the kernel wrappers), ``models/``, ``infer/`` (serving), ``train/``
+(training on one card), with the hand-written CUDA kernels under
+``csrc/``.
 
 Entry points run on the card unless the caller asks for the CPU.
 """

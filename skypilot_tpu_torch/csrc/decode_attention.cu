@@ -26,8 +26,14 @@
 // Inside a block, warp w walks row groups first + 4 * (w + 8 n); lane l
 // holds head-dim elements [l * EPL, (l + 1) * EPL). Each warp keeps its
 // own fp32 online softmax (running max, sum, accumulator) per query head;
-// the eight partial states merge through shared memory at the end. A
-// slot of length 0 writes zeros.
+// the eight partial states merge through shared memory at the end.
+//
+// A slot of length 0 gives the mean of its first min(256, K) V rows
+// (dequantized), as the JAX kernel does: its grid still runs KV block 0
+// for such a slot (first = last = 0, skypilot_tpu/ops/decode_attention.py
+// :95) with every score masked to the same -1e30, so each of the block's
+// rows (the default 256, capped at K: its line 303) gets p = 1. Here the
+// slot walks rows [0, min(256, K)) with every score set equal.
 #include "common.cuh"
 
 namespace {
@@ -36,6 +42,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 4;       // rows in flight per warp
 constexpr int kMaxGroups = 8;  // query heads per KV head
+constexpr int kEmptyRows = 256;  // rows averaged for a slot of length 0
 
 struct DecodeParams {
   const void* q;
@@ -68,8 +75,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const bool has_data = lane < LANES;
   const int d0 = lane * EPL;
 
-  int length = min(max(p.lengths[b], 0), p.max_len);
+  const int length = min(max(p.lengths[b], 0), p.max_len);
+  const bool empty = length == 0;
   const int first = p.window > 0 ? max(length - p.window, 0) : 0;
+  const int end = empty ? min(kEmptyRows, p.max_len) : length;
 
   const TQ* q = static_cast<const TQ*>(p.q) +
                 (static_cast<long>(b) * p.h + kvh * groups) * D;
@@ -97,21 +106,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const float* ksb = p.k_scale + slot_off * p.h_kv + kvh;  // int8 only
   const float* vsb = p.v_scale + slot_off * p.h_kv + kvh;
 
-  for (int row0 = first + warp * kRows; row0 < length;
+  for (int row0 = first + warp * kRows; row0 < end;
        row0 += kWarps * kRows) {
     float kr[kRows][EPL], vr[kRows][EPL];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int pos = row0 + r;
-      const bool live = pos < length && has_data;
+      const bool live = pos < end && has_data;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         kr[r][e] = live ? xsky::to_float(kb[pos * row + e]) : 0.f;
         vr[r][e] = live ? xsky::to_float(vb[pos * row + e]) : 0.f;
       }
       if constexpr (kQuantized) {
-        const float ks = pos < length ? ksb[static_cast<long>(pos) * p.h_kv] : 0.f;
-        const float vs = pos < length ? vsb[static_cast<long>(pos) * p.h_kv] : 0.f;
+        const float ks = pos < end ? ksb[static_cast<long>(pos) * p.h_kv] : 0.f;
+        const float vs = pos < end ? vsb[static_cast<long>(pos) * p.h_kv] : 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           kr[r][e] *= ks;
@@ -147,7 +156,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
       for (int r = 0; r < kRows; ++r) {
         float x = s[r][g] * p.scale;
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        if (row0 + r >= length) x = -INFINITY;
+        if (empty) x = 0.f;
+        if (row0 + r >= end) x = -INFINITY;
         s[r][g] = x;
         mx = fmaxf(mx, x);
       }

@@ -39,51 +39,16 @@ namespace {
 
 constexpr int kBQ = 64;
 constexpr int kBKV = 64;
-constexpr float kMaskFill = -1e30f;
+using xsky::FlashParams;
+using xsky::kMaskFill;
+using xsky::masked_score;
+using xsky::mma_bf16;
+using xsky::pack_bf16;
+using xsky::segment;
 
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int32_t* seg;  // nullptr: no segments
-  void* out;
-  float* lse;
-  int b, s_q, s_kv, h, h_kv;
-  int causal;
-  int window;  // <= 0: no window
-  float scale;
-  float softcap;  // <= 0: no softcap
-};
-
-// The one definition of a score's scaling and masking, shared by both
-// kernels: raw dot product x of query qp and key kp → masked score.
-__device__ __forceinline__ float masked_score(const FlashParams& p, float x,
-                                              int qp, int kp, int seg_q,
-                                              int seg_kv) {
-  x *= p.scale;
-  if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-  bool keep = true;
-  if (p.causal) keep = keep && qp >= kp;
-  if (p.window > 0) keep = keep && (qp - kp < p.window);
-  if (p.seg != nullptr) keep = keep && seg_q == seg_kv;
-  x = keep ? x : kMaskFill;
-  return kp < p.s_kv ? x : -INFINITY;  // past the array: never a key
-}
-
-// Live KV tiles [first, last) for the query tile starting at q_start.
+// Live KV tiles for the query tile starting at q_start.
 __device__ __forceinline__ int2 kv_tiles(const FlashParams& p, int q_start) {
-  const int last_q = min(q_start + kBQ, p.s_q) - 1;
-  int kv_end = p.s_kv;
-  if (p.causal) kv_end = min(kv_end, last_q + 1);
-  const int kv_begin = p.window > 0 ? max(0, q_start - (p.window - 1)) : 0;
-  return make_int2(kv_begin / kBKV, (kv_end + kBKV - 1) / kBKV);
-}
-
-__device__ __forceinline__ int segment(const FlashParams& p, int b, int pos,
-                                       int len) {
-  return (p.seg != nullptr && pos < len)
-             ? p.seg[static_cast<long>(b) * len + pos]
-             : -1;
+  return xsky::kv_tiles(p, q_start, kBQ, kBKV);
 }
 
 // ---------------------------------------------------------------------------
@@ -92,27 +57,9 @@ __device__ __forceinline__ int segment(const FlashParams& p, int b, int pos,
 
 constexpr int kMmaThreads = 128;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
-//   A (16x16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                   a3 (g+8, 2t+8..)
-//   B (16x8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C (16x8, f32):  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// K sits in smem as [key][d] and V transposed as [d][key], so every B
-// fragment is two 32-bit loads of adjacent bf16 pairs; rows are padded
+// Fragment layouts: see mma_bf16 in common.cuh. K sits in smem as
+// [key][d] and V transposed as [d][key], so every B fragment is two
+// 32-bit loads of adjacent bf16 pairs; rows are padded
 // by 8 elements so the eight rows a warp touches hit distinct banks.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -479,8 +426,22 @@ extern "C" int xsky_flash_fwd(const void* q, const void* k, const void* v,
                               float softcap, int dtype, void* stream) {
   if (dtype != xsky::kFloat32 && dtype != xsky::kBFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashParams p{q, k, v, seg, out, lse, b, s_q, s_kv, h, h_kv,
-                causal, window, scale, softcap};
+  FlashParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.seg = seg;
+  p.out = out;
+  p.lse = lse;
+  p.b = b;
+  p.s_q = s_q;
+  p.s_kv = s_kv;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  p.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {

@@ -1,7 +1,7 @@
 """Model families of the port (Llama-family first; MISTRAL shares
 ``LlamaConfig``). Each family module exposes the serving surface the
 engine dispatches on: ``init``, ``prefill_hidden``, ``decode_forward``
-and ``lm_logits``."""
+and ``lm_logits``, and the trainer's ``loss_fn``."""
 from __future__ import annotations
 
 from typing import Any

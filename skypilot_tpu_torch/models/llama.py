@@ -1,4 +1,4 @@
-"""Llama-family decoder-only transformer in PyTorch (serving half).
+"""Llama-family decoder-only transformer in PyTorch: serving and training.
 
 Counterpart of ``skypilot_tpu/models/llama.py``: the same config fields
 and named configs, the same parameter names and stacked ``[L, ...]``
@@ -10,17 +10,23 @@ Dtype placement follows the reference: RMSNorm computes in fp32 and
 casts back before the scale multiply, RoPE and the SwiGLU gate run in
 fp32, and the LM head returns fp32 logits (see ``quantization.matmul``).
 
-Training (loss, chunked cross-entropy, remat), ring/ulysses attention,
-the paged cache and speculative verification come in later slices.
+Training: ``loss_fn`` (chunked cross-entropy), EOS-derived packing
+(``segments_from_eos``) and the remat policies, as per-layer
+non-reentrant ``torch.utils.checkpoint`` with a selective policy that
+keeps exactly the named weight products (``_remat_context``). Ring and
+Ulysses attention, the paged cache, speculative verification and the
+pipelined loss come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch.ops import attention as attention_ops
@@ -28,6 +34,9 @@ from skypilot_tpu_torch.ops import decode_attention as decode_ops
 from skypilot_tpu_torch.ops import quantization as qops
 
 Params = Dict[str, Any]
+
+# Sequence-chunk size for the cross-entropy head (see _chunked_ce).
+LOSS_CHUNK = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +67,19 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def num_params(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        mlp = 3 * d * f
+        per_layer = attn + mlp + 2 * d
+        return v * d * 2 + self.n_layers * per_layer + d
+
+    def train_flops_per_token(self) -> float:
+        """~6N + attention flops (per token, fwd+bwd)."""
+        attn_flops = 12 * self.n_layers * self.d_model * self.max_seq_len
+        return 6 * self.num_params() + attn_flops
 
 
 # Canonical configs (sizes match the public Llama-3 / Mistral configs).
@@ -167,6 +189,58 @@ def _layer_params(params: Params, layer: int) -> Params:
     return {name: w[layer] for name, w in params['layers'].items()}
 
 
+# What the per-layer checkpoint keeps for the backward pass, by the JAX
+# checkpoint names of the weight products (see the JAX LlamaConfig):
+# 'qkvo_gup' keeps q/k/v/o and the MLP gate and up products, so the
+# backward recomputes only elementwise work and the flash forward;
+# 'dots' keeps every weight product; 'none' keeps only the layer input.
+_REMAT_SAVE_NAMES = {
+    'qkvo': ('attn_q', 'attn_k', 'attn_v', 'attn_o'),
+    'qkvo_up': ('attn_q', 'attn_k', 'attn_v', 'attn_o', 'mlp_up'),
+    'qkvo_gup': ('attn_q', 'attn_k', 'attn_v', 'attn_o', 'mlp_gate',
+                 'mlp_up'),
+}
+_WEIGHT_OF = {'attn_q': 'wq', 'attn_k': 'wk', 'attn_v': 'wv',
+              'attn_o': 'wo', 'mlp_gate': 'w_gate', 'mlp_up': 'w_up'}
+_LAYER_WEIGHTS = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down')
+
+
+def _saved_weights(config: LlamaConfig) -> Tuple[str, ...]:
+    """Weights whose product with the layer's activations the remat
+    policy keeps (the rest of the layer is recomputed)."""
+    p = config.remat_policy
+    if p == 'none':
+        return ()
+    if p == 'dots':
+        return _LAYER_WEIGHTS
+    if p in _REMAT_SAVE_NAMES:
+        return tuple(_WEIGHT_OF[n] for n in _REMAT_SAVE_NAMES[p])
+    raise ValueError(
+        f'Unknown remat_policy {p!r}; expected one of: dots, none, '
+        f'{", ".join(sorted(_REMAT_SAVE_NAMES))}.')
+
+
+def _remat_context(config: LlamaConfig, layer_params: Params):
+    """``context_fn`` for one layer's checkpoint: a selective policy that
+    saves the output of every ``mm`` whose right operand is one of the
+    policy's weights (matched by storage, so the order of the products
+    does not matter) and recomputes everything else."""
+    names = _saved_weights(config)
+    if not names:
+        return ckpt.noop_context_fn
+    saved = {layer_params[n].data_ptr() for n in names}
+    mm = torch.ops.aten.mm.default
+
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, kwargs
+        if op is mm and args[1].data_ptr() in saved:
+            return ckpt.CheckpointPolicy.MUST_SAVE
+        return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
               eps: float) -> torch.Tensor:
     """x·rsqrt(mean(x²) + eps) in fp32, cast back to x's type before the
@@ -215,16 +289,31 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                                        scaling))
 
 
+def segments_from_eos(tokens: torch.Tensor, eos: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Derive (segment_ids int32, positions) [B, S] from EOS boundaries.
+
+    A new segment starts at index 0 and right after every EOS token (the
+    EOS itself closes its document); positions restart at 0 per segment.
+    """
+    is_start = torch.cat([torch.ones_like(tokens[:, :1], dtype=torch.bool),
+                          tokens[:, :-1] == eos], dim=1)
+    segment_ids = torch.cumsum(is_start.int(), dim=1).to(torch.int32)
+    idx = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    idx = idx.expand(tokens.shape)
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return segment_ids, idx - seg_start
+
+
 def positions_and_segments(config, tokens: torch.Tensor, serving: bool
                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Default (segment_ids, positions) for a trunk given no explicit
-    positions: serving trunks (one document per slot) get plain arange
-    and no segments. EOS-derived packing is training-only and comes
-    with the training slice."""
+    positions: training trunks with ``packing_reset_eos`` set get
+    EOS-derived document segments and per-document positions; serving
+    trunks (one document per slot) and unpacked training get plain
+    arange and no segments."""
     if config.packing_reset_eos is not None and not serving:
-        raise NotImplementedError(
-            'packing_reset_eos (packed-sequence training) is not ported '
-            'yet; serving trunks do not use it.')
+        return segments_from_eos(tokens, config.packing_reset_eos)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     return None, positions[None, :].expand(tokens.shape)
 
@@ -419,13 +508,81 @@ def _trunk(config: LlamaConfig, params: Params, tokens: torch.Tensor,
         kv = {'k': torch.empty(shape, dtype=c.dtype, device=x.device),
               'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
     rope = _rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling)
+    remat = c.remat and not return_kv and torch.is_grad_enabled()
     for layer in range(c.n_layers):
-        x, layer_kv = _layer(c, x, _layer_params(params, layer), rope,
-                             return_kv=return_kv, segment_ids=segment_ids)
+        lp = _layer_params(params, layer)
+        if remat:
+            x = ckpt.checkpoint(_layer_output, c, x, lp, rope, segment_ids,
+                                use_reentrant=False,
+                                context_fn=_remat_context(c, lp))
+            continue
+        x, layer_kv = _layer(c, x, lp, rope, return_kv=return_kv,
+                             segment_ids=segment_ids)
         if return_kv:
             kv['k'][layer] = layer_kv[0]
             kv['v'][layer] = layer_kv[1]
     return _rms_norm(x, params['final_norm'], c.norm_eps), kv
+
+
+def _layer_output(config, x, layer_params, rope, segment_ids):
+    return _layer(config, x, layer_params, rope, segment_ids=segment_ids)[0]
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token next-token NLL: logsumexp minus the target's logit."""
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - tgt
+
+
+def _chunk_nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
+                   targets: torch.Tensor, mask: torch.Tensor
+                   ) -> torch.Tensor:
+    logits = qops.matmul(x, lm_head, preferred_element_type=torch.float32)
+    return (_token_nll(logits, targets) * mask).sum()
+
+
+def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
+                targets: torch.Tensor, loss_mask: Optional[torch.Tensor],
+                chunk: int) -> torch.Tensor:
+    """Mean CE with the LM-head projection taken ``chunk`` positions at a
+    time: each chunk's fp32 logits are checkpointed (recomputed in the
+    backward), so only one chunk of [B, chunk, vocab] logits lives at a
+    time. Padding and the max(count, 1) guard follow the JAX scan."""
+    b, s, _ = x.shape
+    if s <= chunk:
+        logits = qops.matmul(x, lm_head,
+                             preferred_element_type=torch.float32)
+        nll = _token_nll(logits, targets)
+        if loss_mask is not None:
+            mask = loss_mask.float()
+            return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        return nll.mean()
+    mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+            if loss_mask is None else loss_mask.float())
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s + pad, chunk):
+        cols = slice(start, start + chunk)
+        args = (x[:, cols], lm_head, targets[:, cols], mask[:, cols])
+        if torch.is_grad_enabled():
+            total = total + ckpt.checkpoint(_chunk_nll_sum, *args,
+                                            use_reentrant=False)
+        else:
+            total = total + _chunk_nll_sum(*args)
+    return total / mask.sum().clamp(min=1.0)
+
+
+def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+            targets: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (fp32)."""
+    x, _ = _trunk(config, params, tokens, None, return_kv=False)
+    return _chunked_ce(x, params['lm_head'], targets, loss_mask,
+                       chunk=LOSS_CHUNK)
 
 
 def forward(config: LlamaConfig, params: Params, tokens: torch.Tensor,

@@ -21,6 +21,12 @@ from skypilot_tpu_torch.ops import kernels
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUPS = 8
+# A slot of length 0 returns the mean of its first min(EMPTY_SLOT_ROWS,
+# max_len) V rows, as the JAX kernel does: its grid still runs KV block 0
+# (first = last = 0, skypilot_tpu/ops/decode_attention.py:95), where every
+# score is masked to the same -1e30, so p = 1 on each of the block's rows
+# (the default block, 256 rows, capped at max_len: its line 303).
+EMPTY_SLOT_ROWS = 256
 
 KERNEL = kernels.Kernel(
     'decode_attention', 'decode_attention.cu', 'xsky_decode_attention',
@@ -44,8 +50,9 @@ def decode_attention_plain(q: torch.Tensor, k_cache, v_cache,
     """The kernel's function in plain PyTorch (fp32 math).
 
     Rows [max(length - window, 0), length) of each slot are live, with
-    lengths clamped to the cache length; a slot with no live row (length
-    0) returns zeros.
+    lengths clamped to the cache length; a slot of length 0 returns the
+    mean of its first min(EMPTY_SLOT_ROWS, max_len) V rows (see
+    EMPTY_SLOT_ROWS).
     """
     b, _, h, d = q.shape
     k, k_scale = _split(k_cache)
@@ -61,11 +68,14 @@ def decode_attention_plain(q: torch.Tensor, k_cache, v_cache,
     if logit_softcap is not None:
         s = logit_softcap * torch.tanh(s / logit_softcap)
     length = lengths.long().clamp(0, max_len)[:, None]          # [B, 1]
+    empty = length == 0
     pos = torch.arange(max_len, device=q.device)[None, :]
-    live = pos < length
+    live = pos < torch.where(empty, EMPTY_SLOT_ROWS, length)
     if window is not None:
         live &= pos >= length - window
     live = live[:, None, None, :]                                # [B,1,1,K]
+    # Equal scores on an empty slot's rows: the softmax is their mean.
+    s = torch.where(empty[:, None, None], 0.0, s)
     m = torch.where(live, s, -torch.inf).amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.where(live, torch.exp(s - m), 0.0)

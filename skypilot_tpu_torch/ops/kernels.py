@@ -2,11 +2,13 @@
 
 Each ``csrc/*.cu`` source is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds) and loaded with ``ctypes``. Libraries land in ``csrc/build/``
-(listed in ``.gitignore``) under a name that hashes the sources and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused.
-Building happens at first use; ``build_all`` compiles every registered
-kernel at once, one ``nvcc`` process per source, all started together.
+seconds) and loaded with ``ctypes``. One source may hold several kernels,
+each its own C symbol and its own ``Kernel`` (and launch count); the
+source is still compiled once. Libraries land in ``csrc/build/`` (listed
+in ``.gitignore``) under a name that hashes the sources and the flags, so
+an edited kernel is rebuilt and an unchanged one is reused. Building
+happens at first use; ``build_all`` compiles every registered source at
+once, one ``nvcc`` process per source, all started together.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on machines that have no ``nvcc`` and no card.
@@ -37,7 +39,7 @@ _lock = threading.Lock()
 
 
 class Kernel:
-    """One CUDA source, its C entry point, and its launch count.
+    """One kernel: its CUDA source, its C entry point, its launch count.
 
     ``launches`` counts successful launches of the kernel, incremented
     by ``launch`` and nowhere else, so a run can show that its main path
@@ -66,8 +68,9 @@ class Kernel:
             if name == self.source or name.endswith('.cuh'):
                 with open(os.path.join(CSRC_DIR, name), 'rb') as f:
                     digest.update(f.read())
+        stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR,
-                            f'{self.name}-{digest.hexdigest()[:16]}.so')
+                            f'{stem}-{digest.hexdigest()[:16]}.so')
 
     @property
     def loaded(self) -> bool:
@@ -111,37 +114,39 @@ def build_all(kernels: Optional[Sequence[Kernel]] = None
               ) -> Dict[str, float]:
     """Build (or reuse) and load every given kernel, default all of them.
 
-    One nvcc per source, started together. Returns {name: seconds}
+    One nvcc per source, started together. Returns {source: seconds}
     spent building (0.0 for a library that was already built). Raises
     with nvcc's output if any build fails.
     """
     kernels = list(REGISTRY if kernels is None else kernels)
     with _lock:
         todo = [k for k in kernels if not k.loaded]
+        seconds = {k.source: 0.0 for k in kernels}
         if not todo:
-            return {k.name: 0.0 for k in kernels}
+            return seconds
         os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = None
         procs = {}
-        seconds = {k.name: 0.0 for k in kernels}
         for k in todo:
             out = k.library_path()
-            if os.path.exists(out):
+            if os.path.exists(out) or k.source in procs:
                 continue
             nvcc = nvcc or nvcc_path()
             tmp = f'{out}.{os.getpid()}.tmp'
             cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, k.path]
-            procs[k.name] = (k, tmp, out, time.perf_counter(),
-                             subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT,
-                                              text=True))
+            procs[k.source] = (tmp, out, time.perf_counter(),
+                               subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT,
+                                                text=True))
         failures = []
-        for name, (k, tmp, out, t0, proc) in procs.items():
+        for source, (tmp, out, t0, proc) in procs.items():
             log, _ = proc.communicate()
-            seconds[name] = time.perf_counter() - t0
-            k.build_log = log
+            seconds[source] = time.perf_counter() - t0
+            for k in todo:
+                if k.source == source:
+                    k.build_log = log
             if proc.returncode != 0:
-                failures.append(f'--- {k.source} ---\n{log}')
+                failures.append(f'--- {source} ---\n{log}')
                 continue
             os.replace(tmp, out)
         if failures:

@@ -15,6 +15,46 @@ import torch
 UPCAST_COLUMNS = 8192
 
 
+class _UpcastMatmul(torch.autograd.Function):
+    """fp32 ``x @ w`` from lower-precision operands, UPCAST_COLUMNS output
+    columns at a time, with a gradient that saves only x and w.
+
+    Autograd through the chunked forward would save an fp32 copy of every
+    weight chunk (the whole weight in fp32) and hand each chunk's slice
+    gradient back as a full-size tensor; this backward instead upcasts
+    one chunk at a time again and writes dW chunk by chunk into one
+    tensor. Gradients come back in x's and w's types, as JAX casts a
+    cotangent to its primal's type. (``torch.mm(x, w, out_dtype=
+    torch.float32)`` computes the forward on the tensor cores, but torch
+    2.11 has no gradient for it.)
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, dtype):
+        ctx.save_for_backward(x, w)
+        xf = x.to(dtype)
+        out = torch.empty(x.shape[:-1] + (w.shape[-1],), dtype=dtype,
+                          device=x.device)
+        for j in range(0, w.shape[-1], UPCAST_COLUMNS):
+            torch.matmul(xf, w[:, j:j + UPCAST_COLUMNS].to(dtype),
+                         out=out[..., j:j + UPCAST_COLUMNS])
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        dtype = dout.dtype
+        x2 = x.reshape(-1, x.shape[-1]).to(dtype)
+        d2 = dout.reshape(-1, dout.shape[-1])
+        dx = torch.zeros(x2.shape, dtype=dtype, device=x.device)
+        dw = torch.empty_like(w)
+        for j in range(0, w.shape[-1], UPCAST_COLUMNS):
+            cols = slice(j, j + UPCAST_COLUMNS)
+            dx.addmm_(d2[:, cols], w[:, cols].to(dtype).t())
+            dw[:, cols] = (x2.t() @ d2[:, cols]).to(w.dtype)
+        return dx.reshape(x.shape).to(x.dtype), dw, None
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            preferred_element_type: Optional[torch.dtype] = None
            ) -> torch.Tensor:
@@ -24,20 +64,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     XLA, for fp32 products summed and returned in fp32. That is computed
     from an fp32 copy of x and of w taken UPCAST_COLUMNS output columns
     at a time, so the full weight is never held in fp32 (the bf16
-    products are exact in fp32, so this is the same function).
+    products are exact in fp32, so this is the same function); the
+    gradient does the same (``_UpcastMatmul``).
     """
     if preferred_element_type is None or (
             x.dtype == w.dtype == preferred_element_type):
         return torch.matmul(x, w)
-    xf = x.to(preferred_element_type)
-    out = torch.empty(x.shape[:-1] + (w.shape[-1],),
-                      dtype=preferred_element_type, device=x.device)
-    for j in range(0, w.shape[-1], UPCAST_COLUMNS):
-        out[..., j:j + UPCAST_COLUMNS] = torch.matmul(
-            xf, w[:, j:j + UPCAST_COLUMNS].to(preferred_element_type))
-    return out
+    return _UpcastMatmul.apply(x, w, preferred_element_type)
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]`` for a plain table."""
+    """``table[tokens]`` for a plain table. Its gradient is autograd's
+    scatter-add of the rows' gradients into one zero table (repeated
+    tokens accumulate), as JAX's gather transposes to a scatter-add."""
     return table[tokens]

@@ -2,8 +2,9 @@
 
 * No module of ``skypilot_tpu_torch`` (nor ``chip_smoke.py``) imports
   jax or anything of ``skypilot_tpu``.
-* Entry points run on the card unless the caller asks for the CPU:
-  without a card and without ``device='cpu'`` they raise.
+* Entry points (the engine, ``init``, the ``Trainer``) run on the card
+  unless the caller asks for the CPU: without a card and without
+  ``device='cpu'`` they raise.
 * Every CUDA source under ``csrc/`` is built by the kernel registry, and
   a kernel wrapper handed a non-CPU tensor launches or raises — it never
   falls back to its plain version.
@@ -26,6 +27,7 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import decode_attention
 from skypilot_tpu_torch.ops import flash_attention
 from skypilot_tpu_torch.ops import kernels
+from skypilot_tpu_torch.train import trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'skypilot_tpu_torch').rglob('*.py')) + [
@@ -64,16 +66,28 @@ def test_entry_points_raise_without_a_card(no_card):
         llama.init(llama.LLAMA_TINY)
     engine = engine_lib.InferenceEngine(cfg, params, device='cpu')
     assert engine.device.type == 'cpu'
+    train_cfg = trainer.TrainConfig(model=llama.LLAMA_TINY,
+                                    global_batch_size=2, seq_len=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        trainer.Trainer(train_cfg)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        trainer.measure_throughput(trainer.Trainer(train_cfg), num_steps=1)
+    assert trainer.Trainer(train_cfg, device='cpu').device.type == 'cpu'
 
 
 def test_every_cuda_source_is_built():
     csrc = pathlib.Path(kernels.CSRC_DIR)
     sources = {p.name for p in csrc.glob('*.cu')}
     assert sources == {k.source for k in kernels.REGISTRY}
-    assert {k.name for k in kernels.REGISTRY} == {'flash_fwd',
-                                                  'decode_attention'}
-    assert flash_attention.KERNEL in kernels.REGISTRY
-    assert decode_attention.KERNEL in kernels.REGISTRY
+    assert {k.name for k in kernels.REGISTRY} == {
+        'flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq', 'decode_attention'}
+    for kern in (flash_attention.KERNEL, flash_attention.DKV_KERNEL,
+                 flash_attention.DQ_KERNEL, decode_attention.KERNEL):
+        assert kern in kernels.REGISTRY
+    # The two backward kernels share one source and so one library.
+    assert (flash_attention.DKV_KERNEL.library_path() ==
+            flash_attention.DQ_KERNEL.library_path() !=
+            flash_attention.KERNEL.library_path())
 
 
 def test_wrappers_never_fall_back_on_a_device_tensor():
@@ -92,6 +106,16 @@ def test_wrappers_never_fall_back_on_a_device_tensor():
     with pytest.raises(ValueError, match='launches a CUDA kernel'):
         decode_attention.decode_attention(qd, cache, cache, lengths)
     assert decode_attention.KERNEL.launches == before
+    # The gradient: its launcher raises on a non-CUDA device tensor, and
+    # no backward launch is counted.
+    q.requires_grad_(True)
+    before = [kern.launches for kern in (flash_attention.DKV_KERNEL,
+                                         flash_attention.DQ_KERNEL)]
+    with pytest.raises(ValueError, match='launches a CUDA kernel'):
+        flash_attention._flash_bwd(q, k, k, None, q, q,
+                                   torch.zeros((1, 4, 64), device='meta'))
+    assert [flash_attention.DKV_KERNEL.launches,
+            flash_attention.DQ_KERNEL.launches] == before
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -64,7 +64,8 @@ def traced(label: str, fn) -> dict:
            for name, ms in by_name.most_common(12)]
     summary = {'phase': label, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
                'idle_share': max(0.0, 1 - busy_ms / wall_ms),
-               'kernel_launches': len(kernels), 'top_kernels': top}
+               'kernel_launches': len(kernels), 'top_kernels': top,
+               'ms_by_kernel': dict(by_name)}
     print(f'{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms '
           f'(idle share {summary["idle_share"]:.3f}), '
           f'{len(kernels)} kernel launches', flush=True)
@@ -74,12 +75,16 @@ def traced(label: str, fn) -> dict:
     return summary
 
 
+def nvidia_smi_line() -> str:
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], check=True,
-                         capture_output=True, text=True).stdout.strip()
+    smi = nvidia_smi_line()
     print(f'card: {smi}; torch {torch.__version__}', flush=True)
     cfg = llama.LLAMA3_8B
     gen = torch.Generator(device='cuda')
