@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero:
      error beside its tolerance (gradients blockwise, and two planted
      gradient faults must be rejected); kernel, plain and library times
      and the least time the card could take (bound): the flash forward,
-     the flash backward pair (dK/dV, dQ), dense decode;
+     the flash backward pair (dK/dV, dQ), dense decode, paged decode;
   4. serving main path: Llama-3-8B (bf16, random weights from a seeded
      torch.Generator) served by InferenceEngine + Orchestrator: 16
      prompts of ~1000 tokens, 64 new tokens each;
@@ -30,9 +30,19 @@ Phases, in order; any failure exits non-zero:
      and fall;
   7. small training check: LLAMA_TINY widths in fp32 at seq 1024 with EOS
      packing, adamw, accum_steps=2: three steps on the card (kernels) and
-     on the CPU (plain versions) must agree.
-Before each main path (4 and 6) every kernel's launch count is set to 0;
-just after, the kernels of that path must each have run.
+     on the CPU (plain versions) must agree;
+  8. paged serving main path: the same Llama-3-8B served from a shared
+     page arena (32 slots over 2048 pages of 16 rows: the memory that gives
+     phase 4 its 16 dense slots): (a) 32 prompts of ~1000 tokens, 64 new
+     tokens each, more than the arena holds at once, so some requests are
+     deferred and admitted later; (b) a second engine with the prefix
+     cache on: two 3000-token prompts prefilled in three chunks each
+     between decode ticks, and four prompts sharing their first 768 tokens;
+  9. small paged end to end: fp32 LLAMA_TINY widths, paged + chunked +
+     prefix cache, on the card and on the CPU; the greedy tokens must be
+     identical.
+Before each main path (4, 6, 8a, 8b) every kernel's launch count is set to
+0; just after, the kernels of that path must each have run, and no other.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -90,8 +100,10 @@ REPLACES = {
     'flash_bwd_dkv': 'skypilot_tpu/ops/flash_attention.py:300',
     'flash_bwd_dq': 'skypilot_tpu/ops/flash_attention.py:360',
     'decode_attention': 'skypilot_tpu/ops/decode_attention.py:73',
+    'paged_decode_attention': 'skypilot_tpu/ops/decode_attention.py:143',
 }
 SERVE_KERNELS = ('flash_fwd', 'decode_attention')
+PAGED_SERVE_KERNELS = ('flash_fwd', 'paged_decode_attention')
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
 
 
@@ -469,6 +481,164 @@ def check_decode(gen) -> dict:
             'bound_by': bound_by, 'library_ms': library_ms}
 
 
+def paged_case(gen, label, q_dtype, kv_dtype, lengths, allocated=None,
+               num_pages=2048, page=16, nblk=256, h=32, h_kv=8, d=128,
+               softcap=None, scale=None, check=True):
+    """K5 vs its plain version. Each slot's table row is its own random
+    permutation of the arena's pages, so no slot's pages are contiguous;
+    entries past a slot's allocation (by default what its length needs)
+    hold the sentinel (== num_pages)."""
+    b = len(lengths)
+    q = rand(gen, (b, 1, h, d), q_dtype)
+    k = rand(gen, (num_pages, page, h_kv, d), kv_dtype)
+    v = rand(gen, (num_pages, page, h_kv, d), kv_dtype)
+    perm = torch.stack([torch.randperm(num_pages, generator=gen,
+                                       device='cuda')[:nblk]
+                        for _ in range(b)])
+    blocks = torch.tensor([-(-min(n, nblk * page) // page) for n in
+                           (lengths if allocated is None else allocated)],
+                          device='cuda')
+    held = torch.arange(nblk, device='cuda')[None, :] < blocks[:, None]
+    tables = torch.where(held, perm, num_pages).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    kw = dict(logit_softcap=softcap, scale=scale)
+    err = None
+    if check:
+        out = decode_ops.paged_decode_attention(q, k, v, lens, tables, **kw)
+        torch.cuda.synchronize()
+        ref = decode_ops.paged_decode_attention_plain(q, k, v, lens, tables,
+                                                      **kw)
+        err = compare(f'paged decode {label}', out, ref, q_dtype)
+        empty = [i for i, n in enumerate(lengths) if n == 0]
+        if empty:
+            # The JAX kernel's answer for a length-0 slot: the mean of
+            # the `page` V rows of its first clamped page.
+            first = tables[empty, 0].long().clamp(0, num_pages - 1)
+            mean = v[first].float().mean(dim=1).repeat_interleave(
+                h // h_kv, dim=1)[:, None]
+            compare(f'paged decode {label}, length-0 slots vs mean of '
+                    'their first page', out[empty], mean, q_dtype)
+    return (q, k, v, lens, tables, kw), err
+
+
+def check_paged_decode(gen) -> dict:
+    log('[3] paged_decode_attention: kernel vs plain version')
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cap = 256 * 16
+    # Ragged lengths around page edges; slot 3 has length 0 and an
+    # allocated first block, slot 4 length 0 and an all-sentinel row, slot
+    # 5 is inactive (length past the table, all-sentinel row); the others
+    # end in sentinel tails.
+    ragged = [1, 16, 17, 0, 0, cap + 1, cap, 1000, 3064, 255, 256, 257]
+    held = [1, 16, 17, 16, 0, 0, cap, 1000, 3064, 255, 256, 257]
+    paged_case(gen, 'bf16 arena, ragged lengths', bf16, bf16, ragged, held)
+    paged_case(gen, 'fp32 arena, ragged lengths', fp32, fp32, ragged, held)
+    paged_case(gen, 'fp32 q over bf16 arena', fp32, bf16, ragged, held)
+    paged_case(gen, 'bf16 softcap=30 scale=0.1', bf16, bf16, ragged, held,
+               softcap=30.0, scale=0.1)
+    paged_case(gen, 'fp32 page 8, D16 G2 (LLAMA_TINY widths)', fp32, fp32,
+               [0, 1, 8, 9, 65, 64, 30], [8, 1, 8, 9, 0, 64, 30],
+               num_pages=40, page=8, nblk=8, h=4, h_kv=2, d=16)
+    paged_case(gen, 'bf16 page 256, D64 G8', bf16, bf16, [0, 300, 1025, 256],
+               [256, 300, 1025, 256], num_pages=24, page=256, nblk=5, h=8,
+               h_kv=1, d=64)
+    paged_case(gen, 'bf16 page 8, 8192-block table rows', bf16, bf16,
+               [65536, 12345, 3], num_pages=8192, page=8, nblk=8192, h=4,
+               h_kv=2, d=64)
+    # On a contiguous identity table K5 walks the same rows in the same
+    # order as K4 (they share one row walk, csrc/decode_common.cuh), so
+    # live slots must agree bit for bit.
+    for dtype in (bf16, fp32):
+        b, page, nblk, h, h_kv, d = 16, 16, 128, 32, 8, 128
+        q = rand(gen, (b, 1, h, d), dtype)
+        k = rand(gen, (b, nblk * page, h_kv, d), dtype)
+        v = rand(gen, (b, nblk * page, h_kv, d), dtype)
+        lens = torch.randint(1, nblk * page + 1, (b,), generator=gen,
+                             device='cuda', dtype=torch.int32)
+        tables = torch.arange(b * nblk, dtype=torch.int32,
+                              device='cuda').reshape(b, nblk)
+        dense = decode_ops.decode_attention(q, k, v, lens)
+        paged = decode_ops.paged_decode_attention(
+            q, k.reshape(b * nblk, page, h_kv, d),
+            v.reshape(b * nblk, page, h_kv, d), lens, tables)
+        torch.cuda.synchronize()
+        if not torch.equal(dense, paged):
+            raise AssertionError(
+                'paged decode on an identity table differs from dense '
+                f'decode ({dtype}): max_abs_err '
+                f'{float((dense.float() - paged.float()).abs().max()):.3e}')
+        log(f'  paged decode on an identity table == dense decode, bit for '
+            f'bit ({dtype})')
+    # The paged main path's decode steps: 32 slots over 2048 pages of 16
+    # rows, ~1000-token prompts plus up to 64 generated tokens, a few
+    # slots near a 3000-token prompt's end.
+    rng = np.random.default_rng(2)
+    lengths = [int(x) for x in rng.integers(990, 1101, 32)]
+    lengths[5], lengths[17], lengths[30] = 3064, 3001, 3050
+    cases = [paged_case(gen, 'bf16 main-path lengths', bf16, bf16, lengths,
+                        check=i == 0) for i in range(2)]
+    (q, k, v, lens, tables, _), err = cases[0]
+    # Two arenas (2 x 134 MB) in turn: each launch reads more live K/V
+    # than the 50 MB L2 holds, and never the arena it read last.
+    it = itertools.count()
+
+    def run_kernel():
+        q, k, v, ln, tb, _ = cases[next(it) % 2][0]
+        decode_ops.paged_decode_attention(q, k, v, ln, tb)
+
+    def run_plain():
+        q, k, v, ln, tb, _ = cases[next(it) % 2][0]
+        decode_ops.paged_decode_attention_plain(q, k, v, ln, tb)
+
+    def run_library():
+        # The nearest library route: gather each slot's pages into a
+        # dense [B, K, Hkv, D] view, then masked SDPA.
+        q, k, v, ln, tb, _ = cases[next(it) % 2][0]
+        safe = tb.long().clamp(0, k.shape[0] - 1)
+        b = q.shape[0]
+        kd = k[safe].reshape(b, -1, *k.shape[2:])
+        vd = v[safe].reshape(b, -1, *v.shape[2:])
+        pos = torch.arange(kd.shape[1], device='cuda')[None, :]
+        mask = (pos < ln[:, None].long())[:, None, None, :]
+        F.scaled_dot_product_attention(
+            q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    ms = time_ms(run_kernel, iters=40, warmup=4)
+    plain_ms = time_ms(run_plain, iters=8, warmup=2)
+    library_ms = time_ms(run_library, iters=20, warmup=4)
+    # One block walks one slot's rows, so the three long slots set the
+    # time above; the same arenas with every slot near 1000 rows, as in
+    # phase [8](a), for comparison with the dense kernel's timing.
+    even = torch.tensor([min(n, 1100) for n in lengths], dtype=torch.int32,
+                        device='cuda')
+
+    def run_even():
+        q, k, v, _, tb, _ = cases[next(it) % 2][0]
+        decode_ops.paged_decode_attention(q, k, v, even, tb)
+
+    even_ms = time_ms(run_even, iters=40, warmup=4)
+    b, _, h, d = q.shape
+    page, h_kv = k.shape[1], k.shape[2]
+    live = int(lens.clamp(max=tables.shape[1] * page).sum())
+    nbytes = (2 * q.numel() * q.element_size() + 4 * b +
+              tables.numel() * 4 + 2 * live * h_kv * d * k.element_size())
+    flops = 4.0 * live * h * d
+    bound, bound_by = bound_ms(nbytes, flops, bf16)
+    log(f'  paged decode main-path timing: kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, page gather + masked SDPA (library) '
+        f'{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); '
+        f'{nbytes / ms / 1e6:.1f} GB/s of live KV ({live} live rows); '
+        f'with every slot at most 1100 rows ({int(even.sum())} live rows) '
+        f'kernel {even_ms:.4f} ms')
+    return {'name': 'paged_decode_attention', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_decode_attention.cu',
+            'replaces': REPLACES['paged_decode_attention'],
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms, 'ms_at_most_1100_rows': even_ms}
+
+
 def zero_launches() -> None:
     for kern in kernels.REGISTRY:
         kern.launches = 0
@@ -487,7 +657,37 @@ def check_launches(path: str, launches: dict, wanted, n_layers: int) -> None:
                                  'path, which should not run it')
 
 
-# ---- phase 4: serving main path ----
+# ---- phases 4 and 8: serving main paths ----
+
+def serve_and_check(orch, cfg, prompts, new_tokens: int):
+    """Submit, drain, require every request whole → (requests, seconds)."""
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    t0 = time.perf_counter()
+    requests = [orch.submit(orch_lib.Request(prompt_tokens=p,
+                                             max_new_tokens=new_tokens))
+                for p in prompts]
+    orch.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for r in requests:
+        if r.error or len(r.output_tokens) != new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError(
+                f'request {r.request_id}: error={r.error}, '
+                f'{len(r.output_tokens)} tokens')
+    stats = orch.engine.kv_page_stats      # None for a dense cache
+    if (stats and stats['free'] != stats['total']) or len(
+            orch._free_slots) != orch.engine.config.max_slots:
+        raise AssertionError(f'pages or slots not given back after the '
+                             f'drain: {stats}, {len(orch._free_slots)} '
+                             'free slots')
+    return requests, dt
+
+
+def mean_ms(requests) -> float:
+    return float(np.mean([r.first_token_at - r.submitted_at
+                          for r in requests])) * 1e3
+
 
 def main_path(records: dict) -> None:
     from skypilot_tpu_torch.infer import engine as engine_lib
@@ -514,28 +714,15 @@ def main_path(records: dict) -> None:
     new_tokens = 64
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    t0 = time.perf_counter()
-    requests = [orch.submit(orch_lib.Request(prompt_tokens=p,
-                                             max_new_tokens=new_tokens))
-                for p in prompts]
-    orch.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    requests, dt = serve_and_check(orch, cfg, prompts, new_tokens)
     launches = {k.name: k.launches for k in kernels.REGISTRY}
-    for r in requests:
-        if r.error or len(r.output_tokens) != new_tokens or not all(
-                0 <= t < cfg.vocab_size for t in r.output_tokens):
-            raise AssertionError(
-                f'request {r.request_id}: error={r.error}, '
-                f'{len(r.output_tokens)} tokens')
     check_launches('serving', launches, SERVE_KERNELS, cfg.n_layers)
     for name in SERVE_KERNELS:
         records[name]['launches_by_path'] = {'serve': launches[name]}
     out_tokens = sum(len(r.output_tokens) for r in requests)
-    ttft = [r.first_token_at - r.submitted_at for r in requests]
     log(f'  16 requests x {new_tokens} tokens done in {dt:.3f} s: '
         f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
-        f'{np.mean(ttft) * 1e3:.1f} ms, peak memory '
+        f'{mean_ms(requests):.1f} ms, peak memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
         f'launches {launches} on {nvidia_smi_line()}')
     del orch, engine, params
@@ -698,6 +885,164 @@ def small_train_check() -> None:
         raise AssertionError(f'a kernel did not run on the card: {used}')
 
 
+# ---- phase 8: paged serving main path ----
+
+def count_decode_steps(engine) -> list:
+    """Wrap the engine's decode step so that a run can count its steps."""
+    steps = [0]
+    step_impl = engine._decode_step_impl
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step_impl(*args, **kwargs)
+
+    engine._decode_step_impl = counted
+    return steps
+
+
+def paged_main_path(records: dict) -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import llama
+    cfg = llama.LLAMA3_8B
+    log(f'[8] paged main path: Llama-3-8B bf16 ({cfg.n_layers} layers), the '
+        'random weights of [4]; 32 slots over 2048 pages of 16 rows')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init(cfg, gen)
+    ecfg = engine_lib.EngineConfig(
+        model=cfg, max_slots=32, max_target_len=4096,
+        prefill_buckets=(1024,), kv_page_size=16, kv_num_pages=2048)
+    new_tokens = 64
+    rng = np.random.default_rng(8)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    # (a) 32 prompts whose budgets (1064-1088 rows, 67-68 pages each) add
+    # up to more than the arena's 2048 pages.
+    engine = engine_lib.InferenceEngine(ecfg, params)
+    orch = orch_lib.Orchestrator(engine, decode_steps=8)
+    steps = count_decode_steps(engine)
+    prompts = [prompt(n) for n in rng.integers(1000, 1025, 32)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, prompts, new_tokens)
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('paged serving', launches, PAGED_SERVE_KERNELS,
+                   cfg.n_layers)
+    deferred = sum(r.deferred_wait > 0 for r in requests)
+    if not deferred:
+        raise AssertionError('no request was deferred: the arena held '
+                             'every budget at once')
+    if launches['paged_decode_attention'] != cfg.n_layers * steps[0]:
+        raise AssertionError(
+            f'paged_decode_attention: {launches["paged_decode_attention"]} '
+            f'launches for {steps[0]} decode steps of {cfg.n_layers} layers')
+    for name in PAGED_SERVE_KERNELS:
+        records[name].setdefault('launches_by_path', {})['serve_paged'] = (
+            launches[name])
+    out_tokens = sum(len(r.output_tokens) for r in requests)
+    log(f'  (a) 32 requests x {new_tokens} tokens done in {dt:.3f} s: '
+        f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
+        f'{mean_ms(requests):.1f} ms (admitted at once '
+        f'{mean_ms([r for r in requests if not r.deferred_wait]):.1f} ms), '
+        f'{deferred} deferred, {steps[0]} decode steps, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+        f'{launches} on {nvidia_smi_line()}')
+    del orch, engine
+    torch.cuda.empty_cache()
+
+    # (b) the prefix cache on (admission is then one prompt per call): a
+    # short prompt, two long ones (three chunks each, one chunk per tick
+    # between decode ticks), three more short ones that share the first
+    # one's first 768 tokens.
+    engine = engine_lib.InferenceEngine(
+        dataclasses.replace(ecfg, prefix_cache_entries=4), params)
+    orch = orch_lib.Orchestrator(engine, decode_steps=8)
+    steps = count_decode_steps(engine)
+    shared = prompt(768)
+    shorts = [shared + prompt(n) for n in rng.integers(200, 250, 4)]
+    longs = [prompt(3000) for _ in range(2)]
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, [shorts[0]] + longs + shorts[1:],
+                                   new_tokens)
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('paged + prefix serving', launches, PAGED_SERVE_KERNELS,
+                   cfg.n_layers)
+    stats = engine.prefix_cache_stats
+    if stats['hits'] < 3 or stats['tokens_reused'] < 3 * 768:
+        raise AssertionError(f'prefix cache: {stats}, want 3 hits of 768 '
+                             'tokens')
+    if launches['paged_decode_attention'] != cfg.n_layers * steps[0]:
+        raise AssertionError(
+            f'paged_decode_attention: {launches["paged_decode_attention"]} '
+            f'launches for {steps[0]} decode steps of {cfg.n_layers} layers')
+    for name in PAGED_SERVE_KERNELS:
+        records[name]['launches_by_path']['serve_paged_prefix'] = (
+            launches[name])
+    log(f'  (b) 6 requests x {new_tokens} tokens done in {dt:.3f} s: TTFT '
+        f'first short prompt (miss) {mean_ms(requests[:1]):.1f} ms, long '
+        f'prompts (3 chunks) {mean_ms(requests[1:3]):.1f} ms, prefix-hit '
+        f'prompts {mean_ms(requests[3:]):.1f} ms; prefix cache {stats}, '
+        f'{steps[0]} decode steps; launches {launches} on '
+        f'{nvidia_smi_line()}')
+    del orch, engine, params
+    torch.cuda.empty_cache()
+
+
+# ---- phase 9: small paged model, card vs CPU ----
+
+def small_paged_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    log('[9] small paged end to end: fp32 LLAMA_TINY widths, 250 pages of '
+        '16 rows, bucket 1024, chunked prefill and the prefix cache, card '
+        '(kernels) vs CPU (plain versions)')
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    cpu_params = llama.init(cfg, gen, device='cpu')
+    rng = np.random.default_rng(9)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (2100, 1024, 700, 913, 64)]
+    prompts.insert(3, prompts[1][:600] + prompts[4][:50])
+    outputs, stats = {}, {}
+    before = {k.name: k.launches for k in kernels.REGISTRY}
+    for device in ('cuda', 'cpu'):
+        engine = engine_lib.InferenceEngine(
+            engine_lib.EngineConfig(model=cfg, max_slots=4,
+                                    max_target_len=2560,
+                                    prefill_buckets=(1024,),
+                                    kv_dtype=torch.float32, kv_page_size=16,
+                                    kv_num_pages=250,
+                                    prefix_cache_entries=4),
+            to_device(cpu_params, device), device=device)
+        orch = orch_lib.Orchestrator(engine, decode_steps=4)
+        requests = [orch.submit(orch_lib.Request(prompt_tokens=p,
+                                                 max_new_tokens=12))
+                    for p in prompts]
+        orch.run_until_drained()
+        outputs[device] = [r.output_tokens for r in requests]
+        stats[device] = (engine.prefix_cache_stats, engine.kv_page_stats,
+                         sum(r.deferred_wait > 0 for r in requests))
+    used = {k.name: k.launches - before[k.name] for k in kernels.REGISTRY}
+    log(f'  card tokens {outputs["cuda"]}')
+    log(f'  cpu tokens  {outputs["cpu"]}; (prefix cache, pages, deferred) '
+        f'{stats["cuda"]}; card kernel launches {used}')
+    if outputs['cuda'] != outputs['cpu'] or stats['cuda'] != stats['cpu']:
+        raise AssertionError('greedy tokens or cache statistics differ '
+                             'between the card and the CPU')
+    if not all(len(t) == 12 for t in outputs['cuda']):
+        raise AssertionError('a request did not finish')
+    prefix, pages, deferred = stats['cuda']
+    if not (prefix['hits'] and deferred and pages['free'] == pages['total']):
+        raise AssertionError(f'the run missed a path: {stats["cuda"]}')
+    if not all(used[name] for name in PAGED_SERVE_KERNELS):
+        raise AssertionError(f'a kernel did not run on the card: {used}')
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -725,11 +1070,14 @@ def main() -> int:
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),
-               'decode_attention': check_decode(gen)}
+               'decode_attention': check_decode(gen),
+               'paged_decode_attention': check_paged_decode(gen)}
     main_path(records)
     small_end_to_end()
     train_main_path(records)
     small_train_check()
+    paged_main_path(records)
+    small_paged_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

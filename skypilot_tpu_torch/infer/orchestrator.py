@@ -6,11 +6,13 @@ and fused decode ticks advance all active slots together, with EOS and
 budget finish detection on the device. The host logic (admission,
 deadline rejection, wave batching, anatomy accumulators, commit) is the
 reference's; the device seams are torch (a device ``torch.Generator`` in
-place of the key pool, one host copy per tick).
+place of the key pool, one host copy per tick). Long prompts run their
+chunked prefill one chunk per tick between decode ticks; on a paged
+engine a request that finds no free pages is deferred and retried ahead
+of the queue.
 
-Chunked prefill, the prefix cache, speculative decoding, the paged
-cache's deferral, the profiler and chaos hooks and the legacy tick come
-in later slices.
+Speculative decoding, the profiler and chaos hooks and the legacy tick
+come in later slices.
 """
 from __future__ import annotations
 
@@ -66,8 +68,11 @@ class Request:
     deadline_at: Optional[float] = None
     # Anatomy phase accumulators (seconds), pure float adds:
     taken_at: Optional[float] = None
+    deferred_at: Optional[float] = None
+    deferred_wait: float = 0.0
     decode_s: float = 0.0
     commit_s: float = 0.0
+    kv_headroom_at_admit: Optional[float] = None
 
 
 class Orchestrator:
@@ -94,6 +99,20 @@ class Orchestrator:
         # tokens in batches of n, so cancel latency grows by ≤ n-1
         # tokens; EOS and budgets are enforced on the device in-loop.
         self.decode_steps = decode_steps
+        # Long prompts run their chunked prefill interleaved with decode
+        # (see _advance_partials); slot → (request, ChunkedPrefill) for
+        # admissions mid-prefill, with a per-tick chunk budget so
+        # concurrent long prompts cannot multiply running streams'
+        # inter-token latency.
+        self.interleave_prefill = True
+        self.prefill_chunks_per_tick = 1
+        self._partials: Dict[int, Any] = {}
+        # Requests that passed validation but found no KV-page headroom
+        # (paged engines): retried ahead of the queue next tick.
+        self._deferred: List[Request] = []
+        # KV free-page fraction observed at the last successful admit
+        # (paged engines).
+        self.last_admit_kv_headroom: Optional[float] = None
         self._params_dirty = True
         self._d_temps = None
         self._d_topk = None
@@ -129,6 +148,9 @@ class Orchestrator:
         request.done = True
         request.finished_at = time.perf_counter() if now is None else now
 
+    def _admit_limit(self) -> int:
+        return self.engine.max_admit_len
+
     def _validate_admit(self, request: Request) -> bool:
         """Cancel/length checks + KV-budget clamp. False ⇒ the request
         was finished (cancelled/rejected) and must not be admitted."""
@@ -136,7 +158,10 @@ class Orchestrator:
             self._finish(request)
             return False
         prompt_len = len(request.prompt_tokens)
-        limit = self.engine.max_admit_len
+        # The prompt must leave room for at least one generated token in
+        # the per-slot KV budget; families with a chunked-prefill path
+        # admit beyond the largest bucket (engine.max_admit_len).
+        limit = self._admit_limit()
         if prompt_len == 0 or prompt_len > limit:
             self._finish(request,
                          f'Prompt length {prompt_len} outside (0, {limit}].')
@@ -147,6 +172,17 @@ class Orchestrator:
         if budget > self.engine.config.max_target_len:
             request.max_new_tokens = (self.engine.config.max_target_len -
                                       prompt_len)
+        if not self.engine.kv_admissible(prompt_len,
+                                         request.max_new_tokens):
+            # Paged engine whose whole arena cannot hold this budget:
+            # deferring would deadlock the drain loop, so reject.
+            self._finish(
+                request,
+                f'Request KV budget {prompt_len + request.max_new_tokens}'
+                f' tokens exceeds the paged-cache capacity.')
+            logger.warning('Rejected request %d: %s', request.request_id,
+                           request.error)
+            return False
         return True
 
     def _estimated_budget_s(self, request: Request) -> Optional[float]:
@@ -179,9 +215,18 @@ class Orchestrator:
         return True
 
     def _take_request(self) -> Optional[Request]:
-        """Next admission candidate; expired-deadline candidates are
-        rejected here, at admission time."""
+        """Next admission candidate: headroom-deferred requests retry
+        ahead of the queue (FIFO within each). Expired-deadline
+        candidates are rejected here, at admission time."""
         now = time.perf_counter()
+        while self._deferred:
+            request = self._deferred.pop(0)
+            if request.deferred_at is not None:
+                request.deferred_wait += now - request.deferred_at
+                request.deferred_at = None
+            if self._deadline_reject(request, now):
+                continue
+            return request
         while True:
             try:
                 request = self._pending.get_nowait()
@@ -192,28 +237,74 @@ class Orchestrator:
             if not self._deadline_reject(request, now):
                 return request
 
+    def _reserve_or_defer(self, request: Request, slot: int) -> bool:
+        """Reserve KV capacity for the request's full budget against the
+        claimed slot. On a paged engine with no page headroom the slot
+        goes back, the request parks in the deferred list, and the
+        caller stops admitting this tick (headroom only appears when a
+        running stream finishes)."""
+        if self.engine.reserve_kv(slot, len(request.prompt_tokens),
+                                  request.max_new_tokens):
+            pages = self.engine.kv_page_stats
+            if pages and pages.get('total'):
+                headroom = pages['free'] / pages['total']
+                request.kv_headroom_at_admit = headroom
+                self.last_admit_kv_headroom = headroom
+            return True
+        self._free_slots.append(slot)
+        if request.deferred_at is None:
+            request.deferred_at = time.perf_counter()
+        self._deferred.append(request)
+        return False
+
     def _admit_claimed(self, request: Request, slot: int) -> None:
         """Single-request admission into an already-claimed slot."""
+        prompt_len = len(request.prompt_tokens)
         sp = sampling_lib.SamplingParams(
             temperature=request.temperature, top_k=request.top_k,
             top_p=request.top_p)
         lp_k = LOGPROBS_K if request.logprobs else 0
-        out = self.engine.prefill(request.prompt_tokens, sampling_params=sp,
-                                  logprobs_k=lp_k)
-        if request.logprobs:
-            first_token, kv, true_len, lp = out
-            self._record_logprobs(request, lp, row=0)
-        else:
-            first_token, kv, true_len = out
-        self.state = self.engine.insert(self.state, kv, first_token,
-                                        true_len, slot)
-        self._post_insert(slot, request, int(first_token))
+        if (self.interleave_prefill
+                and prompt_len > self.engine.config.max_prompt_len
+                and self.engine.supports_chunked_prefill):
+            # Long prompt: claim the slot but run its prefill one chunk
+            # per tick interleaved with decode, so running streams keep
+            # emitting instead of stalling for the whole multi-chunk
+            # prefill.
+            self._partials[slot] = (
+                request, self.engine.start_chunked_prefill(
+                    request.prompt_tokens, sp, lp_k))
+            return
+        # prefill_any == prefill for in-bucket prompts with no cached
+        # prefix; beyond that it chunks and reuses cached prefixes.
+        out = self.engine.prefill_any(request.prompt_tokens,
+                                      sampling_params=sp, logprobs_k=lp_k)
+        self._finish_admit(slot, request, out)
+
+    def _admit_one(self) -> bool:
+        """Prefill + insert one pending request into a free slot."""
+        if not self._free_slots:
+            return False
+        request = self._take_request()
+        if request is None:
+            return False
+        if not self._validate_admit(request):
+            return True
+        slot = self._free_slots.pop()
+        if not self._reserve_or_defer(request, slot):
+            return False   # no KV headroom: stop admitting this tick
+        self._admit_claimed(request, slot)
+        return True
 
     def _admit_wave(self) -> None:
         """Admit pending requests, batching same-bucket prefills into one
-        forward + one insert per bucket group. Logprobs requests take
-        the single path (their first token's logprobs come back with
-        it)."""
+        forward + one insert per bucket group. Logprobs requests, long
+        prompts (chunked path) and prefix-cached engines take the single
+        path."""
+        if not self.engine.supports_batched_prefill:
+            while self._admit_one():
+                pass
+            return
         batch: List = []       # (request, claimed slot)
         while self._free_slots:
             request = self._take_request()
@@ -222,7 +313,11 @@ class Orchestrator:
             if not self._validate_admit(request):
                 continue
             slot = self._free_slots.pop()
-            if not request.logprobs:
+            if not self._reserve_or_defer(request, slot):
+                break      # no KV headroom: stop admitting this tick
+            if (not request.logprobs
+                    and len(request.prompt_tokens)
+                    <= self.engine.config.max_prompt_len):
                 batch.append((request, slot))
             else:
                 self._admit_claimed(request, slot)
@@ -243,16 +338,28 @@ class Orchestrator:
                     self.engine.prefill_insert_batch(self.state, args,
                                                      slots)
             except Exception as e:  # pylint: disable=broad-except
-                # Fail the group and restore its claimed slots: a
-                # raising prefill must not shrink the slot pool.
+                # Fail the group and restore its claimed slots and KV
+                # reservations: a raising prefill must not shrink the
+                # slot pool.
                 logger.exception('Batched prefill failed for %d '
                                  'requests', len(group))
                 for request, slot in group:
                     self._finish(request, f'Prefill failed: {e}')
+                    self.engine.release_kv(slot)
                     self._free_slots.append(slot)
                 continue
             for (request, slot), token in zip(group, first_tokens):
                 self._post_insert(slot, request, token)
+
+    def _finish_admit(self, slot: int, request: Request, out) -> None:
+        if request.logprobs:
+            first_token, kv, true_len, lp = out
+            self._record_logprobs(request, lp, row=0)
+        else:
+            first_token, kv, true_len = out
+        self.state = self.engine.insert(self.state, kv, first_token,
+                                        true_len, slot)
+        self._post_insert(slot, request, int(first_token))
 
     def _post_insert(self, slot: int, request: Request,
                      first_token: int) -> None:
@@ -260,13 +367,39 @@ class Orchestrator:
         request.output_tokens.append(int(first_token))
         request.first_token_at = time.perf_counter()
         if request.taken_at is not None:
-            sample = max(0.0, request.first_token_at - request.taken_at)
+            # Take → first token, minus any headroom-deferred wait.
+            sample = max(0.0, request.first_token_at - request.taken_at
+                         - request.deferred_wait)
             prev = self._ewma_prefill_s
             self._ewma_prefill_s = (sample if prev is None
                                     else 0.8 * prev + 0.2 * sample)
         self._slot_req[slot] = request
         self._params_dirty = True
         self._maybe_finish(slot, int(first_token))
+
+    def _advance_partials(self) -> None:
+        """Advance in-flight chunked admissions, oldest first, up to
+        prefill_chunks_per_tick chunks total: the budget bounds how much
+        prefill work can delay each decode wave; on a request's last
+        chunk it joins the decode batch this tick. Cancelled partials
+        are always reaped regardless of budget."""
+        budget = self.prefill_chunks_per_tick
+        for slot in list(self._partials):
+            request, cp = self._partials[slot]
+            if request.cancel_requested:
+                del self._partials[slot]
+                # The claimed slot's KV reservation goes back too: the
+                # slot never reached release_slot (nothing inserted).
+                self.engine.release_kv(slot)
+                self._free_slots.append(slot)
+                self._finish(request)
+                continue
+            if budget <= 0:
+                continue
+            budget -= 1
+            if cp.step():
+                del self._partials[slot]
+                self._finish_admit(slot, request, cp.finalize())
 
     def _record_logprobs(self, request: Request, lp, row) -> None:
         """Append one generated token's logprob + top-k alternatives.
@@ -304,8 +437,11 @@ class Orchestrator:
             self._release(slot)
 
     def step(self) -> None:
-        """One scheduler tick: admit while possible, then decode."""
+        """One scheduler tick: admit while possible (batching
+        same-bucket prefills), advance in-flight chunked prefills by one
+        chunk, then decode."""
         self._admit_wave()
+        self._advance_partials()
         self._decode_tick_fast()
 
     def _attribute_tick(self, residents: List[Request], decode_share: float,
@@ -419,6 +555,14 @@ class Orchestrator:
     def fail_all(self, error: str) -> None:
         """Finish every active and pending request with `error` and free
         their slots — never hand back silently-truncated outputs."""
+        for slot in list(self._partials):
+            request, _ = self._partials.pop(slot)
+            self._finish(request, error)
+            self.engine.release_kv(slot)
+            self._free_slots.append(slot)
+        for request in self._deferred:
+            self._finish(request, error)
+        self._deferred.clear()
         for slot in list(self._slot_req):
             self._release(slot, error=error)
         while True:
@@ -429,15 +573,20 @@ class Orchestrator:
             self._finish(request, error)
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
+        def busy() -> bool:
+            return bool(self._slot_req or self._partials or self._deferred
+                        or not self._pending.empty())
+
         steps = 0
-        while (self._slot_req or not self._pending.empty()) and (
-                steps < max_steps):
+        while busy() and steps < max_steps:
             self.step()
             steps += 1
-        if self._slot_req or not self._pending.empty():
+        if busy():
             logger.warning('run_until_drained hit max_steps=%d with %d '
-                           'active and ~%d pending requests.', max_steps,
-                           len(self._slot_req), self._pending.qsize())
+                           'active, %d mid-prefill, %d deferred and ~%d '
+                           'pending requests.', max_steps,
+                           len(self._slot_req), len(self._partials),
+                           len(self._deferred), self._pending.qsize())
             self.fail_all(f'Truncated at max_steps={max_steps}.')
 
     # ---- convenience ----

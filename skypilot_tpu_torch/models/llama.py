@@ -13,9 +13,12 @@ fp32, and the LM head returns fp32 logits (see ``quantization.matmul``).
 Training: ``loss_fn`` (chunked cross-entropy), EOS-derived packing
 (``segments_from_eos``) and the remat policies, as per-layer
 non-reentrant ``torch.utils.checkpoint`` with a selective policy that
-keeps exactly the named weight products (``_remat_context``). Ring and
-Ulysses attention, the paged cache, speculative verification and the
-pipelined loss come in later slices.
+keeps exactly the named weight products (``_remat_context``).
+
+Serving caches: the dense slot cache (``decode_forward``, and
+``verify_forward`` for several tokens per slot) and the paged arena
+(``paged_decode_forward``). Ring and Ulysses attention and the pipelined
+loss come in later slices.
 """
 from __future__ import annotations
 
@@ -371,9 +374,22 @@ def _write_rows(cache: torch.Tensor, rows: torch.Tensor,
     (inactive slots write at max_target_len); torch indexing would raise
     on the CPU and fault on the card, so the write is masked: an
     out-of-range position rewrites its clamped row with the row's own
-    old value, leaving the cache bit-identical."""
+    old value, leaving the cache bit-identical. With several positions
+    per slot the clamped row may also be a row this call writes, and a
+    scatter with duplicate indices keeps either value; so there an
+    out-of-range column repeats one of its slot's in-range writes (same
+    index, same value) when the slot has one."""
     max_len = cache.shape[1]
     valid = positions < max_len
+    if positions.shape[1] > 1:
+        cols = torch.arange(positions.shape[1], device=cache.device)[None]
+        first_valid = valid.int().argmax(dim=1, keepdim=True)
+        src = torch.where(valid, cols, first_valid)
+        positions = torch.gather(positions, 1, src)
+        rows = torch.gather(
+            rows, 1, src.reshape(src.shape + (1,) * (rows.ndim - 2)
+                                 ).expand_as(rows))
+        valid = torch.gather(valid, 1, src)
     safe = positions.clamp(max=max_len - 1)
     slots = torch.arange(cache.shape[0], device=cache.device)[:, None]
     old = cache[slots, safe]
@@ -452,12 +468,75 @@ def slot_cache_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn, kv_cache
 
 
+def paged_write_route(cache_positions: torch.Tensor,
+                      block_tables: torch.Tensor, num_pages: int,
+                      page: int):
+    """Where one decode step's K/V rows go in the page arena, and how far
+    each slot attends → (page_idx [B] long, offset [B] long, lengths [B]
+    int32). The same for every layer, so a forward computes it once.
+
+    A position past the table (an inactive slot) or a sentinel table
+    entry resolves to page index ``num_pages``: the arena's spare page,
+    which takes the write and is never read. (JAX drops such a scatter;
+    rewriting a clamped row with its old value, as the dense cache's
+    ``_write_rows`` does, is not safe here: the clamped page may belong to
+    a live slot that writes the same row in the same scatter.)"""
+    nblk = block_tables.shape[1]
+    pos = cache_positions.long()
+    blk = pos // page
+    entry = torch.gather(block_tables, 1,
+                         blk.clamp(max=nblk - 1)[:, None])[:, 0].long()
+    page_idx = torch.where(blk < nblk, entry, num_pages).clamp(
+        max=num_pages)
+    return page_idx, pos % page, (cache_positions + 1).to(torch.int32)
+
+
+def paged_cache_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_cache, cache_positions: torch.Tensor,
+                       block_tables: torch.Tensor, window=None,
+                       logit_softcap=None, scale=None, route=None):
+    """Paged-cache twin of the decode branch of slot_cache_attend.
+
+    kv_cache: (k_pages, v_pages), each [P + 1, page, KVH, HD]: the shared
+    arena of P pages plus the spare page that takes writes routed to the
+    sentinel; written in place. block_tables [B, nblk] int32 maps each
+    slot's logical KV blocks to physical pages (sentinel == P beyond the
+    reservation); cache_positions [B] is the write position per slot (the
+    engine points inactive slots past the table). ``route`` is
+    ``paged_write_route`` of these, when the caller already has it. s must
+    be 1: prefill inserts go through the engine. Attention sees pages
+    [0, P) only and goes to the paged decode kernel. Returns
+    (attn, kv_cache).
+    """
+    if q.shape[1] != 1:
+        raise ValueError('paged_cache_attend is single-token')
+    if window is not None:
+        raise ValueError('sliding_window is not supported with the paged '
+                         'KV cache')
+    ck, cv = kv_cache
+    if isinstance(ck, (tuple, list)):
+        raise ValueError('int8 KV is not supported with the paged KV cache')
+    num_pages, page = ck.shape[0] - 1, ck.shape[1]
+    if route is None:
+        route = paged_write_route(cache_positions, block_tables, num_pages,
+                                  page)
+    page_idx, off, lengths = route
+    ck[page_idx, off] = k[:, 0].to(ck.dtype)
+    cv[page_idx, off] = v[:, 0].to(cv.dtype)
+    attn = decode_ops.paged_decode_attention(
+        q, ck[:num_pages], cv[:num_pages], lengths, block_tables,
+        logit_softcap=logit_softcap, scale=scale)
+    return attn, kv_cache
+
+
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            rope, kv_cache=None, cache_index=None, cache_positions=None,
            return_kv: bool = False,
-           segment_ids: Optional[torch.Tensor] = None):
+           segment_ids: Optional[torch.Tensor] = None,
+           block_tables: Optional[torch.Tensor] = None, paged_route=None):
     """One transformer block; ``rope`` = _rope_tables(positions, ...).
-    Returns (x, new_kv_cache)."""
+    With ``block_tables`` the cache is the page arena (see
+    paged_cache_attend). Returns (x, new_kv_cache)."""
     c = config
     hd = c.head_dim
     b, s, _ = x.shape
@@ -468,7 +547,12 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
     q = _apply_rope(q, rope)
     k = _apply_rope(k, rope)
 
-    if kv_cache is not None:
+    if kv_cache is not None and block_tables is not None:
+        attn, new_cache = paged_cache_attend(
+            q, k, v, kv_cache, cache_positions=cache_positions,
+            block_tables=block_tables, window=c.sliding_window,
+            route=paged_route)
+    elif kv_cache is not None:
         attn, new_cache = slot_cache_attend(
             q, k, v, kv_cache, cache_index=cache_index,
             cache_positions=cache_positions, window=c.sliding_window)
@@ -638,6 +722,71 @@ def decode_forward(config: LlamaConfig, params: Params,
     logits = qops.matmul(x, params['lm_head'],
                          preferred_element_type=torch.float32)
     return logits[:, 0], kv
+
+
+def paged_decode_forward(config: LlamaConfig, params: Params,
+                         last_tokens: torch.Tensor,
+                         positions: torch.Tensor, kv: Dict[str, Any],
+                         block_tables: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """decode_forward over the paged cache.
+
+    kv {'k','v': [L, P + 1, page, KVH, HD]} page arenas (P pages and the
+    spare page, see paged_cache_attend), updated in place; block_tables
+    [B, nblk] int32, the physical page per logical block, shared by every
+    layer. positions [B] is each slot's write position; the engine points
+    inactive slots past the table so their KV writes land in the spare
+    page. Returns (fp32 logits [B, V], kv).
+    """
+    c = config
+    x = qops.embed_rows(params['embed'], last_tokens[:, None]).to(c.dtype)
+    rope = _rope_tables(positions[:, None], c.head_dim, c.rope_theta,
+                        c.rope_scaling)
+    arena = kv['k']
+    route = paged_write_route(positions, block_tables, arena.shape[1] - 1,
+                              arena.shape[2])
+    for layer in range(c.n_layers):
+        x, _ = _layer(c, x, _layer_params(params, layer), rope,
+                      kv_cache=(kv['k'][layer], kv['v'][layer]),
+                      cache_positions=positions, block_tables=block_tables,
+                      paged_route=route)
+    x = _rms_norm(x, params['final_norm'], c.norm_eps)
+    logits = qops.matmul(x, params['lm_head'],
+                         preferred_element_type=torch.float32)
+    return logits[:, 0], kv
+
+
+def verify_hidden(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor, kv: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The trunk of verify_forward → (final-normed hidden [B, S, D], kv).
+    A caller that needs few rows of logits (a prompt chunk needs one, or
+    none) projects only those through ``lm_logits``: eager PyTorch cannot
+    drop an unused [B, S, V] product as XLA does."""
+    c = config
+    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    rope = _rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling)
+    for layer in range(c.n_layers):
+        ck = _cache_layer(kv['k'], layer)
+        cv = _cache_layer(kv['v'], layer)
+        x, _ = _layer(c, x, _layer_params(params, layer), rope,
+                      kv_cache=(ck, cv), cache_positions=positions)
+    return _rms_norm(x, params['final_norm'], c.norm_eps), kv
+
+
+def verify_forward(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, kv: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Multi-token decode into a dense cache (chunked prefill runs on it;
+    speculative verification will).
+
+    tokens [B, S], positions [B, S] (each slot writes at its own offsets;
+    a position at or past the cache length writes nothing), kv as in
+    decode_forward, updated in place. Returns (fp32 logits [B, S, V], kv):
+    logits at step i score the token following tokens[:, i].
+    """
+    x, kv = verify_hidden(config, params, tokens, positions, kv)
+    return lm_logits(config, params, x), kv
 
 
 def _cache_layer(entry, layer: int):

@@ -1,14 +1,23 @@
-"""Decode attention over the dense slot cache: Hopper kernel + plain version.
+"""Decode attention over the slot cache, dense and paged: Hopper kernels
++ plain versions.
 
-Counterpart of the dense half of ``skypilot_tpu/ops/decode_attention.py``
-(``_decode_kernel`` / ``decode_attention``). One decode step attends each
-slot's single query token over that slot's live cache rows. The kernel is
-``csrc/decode_attention.cu``; its header says what bounds it on the H100
-(bytes) and what the design does about it. The paged form
-(``_paged_adapter``) and the multi-device layout come in later slices.
+Counterpart of ``skypilot_tpu/ops/decode_attention.py``. One decode step
+attends each slot's single query token over that slot's live cache rows:
+
+  * ``decode_attention`` (its ``_decode_kernel`` / ``decode_attention``)
+    over the dense cache [B, K, Hkv, D]; kernel ``csrc/decode_attention.cu``;
+  * ``paged_decode_attention`` (its ``_paged_adapter`` /
+    ``paged_decode_attention``) over a page arena [P, page, Hkv, D] shared
+    by all slots, each slot's logical block i read from physical page
+    ``block_tables[b, i]``; kernel ``csrc/paged_decode_attention.cu``.
+
+Each source's header says what bounds the kernel on the H100 (bytes) and
+what the design does about it; the two share their row walk
+(``csrc/decode_common.cuh``). The multi-device layout comes in a later
+slice.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
-takes ``decode_attention_plain``, the same function in plain PyTorch.
+takes the plain version, the same function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -31,6 +40,17 @@ EMPTY_SLOT_ROWS = 256
 KERNEL = kernels.Kernel(
     'decode_attention', 'decode_attention.cu', 'xsky_decode_attention',
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+    [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p])
+
+PAGE_SIZES = (8, 16, 32, 64, 128, 256)
+# The kernel keeps a slot's table row in shared memory (128 KB at most).
+MAX_BLOCKS = 32768
+
+PAGED_KERNEL = kernels.Kernel(
+    'paged_decode_attention', 'paged_decode_attention.cu',
+    'xsky_paged_decode_attention',
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
     [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p])
 
@@ -159,3 +179,128 @@ def decode_attention(q: torch.Tensor, k_cache, v_cache,
     v, v_scale = _split(v_cache)
     return _decode_cuda(q, k, v, k_scale, v_scale, lengths, window,
                         logit_softcap, scale)
+
+
+def _check_paged(k_pages, v_pages, window) -> None:
+    if isinstance(k_pages, (tuple, list)) or isinstance(v_pages,
+                                                        (tuple, list)):
+        raise ValueError('int8 KV is not supported for the paged cache '
+                         '(use the dense slot cache for a quantized '
+                         'cache).')
+    if window is not None:
+        raise ValueError('sliding_window is not supported with the paged '
+                         'KV cache')
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 logit_softcap: Optional[float] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch (fp32 math): gather
+    each slot's clamped pages into a dense [B, nblk*page, Hkv, D] view,
+    then a masked softmax over rows [0, length), lengths clamped to
+    nblk*page. A slot of length 0 returns the mean of the ``page`` V rows
+    of its first (clamped) page: the JAX kernel's grid still runs logical
+    block 0 for it with every score masked to the same -1e30."""
+    _check_paged(k_pages, v_pages, None)
+    b, _, h, d = q.shape
+    num_pages, page, h_kv = k_pages.shape[:3]
+    nblk = block_tables.shape[1]
+    max_len = nblk * page
+    safe = block_tables.long().clamp(0, num_pages - 1)
+    kf = k_pages[safe].reshape(b, max_len, h_kv, d).float()
+    vf = v_pages[safe].reshape(b, max_len, h_kv, d).float()
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, h_kv, h // h_kv, d)
+    s = torch.einsum('bhgd,bkhd->bhgk', qg, kf) * scale
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    length = lengths.long().clamp(0, max_len)[:, None]          # [B, 1]
+    empty = length == 0
+    pos = torch.arange(max_len, device=q.device)[None, :]
+    live = (pos < torch.where(empty, page, length))[:, None, None, :]
+    # Equal scores on an empty slot's rows: the softmax is their mean.
+    s = torch.where(empty[:, None, None], 0.0, s)
+    p = torch.softmax(torch.where(live, s, -torch.inf), dim=-1)
+    out = torch.einsum('bhgk,bkhd->bhgd', p, vf)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _paged_decode_cuda(q, k_pages, v_pages, lengths, block_tables,
+                       logit_softcap, scale) -> torch.Tensor:
+    if not q.is_cuda:
+        raise ValueError(f'_paged_decode_cuda launches a CUDA kernel; got '
+                         f'a {q.device} tensor')
+    b, s, h, d = q.shape
+    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape or s != 1 or (
+            k_pages.shape[3] != d):
+        raise ValueError(
+            f'paged_decode_attention shapes: q {tuple(q.shape)}, k_pages '
+            f'{tuple(k_pages.shape)}, v_pages {tuple(v_pages.shape)}')
+    num_pages, page, h_kv = k_pages.shape[:3]
+    if d not in HEAD_DIMS or h % h_kv or h // h_kv > MAX_GROUPS:
+        raise ValueError(
+            f'paged_decode_attention takes head_dim in {HEAD_DIMS} and at '
+            f'most {MAX_GROUPS} query heads per KV head; got d={d}, '
+            f'h={h}, h_kv={h_kv}')
+    if page not in PAGE_SIZES:
+        raise ValueError(f'paged_decode_attention takes page sizes '
+                         f'{PAGE_SIZES}; got {page}')
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'q dtype {q.dtype}: need bf16 or fp32')
+    if k_pages.dtype not in (torch.bfloat16, torch.float32) or (
+            k_pages.dtype != v_pages.dtype):
+        raise ValueError(f'page arena dtypes {k_pages.dtype}/'
+                         f'{v_pages.dtype}: need bf16 or fp32')
+    if (block_tables.dtype != torch.int32 or block_tables.ndim != 2
+            or block_tables.shape[0] != b):
+        raise ValueError('block_tables must be int32 [B, nblk]')
+    nblk = block_tables.shape[1]
+    if not 0 < nblk <= MAX_BLOCKS:
+        raise ValueError(f'paged_decode_attention takes 1 to {MAX_BLOCKS} '
+                         f'blocks per slot; got {nblk}')
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise ValueError('lengths must be int32 [B]')
+    tensors = [q, k_pages, v_pages, lengths, block_tables]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError('paged_decode_attention inputs must share a '
+                         'device')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError('paged_decode_attention needs contiguous inputs')
+    out = torch.empty_like(q)
+    PAGED_KERNEL.launch(
+        kernels.ptr(q), kernels.ptr(k_pages), kernels.ptr(v_pages),
+        kernels.ptr(lengths), kernels.ptr(block_tables), kernels.ptr(out),
+        b, num_pages, page, nblk, h, h_kv, d,
+        float(d ** -0.5 if scale is None else scale),
+        0.0 if logit_softcap is None else float(logit_softcap),
+        kernels.DTYPE_CODES[q.dtype], kernels.DTYPE_CODES[k_pages.dtype],
+        kernels.stream_ptr(q.device))
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, lengths: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           window: Optional[int] = None,
+                           logit_softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode attention over the paged slot cache.
+
+    q: [B, 1, H, D]; k_pages/v_pages: [P, page, Hkv, D] shared page
+    arenas (bf16 or fp32; an int8 pair or a window raises); block_tables:
+    [B, nblk] int32, the physical page of each logical KV block (entries
+    outside [0, P) mean "unallocated" and clamp into range: the lengths
+    bound keeps a live slot from ever reading one); lengths: [B] int32,
+    clamped to nblk*page. Returns [B, 1, H, D] in q's type.
+    """
+    _check_paged(k_pages, v_pages, window)
+    if q.device.type == 'cpu':
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, lengths, block_tables,
+            logit_softcap=logit_softcap, scale=scale)
+    return _paged_decode_cuda(q, k_pages, v_pages, lengths, block_tables,
+                              logit_softcap, scale)

@@ -168,7 +168,11 @@ def test_eos_and_budget_masking(params):
 def test_admission_rejects_and_clamps(params):
     _, teng = _engines(params, max_target_len=40)
     orch = orch_lib.Orchestrator(teng)
-    too_long = orch.submit(orch_lib.Request(prompt_tokens=[1] * 33))
+    # Past the largest bucket a prompt is chunked, up to the slot's KV
+    # budget less one row: 33 tokens are admitted, 40 are not.
+    chunked = orch.submit(orch_lib.Request(prompt_tokens=[1] * 33,
+                                           max_new_tokens=2))
+    too_long = orch.submit(orch_lib.Request(prompt_tokens=[1] * 40))
     empty = orch.submit(orch_lib.Request(prompt_tokens=[]))
     clamped = orch.submit(orch_lib.Request(prompt_tokens=[1] * 30,
                                            max_new_tokens=100))
@@ -176,6 +180,7 @@ def test_admission_rejects_and_clamps(params):
     orch.submit(expired)
     orch.run_until_drained()
     assert too_long.error and empty.error
+    assert chunked.error is None and len(chunked.output_tokens) == 2
     assert expired.error and orch.deadline_rejects == 1
     assert clamped.error is None and len(clamped.output_tokens) == 10
     assert sorted(orch._free_slots) == [0, 1, 2, 3]

@@ -212,3 +212,138 @@ def test_decode_kernel_length_zero_slot_is_mean_of_first_rows(card, kv,
     want = mean.repeat_interleave(h // h_kv, dim=1)[:, None]
     torch.testing.assert_close(out[0], want[0], **TOL[torch.float32])
     torch.testing.assert_close(out[2], want[2], **TOL[torch.float32])
+
+
+def _paged_case(gen, dtype, b, num_pages, page, nblk, h, h_kv, d, lengths,
+                allocated=None, q_dtype=None):
+    """q, arenas, lengths and a block table drawn as a random permutation
+    of pages (no slot's pages are contiguous), sentinel (== num_pages)
+    past each slot's allocation (by default what its length needs)."""
+    q = _randn(gen, (b, 1, h, d), q_dtype or dtype)
+    k = _randn(gen, (num_pages, page, h_kv, d), dtype)
+    v = _randn(gen, (num_pages, page, h_kv, d), dtype)
+    perm = torch.randperm(num_pages, generator=gen, device='cuda')[
+        :b * nblk].reshape(b, nblk).to(torch.int32)
+    blocks = torch.tensor([-(-min(n, nblk * page) // page) for n in
+                           (lengths if allocated is None else allocated)],
+                          device='cuda')
+    held = torch.arange(nblk, device='cuda')[None, :] < blocks[:, None]
+    tables = torch.where(held, perm, num_pages).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    return q, k, v, lens, tables
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('page, d, h, h_kv', [(8, 16, 4, 2), (16, 128, 32, 8),
+                                              (64, 64, 8, 8),
+                                              (256, 32, 8, 1)])
+def test_paged_decode_kernel_matches_plain(card, dtype, page, d, h, h_kv):
+    """K5 over a permuted table: ragged lengths, a length-0 slot with and
+    without an allocated first block, an inactive slot (length past the
+    table, all-sentinel row), softcap + scale."""
+    nblk = 5
+    cap = nblk * page
+    lengths = [1, page, page + 1, 0, 0, cap + 1, cap, cap - 3]
+    allocated = [1, page, page + 1, page, 0, 0, cap, cap - 3]
+    q, k, v, lens, tables = _paged_case(card, dtype, 8, 40, page, nblk, h,
+                                        h_kv, d, lengths, allocated)
+    for kw in (dict(), dict(logit_softcap=20.0, scale=0.1)):
+        out = decode_attention.paged_decode_attention(q, k, v, lens, tables,
+                                                      **kw)
+        ref = decode_attention.paged_decode_attention_plain(q, k, v, lens,
+                                                            tables, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    # The length-0 slots: the mean of the `page` V rows of their first
+    # clamped page.
+    for slot in (3, 4):
+        first = int(tables[slot, 0].clamp(0, k.shape[0] - 1))
+        mean = v[first].float().mean(dim=0).repeat_interleave(h // h_kv,
+                                                              dim=0)
+        torch.testing.assert_close(out[slot, 0].float(), mean, **TOL[dtype])
+
+
+def test_paged_decode_kernel_equals_dense_kernel_on_an_identity_table(card):
+    """On a contiguous identity table the paged kernel walks the same rows
+    in the same order as the dense kernel (one shared row walk), so the
+    two outputs are equal bit for bit, for live slots (a length-0 slot
+    averages 256 rows in the dense kernel and one page in the paged)."""
+    b, page, nblk, h, h_kv, d = 4, 16, 8, 8, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(card, (b, 1, h, d), dtype)
+        k = _randn(card, (b, nblk * page, h_kv, d), dtype)
+        v = _randn(card, (b, nblk * page, h_kv, d), dtype)
+        lens = torch.tensor([1, 17, 128, 77], dtype=torch.int32,
+                            device='cuda')
+        tables = torch.arange(b * nblk, dtype=torch.int32,
+                              device='cuda').reshape(b, nblk)
+        dense = decode_attention.decode_attention(q, k, v, lens)
+        paged = decode_attention.paged_decode_attention(
+            q, k.reshape(b * nblk, page, h_kv, d),
+            v.reshape(b * nblk, page, h_kv, d), lens, tables)
+        assert torch.equal(dense, paged)
+
+
+def test_paged_decode_kernel_long_table_and_mixed_types(card):
+    """A table row too long for the default shared-memory limit (8192
+    blocks of 8 rows: 32 KB) and fp32 queries over a bf16 arena."""
+    page, nblk = 8, 8192
+    lengths = [nblk * page, 12345, 3]
+    q, k, v, lens, tables = _paged_case(
+        card, torch.bfloat16, 3, 3 * nblk, page, nblk, 4, 2, 64, lengths,
+        q_dtype=torch.float32)
+    out = decode_attention.paged_decode_attention(q, k, v, lens, tables)
+    ref = decode_attention.paged_decode_attention_plain(q, k, v, lens,
+                                                        tables)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+
+def test_paged_decode_wrapper_names_its_limits(card):
+    q, k, v, lens, tables = _paged_case(card, torch.bfloat16, 2, 8, 8, 2, 4,
+                                        2, 16, [3, 9])
+    launch = decode_attention.paged_decode_attention
+    with pytest.raises(ValueError, match='page sizes'):
+        launch(q, k.reshape(16, 4, 2, 16), v.reshape(16, 4, 2, 16), lens,
+               tables)
+    with pytest.raises(ValueError, match='int32'):
+        launch(q, k, v, lens, tables.long())
+    with pytest.raises(ValueError, match='contiguous'):
+        launch(q, k, v, lens, tables.t().contiguous().t())
+    with pytest.raises(ValueError, match='head_dim'):
+        launch(q[..., :8].contiguous(), k[..., :8].contiguous(),
+               v[..., :8].contiguous(), lens, tables)
+    with pytest.raises(ValueError, match='int8 KV'):
+        launch(q, (k, k), (v, v), lens, tables)
+    with pytest.raises(ValueError, match='sliding_window'):
+        launch(q, k, v, lens, tables, window=4)
+
+
+def test_paged_engine_tokens_on_the_card_match_the_cpu(card):
+    """Paged + chunked + prefix-cached serving of a small fp32 model: the
+    card (kernels) and the CPU (plain versions) give the same greedy
+    tokens."""
+    import dataclasses
+
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    cpu_params = llama.init(cfg, gen, device='cpu')
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (50, 20, 31, 7)]
+    prompts.append(prompts[0][:40] + [5, 4, 3])
+    outputs = {}
+    for device in ('cuda', 'cpu'):
+        params = {k: (v.to(device) if torch.is_tensor(v) else
+                      {kk: vv.to(device) for kk, vv in v.items()})
+                  for k, v in cpu_params.items()}
+        engine = engine_lib.InferenceEngine(engine_lib.EngineConfig(
+            model=cfg, max_slots=4, max_target_len=64,
+            prefill_buckets=(16, 32), kv_dtype=torch.float32,
+            kv_page_size=16, kv_num_pages=8, prefix_cache_entries=4),
+            params, device=device)
+        outputs[device] = orch_lib.Orchestrator(
+            engine, decode_steps=4).generate(prompts, max_new_tokens=8)
+        assert engine.prefix_cache_stats['hits'] >= 1
+    assert outputs['cuda'] == outputs['cpu']

@@ -80,10 +80,17 @@ def test_every_cuda_source_is_built():
     sources = {p.name for p in csrc.glob('*.cu')}
     assert sources == {k.source for k in kernels.REGISTRY}
     assert {k.name for k in kernels.REGISTRY} == {
-        'flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq', 'decode_attention'}
+        'flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq', 'decode_attention',
+        'paged_decode_attention'}
     for kern in (flash_attention.KERNEL, flash_attention.DKV_KERNEL,
-                 flash_attention.DQ_KERNEL, decode_attention.KERNEL):
+                 flash_attention.DQ_KERNEL, decode_attention.KERNEL,
+                 decode_attention.PAGED_KERNEL):
         assert kern in kernels.REGISTRY
+    # The dense and the paged decode kernel are two sources, two
+    # libraries and two launch counts; a shared header reaches both.
+    assert (decode_attention.KERNEL.library_path() !=
+            decode_attention.PAGED_KERNEL.library_path())
+    assert (csrc / 'decode_common.cuh').exists()
     # The two backward kernels share one source and so one library.
     assert (flash_attention.DKV_KERNEL.library_path() ==
             flash_attention.DQ_KERNEL.library_path() !=
@@ -106,6 +113,13 @@ def test_wrappers_never_fall_back_on_a_device_tensor():
     with pytest.raises(ValueError, match='launches a CUDA kernel'):
         decode_attention.decode_attention(qd, cache, cache, lengths)
     assert decode_attention.KERNEL.launches == before
+    pages = torch.zeros((6, 8, 2, 16), device='meta')
+    tables = torch.zeros((2, 4), dtype=torch.int32, device='meta')
+    before = decode_attention.PAGED_KERNEL.launches
+    with pytest.raises(ValueError, match='launches a CUDA kernel'):
+        decode_attention.paged_decode_attention(qd, pages, pages, lengths,
+                                                tables)
+    assert decode_attention.PAGED_KERNEL.launches == before
     # The gradient: its launcher raises on a non-CUDA device tensor, and
     # no backward launch is counted.
     q.requires_grad_(True)

@@ -10,12 +10,19 @@ one stream, so kernels do not overlap), the idle share, the number of
 kernel launches and the kernels that take the most time. A JSON summary
 goes to ``chiprun_out/torch_serve_profile.json``.
 
-    python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py [--paged]
+
+With ``--paged`` it runs ``chip_smoke.py``'s paged main path instead (32
+slots over 2048 pages of 16 rows, max_target_len 4096; 30 prompts, as
+many as the arena holds at once), and also traces one 1024-token prompt
+chunk of a chunked prefill; the summary goes to
+``chiprun_out/torch_serve_profile_paged.json``.
 
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -82,6 +89,10 @@ def nvidia_smi_line() -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--paged', action='store_true',
+                        help="trace chip_smoke.py's paged main path")
+    paged = parser.parse_args().paged
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
     smi = nvidia_smi_line()
@@ -89,14 +100,20 @@ def main() -> int:
     cfg = llama.LLAMA3_8B
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
-    engine = engine_lib.InferenceEngine(
-        engine_lib.EngineConfig(model=cfg, max_slots=16,
-                                max_target_len=2048,
-                                prefill_buckets=(1024,)),
-        llama.init(cfg, gen))
+    if paged:
+        ecfg = engine_lib.EngineConfig(
+            model=cfg, max_slots=32, max_target_len=4096,
+            prefill_buckets=(1024,), kv_page_size=16, kv_num_pages=2048)
+        n_prompts = 30
+    else:
+        ecfg = engine_lib.EngineConfig(model=cfg, max_slots=16,
+                                       max_target_len=2048,
+                                       prefill_buckets=(1024,))
+        n_prompts = 16
+    engine = engine_lib.InferenceEngine(ecfg, llama.init(cfg, gen))
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in rng.integers(960, 1025, 16)]
+               for n in rng.integers(960, 1025, n_prompts)]
     warm = orch_lib.Orchestrator(engine, decode_steps=8)
     result = warm.benchmark(prompts, max_new_tokens=64)
     print(f'warm-up generate: {result}', flush=True)
@@ -105,11 +122,15 @@ def main() -> int:
     sp = sampling.SamplingParams()
     holder = {}
 
+    for slot, p in enumerate(prompts):
+        if not engine.reserve_kv(slot, len(p), 64):
+            raise SystemExit(f'no KV pages for slot {slot}')
+
     def prefill():
         holder['state'], _ = engine.prefill_insert_batch(
-            state, [(p, sp) for p in prompts], list(range(16)))
+            state, [(p, sp) for p in prompts], list(range(n_prompts)))
 
-    summaries = [traced('prefill wave (16 x 1024)', prefill)]
+    summaries = [traced(f'prefill wave ({n_prompts} x 1024)', prefill)]
     slots = engine.config.max_slots
     temps = torch.zeros(slots, device='cuda')
     eos = torch.full((slots,), -1, dtype=torch.int32, device='cuda')
@@ -120,10 +141,24 @@ def main() -> int:
                                    eos, budget, None)
 
     decode()  # same shapes as traced, outside the trace
-    summaries.append(traced('decode tick (8 steps x 16 slots)', decode))
+    summaries.append(traced(f'decode tick (8 steps x {slots} slots)',
+                            decode))
+    if paged:
+        # The third 1024-token chunk of a 3000-token prompt's prefill.
+        scratch = engine._make_scratch_cache()
+        chunk = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, 1024)), device='cuda')
+
+        def prompt_chunk():
+            engine._chunk_forward(scratch, chunk, 2048, 951, True)
+
+        prompt_chunk()
+        summaries.append(traced('prompt chunk (1024 tokens at row 2048)',
+                                prompt_chunk))
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
-    with open(os.path.join(REPO, 'chiprun_out',
-                           'torch_serve_profile.json'), 'w') as f:
+    name = ('torch_serve_profile_paged.json' if paged
+            else 'torch_serve_profile.json')
+    with open(os.path.join(REPO, 'chiprun_out', name), 'w') as f:
         json.dump({'card': smi, 'torch': torch.__version__,
                    'warm_generate': result, 'phases': summaries}, f,
                   indent=1)
