@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
      error beside its tolerance (gradients blockwise, and two planted
      gradient faults must be rejected); kernel, plain and library times
      and the least time the card could take (bound): the flash forward,
-     the flash backward pair (dK/dV, dQ), dense decode, paged decode;
+     the flash backward pair (dK/dV, dQ), dense decode, paged decode, and
+     the absorbed-MLA decode pair (dense K6, paged K7: ragged lengths,
+     length 0, inactive slots, sentinel tables, and K7 bit for bit equal
+     to K6 on an identity table);
   4. serving main path: Llama-3-8B (bf16, random weights from a seeded
      torch.Generator) served by InferenceEngine + Orchestrator: 16
      prompts of ~1000 tokens, 64 new tokens each;
@@ -40,9 +43,20 @@ Phases, in order; any failure exits non-zero:
      between decode ticks, and four prompts sharing their first 768 tokens;
   9. small paged end to end: fp32 LLAMA_TINY widths, paged + chunked +
      prefix cache, on the card and on the CPU; the greedy tokens must be
-     identical.
-Before each main path (4, 6, 8a, 8b) every kernel's launch count is set to
-0; just after, the kernels of that path must each have run, and no other.
+     identical;
+ 10. DeepSeek serving main path: DeepSeek-V2-Lite (all 27 layers, public
+     widths, bf16, random weights) from a dense slot cache, the traffic
+     of phase 4 (16 prompts of ~1000 tokens, 64 new tokens each): K6 in
+     every layer of every decode step, no other kernel (prefill attention
+     is the plain path: qk dim 192 differs from v dim 128);
+ 11. DeepSeek paged main path: the same model and weights over 2048 pages
+     of 16 rows, the traffic of phase 8(a), with deferral: K7 only;
+ 12. small DeepSeek end to end: fp32 DEEPSEEK_TINY widths, a dense and a
+     paged engine, a wave padded to 4 rows, on the card and on the CPU;
+     the greedy tokens must be identical.
+Before each main path (4, 6, 8a, 8b, 10, 11) every kernel's launch count is
+set to 0; just after, the kernels of that path must each have run, and no
+other.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -51,6 +65,7 @@ The second-to-last lines are the kernels' JSON record and the
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -68,6 +83,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from skypilot_tpu_torch.ops import decode_attention as decode_ops  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from skypilot_tpu_torch.ops import kernels  # noqa: E402
+from skypilot_tpu_torch.ops import mla_decode as mla_ops  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core
 # and fp32 non-tensor-core rates, and HBM3 bandwidth.
@@ -101,10 +117,14 @@ REPLACES = {
     'flash_bwd_dq': 'skypilot_tpu/ops/flash_attention.py:360',
     'decode_attention': 'skypilot_tpu/ops/decode_attention.py:73',
     'paged_decode_attention': 'skypilot_tpu/ops/decode_attention.py:143',
+    'mla_decode': 'skypilot_tpu/ops/mla_decode.py:41',
+    'paged_mla_decode': 'skypilot_tpu/ops/mla_decode.py:149',
 }
 SERVE_KERNELS = ('flash_fwd', 'decode_attention')
 PAGED_SERVE_KERNELS = ('flash_fwd', 'paged_decode_attention')
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
+DEEPSEEK_KERNELS = ('mla_decode',)
+PAGED_DEEPSEEK_KERNELS = ('paged_mla_decode',)
 
 
 def log(msg: str) -> None:
@@ -639,6 +659,251 @@ def check_paged_decode(gen) -> dict:
             'library_ms': library_ms, 'ms_at_most_1100_rows': even_ms}
 
 
+# ---- phase 3: the MLA decode kernels (K6 dense, K7 paged) ----
+
+# DeepSeek-V2-Lite's MLA widths: 16 heads, latent rank 512, RoPE key 64;
+# the absorbed step's scale is (qk_nope + qk_rope) ** -0.5.
+MLA_H, MLA_R, MLA_DR = 16, 512, 64
+MLA_SCALE = 192 ** -0.5
+
+
+def mla_inputs(gen, b, h=MLA_H, r=MLA_R, dr=MLA_DR):
+    return rand(gen, (b, h, r), torch.float32), rand(gen, (b, h, dr),
+                                                     torch.float32)
+
+
+def mla_case(gen, label, kv_dtype, lengths, max_len=2048, h=MLA_H,
+             r=MLA_R, dr=MLA_DR, check=True):
+    """K6 vs its plain version. Both compute in fp32 (the cache is upcast)
+    and differ only by summation order, so the fp32 tolerance holds for a
+    bf16 cache too."""
+    b = len(lengths)
+    q_eff, q_rope = mla_inputs(gen, b, h, r, dr)
+    ckv = rand(gen, (b, max_len, r), kv_dtype)
+    krope = rand(gen, (b, max_len, dr), kv_dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    err = None
+    if check:
+        out = mla_ops.mla_decode_attention(q_eff, q_rope, ckv, krope, lens,
+                                           MLA_SCALE)
+        torch.cuda.synchronize()
+        ref = mla_ops.mla_decode_attention_plain(q_eff, q_rope, ckv, krope,
+                                                 lens, MLA_SCALE)
+        err = compare(f'mla decode {label}', out, ref, torch.float32)
+        empty = [i for i, n in enumerate(lengths) if n == 0]
+        if empty:
+            # The JAX kernel's answer for a length-0 slot: the mean of its
+            # first min(256, K) c_kv rows.
+            mean = ckv[empty, :min(mla_ops.DEFAULT_BLOCK_KV, max_len)].float(
+            ).mean(dim=1)[:, None].expand(len(empty), h, r)
+            compare(f'mla decode {label}, length-0 slots vs mean of first '
+                    'rows', out[empty], mean, torch.float32)
+    return (q_eff, q_rope, ckv, krope, lens), err
+
+
+def mla_bound(q_eff, q_rope, live, elem, extra_bytes=0):
+    """(bound ms, what bounds it): each input read once (queries fp32, the
+    live cache rows in the cache's type), the fp32 output written once;
+    fp32 products at the 67 TFLOP/s non-tensor-core peak (the kernel's
+    math is fp32, as the TPU kernel's)."""
+    b, h, r = q_eff.shape
+    dr = q_rope.shape[-1]
+    nbytes = ((q_eff.numel() + q_rope.numel() + b * h * r) * 4 + 4 * b +
+              live * (r + dr) * elem + extra_bytes)
+    flops = 2.0 * live * h * ((r + dr) + r)
+    return bound_ms(nbytes, flops, torch.float32) + (nbytes, flops)
+
+
+def check_mla_decode(gen) -> dict:
+    log('[3] mla_decode (K6): kernel vs plain version')
+    bf16, fp32 = torch.bfloat16, torch.float32
+    max_len = 2048
+    ragged = [1, 255, 256, 257, max_len, 0, max_len + 1, 1000]
+    for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32')):
+        mla_case(gen, f'{name} cache, lengths 1/255/256/257/K, length 0, '
+                 'inactive K+1', dtype, ragged)
+    mla_case(gen, 'fp32 cache, DEEPSEEK_TINY widths', fp32,
+             [0, 1, 31, 33, 127, 129, 300], max_len=300, h=4, r=32, dr=8)
+    rng = np.random.default_rng(10)
+    lengths = [int(x) for x in rng.integers(990, 1065, 16)]
+    mla_case(gen, 'fp32 main-path lengths', fp32, lengths)
+    # The main path's decode steps: 16 slots, bf16 cache. Four caches in
+    # turn (4 x 38 MB): no launch finds its rows in the 50 MB L2.
+    cases = [mla_case(gen, 'bf16 main-path lengths', bf16, lengths,
+                      check=i == 0) for i in range(4)]
+    err = cases[0][1]
+    # The library yardstick's inputs, prepared outside the timed region:
+    # [q_eff | q_rope] in the cache's type against one KV head
+    # [c_kv | k_rope], value c_kv, a length mask.
+    lib = []
+    for (q_eff, q_rope, ckv, krope, lens), _ in cases:
+        q = torch.cat([q_eff, q_rope], -1).to(bf16)[:, :, None]
+        k = torch.cat([ckv, krope], -1)[:, None]
+        pos = torch.arange(max_len, device='cuda')[None, :]
+        mask = (pos < lens[:, None].long())[:, None, None, :]
+        lib.append((q, k, ckv[:, None], mask))
+    it = itertools.count()
+
+    def run_kernel():
+        mla_ops.mla_decode_attention(*cases[next(it) % 4][0], MLA_SCALE)
+
+    def run_plain():
+        mla_ops.mla_decode_attention_plain(*cases[next(it) % 4][0],
+                                           MLA_SCALE)
+
+    def run_library():
+        q, k, v, mask = lib[next(it) % 4]
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       scale=MLA_SCALE, enable_gqa=True)
+
+    ms = time_ms(run_kernel, iters=40, warmup=4)
+    plain_ms = time_ms(run_plain, iters=8, warmup=2)
+    library_ms = time_ms(run_library, iters=20, warmup=4)
+    q_eff, q_rope, ckv, _, lens = cases[0][0]
+    live = int(lens.clamp(max=max_len).sum())
+    bound, bound_by, nbytes, flops = mla_bound(q_eff, q_rope, live,
+                                               ckv.element_size())
+    log(f'  mla decode main-path timing: kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, masked SDPA (library) {library_ms:.4f} ms, '
+        f'bound {bound:.4f} ms ({bound_by}; bf16 cache bytes, fp32 '
+        f'products); {live} live rows, {nbytes / ms / 1e6:.1f} GB/s, '
+        f'{flops / ms / 1e9:.2f} TFLOP/s fp32')
+    return {'name': 'mla_decode', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/mla_decode.cu',
+            'replaces': REPLACES['mla_decode'], 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            'bound_by': bound_by, 'library_ms': library_ms}
+
+
+def paged_mla_case(gen, label, kv_dtype, lengths, allocated=None,
+                   num_pages=2048, page=16, nblk=256, h=MLA_H, r=MLA_R,
+                   dr=MLA_DR, check=True):
+    """K7 vs its plain version: each slot's table row its own random
+    permutation of the arena's pages, sentinel (== num_pages) past its
+    allocation (by default what its length needs)."""
+    b = len(lengths)
+    q_eff, q_rope = mla_inputs(gen, b, h, r, dr)
+    ckv = rand(gen, (num_pages, page, r), kv_dtype)
+    krope = rand(gen, (num_pages, page, dr), kv_dtype)
+    perm = torch.stack([torch.randperm(num_pages, generator=gen,
+                                       device='cuda')[:nblk]
+                        for _ in range(b)])
+    blocks = torch.tensor([-(-min(n, nblk * page) // page) for n in
+                           (lengths if allocated is None else allocated)],
+                          device='cuda')
+    held = torch.arange(nblk, device='cuda')[None, :] < blocks[:, None]
+    tables = torch.where(held, perm, num_pages).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    err = None
+    if check:
+        out = mla_ops.paged_mla_decode_attention(q_eff, q_rope, ckv, krope,
+                                                 lens, tables, MLA_SCALE)
+        torch.cuda.synchronize()
+        ref = mla_ops.paged_mla_decode_attention_plain(
+            q_eff, q_rope, ckv, krope, lens, tables, MLA_SCALE)
+        err = compare(f'paged mla decode {label}', out, ref, torch.float32)
+        empty = [i for i, n in enumerate(lengths) if n == 0]
+        if empty:
+            first = tables[empty, 0].long().clamp(0, num_pages - 1)
+            mean = ckv[first].float().mean(dim=1)[:, None].expand(
+                len(empty), h, r)
+            compare(f'paged mla decode {label}, length-0 slots vs mean of '
+                    'their first page', out[empty], mean, torch.float32)
+    return (q_eff, q_rope, ckv, krope, lens, tables), err
+
+
+def check_paged_mla_decode(gen) -> dict:
+    log('[3] paged_mla_decode (K7): kernel vs plain version')
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cap = 256 * 16
+    # Slot 3: length 0 with an allocated first block; slot 4: length 0,
+    # all-sentinel row; slot 5: inactive (length past the table,
+    # all-sentinel row); the others end in sentinel tails.
+    ragged = [1, 16, 17, 0, 0, cap + 1, cap, 1000, 3064, 255, 256, 257]
+    held = [1, 16, 17, 16, 0, 0, cap, 1000, 3064, 255, 256, 257]
+    for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32')):
+        paged_mla_case(gen, f'{name} arena, ragged lengths', dtype, ragged,
+                       held)
+    paged_mla_case(gen, 'fp32 page 8, DEEPSEEK_TINY widths', fp32,
+                   [0, 1, 8, 9, 65, 64, 30], [8, 1, 8, 9, 0, 64, 30],
+                   num_pages=40, page=8, nblk=8, h=4, r=32, dr=8)
+    # On a contiguous identity table K7 walks the same rows in the same
+    # order as K6 (one shared split walk, csrc/mla_common.cuh).
+    for dtype in (bf16, fp32):
+        b, page, nblk = 16, 16, 128
+        q_eff, q_rope = mla_inputs(gen, b)
+        ckv = rand(gen, (b, nblk * page, MLA_R), dtype)
+        krope = rand(gen, (b, nblk * page, MLA_DR), dtype)
+        lens = torch.randint(1, nblk * page + 1, (b,), generator=gen,
+                             device='cuda', dtype=torch.int32)
+        tables = torch.arange(b * nblk, dtype=torch.int32,
+                              device='cuda').reshape(b, nblk)
+        dense = mla_ops.mla_decode_attention(q_eff, q_rope, ckv, krope, lens,
+                                             MLA_SCALE)
+        paged = mla_ops.paged_mla_decode_attention(
+            q_eff, q_rope, ckv.reshape(-1, page, MLA_R),
+            krope.reshape(-1, page, MLA_DR), lens, tables, MLA_SCALE)
+        torch.cuda.synchronize()
+        if not torch.equal(dense, paged):
+            raise AssertionError(
+                'paged mla decode on an identity table differs from dense '
+                f'({dtype}): max_abs_err '
+                f'{float((dense - paged).abs().max()):.3e}')
+        log(f'  paged mla decode on an identity table == dense mla decode, '
+            f'bit for bit ({dtype})')
+    # The paged main path's decode steps: 32 slots over 2048 pages of 16
+    # rows, ~1000-token prompts plus up to 64 generated tokens, three slots
+    # near a 3000-token prompt's end. Three arenas in turn (3 x 38 MB).
+    rng = np.random.default_rng(11)
+    lengths = [int(x) for x in rng.integers(990, 1101, 32)]
+    lengths[5], lengths[17], lengths[30] = 3064, 3001, 3050
+    paged_mla_case(gen, 'fp32 main-path lengths', fp32, lengths)
+    cases = [paged_mla_case(gen, 'bf16 main-path lengths', bf16, lengths,
+                            check=i == 0) for i in range(3)]
+    err = cases[0][1]
+    it = itertools.count()
+
+    def run_kernel():
+        mla_ops.paged_mla_decode_attention(*cases[next(it) % 3][0],
+                                           MLA_SCALE)
+
+    def run_plain():
+        mla_ops.paged_mla_decode_attention_plain(*cases[next(it) % 3][0],
+                                                 MLA_SCALE)
+
+    def run_library():
+        # Gather each slot's pages into a dense view, then masked SDPA.
+        q_eff, q_rope, ckv, krope, ln, tb = cases[next(it) % 3][0]
+        safe = tb.long().clamp(0, ckv.shape[0] - 1)
+        b = q_eff.shape[0]
+        kd = torch.cat([ckv[safe], krope[safe]], -1).reshape(b, 1, -1,
+                                                            MLA_R + MLA_DR)
+        q = torch.cat([q_eff, q_rope], -1).to(kd.dtype)[:, :, None]
+        pos = torch.arange(kd.shape[2], device='cuda')[None, :]
+        mask = (pos < ln[:, None].long())[:, None, None, :]
+        F.scaled_dot_product_attention(q, kd, kd[..., :MLA_R],
+                                       attn_mask=mask, scale=MLA_SCALE,
+                                       enable_gqa=True)
+
+    ms = time_ms(run_kernel, iters=40, warmup=4)
+    plain_ms = time_ms(run_plain, iters=8, warmup=2)
+    library_ms = time_ms(run_library, iters=10, warmup=2)
+    q_eff, q_rope, ckv, _, lens, tables = cases[0][0]
+    live = int(lens.clamp(max=tables.shape[1] * ckv.shape[1]).sum())
+    bound, bound_by, nbytes, flops = mla_bound(
+        q_eff, q_rope, live, ckv.element_size(), tables.numel() * 4)
+    log(f'  paged mla decode main-path timing: kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, page gather + masked SDPA (library) '
+        f'{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; bf16 cache '
+        f'bytes, fp32 products); {live} live rows, '
+        f'{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s fp32')
+    return {'name': 'paged_mla_decode', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_mla_decode.cu',
+            'replaces': REPLACES['paged_mla_decode'], 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            'bound_by': bound_by, 'library_ms': library_ms}
+
+
 def zero_launches() -> None:
     for kern in kernels.REGISTRY:
         kern.launches = 0
@@ -726,7 +991,7 @@ def main_path(records: dict) -> None:
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
         f'launches {launches} on {nvidia_smi_line()}')
     del orch, engine, params
-    torch.cuda.empty_cache()
+    release_card()
 
 
 # ---- phase 5: small model, card vs CPU ----
@@ -815,7 +1080,7 @@ def train_main_path(records: dict) -> None:
         f'{launches} on {nvidia_smi_line()}')
     log(f'  measure_throughput: {json.dumps(result)}')
     del trainer
-    torch.cuda.empty_cache()
+    release_card()
 
 
 # ---- phase 7: small training check, card vs CPU ----
@@ -887,6 +1152,13 @@ def small_train_check() -> None:
 
 # ---- phase 8: paged serving main path ----
 
+def release_card() -> None:
+    """Free what a finished phase held on the card. The step counter below
+    makes its engine a reference cycle, which only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def count_decode_steps(engine) -> list:
     """Wrap the engine's decode step so that a run can count its steps."""
     steps = [0]
@@ -951,7 +1223,7 @@ def paged_main_path(records: dict) -> None:
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
         f'{launches} on {nvidia_smi_line()}')
     del orch, engine
-    torch.cuda.empty_cache()
+    release_card()
 
     # (b) the prefix cache on (admission is then one prompt per call): a
     # short prompt, two long ones (three chunks each, one chunk per tick
@@ -988,7 +1260,7 @@ def paged_main_path(records: dict) -> None:
         f'{steps[0]} decode steps; launches {launches} on '
         f'{nvidia_smi_line()}')
     del orch, engine, params
-    torch.cuda.empty_cache()
+    release_card()
 
 
 # ---- phase 9: small paged model, card vs CPU ----
@@ -1043,6 +1315,142 @@ def small_paged_end_to_end() -> None:
         raise AssertionError(f'a kernel did not run on the card: {used}')
 
 
+# ---- phases 10 and 11: DeepSeek-V2-Lite serving, dense and paged ----
+
+def deepseek_main_paths(records: dict) -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import deepseek
+    cfg = deepseek.DEEPSEEK_V2_LITE
+    log(f'[10] DeepSeek main path: DeepSeek-V2-Lite bf16 ({cfg.n_layers} '
+        f'layers, d_model {cfg.d_model}, {cfg.n_heads} heads, kv_lora_rank '
+        f'{cfg.kv_lora_rank}, {cfg.n_experts} experts top-'
+        f'{cfg.experts_per_token} + {cfg.n_shared_experts} shared, vocab '
+        f'{cfg.vocab_size}; {cfg.num_params() / 1e9:.2f} B parameters), '
+        'random init; dense slot cache')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = deepseek.init(cfg, gen)
+    torch.cuda.synchronize()
+    log(f'  init {time.perf_counter() - t0:.2f} s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    rng = np.random.default_rng(10)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    new_tokens = 64
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=16,
+                                max_target_len=2048,
+                                prefill_buckets=(1024,)), params)
+    orch = orch_lib.Orchestrator(engine, decode_steps=8)
+    steps = count_decode_steps(engine)
+    prompts = [prompt(n) for n in rng.integers(960, 1025, 16)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, prompts, new_tokens)
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('DeepSeek serving', launches, DEEPSEEK_KERNELS,
+                   cfg.n_layers)
+    if launches['mla_decode'] != cfg.n_layers * steps[0]:
+        raise AssertionError(f'mla_decode: {launches["mla_decode"]} launches '
+                             f'for {steps[0]} decode steps of '
+                             f'{cfg.n_layers} layers')
+    records['mla_decode']['launches_by_path'] = {
+        'serve_deepseek': launches['mla_decode']}
+    out_tokens = sum(len(r.output_tokens) for r in requests)
+    log(f'  16 requests x {new_tokens} tokens done in {dt:.3f} s: '
+        f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
+        f'{mean_ms(requests):.1f} ms, {steps[0]} decode steps, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+        f'{launches} on {nvidia_smi_line()}')
+    del orch, engine
+    release_card()
+
+    log('[11] DeepSeek paged main path: the same model and weights, 32 '
+        'slots over 2048 pages of 16 rows')
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=32,
+                                max_target_len=4096,
+                                prefill_buckets=(1024,), kv_page_size=16,
+                                kv_num_pages=2048), params)
+    orch = orch_lib.Orchestrator(engine, decode_steps=8)
+    steps = count_decode_steps(engine)
+    # Budgets of 1064-1088 rows (67-68 pages each): more than 2048 pages.
+    prompts = [prompt(n) for n in rng.integers(1000, 1025, 32)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, prompts, new_tokens)
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('DeepSeek paged serving', launches,
+                   PAGED_DEEPSEEK_KERNELS, cfg.n_layers)
+    deferred = sum(r.deferred_wait > 0 for r in requests)
+    if not deferred:
+        raise AssertionError('no request was deferred: the arena held '
+                             'every budget at once')
+    if launches['paged_mla_decode'] != cfg.n_layers * steps[0]:
+        raise AssertionError(
+            f'paged_mla_decode: {launches["paged_mla_decode"]} launches for '
+            f'{steps[0]} decode steps of {cfg.n_layers} layers')
+    records['paged_mla_decode']['launches_by_path'] = {
+        'serve_deepseek_paged': launches['paged_mla_decode']}
+    out_tokens = sum(len(r.output_tokens) for r in requests)
+    log(f'  32 requests x {new_tokens} tokens done in {dt:.3f} s: '
+        f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
+        f'{mean_ms(requests):.1f} ms (admitted at once '
+        f'{mean_ms([r for r in requests if not r.deferred_wait]):.1f} ms), '
+        f'{deferred} deferred, {steps[0]} decode steps, all pages free '
+        f'after the drain, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+        f'{launches} on {nvidia_smi_line()}')
+    del orch, engine, params
+    release_card()
+
+
+# ---- phase 12: small DeepSeek, card vs CPU ----
+
+def small_deepseek_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import deepseek
+    cfg = dataclasses.replace(deepseek.DEEPSEEK_TINY, dtype=torch.float32)
+    log('[12] small DeepSeek end to end: fp32 DEEPSEEK_TINY widths, a dense '
+        'and a paged engine, a 3-prompt wave padded to 4 rows, card '
+        '(kernels) vs CPU (plain versions)')
+    gen = torch.Generator()
+    gen.manual_seed(12)
+    cpu_params = deepseek.init(cfg, gen, device='cpu')
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (120, 77, 128)]
+    for paged in (False, True):
+        kernel = mla_ops.PAGED_KERNEL if paged else mla_ops.KERNEL
+        outputs = {}
+        before = kernel.launches
+        for device in ('cuda', 'cpu'):
+            engine = engine_lib.InferenceEngine(
+                engine_lib.EngineConfig(
+                    model=cfg, max_slots=4, max_target_len=512,
+                    prefill_buckets=(128,), kv_dtype=torch.float32,
+                    kv_page_size=16 if paged else 0),
+                to_device(cpu_params, device), device=device)
+            outputs[device] = orch_lib.Orchestrator(
+                engine, decode_steps=4).generate(prompts, max_new_tokens=16)
+        name = 'paged' if paged else 'dense'
+        log(f'  {name} card tokens {outputs["cuda"]}')
+        log(f'  {name} cpu tokens  {outputs["cpu"]}; {kernel.name} launches '
+            f'on the card {kernel.launches - before}')
+        if outputs['cuda'] != outputs['cpu']:
+            raise AssertionError(f'{name}: greedy tokens differ between the '
+                                 'card and the CPU')
+        if not all(len(t) == 16 for t in outputs['cuda']):
+            raise AssertionError(f'{name}: a request did not finish')
+        if kernel.launches == before:
+            raise AssertionError(f'{kernel.name} did not run on the card')
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1071,13 +1479,17 @@ def main() -> int:
     gen.manual_seed(0)
     records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),
                'decode_attention': check_decode(gen),
-               'paged_decode_attention': check_paged_decode(gen)}
+               'paged_decode_attention': check_paged_decode(gen),
+               'mla_decode': check_mla_decode(gen),
+               'paged_mla_decode': check_paged_mla_decode(gen)}
     main_path(records)
     small_end_to_end()
     train_main_path(records)
     small_train_check()
     paged_main_path(records)
     small_paged_end_to_end()
+    deepseek_main_paths(records)
+    small_deepseek_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

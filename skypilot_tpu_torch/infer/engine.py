@@ -9,10 +9,15 @@ Counterpart of ``skypilot_tpu/infer/engine.py``:
     (``infer/paged_kv.py``; the last page is the spare one that takes
     writes routed to the sentinel). The cache and the per-slot state are
     updated in place.
-  * Prefill runs a wave of prompts at one padded bucket length; the wave
-    is exactly as many rows as prompts (the JAX engine pads waves to a
-    power of two only to bound its compiled variants), and its prefix
-    K/V is written into the claimed slots.
+  * Prefill runs a wave of prompts at one padded bucket length, and its
+    prefix K/V is written into the claimed slots. The wave is exactly as
+    many rows as prompts (the JAX engine pads waves to a power of two to
+    bound its compiled variants), except for a family with routed
+    experts, where the pad rows change which tokens an expert drops and
+    the reference's padding is kept.
+  * The cache layout is the family's: [.., KVH, HD] K and V, or what the
+    family declares (``kv_cache_shapes``, ``paged_kv_cache_shapes``: MLA's
+    compressed latent and shared RoPE key).
   * Decode advances ALL slots one token per step. Inactive slots write
     nothing (their cache write is masked) and their tokens are ignored.
 
@@ -225,12 +230,31 @@ class InferenceEngine:
                 num_pages, page, blocks_per_slot)
             # One page more than the allocator hands out: the spare page
             # at the sentinel index (see llama.paged_cache_attend).
-            self._cache_shape = (c.n_layers, num_pages + 1, page,
-                                 c.n_kv_heads, c.head_dim)
+            if hasattr(self._model_lib, 'paged_kv_cache_shapes'):
+                self._k_shape, self._v_shape = (
+                    self._model_lib.paged_kv_cache_shapes(
+                        c, num_pages + 1, page))
+            else:
+                self._k_shape = self._v_shape = (
+                    c.n_layers, num_pages + 1, page, c.n_kv_heads,
+                    c.head_dim)
+        elif hasattr(self._model_lib, 'kv_cache_shapes'):
+            # Families with a non-[KVH, HD] cache layout (MLA's
+            # compressed latent) declare their own shapes.
+            self._k_shape, self._v_shape = self._model_lib.kv_cache_shapes(
+                c, config.max_slots, config.max_target_len)
+            if config.kv_dtype == torch.int8:
+                raise NotImplementedError(
+                    'int8 KV is not supported for families with a '
+                    'custom cache layout (the compressed MLA cache is '
+                    'already ~20x smaller than a dense KV cache).')
         else:
-            self._cache_shape = (c.n_layers, config.max_slots,
-                                 config.max_target_len, c.n_kv_heads,
-                                 c.head_dim)
+            self._k_shape = self._v_shape = (
+                c.n_layers, config.max_slots, config.max_target_len,
+                c.n_kv_heads, c.head_dim)
+        # A family with routed experts: its prefill waves are padded as
+        # the reference pads them (see _wave_rows).
+        self._routed = hasattr(c, 'n_experts')
         self._prefix_cache: Optional[PrefixCache] = None
         if config.prefix_cache_entries > 0:
             if not self.supports_chunked_prefill:
@@ -259,8 +283,8 @@ class InferenceEngine:
         cfg = self.config
         slots = cfg.max_slots
         state = {
-            'kv_k': self._make_cache(self._cache_shape),
-            'kv_v': self._make_cache(self._cache_shape),
+            'kv_k': self._make_cache(self._k_shape),
+            'kv_v': self._make_cache(self._v_shape),
             # per-slot: index the NEXT token will be written at
             'lengths': torch.zeros((slots,), dtype=torch.int32,
                                    device=self.device),
@@ -437,6 +461,17 @@ class InferenceEngine:
         keep per-prompt admission (reuse beats dispatch fusion)."""
         return self._prefix_cache is None
 
+    def _wave_rows(self, n: int) -> int:
+        """Rows of the prefill forward for a wave of n prompts. The
+        reference pads a wave to min(max_slots, next power of two) rows,
+        repeating row 0, to bound its compiled variants. For a family with
+        routed experts the pad rows take expert capacity, which decides
+        which tokens overflow an expert, so such waves are padded the same
+        way; other families run exactly n rows (the same tokens)."""
+        if not self._routed:
+            return n
+        return min(self.config.max_slots, 1 << max(0, n - 1).bit_length())
+
     def _slot_tables(self, slots) -> np.ndarray:
         return np.stack([self._page_alloc.table_row(s) for s in slots])
 
@@ -449,12 +484,16 @@ class InferenceEngine:
         n = len(requests_args)
         if not 0 < n == len(slots) <= self.config.max_slots:
             raise ValueError(f'{n} requests for {len(slots)} slots')
-        tokens, true_lens = self._pad_prompts([p for p, _ in requests_args])
+        # Pad rows repeat row 0 (see _wave_rows); their outputs are dropped.
+        rows = requests_args + [requests_args[0]] * (self._wave_rows(n) - n)
+        tokens, true_lens = self._pad_prompts([p for p, _ in rows])
         temps, top_k, top_p, gen = self._sampling_args(
-            *zip(*[(sp.temperature, sp.top_k, sp.top_p)
-                   for _, sp in requests_args]))
+            *zip(*[(sp.temperature, sp.top_k, sp.top_p) for _, sp in rows]))
         first_tokens, kv, _ = self._prefill_batch(
             tokens, true_lens, temps, top_k, top_p, gen)
+        if len(rows) > n:
+            first_tokens, true_lens = first_tokens[:n], true_lens[:n]
+            kv = {key: val[:, :n] for key, val in kv.items()}
         slot_ids = torch.as_tensor(list(slots), device=self.device)
         if self._page_alloc is not None:
             state = self._insert_batch_paged(

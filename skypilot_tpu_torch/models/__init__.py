@@ -1,16 +1,37 @@
-"""Model families of the port (Llama-family first; MISTRAL shares
-``LlamaConfig``). Each family module exposes the serving surface the
-engine dispatches on: ``init``, ``prefill_hidden``, ``decode_forward``
-and ``lm_logits``, and the trainer's ``loss_fn``."""
+"""Model families of the port: the Llama family (MISTRAL shares
+``LlamaConfig``) and DeepSeek (MLA + DeepSeekMoE). Each family module
+exposes the serving surface the engine dispatches on: ``init``,
+``prefill_hidden``, ``decode_forward``, ``paged_decode_forward`` and
+``lm_logits``; the Llama family also has the trainer's ``loss_fn`` and
+``verify_forward``, and DeepSeek declares its compressed cache layout
+(``kv_cache_shapes``, ``paged_kv_cache_shapes``)."""
 from __future__ import annotations
 
 from typing import Any
 
 
+def _families():
+    from skypilot_tpu_torch.models import deepseek
+    from skypilot_tpu_torch.models import llama
+    return llama, deepseek
+
+
 def module_for(config: Any):
     """Return the model module owning ``config``."""
-    from skypilot_tpu_torch.models import llama
+    llama, deepseek = _families()
+    if isinstance(config, deepseek.DeepSeekConfig):
+        return deepseek
     if isinstance(config, llama.LlamaConfig):
         return llama
     raise TypeError(f'Unknown model config type: {type(config)!r} (the '
-                    'port has the Llama family only so far)')
+                    'port has the Llama and DeepSeek families so far)')
+
+
+def get_config(name: str):
+    """Look up a named config across the port's families."""
+    families = _families()
+    for mod in families:
+        if name in mod.CONFIGS:
+            return mod.CONFIGS[name]
+    known = sorted(set().union(*(mod.CONFIGS for mod in families)))
+    raise KeyError(f'Unknown model {name!r}; known: {known}')

@@ -529,6 +529,16 @@ def paged_cache_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn, kv_cache
 
 
+def _swiglu(config, h: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: gate and up products in the model type, upcast for
+    silu(gate) * up, rounded back to the model type for the down
+    product."""
+    gate = torch.nn.functional.silu(qops.matmul(h, w_gate).float())
+    up = qops.matmul(h, w_up).float()
+    return qops.matmul((gate * up).to(config.dtype), w_down)
+
+
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            rope, kv_cache=None, cache_index=None, cache_positions=None,
            return_kv: bool = False,
@@ -567,11 +577,8 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
     x = x + qops.matmul(attn, layer_params['wo'])
 
     h = _rms_norm(x, layer_params['mlp_norm'], c.norm_eps)
-    gate = torch.nn.functional.silu(
-        qops.matmul(h, layer_params['w_gate']).float())
-    up = qops.matmul(h, layer_params['w_up']).float()
-    ff = (gate * up).to(c.dtype)
-    x = x + qops.matmul(ff, layer_params['w_down'])
+    x = x + _swiglu(c, h, layer_params['w_gate'], layer_params['w_up'],
+                    layer_params['w_down'])
     return x, new_cache
 
 

@@ -1,8 +1,8 @@
 """Weight matmul and embedding lookup for plain (unquantized) weights.
 
-Counterpart of the plain-array branches of ``matmul`` and ``embed_rows``
-in ``skypilot_tpu/ops/quantization.py``. Weight quantization (int8
-per-channel, int4 group-128) comes in a later slice.
+Counterpart of the plain-array branches of ``matmul``, ``expert_einsum``
+and ``embed_rows`` in ``skypilot_tpu/ops/quantization.py``. Weight
+quantization (int8 per-channel, int4 group-128) comes in a later slice.
 """
 from __future__ import annotations
 
@@ -71,6 +71,26 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
             x.dtype == w.dtype == preferred_element_type):
         return torch.matmul(x, w)
     return _UpcastMatmul.apply(x, w, preferred_element_type)
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor,
+                  preferred_element_type: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """Per-expert ``x @ w``: x [E, C, in], w [E, in, out] → [E, C, out]
+    (the reference's ``expert_einsum('ecd,edf->ecf', ...)``).
+
+    preferred_element_type as in ``matmul``. On a card the fp32 output
+    comes from cuBLAS (``out_dtype``: lower-precision operands, fp32 sums
+    returned unrounded); the CPU has no such product, so there it is taken
+    from fp32 copies, the same function. No gradient: serving only.
+    """
+    if preferred_element_type is None or (
+            x.dtype == w.dtype == preferred_element_type):
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=preferred_element_type)
+    return torch.bmm(x.to(preferred_element_type),
+                     w.to(preferred_element_type))
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import decode_attention
 from skypilot_tpu_torch.ops import flash_attention
+from skypilot_tpu_torch.ops import mla_decode
 
 pytestmark = pytest.mark.gpu
 
@@ -346,4 +347,152 @@ def test_paged_engine_tokens_on_the_card_match_the_cpu(card):
         outputs[device] = orch_lib.Orchestrator(
             engine, decode_steps=4).generate(prompts, max_new_tokens=8)
         assert engine.prefix_cache_stats['hits'] >= 1
+    assert outputs['cuda'] == outputs['cpu']
+
+
+# ---- the absorbed-MLA decode kernels (K6 dense, K7 paged) ----
+
+MLA_SHAPES = {'tiny': (4, 32, 8), 'v2_lite': (16, 512, 64)}
+
+
+def _mla_queries(gen, b, h, r, dr):
+    return (_randn(gen, (b, h, r), torch.float32),
+            _randn(gen, (b, h, dr), torch.float32))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', sorted(MLA_SHAPES))
+def test_mla_decode_kernel_matches_plain(card, dtype, shape):
+    """K6 vs its plain version (both fp32 math: TOL fp32 for either cache
+    type): ragged lengths around the 32-row tiles and 128-row splits, a
+    length-0 slot (the mean of its first min(256, K) rows), an inactive
+    slot (length past the cache); K = 300 ends in a partial split."""
+    h, r, dr = MLA_SHAPES[shape]
+    max_len = 300
+    lengths = [0, 1, 31, 32, 33, 127, 128, 129, 255, 256, 257, max_len,
+               max_len + 1]
+    b = len(lengths)
+    q_eff, q_rope = _mla_queries(card, b, h, r, dr)
+    ckv = _randn(card, (b, max_len, r), dtype)
+    krope = _randn(card, (b, max_len, dr), dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    out = mla_decode.mla_decode_attention(q_eff, q_rope, ckv, krope, lens,
+                                          0.07)
+    ref = mla_decode.mla_decode_attention_plain(q_eff, q_rope, ckv, krope,
+                                                lens, 0.07)
+    assert out.dtype == torch.float32 and out.shape == (b, h, r)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    mean = ckv[0, :256].float().mean(dim=0).expand(h, r)
+    torch.testing.assert_close(out[0], mean, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('page', [8, 16, 256])
+def test_paged_mla_decode_kernel_matches_plain(card, dtype, page):
+    """K7 over per-slot random page permutations with sentinel tails: a
+    length-0 slot with and without an allocated first block (the mean of
+    that page), an inactive slot (length past the table, all-sentinel
+    row), lengths across pages and splits."""
+    h, r, dr = MLA_SHAPES['v2_lite']
+    nblk = max(2, 640 // page)
+    cap = nblk * page
+    lengths = [1, page, page + 1, 0, 0, cap + 1, cap, 129, cap - 3]
+    allocated = [1, page, page + 1, page, 0, 0, cap, 129, cap - 3]
+    b, num_pages = len(lengths), 3 * nblk
+    q_eff, q_rope = _mla_queries(card, b, h, r, dr)
+    ckv = _randn(card, (num_pages, page, r), dtype)
+    krope = _randn(card, (num_pages, page, dr), dtype)
+    perm = torch.stack([torch.randperm(num_pages, generator=card,
+                                       device='cuda')[:nblk]
+                        for _ in range(b)])
+    blocks = torch.tensor([-(-n // page) for n in allocated], device='cuda')
+    held = torch.arange(nblk, device='cuda')[None, :] < blocks[:, None]
+    tables = torch.where(held, perm, num_pages).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    out = mla_decode.paged_mla_decode_attention(q_eff, q_rope, ckv, krope,
+                                                lens, tables, 0.07)
+    ref = mla_decode.paged_mla_decode_attention_plain(
+        q_eff, q_rope, ckv, krope, lens, tables, 0.07)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    for slot in (3, 4):
+        first = int(tables[slot, 0].clamp(0, num_pages - 1))
+        mean = ckv[first].float().mean(dim=0).expand(h, r)
+        torch.testing.assert_close(out[slot], mean, **TOL[torch.float32])
+
+
+def test_paged_mla_kernel_equals_dense_kernel_on_an_identity_table(card):
+    """On a contiguous identity table K7 walks the same rows in the same
+    order as K6 (one shared split walk), so live slots agree bit for
+    bit."""
+    h, r, dr = MLA_SHAPES['v2_lite']
+    b, page, nblk = 5, 16, 20
+    for dtype in (torch.float32, torch.bfloat16):
+        q_eff, q_rope = _mla_queries(card, b, h, r, dr)
+        ckv = _randn(card, (b, nblk * page, r), dtype)
+        krope = _randn(card, (b, nblk * page, dr), dtype)
+        lens = torch.tensor([1, 17, 128, 200, 320], dtype=torch.int32,
+                            device='cuda')
+        tables = torch.arange(b * nblk, dtype=torch.int32,
+                              device='cuda').reshape(b, nblk)
+        dense = mla_decode.mla_decode_attention(q_eff, q_rope, ckv, krope,
+                                                lens, 0.07)
+        paged = mla_decode.paged_mla_decode_attention(
+            q_eff, q_rope, ckv.reshape(-1, page, r),
+            krope.reshape(-1, page, dr), lens, tables, 0.07)
+        assert torch.equal(dense, paged)
+
+
+def test_mla_wrappers_name_their_limits(card):
+    q_eff, q_rope = _mla_queries(card, 2, 4, 32, 8)
+    ckv = _randn(card, (2, 64, 32), torch.bfloat16)
+    krope = _randn(card, (2, 64, 8), torch.bfloat16)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device='cuda')
+    launch = mla_decode.mla_decode_attention
+    with pytest.raises(ValueError, match='fp32'):
+        launch(q_eff.bfloat16(), q_rope, ckv, krope, lens, 0.1)
+    with pytest.raises(ValueError, match='heads'):
+        launch(q_eff.repeat(1, 5, 1), q_rope.repeat(1, 5, 1), ckv, krope,
+               lens, 0.1)
+    with pytest.raises(ValueError, match='int32'):
+        launch(q_eff, q_rope, ckv, krope, lens.long(), 0.1)
+    with pytest.raises(ValueError, match='same for both'):
+        launch(q_eff, q_rope, ckv, krope.float(), lens, 0.1)
+    tables = torch.zeros((2, 8), dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='page sizes'):
+        mla_decode.paged_mla_decode_attention(
+            q_eff, q_rope, ckv.reshape(4, 32, 32)[:, :24].contiguous(),
+            krope.reshape(4, 32, 8)[:, :24].contiguous(), lens, tables, 0.1)
+
+
+@pytest.mark.parametrize('paged', [False, True], ids=['dense', 'paged'])
+def test_deepseek_engine_tokens_on_the_card_match_the_cpu(card, paged):
+    """Small fp32 DeepSeek served on the card (K6 or K7) and on the CPU
+    (plain versions), with a 3-prompt wave that pads to 4 rows: the same
+    greedy tokens, and the path's kernel ran."""
+    import dataclasses
+
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import deepseek
+    cfg = dataclasses.replace(deepseek.DEEPSEEK_TINY, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    cpu_params = deepseek.init(cfg, gen, device='cpu')
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (9, 16, 5)]
+    kernel = mla_decode.PAGED_KERNEL if paged else mla_decode.KERNEL
+    outputs = {}
+    for device in ('cuda', 'cpu'):
+        params = {k: (v.to(device) if torch.is_tensor(v) else
+                      {kk: vv.to(device) for kk, vv in v.items()})
+                  for k, v in cpu_params.items()}
+        engine = engine_lib.InferenceEngine(engine_lib.EngineConfig(
+            model=cfg, max_slots=4, max_target_len=64,
+            prefill_buckets=(16,), kv_dtype=torch.float32,
+            kv_page_size=8 if paged else 0), params, device=device)
+        before = kernel.launches
+        outputs[device] = orch_lib.Orchestrator(
+            engine, decode_steps=4).generate(prompts, max_new_tokens=8)
+        if device == 'cuda':
+            assert kernel.launches > before
     assert outputs['cuda'] == outputs['cpu']

@@ -27,6 +27,7 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import decode_attention
 from skypilot_tpu_torch.ops import flash_attention
 from skypilot_tpu_torch.ops import kernels
+from skypilot_tpu_torch.ops import mla_decode
 from skypilot_tpu_torch.train import trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -81,16 +82,21 @@ def test_every_cuda_source_is_built():
     assert sources == {k.source for k in kernels.REGISTRY}
     assert {k.name for k in kernels.REGISTRY} == {
         'flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq', 'decode_attention',
-        'paged_decode_attention'}
+        'paged_decode_attention', 'mla_decode', 'paged_mla_decode'}
     for kern in (flash_attention.KERNEL, flash_attention.DKV_KERNEL,
                  flash_attention.DQ_KERNEL, decode_attention.KERNEL,
-                 decode_attention.PAGED_KERNEL):
+                 decode_attention.PAGED_KERNEL, mla_decode.KERNEL,
+                 mla_decode.PAGED_KERNEL):
         assert kern in kernels.REGISTRY
-    # The dense and the paged decode kernel are two sources, two
-    # libraries and two launch counts; a shared header reaches both.
+    # The dense and the paged decode kernels (K4/K5, and the MLA pair
+    # K6/K7) are two sources, two libraries and two launch counts; a
+    # shared header reaches both.
     assert (decode_attention.KERNEL.library_path() !=
             decode_attention.PAGED_KERNEL.library_path())
     assert (csrc / 'decode_common.cuh').exists()
+    assert (mla_decode.KERNEL.library_path() !=
+            mla_decode.PAGED_KERNEL.library_path())
+    assert (csrc / 'mla_common.cuh').exists()
     # The two backward kernels share one source and so one library.
     assert (flash_attention.DKV_KERNEL.library_path() ==
             flash_attention.DQ_KERNEL.library_path() !=
@@ -120,6 +126,21 @@ def test_wrappers_never_fall_back_on_a_device_tensor():
         decode_attention.paged_decode_attention(qd, pages, pages, lengths,
                                                 tables)
     assert decode_attention.PAGED_KERNEL.launches == before
+    q_eff = torch.zeros((2, 4, 32), device='meta')
+    q_rope = torch.zeros((2, 4, 8), device='meta')
+    latents = torch.zeros((2, 32, 32), device='meta')
+    ropes = torch.zeros((2, 32, 8), device='meta')
+    before = mla_decode.KERNEL.launches
+    with pytest.raises(ValueError, match='launches a CUDA kernel'):
+        mla_decode.mla_decode_attention(q_eff, q_rope, latents, ropes,
+                                        lengths, 0.1)
+    assert mla_decode.KERNEL.launches == before
+    before = mla_decode.PAGED_KERNEL.launches
+    with pytest.raises(ValueError, match='launches a CUDA kernel'):
+        mla_decode.paged_mla_decode_attention(
+            q_eff, q_rope, latents.reshape(8, 8, 32), ropes.reshape(8, 8, 8),
+            lengths, tables, 0.1)
+    assert mla_decode.PAGED_KERNEL.launches == before
     # The gradient: its launcher raises on a non-CUDA device tensor, and
     # no backward launch is counted.
     q.requires_grad_(True)

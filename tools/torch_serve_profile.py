@@ -7,16 +7,19 @@ up with one full generate, then traces one prefill wave of 16 prompts
 and one fused decode tick (8 steps) with ``torch.profiler``. For each it
 prints the host wall time, the device busy time (sum of kernel times —
 one stream, so kernels do not overlap), the idle share, the number of
-kernel launches and the kernels that take the most time. A JSON summary
-goes to ``chiprun_out/torch_serve_profile.json``.
+kernel launches, the device time by kind of kernel (the port's own
+kernels, matrix products, index operations, the rest) and the kernels
+that take the most time. A JSON summary goes to
+``chiprun_out/torch_serve_profile[_paged][_<model>].json``.
 
-    python3 tools/torch_serve_profile.py [--paged]
+    python3 tools/torch_serve_profile.py [--paged] [--model MODEL]
 
 With ``--paged`` it runs ``chip_smoke.py``'s paged main path instead (32
 slots over 2048 pages of 16 rows, max_target_len 4096; 30 prompts, as
-many as the arena holds at once), and also traces one 1024-token prompt
-chunk of a chunked prefill; the summary goes to
-``chiprun_out/torch_serve_profile_paged.json``.
+many as the arena holds at once), and, for a family with chunked
+prefill, also traces one 1024-token prompt chunk. ``--model
+deepseek-v2-lite`` serves DeepSeek-V2-Lite (``chip_smoke.py`` [10] and
+[11]) in place of the default ``llama3-8b``.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -37,10 +40,29 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from skypilot_tpu_torch import models  # noqa: E402
 from skypilot_tpu_torch.infer import engine as engine_lib  # noqa: E402
 from skypilot_tpu_torch.infer import orchestrator as orch_lib  # noqa: E402
 from skypilot_tpu_torch.infer import sampling  # noqa: E402
-from skypilot_tpu_torch.models import llama  # noqa: E402
+
+MODELS = ('llama3-8b', 'deepseek-v2-lite')
+# Device kernels by kind, matched on the kernel's name (first match wins).
+CATEGORIES = (
+    ('port kernels', ('mla_decode', 'mla_combine', 'decode_kernel',
+                      'flash_')),
+    ('matrix products', ('gemm', 'gemv', 'nvjet', 'cutlass', 'xmma',
+                         'cublas', 'splitk', 'dot_kernel')),
+    ('index, scan and sort ops', ('index', 'scatter', 'gather', 'scan',
+                                  'topk', 'sort')),
+)
+
+
+def _category(name: str) -> str:
+    lower = name.lower()
+    for label, keys in CATEGORIES:
+        if any(key in lower for key in keys):
+            return label
+    return 'elementwise and other'
 
 
 def _kernel_events(prof):
@@ -69,13 +91,19 @@ def traced(label: str, fn) -> dict:
         counts[name] += 1
     top = [{'kernel': name[:90], 'ms': ms, 'launches': counts[name]}
            for name, ms in by_name.most_common(12)]
+    by_category = collections.Counter()
+    for name, ms in by_name.items():
+        by_category[_category(name)] += ms
     summary = {'phase': label, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
                'idle_share': max(0.0, 1 - busy_ms / wall_ms),
                'kernel_launches': len(kernels), 'top_kernels': top,
+               'ms_by_category': dict(by_category),
                'ms_by_kernel': dict(by_name)}
     print(f'{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms '
           f'(idle share {summary["idle_share"]:.3f}), '
-          f'{len(kernels)} kernel launches', flush=True)
+          f'{len(kernels)} kernel launches; by kind '
+          f'{ {k: round(v, 3) for k, v in by_category.most_common()} }',
+          flush=True)
     for row in top:
         print(f'  {row["ms"]:9.3f} ms  {row["launches"]:6d}x  '
               f'{row["kernel"]}', flush=True)
@@ -92,12 +120,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--paged', action='store_true',
                         help="trace chip_smoke.py's paged main path")
-    paged = parser.parse_args().paged
+    parser.add_argument('--model', choices=MODELS, default=MODELS[0],
+                        help='the model served (default %(default)s)')
+    args = parser.parse_args()
+    paged = args.paged
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
     smi = nvidia_smi_line()
-    print(f'card: {smi}; torch {torch.__version__}', flush=True)
-    cfg = llama.LLAMA3_8B
+    print(f'card: {smi}; torch {torch.__version__}; model {args.model}',
+          flush=True)
+    cfg = models.get_config(args.model)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     if paged:
@@ -110,7 +142,8 @@ def main() -> int:
                                        max_target_len=2048,
                                        prefill_buckets=(1024,))
         n_prompts = 16
-    engine = engine_lib.InferenceEngine(ecfg, llama.init(cfg, gen))
+    engine = engine_lib.InferenceEngine(
+        ecfg, models.module_for(cfg).init(cfg, gen))
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
                for n in rng.integers(960, 1025, n_prompts)]
@@ -143,7 +176,7 @@ def main() -> int:
     decode()  # same shapes as traced, outside the trace
     summaries.append(traced(f'decode tick (8 steps x {slots} slots)',
                             decode))
-    if paged:
+    if paged and engine.supports_chunked_prefill:
         # The third 1024-token chunk of a 3000-token prompt's prefill.
         scratch = engine._make_scratch_cache()
         chunk = torch.as_tensor(
@@ -156,11 +189,11 @@ def main() -> int:
         summaries.append(traced('prompt chunk (1024 tokens at row 2048)',
                                 prompt_chunk))
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
-    name = ('torch_serve_profile_paged.json' if paged
-            else 'torch_serve_profile.json')
+    name = 'torch_serve_profile' + ('_paged' if paged else '') + (
+        '' if args.model == MODELS[0] else f'_{args.model}') + '.json'
     with open(os.path.join(REPO, 'chiprun_out', name), 'w') as f:
         json.dump({'card': smi, 'torch': torch.__version__,
-                   'warm_generate': result, 'phases': summaries}, f,
+                   'model': args.model, 'warm_generate': result, 'phases': summaries}, f,
                   indent=1)
     return 0
 
