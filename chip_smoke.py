@@ -9,13 +9,20 @@ Phases, in order; any failure exits non-zero:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off for fp32 products;
   2. build: compile every kernel source in skypilot_tpu_torch/csrc/ (one
-     nvcc per source, all at once) and print the build seconds;
+     nvcc per source, all at once) and print the build seconds, and the
+     registers and spilled bytes of each source and of each wgmma
+     kernel;
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes and in the window / segment /
      softcap / int8 / ragged-length cases, in bf16 and fp32, with each
-     error beside its tolerance (gradients blockwise, and two planted
-     gradient faults must be rejected); kernel, plain and library times
-     and the least time the card could take (bound): the flash forward,
+     error beside its tolerance (flash outputs and gradients also
+     blockwise, and three planted faults must be rejected); the flash
+     kernels also at the wgmma kernels' tile edges (S 127, 129, 1000 x
+     GQA groups 1, 2, 4 x D 64, 128), the forward at the training shape
+     (row 0 against the plain version, then timed beside SDPA), and two
+     dK/dV runs at the training shape must be bit-identical; kernel,
+     plain and library times and the least time the card could take
+     (bound): the flash forward,
      the flash backward pair (dK/dV, dQ), dense decode, paged decode, and
      the absorbed-MLA decode pair (dense K6, paged K7: ragged lengths,
      length 0, inactive slots, sentinel tables, and K7 bit for bit equal
@@ -97,19 +104,22 @@ PEAK_BYTES_PER_S = 3.35e12
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
 LSE_ATOL = 1e-3
-# Gradients, backward kernels vs the plain backward, judged in each block
-# of 64 rows of one head against the reference's own size there
-# (flash_ops.gradient_errors): attention gradients shrink along the
-# sequence, so one absolute tolerance would pass a wrong later block.
-# Limits on the blockwise relative error ||got-want||/||want|| and on the
-# largest element error over the block's RMS. fp32 sums over up to S rows
-# in another order. bf16 also rounds P and dS to bf16 before their
-# products (as the Pallas kernels do) and the gradient on the way out.
-# Over the cases below, on an H100, the kernels read at most 3.7e-3 and
-# 7.0e-2 in bf16, 9.4e-7 and 2.9e-5 in fp32; a 10 % error confined to
-# some blocks reads 0.1 and above (the planted faults below).
-GRAD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-GRAD_ELEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.15}
+# Flash outputs and gradients, kernel vs plain version, are also judged
+# in each block of 64 rows of one head against the reference's own size
+# there (flash_ops.gradient_errors): under a causal mask both shrink along
+# the sequence (an output row's spread is about sqrt(e / pos)), so one
+# absolute tolerance would pass a wrong later block. Limits on the
+# blockwise relative error ||got-want||/||want|| and on the largest
+# element error over the block's RMS. fp32 sums over up to S rows in
+# another order. bf16 also rounds P and dS to bf16 before their products
+# (as the Pallas kernels do) and the result on the way out. Over the
+# cases below, on an H100, the kernels read at most 3.5e-3 and 5.7e-2 for
+# bf16 outputs, 5.1e-3 and 8.2e-2 for bf16 gradients (the tile-edge cases
+# at S 129 the largest), 8.4e-7 and 2.2e-5 for fp32 outputs, 1.1e-6 and
+# 3.1e-5 for fp32 gradients; a 10 % error confined to some blocks reads
+# 0.1 and above (the planted faults below).
+BLOCK_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BLOCK_ELEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.15}
 
 REPLACES = {
     'flash_fwd': 'skypilot_tpu/ops/flash_attention.py:64',
@@ -174,21 +184,22 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
-def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor,
-                 dtype) -> float:
-    """A gradient against the plain backward's, blockwise (see
-    GRAD_NORM_TOL) → its largest absolute error."""
+def compare_blocks(name: str, got: torch.Tensor, want: torch.Tensor,
+                   dtype) -> float:
+    """A gradient or a forward output [B, S, H, D] against the plain
+    version's, blockwise (see BLOCK_NORM_TOL) → its largest absolute
+    error."""
     norm_err, elem_err = flash_ops.gradient_errors(got, want)
     max_err = float((got.float() - want.float()).abs().max())
     log(f'  {name}: block rel err {norm_err:.3e} (limit '
-        f'{GRAD_NORM_TOL[dtype]:g}), element err / block rms '
-        f'{elem_err:.3e} (limit {GRAD_ELEM_TOL[dtype]:g}); mean |ref| '
+        f'{BLOCK_NORM_TOL[dtype]:g}), element err / block rms '
+        f'{elem_err:.3e} (limit {BLOCK_ELEM_TOL[dtype]:g}); mean |ref| '
         f'{float(want.float().abs().mean()):.3e}, max_abs_err '
         f'{max_err:.3e}')
-    if not (norm_err <= GRAD_NORM_TOL[dtype]
-            and elem_err <= GRAD_ELEM_TOL[dtype]):
+    if not (norm_err <= BLOCK_NORM_TOL[dtype]
+            and elem_err <= BLOCK_ELEM_TOL[dtype]):
         raise AssertionError(f'{name}: kernel disagrees with the plain '
-                             f'backward (block rel err {norm_err:.3e}, '
+                             f'version (block rel err {norm_err:.3e}, '
                              f'element err {elem_err:.3e})')
     return max_err
 
@@ -197,7 +208,7 @@ def expect_rejected(name: str, got: torch.Tensor, want: torch.Tensor,
                     dtype) -> None:
     """A planted fault must fail compare_grad: the check can see it."""
     try:
-        compare_grad(f'planted fault, {name}', got, want, dtype)
+        compare_blocks(f'planted fault, {name}', got, want, dtype)
     except AssertionError:
         log('    rejected, as it must be')
         return
@@ -234,13 +245,33 @@ def flash_case(gen, label, dtype, b, s, h, h_kv, d, causal=True,
         q, k, v, causal=causal, window=window, segment_ids=seg,
         logit_softcap=softcap, scale=scale)
     err = compare(f'flash {label} out', out, ref_out, dtype)
+    compare_blocks(f'flash {label} out', out, ref_out, dtype)
     compare(f'flash {label} lse', lse, ref_lse, torch.float32,
             atol=LSE_ATOL, rtol=0.0)
     return (q, k, v, seg, kw), err
 
 
+# Tile edges of the wgmma kernels (128-row query blocks and key tiles in
+# the forward, 128-key blocks and 64-row query tiles in dK/dV): each
+# (S, GQA group, D) at B2 with 4 query heads, cycling through the mask
+# variants.
+EDGE_SHAPES = list(itertools.product((127, 129, 1000), (1, 2, 4), (64, 128)))
+EDGE_VARIANTS = ({}, {'window': 100}, {'segments': True},
+                 {'softcap': 30.0, 'scale': 0.1}, {'causal': False})
+
+
+def edge_cases():
+    for i, (s, groups, d) in enumerate(EDGE_SHAPES):
+        kw = EDGE_VARIANTS[i % len(EDGE_VARIANTS)]
+        tag = ' '.join(f'{k}={v}' for k, v in kw.items()) or 'causal'
+        yield (f'bf16 edge S{s} H4/{4 // groups} D{d} {tag}',
+               (2, s, 4, 4 // groups, d), kw)
+
+
 def check_flash(gen) -> dict:
     log('[3] flash_fwd: kernel vs plain version')
+    for label, shape, kw in edge_cases():
+        flash_case(gen, label, torch.bfloat16, *shape, **kw)
     for dtype in (torch.bfloat16, torch.float32):
         name = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         flash_case(gen, f'{name} B4 S1024 H32/8 D128 causal', dtype,
@@ -262,6 +293,14 @@ def check_flash(gen) -> dict:
         16, 1024, 32, 8, 128)
     b, s, h, d = q.shape
     ms = time_ms(lambda: flash_ops._flash_fwd(q, k, v, None, **kw))
+    # Host time of one wrapper call (checks, tensor maps, launch), the
+    # calls queued without a synchronize in between.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        flash_ops._flash_fwd(q, k, v, None, **kw)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
     plain_ms = time_ms(lambda: flash_ops.flash_attention_plain(q, k, v),
                        iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -275,12 +314,63 @@ def check_flash(gen) -> dict:
     bound, bound_by = bound_ms(nbytes, flops, dtype)
     log(f'  flash main-path timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, SDPA (library) {library_ms:.4f} ms, bound '
-        f'{bound:.4f} ms ({bound_by}); {flops / ms / 1e9:.2f} TFLOP/s')
+        f'{bound:.4f} ms ({bound_by}); {flops / ms / 1e9:.2f} TFLOP/s; '
+        f'wrapper host time {host_ms:.4f} ms a call')
+    del q, k, v, qt, kt, vt
+    train = flash_train_shape(gen)
     return {'name': 'flash_fwd', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
             'replaces': REPLACES['flash_fwd'], 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': bound_by, 'library_ms': library_ms}
+            'bound_by': bound_by, 'library_ms': library_ms,
+            'host_ms': host_ms, **train}
+
+
+def flash_train_shape(gen) -> dict:
+    """The forward at the training path's shape (B4 S8192 H16/8 D128,
+    causal): batch row 0 against the plain version (which holds fp32
+    [H, S, S] scores), then kernel, SDPA and bound times at B4."""
+    dtype = torch.bfloat16
+    b, s, h, h_kv, d = 4, 8192, 16, 8, 128
+    q = rand(gen, (b, s, h, d), dtype)
+    k, v = (rand(gen, (b, s, h_kv, d), dtype) for _ in range(2))
+    out, lse = flash_ops._flash_fwd(q, k, v, None)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_ops.flash_attention_plain(
+        *(t[:1].contiguous() for t in (q, k, v)))
+    label = 'bf16 training shape B4 S8192 H16/8 D128 (row 0 vs plain)'
+    err = compare(f'flash {label} out', out[:1], ref_out, dtype)
+    compare_blocks(f'flash {label} out', out[:1], ref_out, dtype)
+    compare(f'flash {label} lse', lse[:1], ref_lse, torch.float32,
+            atol=LSE_ATOL, rtol=0.0)
+    # The check must see a fault on the V side (a wrong V panel or ring
+    # stage, a bad rescale) confined to the later rows, where the output
+    # is smallest: the output 10 % low past row 4096. One absolute
+    # tolerance cannot: its verdict is printed beside.
+    bad_out = out[:1].clone()
+    bad_out[:, s // 2:] *= 0.9
+    loose = (bad_out.float() - ref_out.float()).abs() <= (
+        ATOL[dtype] + RTOL[dtype] * ref_out.float().abs())
+    log(f'  planted fault, out x 0.9 past row 4096: the absolute check '
+        f'alone would {"pass" if bool(loose.all()) else "reject"} it')
+    expect_rejected('out x 0.9 past row 4096', bad_out, ref_out, dtype)
+    del out, lse, ref_out, ref_lse, bad_out, loose
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: flash_ops._flash_fwd(q, k, v, None), iters=5,
+                 warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=5, warmup=1)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
+        b * h * s * 4)
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)
+    bound, bound_by = bound_ms(nbytes, flops, dtype)
+    log(f'  flash training-shape timing: kernel {ms:.4f} ms, SDPA (library) '
+        f'{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); '
+        f'{flops / ms / 1e9:.2f} TFLOP/s')
+    return {'train_shape': 'B4 S8192 H16/8 D128 causal', 'train_ms': ms,
+            'train_max_abs_err': err, 'train_bound_ms': bound,
+            'train_library_ms': library_ms}
 
 
 def flash_bwd_case(gen, label, dtype, b, s, h, h_kv, d, causal=True,
@@ -299,16 +389,18 @@ def flash_bwd_case(gen, label, dtype, b, s, h, h_kv, d, causal=True,
     ref = flash_ops.flash_attention_bwd_plain(
         q, k, v, out, dout, lse, causal=causal, window=window,
         segment_ids=seg, logit_softcap=softcap, scale=scale)
-    errs = {'flash_bwd_dq': compare_grad(f'bwd {label} dq', dq, ref[0],
+    errs = {'flash_bwd_dq': compare_blocks(f'bwd {label} dq', dq, ref[0],
                                          dtype)}
     errs['flash_bwd_dkv'] = max(
-        compare_grad(f'bwd {label} dk', dk, ref[1], dtype),
-        compare_grad(f'bwd {label} dv', dv, ref[2], dtype))
+        compare_blocks(f'bwd {label} dk', dk, ref[1], dtype),
+        compare_blocks(f'bwd {label} dv', dv, ref[2], dtype))
     return (q, k, v, seg, out, dout, lse, kw), errs
 
 
 def check_flash_bwd(gen) -> dict:
     log('[3] flash backward (dK/dV, dQ): kernels vs plain version')
+    for label, shape, kw in edge_cases():
+        flash_bwd_case(gen, label, torch.bfloat16, *shape, **kw)
     for dtype in (torch.bfloat16, torch.float32):
         name = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         flash_bwd_case(gen, f'{name} B2 S1024 H16/8 D128 causal', dtype,
@@ -337,11 +429,11 @@ def check_flash_bwd(gen) -> dict:
     torch.cuda.synchronize()
     ref = flash_ops.flash_attention_bwd_plain(*row0)
     label = 'bf16 main-path B4 S8192 H16/8 D128 (row 0 vs plain)'
-    errs = {'flash_bwd_dq': compare_grad(f'bwd {label} dq', dq[:1], ref[0],
+    errs = {'flash_bwd_dq': compare_blocks(f'bwd {label} dq', dq[:1], ref[0],
                                          dtype),
             'flash_bwd_dkv': max(
-                compare_grad(f'bwd {label} dk', dk[:1], ref[1], dtype),
-                compare_grad(f'bwd {label} dv', dv[:1], ref[2], dtype))}
+                compare_blocks(f'bwd {label} dk', dk[:1], ref[1], dtype),
+                compare_blocks(f'bwd {label} dv', dv[:1], ref[2], dtype))}
     # The check must see a fault confined to the later rows, where the
     # gradients are smallest: dK 10 % low past row 4096, and dQ from an
     # LSE 0.1 too high on one 64-row tile (P 10 % low there).
@@ -355,6 +447,13 @@ def check_flash_bwd(gen) -> dict:
                     ref[0], dtype)
     del ref, bad_dk, bad_dq
     args = (q, k, v, None, out, dout, lse)
+    # dK/dV have no atomics: a second run gives the same bits.
+    dk2, dv2 = flash_ops._flash_bwd_dkv(*args)
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError('flash_bwd_dkv: two runs on the same inputs '
+                             'differ')
+    log('  flash_bwd_dkv: two runs at the training shape bit-identical')
+    del dk2, dv2
     ms = {'flash_bwd_dq': time_ms(lambda: flash_ops._flash_bwd_dq(*args),
                                   iters=5, warmup=1),
           'flash_bwd_dkv': time_ms(
@@ -1451,6 +1550,20 @@ def small_deepseek_end_to_end() -> None:
             raise AssertionError(f'{kernel.name} did not run on the card')
 
 
+def hopper_kernels(build_log: str):
+    """(name, registers, spill-store bytes) of each wgmma kernel and
+    pre-pass in an nvcc -Xptxas -v log."""
+    for chunk in build_log.split('Compiling entry function')[1:]:
+        mangled = chunk.split("'")[1]
+        found = re.search(r'(flash_\w+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
+                          mangled)
+        regs = re.search(r'Used (\d+) registers', chunk)
+        spill = re.search(r'(\d+) bytes spill stores', chunk)
+        if found and regs:
+            yield (f'{found.group(1)}<{found.group(2)}>', int(regs.group(1)),
+                   int(spill.group(1)) if spill else 0)
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1475,6 +1588,9 @@ def main() -> int:
             log(f'  {source}: {len(regs)} kernel instantiations, at most '
                 f'{max(map(int, regs))} registers, '
                 f'{sum(map(int, spills))} bytes spilled')
+        for name, regs, spill in hopper_kernels(build_log):
+            log(f'    {name}: {regs} registers at entry (setmaxnreg then '
+                f'splits them), {spill} bytes spilled')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),

@@ -82,14 +82,19 @@ __device__ __forceinline__ float capped_score(const FlashParams& p, float x,
 // where causal (q_pos >= kv_pos, no S_kv - S_q offset), window
 // (q_pos - kv_pos < window) or segments exclude the pair; a key row past
 // the array is never a key at all (-inf, so its probability is exactly 0).
-__device__ __forceinline__ float mask_score(const FlashParams& p, float x,
-                                           int qp, int kp, int seg_q,
-                                           int seg_kv) {
+__device__ __forceinline__ bool keep_pair(const FlashParams& p, int qp,
+                                          int kp, int seg_q, int seg_kv) {
   bool keep = true;
   if (p.causal) keep = keep && qp >= kp;
   if (p.window > 0) keep = keep && (qp - kp < p.window);
   if (p.seg != nullptr) keep = keep && seg_q == seg_kv;
-  x = keep ? x : kMaskFill;
+  return keep;
+}
+
+__device__ __forceinline__ float mask_score(const FlashParams& p, float x,
+                                           int qp, int kp, int seg_q,
+                                           int seg_kv) {
+  x = keep_pair(p, qp, kp, seg_q, seg_kv) ? x : kMaskFill;
   return kp < p.s_kv ? x : -INFINITY;
 }
 
@@ -98,6 +103,21 @@ __device__ __forceinline__ float masked_score(const FlashParams& p, float x,
                                              int seg_kv) {
   float dcap;
   return mask_score(p, capped_score(p, x, &dcap), qp, kp, seg_q, seg_kv);
+}
+
+// The wgmma kernels run their softmax in base 2 (exp2f): a kept score is
+// capped_score · log2(e); a masked one stays kMaskFill, so that a row
+// whose keys are all masked still weighs them equally, as with exp; a key
+// row past S_kv is -inf. *dcap as in capped_score.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float score_log2(const FlashParams& p, float x,
+                                           int qp, int kp, int seg_q,
+                                           int seg_kv, float* dcap) {
+  x = capped_score(p, x, dcap);
+  if (kp >= p.s_kv) return -INFINITY;
+  return keep_pair(p, qp, kp, seg_q, seg_kv) ? x * kLog2e : kMaskFill;
 }
 
 // Live KV tiles [first, last) of width bkv for the query tile

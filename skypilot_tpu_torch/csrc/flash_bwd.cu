@@ -13,11 +13,27 @@
 // S8192 H16/Hkv8 D128, causal) dK/dV does four products and dQ three of
 // 2·D·S(S+1)/2 each per (batch, head), against S·D bytes per operand.
 // What the design does about it:
-//   * bf16 (the training path) runs every product on the tensor cores
-//     with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), reusing the
+//   * dK/dV, bf16, D = 64 and 128 (the training path): warp-specialised
+//     wgmma. A block owns 128 keys of one KV head; a producer warpgroup
+//     (24 registers, setmaxnreg) loads K and V once by TMA and then
+//     streams the (query head, query tile) pairs of Q and dO, 64 rows
+//     each, with the tile's LSE and delta, through a two-stage mbarrier
+//     ring; two consumer warpgroups (240 registers) own 64 keys each and
+//     their dK, dV accumulators (fp32, 128 registers a thread at D 128).
+//     Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma from shared memory (K and V
+//     resident as A, Q and dO K-major as B); dV += Pᵀ·dO and dK += dSᵀ·Q
+//     take Pᵀ and dSᵀ as register A operands (rounded to bf16, as the
+//     Pallas kernel's astype does) and read dO and Q in place through the
+//     descriptor's transpose flag: no transposed copy. delta = Σ dO⊙O is
+//     computed once per query row by a pre-pass launched from the same
+//     entry point (with the LSE in base 2), not once per visit of a row;
+//     the softmax runs in base 2 (exp2f); masks only where a tile needs
+//     one; tiles fully masked for a warpgroup are skipped;
+//   * dQ and the D = 16 / 32 dK/dV path (only the tiny configs use those
+//     dims: a shape dispatch inside the same entry point, not a fallback)
+//     run mma.sync.m16n8k16 (bf16 in, fp32 accumulate), reusing the
 //     forward's fragment trick: the C fragments of P and dS become, once
-//     rounded to bf16 (as the Pallas kernel's astype does), the A
-//     fragments of the next product, so neither ever leaves registers;
+//     rounded to bf16, the A fragments of the next product;
 //   * no S x S matrix reaches device memory, and whole tiles above the
 //     causal diagonal, outside a sliding window or past the sequence are
 //     neither loaded nor computed (q_tiles / kv_tiles in common.cuh, the
@@ -27,18 +43,14 @@
 //     live query tile, so the group sum happens in its fp32 registers and
 //     dK/dV are written once, at Hkv width; the dQ block owns one query
 //     tile of one head and walks the live KV tiles;
-//   * delta is computed inside each kernel from the dO tile already in
-//     shared memory and the O rows, as the Pallas kernels do, so no
-//     pre-pass and no extra [B, H, S] tensor;
 //   * fp32 (the reference checks) runs plain FMAs from shared memory.
-// Still to come: wgmma, TMA loads, a multi-stage pipeline, and ldmatrix
-// in place of the transposed shared-memory copies.
 //
 // Layout as the forward: q/out/dout/dq [B, S, H, D]; k/v/dk/dv
 // [B, S_kv, Hkv, D]; lse [B, H, S] fp32; segment ids [B, S] int32. A
 // query row past S_q gets LSE = +inf, so its P is exactly 0 and it adds
 // nothing; a key row past S_kv is -inf before the exp (mask_score).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -48,6 +60,7 @@ using xsky::ld32;
 using xsky::mma_bf16;
 using xsky::pack_bf16;
 using xsky::segment;
+namespace hw = xsky::hopper;
 
 constexpr int kBT = 64;  // rows of every tile (queries and keys)
 
@@ -88,8 +101,358 @@ __device__ __forceinline__ void row_delta(const T* do_s, int stride,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, 4 warps x 16 rows. Tiles sit in shared memory as
-// [row][d] (stride D + 8) and, where a product contracts over rows, also
+// dK/dV, bf16, D = 64 and 128: TMA + mbarrier ring + wgmma.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBKV = 128;      // keys a block: two consumers of 64
+constexpr int kBQ = 64;        // query rows a tile
+constexpr int kStages = 2;     // (Q, dO, LSE, delta) ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+
+// The pre-pass's rows are padded to whole query tiles: s_pad = S_q
+// rounded up to kBQ.
+constexpr int pad_rows(int s) {
+  return (s + kBQ - 1) / kBQ * kBQ;
+}
+
+// bf16 dK/dV runs this kernel at these head dims (D 16 and 32 run the
+// mma.sync one); the one definition, for the dispatch and the scratch.
+constexpr bool takes(int d) { return d == 64 || d == 128; }
+
+// fp32 floats of the pre-pass's scratch: LSE and delta per padded row.
+constexpr long scratch_floats(int b, int h, int s_q) {
+  return 2L * b * h * pad_rows(s_q);
+}
+
+// Pre-pass: for every (b, h) and query row q < s_pad, stats[row] = the
+// LSE in base 2 (+inf past S_q; kMaskFill where the forward left -1e30,
+// so that an all-masked row keeps exp(-1e30 - (-1e30)) = 1) and
+// stats[rows + row] = delta = Σ_d dO ⊙ O (0 past S_q), row = bh · s_pad
+// + q. D / 8 lanes a row, 16 bytes each.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkv_rowstats_kernel(const FlashParams p, float* stats,
+                                  int s_pad) {
+  constexpr int kLanes = D / 8;
+  const long rows = static_cast<long>(p.b) * p.h * s_pad;
+  const long row = (static_cast<long>(blockIdx.x) * blockDim.x +
+                    threadIdx.x) / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  if (row >= rows) return;  // whole warps: rows * kLanes is a multiple of 32
+  const int bh = static_cast<int>(row / s_pad);
+  const int q = static_cast<int>(row % s_pad);
+  float part = 0.f;
+  if (q < p.s_q) {
+    const long off = ((static_cast<long>(bh / p.h) * p.s_q + q) * p.h +
+                      bh % p.h) * D + lane * 8;
+    const uint4 o4 = *reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(p.out) + off);
+    const uint4 d4 = *reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(p.dout) + off);
+    const bf16* oe = reinterpret_cast<const bf16*>(&o4);
+    const bf16* de = reinterpret_cast<const bf16*>(&d4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      part += __bfloat162float(de[e]) * __bfloat162float(oe[e]);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) {
+    float lse2 = INFINITY;
+    if (q < p.s_q) {
+      const float lse = p.lse[static_cast<long>(bh) * p.s_q + q];
+      lse2 = lse <= 0.5f * xsky::kMaskFill ? xsky::kMaskFill
+                                           : lse * xsky::kLog2e;
+    }
+    stats[row] = lse2;
+    stats[rows + row] = part;
+  }
+}
+
+// Shared memory, in bytes from a 1024-byte-aligned base: the resident K
+// and V panels, the Q and dO panels of each stage, each stage's LSE and
+// delta (kBQ floats each), then the mbarriers (kv, full[stage],
+// empty[stage]).
+template <int D>
+struct DkvSmem {
+  static constexpr int kPanels = D / hw::kPanelCols;
+  static constexpr uint32_t kKVPanel = kBKV * hw::kPanelRowBytes;
+  static constexpr uint32_t kQPanel = kBQ * hw::kPanelRowBytes;
+  static constexpr uint32_t kQTile = kPanels * kQPanel;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + kPanels * kKVPanel;
+  static constexpr uint32_t kQ = kV + kPanels * kKVPanel;
+  static constexpr uint32_t kDO = kQ + kStages * kQTile;
+  static constexpr uint32_t kStats = kDO + kStages * kQTile;
+  static constexpr uint32_t kStatsBytes = 2 * kBQ * sizeof(float);
+  static constexpr uint32_t kBar = kStats + kStages * kStatsBytes;
+  static constexpr size_t kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const FlashParams p, const float* stats,
+                               int s_pad) {
+  static_assert(D == 64 || D == 128, "the wgmma dK/dV takes D 64 or 128");
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar_kv = base + L::kBar;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.h_kv;
+  const int kvh = blockIdx.x % p.h_kv;
+  const int groups = p.h / p.h_kv;
+  const int kv_start = blockIdx.y * kBKV;  // causal: heaviest first
+  const int2 tiles = xsky::q_tiles(p, kv_start, kBQ, kBKV);
+  const long stat_rows = static_cast<long>(p.b) * p.h * s_pad;
+
+  if (tid == 0) {
+    hw::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(bar_full + 8 * s, 1);
+      hw::mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer: one thread issues every load.
+    hw::reg_dealloc<24>();
+    if (tid == 0) {
+      hw::prefetch_map(&map_q);
+      hw::prefetch_map(&map_do);
+      hw::mbar_expect_tx(bar_kv, 2 * L::kPanels * L::kKVPanel);
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        hw::tma_load_4d(base + L::kK + pn * L::kKVPanel, &map_k, bar_kv,
+                        pn * hw::kPanelCols, kvh, kv_start, b);
+        hw::tma_load_4d(base + L::kV + pn * L::kKVPanel, &map_v, bar_kv,
+                        pn * hw::kPanelCols, kvh, kv_start, b);
+      }
+      int it = 0;
+      for (int gi = 0; gi < groups; ++gi) {
+        const int h = kvh * groups + gi;
+        const long stat_row = (static_cast<long>(b) * p.h + h) * s_pad;
+        for (int tile = tiles.x; tile < tiles.y; ++tile, ++it) {
+          const int s = it % kStages;
+          const uint32_t phase = (it / kStages) & 1;
+          const int q_start = tile * kBQ;
+          const uint32_t full = bar_full + 8 * s;
+          hw::mbar_wait(bar_empty + 8 * s, phase ^ 1);
+          hw::mbar_expect_tx(full, 2 * L::kQTile + L::kStatsBytes);
+          for (int pn = 0; pn < L::kPanels; ++pn) {
+            hw::tma_load_4d(base + L::kQ + s * L::kQTile + pn * L::kQPanel,
+                            &map_q, full, pn * hw::kPanelCols, h, q_start, b);
+            hw::tma_load_4d(base + L::kDO + s * L::kQTile + pn * L::kQPanel,
+                            &map_do, full, pn * hw::kPanelCols, h, q_start,
+                            b);
+          }
+          const uint32_t st = base + L::kStats + s * L::kStatsBytes;
+          hw::bulk_load(st, stats + stat_row + q_start, kBQ * 4, full);
+          hw::bulk_load(st + kBQ * 4, stats + stat_rows + stat_row + q_start,
+                        kBQ * 4, full);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns keys kv_start + 64c .. + 63; in it, this
+    // thread key rows krow0 and krow0 + 8 (accumulator layout, hopper.cuh)
+    // and, in Sᵀ / dPᵀ, query columns 8n + 2t + {0, 1}.
+    hw::reg_alloc<240>();
+    const int c = tid / 128 - 1;
+    const int w = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_kv = kv_start + 64 * c;
+    const int krow0 = wg_kv + 16 * w + g;
+    const int seg_kv[2] = {segment(p, b, krow0, p.s_kv),
+                           segment(p, b, krow0 + 8, p.s_kv)};
+    const float scale_log2 = p.scale * xsky::kLog2e;
+    const float* stats_s = reinterpret_cast<const float*>(
+        smem_raw + (base - raw) + L::kStats);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    hw::mbar_wait(bar_kv, 0);
+    int it = 0;
+    for (int gi = 0; gi < groups; ++gi) {
+      for (int tile = tiles.x; tile < tiles.y; ++tile, ++it) {
+        const int s = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int q_start = tile * kBQ;
+        const uint32_t q_tile = base + L::kQ + s * L::kQTile;
+        const uint32_t do_tile = base + L::kDO + s * L::kQTile;
+        hw::mbar_wait(bar_full + 8 * s, phase);
+        // Nothing to add where every pair of this warpgroup is masked.
+        bool skip = wg_kv >= p.s_kv;
+        if (p.causal) skip = skip || q_start + kBQ - 1 < wg_kv;
+        if (p.window > 0) skip = skip || q_start - (wg_kv + 63) >= p.window;
+        if (!skip) {
+          // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 64 keys x 64 queries each.
+          float st[kBQ / 2], dpt[kBQ / 2];
+          hw::fence_regs(st);
+          hw::fence_regs(dpt);
+          hw::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hw::wgmma_ss(st,
+                         hw::kmajor_desc(base + L::kK, L::kKVPanel, 64 * c,
+                                         kk),
+                         hw::kmajor_desc(q_tile, L::kQPanel, 0, kk), kk);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hw::wgmma_ss(dpt,
+                         hw::kmajor_desc(base + L::kV, L::kKVPanel, 64 * c,
+                                         kk),
+                         hw::kmajor_desc(do_tile, L::kQPanel, 0, kk), kk);
+          hw::wgmma_commit();
+          hw::wgmma_wait<0>();
+          hw::fence_regs(st);
+          hw::fence_regs(dpt);
+
+          // Pᵀ and dSᵀ, in place of Sᵀ and dPᵀ.
+          bool need_mask = p.seg != nullptr || wg_kv + 64 > p.s_kv;
+          if (p.causal) need_mask = need_mask || q_start < wg_kv + 63;
+          if (p.window > 0)
+            need_mask = need_mask || q_start + kBQ - 1 - wg_kv >= p.window;
+          const float* lse2_s = stats_s + s * (2 * kBQ);
+          const float* delta_s = lse2_s + kBQ;
+#pragma unroll
+          for (int n = 0; n < kBQ / 8; ++n) {
+            const int qc = 8 * n + 2 * t;
+            const float2 lse2 = *reinterpret_cast<const float2*>(lse2_s + qc);
+            const float2 delta =
+                *reinterpret_cast<const float2*>(delta_s + qc);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * n + e;
+              const int qp = q_start + qc + (e & 1);
+              float dcap = 1.f, x;
+              if (need_mask)
+                x = xsky::score_log2(p, st[i], qp, krow0 + 8 * (e >> 1),
+                                     segment(p, b, qp, p.s_q),
+                                     seg_kv[e >> 1], &dcap);
+              else if (p.softcap > 0.f)
+                x = xsky::capped_score(p, st[i], &dcap) * xsky::kLog2e;
+              else
+                x = st[i] * scale_log2;
+              const float pr = exp2f(x - ((e & 1) ? lse2.y : lse2.x));
+              dpt[i] = pr * (dpt[i] - ((e & 1) ? delta.y : delta.x)) *
+                       p.scale * dcap;
+              st[i] = pr;
+            }
+          }
+          // Sᵀ's n-blocks 2kk and 2kk + 1 are the A fragment of k-step kk
+          // (queries 16kk .. 16kk + 15) of Pᵀ·dO and dSᵀ·Q.
+          uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              pa[kk][j] =
+                  pack_bf16(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1]);
+              dsa[kk][j] =
+                  pack_bf16(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
+            }
+
+          // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q read in place (MN-major).
+          hw::fence_regs(dv);
+          hw::fence_regs(dk);
+          hw::fence_regs(pa);
+          hw::fence_regs(dsa);
+          hw::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBQ / 16; ++kk)
+            hw::wgmma_rs_t(dv, pa[kk],
+                           hw::mnmajor_desc(do_tile, L::kQPanel, kk));
+#pragma unroll
+          for (int kk = 0; kk < kBQ / 16; ++kk)
+            hw::wgmma_rs_t(dk, dsa[kk],
+                           hw::mnmajor_desc(q_tile, L::kQPanel, kk));
+          hw::wgmma_commit();
+          hw::wgmma_wait<0>();
+          hw::fence_regs(dv);
+          hw::fence_regs(dk);
+          hw::fence_regs(pa);
+          hw::fence_regs(dsa);
+        }
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(bar_empty + 8 * s);
+      }
+    }
+
+    const long kv_row = static_cast<long>(p.h_kv) * D;
+    const long kv_off = static_cast<long>(b) * p.s_kv * kv_row +
+                        static_cast<long>(kvh) * D;
+    bf16* dk_base = static_cast<bf16*>(p.dk) + kv_off;
+    bf16* dv_base = static_cast<bf16*>(p.dv) + kv_off;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = krow0 + 8 * r;
+      if (kp >= p.s_kv) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const long off = kp * kv_row + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk_base + off) =
+            pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv_base + off) =
+            pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// The pre-pass, then the main kernel, on one stream: one launch of
+// flash_bwd_dkv as the wrapper counts it.
+template <int D>
+cudaError_t launch_dkv(const FlashParams& p, float* stats, cudaStream_t st) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  const int s_pad = pad_rows(p.s_q);
+  const long lanes = static_cast<long>(p.b) * p.h * s_pad * (D / 8);
+  flash_bwd_dkv_rowstats_kernel<D>
+      <<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, st>>>(p, stats,
+                                                                  s_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kBQ);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_do, p.dout, p.b, p.s_q, p.h, D, kBQ);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kBKV);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kBKV);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = DkvSmem<D>::kAlloc;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.b * p.h_kv, (p.s_kv + kBKV - 1) / kBKV);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, smem, st>>>(
+      map_q, map_k, map_v, map_do, p, stats, s_pad);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16, mma.sync: dQ (every D) and dK/dV (D = 16, 32), 4 warps x 16
+// rows. Tiles sit in shared memory as [row][d] (stride D + 8) and, where a
+// product contracts over rows, also
 // transposed as [d][row] (stride kBT + 8), so every fragment is 32-bit
 // loads of adjacent bf16 pairs; the padding spreads a warp's eight rows
 // over distinct banks.
@@ -136,7 +499,7 @@ constexpr size_t dkv_mma_smem() {
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dkv_mma_kernel(FlashParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D == 16 || D == 32, "D 64 and 128 take the wgmma kernel");
   constexpr int RS = D + 8, TS = kBT + 8, DK = D / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
@@ -726,11 +1089,16 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 }
 
 template <int D>
-cudaError_t launch_dkv(const FlashParams& p, int dtype, cudaStream_t st) {
+cudaError_t launch_dkv(const FlashParams& p, int dtype, float* stats,
+                       cudaStream_t st) {
   const dim3 grid((p.s_kv + kBT - 1) / kBT, p.b * p.h_kv);
-  if (dtype == xsky::kBFloat16)
-    return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
-                  dkv_mma_smem<D>(), p, st);
+  if (dtype == xsky::kBFloat16) {
+    if constexpr (wg::takes(D))
+      return wg::launch_dkv<D>(p, stats, st);
+    else
+      return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
+                    dkv_mma_smem<D>(), p, st);
+  }
   return launch(flash_bwd_dkv_fma_kernel<D>, grid, kFmaThreads,
                 dkv_fma_smem<D>(), p, st);
 }
@@ -774,15 +1142,28 @@ FlashParams make_params(const void* q, const void* k, const void* v,
 
 XSKY_ERROR_STRING_FN
 
+// Floats of the fp32 scratch that xsky_flash_bwd_dkv needs for these
+// shapes (the wgmma path's pre-pass: base-2 LSE and delta per query row,
+// S_q padded to its query tile); 0 where the shapes take none. The caller
+// sizes the scratch by it, so this library alone knows the rule.
+extern "C" long xsky_flash_bwd_dkv_scratch_floats(int b, int s_q, int h,
+                                                  int d, int dtype) {
+  return dtype == xsky::kBFloat16 && wg::takes(d)
+             ? wg::scratch_floats(b, h, s_q)
+             : 0;
+}
+
 // dtype: xsky::kFloat32 or xsky::kBFloat16 (q, k, v, out, dout and the
-// gradients share it). dk, dv: [B, S_kv, Hkv, D].
+// gradients share it). dk, dv: [B, S_kv, Hkv, D]. stats: fp32 scratch of
+// xsky_flash_bwd_dkv_scratch_floats floats (null where that is 0).
 extern "C" int xsky_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const int32_t* seg,
                                   const void* out, const void* dout,
                                   const float* lse, void* dk, void* dv,
-                                  int b, int s_q, int s_kv, int h, int h_kv,
-                                  int d, int causal, int window, float scale,
-                                  float softcap, int dtype, void* stream) {
+                                  float* stats, int b, int s_q, int s_kv,
+                                  int h, int h_kv, int d, int causal,
+                                  int window, float scale, float softcap,
+                                  int dtype, void* stream) {
   if ((dtype != xsky::kFloat32 && dtype != xsky::kBFloat16) || h % h_kv)
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p = make_params(q, k, v, seg, out, dout, lse, b, s_q, s_kv, h,
@@ -792,10 +1173,10 @@ extern "C" int xsky_flash_bwd_dkv(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = launch_dkv<16>(p, dtype, st); break;
-    case 32: err = launch_dkv<32>(p, dtype, st); break;
-    case 64: err = launch_dkv<64>(p, dtype, st); break;
-    case 128: err = launch_dkv<128>(p, dtype, st); break;
+    case 16: err = launch_dkv<16>(p, dtype, stats, st); break;
+    case 32: err = launch_dkv<32>(p, dtype, stats, st); break;
+    case 64: err = launch_dkv<64>(p, dtype, stats, st); break;
+    case 128: err = launch_dkv<128>(p, dtype, stats, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -5,28 +5,41 @@
 // softmax over KV tiles, fp32 running max / sum / accumulator, and writes
 // the output plus the per-row log-sum-exp that the backward kernels need.
 //
-// What bounds it on the H100: at prefill lengths (S >= 1024) attention is
-// compute-bound (4 * S^2/2 * D flops per causal head against S * D bytes
-// per operand). What the design does about it:
-//   * bf16 (the serving path) runs its two products on the tensor cores
-//     with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), FlashAttention-2
-//     style: each warp owns 16 query rows, keeps its Q fragments and its
-//     output accumulator in registers, and turns the score accumulator
-//     straight into the A operand of the P·V product (P rounded to bf16,
-//     as the Pallas kernel's p.astype(v.dtype) does);
-//   * fp32 (the reference checks) runs plain fp32 FMAs from shared memory;
-//   * both do no work they do not need: whole KV tiles above the causal
-//     diagonal or left of a sliding window are neither loaded nor
-//     computed, K/V stay at their Hkv width (GQA resolved as h / groups),
-//     and no S x S matrix ever reaches device memory.
-// Still to come: wgmma, TMA loads and a multi-stage smem pipeline.
+// What bounds it on the H100: operations. At the main paths' shapes
+// (B16 S1024 H32/8 D128 serving, B4 S8192 H16/8 D128 training, causal)
+// it does 4 · D · S(S+1)/2 flops per (batch, head) against S · D bf16
+// values per operand: ~S / 4 flops a byte (256 at S 1024, 2048 at S 8192)
+// where the card needs ~295 to leave memory behind, so the tensor cores'
+// rate is the limit.
+// What the design does about it (bf16, D = 64 and 128):
+//   * warp specialisation: a block owns 128 query rows of one (b, h).
+//     A producer warpgroup (registers cut to 24 by setmaxnreg) loads Q
+//     once and then streams K and V tiles of 128 keys by TMA into a
+//     three-stage ring guarded by full / empty mbarriers (225 KB of
+//     shared memory at D 128), so loads overlap the math; two consumer
+//     warpgroups (240 registers) own 64 rows each;
+//   * S = Q·Kᵀ is one wgmma chain per consumer, Q and K both read from
+//     shared memory as TMA lands them (K-major, 128-byte swizzle);
+//   * O += P·V is wgmma with P as the register A operand: the fp32 score
+//     accumulator, packed to bf16 pairs (rounded, as the Pallas kernel's
+//     p.astype(v.dtype)), is exactly the A fragment of the next product.
+//     V is read in place as [key][d] through the descriptor's transpose
+//     (MN-major) flag: no transposed copy;
+//   * the softmax runs in base 2 (exp2f, log2 e folded into the scale)
+//     and the LSE goes back to the natural log on the way out;
+//   * masks are applied only on tiles that need one (the causal diagonal,
+//     the window's edge, the ragged last tile, any tile with segment
+//     ids); whole tiles above the diagonal or left of the window are
+//     never loaded (kv_tiles in common.cuh);
+//   * blocks run heaviest first (the last query tiles first), so causal
+//     blocks leave no long tail.
+// D = 16 and 32 (only the tiny test configs use them) keep the mma.sync
+// kernel below: a shape dispatch inside the same entry point, not a
+// fallback. fp32 (the reference checks) runs plain FMAs.
 //
 // Layout: q [B, S, H, D], k/v [B, S_kv, Hkv, D] (row strides H*D and
 // Hkv*D, read in place: no transposes), segment ids [B, S] int32,
 // out [B, S, H, D] in q's type, lse [B, H, S] fp32.
-//
-// Grid: one block per (64-row query tile, b * H + h). The TPU grid's
-// sequential KV axis becomes the tile loop inside the block.
 //
 // Semantics follow the Pallas kernel: masked scores are filled with
 // -1e30 (not -inf), softcap is applied before masking, the causal mask is
@@ -34,6 +47,7 @@
 // key writes 0 with a finite LSE (l_safe). Key rows past S_kv (the ragged
 // last tile) are excluded outright.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -45,6 +59,7 @@ using xsky::masked_score;
 using xsky::mma_bf16;
 using xsky::pack_bf16;
 using xsky::segment;
+namespace hw = xsky::hopper;
 
 // Live KV tiles for the query tile starting at q_start.
 __device__ __forceinline__ int2 kv_tiles(const FlashParams& p, int q_start) {
@@ -52,7 +67,263 @@ __device__ __forceinline__ int2 kv_tiles(const FlashParams& p, int q_start) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16), 4 warps x 16 query rows.
+// bf16, D = 64 and 128: TMA + mbarrier ring + wgmma, warp-specialised.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBQ = 128;       // query rows a block: two consumers of 64
+constexpr int kBKV = 128;      // keys a tile
+constexpr int kStages = 3;     // K/V ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+
+// Shared memory, in bytes from a 1024-byte-aligned base: Q's panels, then
+// the K and V panels of each stage, then the mbarriers (q, full_k[stage],
+// full_v[stage], empty[stage]).
+template <int D>
+struct Smem {
+  static constexpr int kPanels = D / hw::kPanelCols;
+  static constexpr uint32_t kQPanel = kBQ * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVPanel = kBKV * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVTile = kPanels * kKVPanel;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kPanels * kQPanel;
+  static constexpr uint32_t kV = kK + kStages * kKVTile;
+  static constexpr uint32_t kBar = kV + kStages * kKVTile;
+  static constexpr size_t kAlloc = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const FlashParams p) {
+  static_assert(D == 64 || D == 128, "the wgmma forward takes D 64 or 128");
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hw::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full_k = bar_q + 8;
+  const uint32_t bar_full_v = bar_full_k + 8 * kStages;
+  const uint32_t bar_empty = bar_full_v + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.h;
+  const int h = bh % p.h;
+  const int kvh = h / (p.h / p.h_kv);
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const int2 tiles = xsky::kv_tiles(p, q_start, kBQ, kBKV);
+  const int n_tiles = tiles.y - tiles.x;
+
+  if (tid == 0) {
+    hw::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(bar_full_k + 8 * s, 1);
+      hw::mbar_init(bar_full_v + 8 * s, 1);
+      hw::mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer: one thread issues every load.
+    hw::reg_dealloc<24>();
+    if (tid == 0) {
+      hw::prefetch_map(&map_q);
+      hw::prefetch_map(&map_k);
+      hw::prefetch_map(&map_v);
+      hw::mbar_expect_tx(bar_q, L::kPanels * L::kQPanel);
+      for (int pn = 0; pn < L::kPanels; ++pn)
+        hw::tma_load_4d(base + L::kQ + pn * L::kQPanel, &map_q, bar_q,
+                        pn * hw::kPanelCols, h, q_start, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int kv_start = (tiles.x + it) * kBKV;
+        hw::mbar_wait(bar_empty + 8 * s, phase ^ 1);
+        hw::mbar_expect_tx(bar_full_k + 8 * s, L::kKVTile);
+        for (int pn = 0; pn < L::kPanels; ++pn)
+          hw::tma_load_4d(base + L::kK + s * L::kKVTile + pn * L::kKVPanel,
+                          &map_k, bar_full_k + 8 * s, pn * hw::kPanelCols,
+                          kvh, kv_start, b);
+        hw::mbar_expect_tx(bar_full_v + 8 * s, L::kKVTile);
+        for (int pn = 0; pn < L::kPanels; ++pn)
+          hw::tma_load_4d(base + L::kV + s * L::kKVTile + pn * L::kKVPanel,
+                          &map_v, bar_full_v + 8 * s, pn * hw::kPanelCols,
+                          kvh, kv_start, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns query rows q_start + 64c .. + 63; in it,
+    // this thread rows row0 and row0 + 8 (accumulator layout, hopper.cuh).
+    hw::reg_alloc<240>();
+    const int c = tid / 128 - 1;
+    const int w = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_q = q_start + 64 * c;
+    const int row0 = wg_q + 16 * w + g;
+    const int seg_q[2] = {segment(p, b, row0, p.s_q),
+                          segment(p, b, row0 + 8, p.s_q)};
+    const float scale_log2 = p.scale * xsky::kLog2e;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kMaskFill, kMaskFill}, l[2] = {0.f, 0.f};
+
+    hw::mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const uint32_t phase = (it / kStages) & 1;
+      const int kv_start = (tiles.x + it) * kBKV;
+      const uint32_t k_tile = base + L::kK + s * L::kKVTile;
+      const uint32_t v_tile = base + L::kV + s * L::kKVTile;
+
+      // S = Q·Kᵀ for this warpgroup's 64 rows and the tile's 128 keys.
+      float sc[kBKV / 2];
+      hw::mbar_wait(bar_full_k + 8 * s, phase);
+      hw::fence_regs(sc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hw::wgmma_ss(sc, hw::kmajor_desc(base + L::kQ, L::kQPanel, 64 * c, kk),
+                     hw::kmajor_desc(k_tile, L::kKVPanel, 0, kk), kk);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(sc);
+
+      // Scores in base 2: masked only where this tile needs a mask.
+      bool need_mask = p.seg != nullptr || kv_start + kBKV > p.s_kv;
+      if (p.causal) need_mask = need_mask || kv_start + kBKV - 1 > wg_q;
+      if (p.window > 0)
+        need_mask = need_mask || wg_q + 63 - kv_start >= p.window;
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < kBKV / 2; ++i) {
+          const int kp = kv_start + 8 * (i / 4) + 2 * t + (i & 1);
+          const int r = (i >> 1) & 1;
+          float dcap;
+          sc[i] = xsky::score_log2(p, sc[i], row0 + 8 * r, kp, seg_q[r],
+                                   segment(p, b, kp, p.s_kv), &dcap);
+        }
+      } else if (p.softcap > 0.f) {
+#pragma unroll
+        for (int i = 0; i < kBKV / 2; ++i) {
+          float dcap;
+          sc[i] = xsky::capped_score(p, sc[i], &dcap) * xsky::kLog2e;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBKV / 2; ++i) sc[i] *= scale_log2;
+      }
+
+      // Online softmax over the two rows this thread holds.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kBKV / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // The four lanes of a quad (same g) share the row.
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);  // finite: m starts at -1e30
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kBKV / 2; ++i) {
+        sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // P in bf16: n-blocks 2kk and 2kk + 1 of S are the A fragment of
+      // k-step kk (keys 16kk .. 16kk + 15) of P·V.
+      uint32_t pa[kBKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      // O += P·V, V read in place ([key][d], MN-major).
+      hw::mbar_wait(bar_full_v + 8 * s, phase);
+      hw::fence_regs(o);
+      hw::fence_regs(pa);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+        hw::wgmma_rs_t(o, pa[kk], hw::mnmajor_desc(v_tile, L::kKVPanel, kk));
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(o);
+      hw::fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(bar_empty + 8 * s);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
+                         static_cast<long>(b) * p.s_q * p.h * D +
+                         static_cast<long>(h) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.s_q) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / l_safe;
+      __nv_bfloat16* orow = out + static_cast<long>(row) * p.h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (t == 0)
+        p.lse[static_cast<long>(bh) * p.s_q + row] =
+            m[r] == kMaskFill ? kMaskFill + logf(l_safe)
+                              : m[r] * xsky::kLn2 + logf(l_safe);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kBQ);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kBKV);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kBKV);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Smem<D>::kAlloc;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.b * p.h, (p.s_q + kBQ - 1) / kBQ);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(map_q, map_k,
+                                                              map_v, p);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16, D = 16 and 32: tensor cores (mma.sync m16n8k16), 4 warps x 16
+// query rows.
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;
@@ -64,7 +335,7 @@ constexpr int kMmaThreads = 128;
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(FlashParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D == 16 || D == 32, "D 64 and 128 take the wgmma kernel");
   constexpr int KS = D + 8;       // k_s row stride (elements)
   constexpr int VS = kBKV + 8;    // vt_s row stride (elements)
   constexpr int DK = D / 16;      // k-steps of the score product
@@ -402,8 +673,12 @@ template <int D>
 cudaError_t launch(const FlashParams& p, int dtype, cudaStream_t stream) {
   const dim3 grid((p.s_q + kBQ - 1) / kBQ, p.b * p.h);
   if (dtype == xsky::kBFloat16) {
-    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(p);
-    return cudaGetLastError();
+    if constexpr (D >= 64) {
+      return wg::launch<D>(p, stream);
+    } else {
+      flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
   }
   constexpr size_t smem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(

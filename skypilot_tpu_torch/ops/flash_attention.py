@@ -5,10 +5,12 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``: the forward
 (``_fwd_kernel`` / ``_flash_fwd``) is ``csrc/flash_fwd.cu``; the backward
 pair (``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` / ``_bwd_flash``) is
 ``csrc/flash_bwd.cu``, one library with two entry points and two launch
-counts. The sources' headers say what bounds each kernel on the H100 and
-how it is laid out. ``flash_attention`` is a ``torch.autograd.Function``
-(the JAX ``custom_vjp``): its forward saves the LSE, its backward
-recomputes P from it.
+counts. In bf16 at head dims 64 and 128 the forward and dK/dV are the
+TMA + wgmma kernels built on ``csrc/hopper.cuh``; the sources' headers
+say what bounds each kernel on the H100 and how it is laid out.
+``flash_attention`` is a ``torch.autograd.Function`` (the JAX
+``custom_vjp``): its forward saves the LSE, its backward recomputes P
+from it.
 
 A CUDA tensor launches the kernels (or the wrapper raises); a CPU tensor
 takes ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the
@@ -33,7 +35,9 @@ KERNEL = kernels.Kernel(
     [ctypes.c_void_p] * 6 + _SHAPE_ARGS)
 DKV_KERNEL = kernels.Kernel(
     'flash_bwd_dkv', 'flash_bwd.cu', 'xsky_flash_bwd_dkv',
-    [ctypes.c_void_p] * 9 + _SHAPE_ARGS)
+    [ctypes.c_void_p] * 10 + _SHAPE_ARGS)
+# The TMA loads of the bf16 wgmma kernels read from 16-byte-aligned bases.
+TMA_ALIGN = 16
 DQ_KERNEL = kernels.Kernel(
     'flash_bwd_dq', 'flash_bwd.cu', 'xsky_flash_bwd_dq',
     [ctypes.c_void_p] * 8 + _SHAPE_ARGS)
@@ -133,15 +137,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def gradient_errors(got: torch.Tensor, want: torch.Tensor,
                     block_rows: int = 64) -> Tuple[float, float]:
-    """How far a gradient [B, S, H, D] is from its reference, each block
-    of ``block_rows`` rows of one (batch row, head) judged against the
-    reference's own size there → (norm_err, elem_err).
+    """How far a gradient or a forward output [B, S, H, D] is from its
+    reference, each block of ``block_rows`` rows of one (batch row, head)
+    judged against the reference's own size there → (norm_err, elem_err).
 
     norm_err is the largest ||got - want|| / ||want|| over the blocks;
     elem_err the largest |got - want| over the RMS of ``want`` in the
-    element's block. Both are local because attention gradients shrink
-    along the sequence (about as 1/sqrt(pos) under a causal mask): one
-    absolute tolerance would be loose for the later rows. A block far
+    element's block. Both are local because attention gradients and
+    outputs shrink along the sequence (about as 1/sqrt(pos) under a
+    causal mask): one absolute tolerance would be loose for the later
+    rows. A block far
     smaller than the whole (RMS under 1e-3 of the tensor's) is judged
     against that floor, so a near-zero block does not divide by zero.
     A non-finite value in ``got`` gives (inf, inf).
@@ -191,6 +196,19 @@ def _check(q, k, v, segment_ids) -> None:
             segment_ids.dtype != torch.int32 or
             tuple(segment_ids.shape) != (b, s_q) or k.shape[1] != s_q):
         raise ValueError('segment_ids must be int32 [B, S] with S_kv == S')
+    check_aligned(q=q, k=k, v=v)
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's base is 16-byte aligned, as the TMA
+    loads of the bf16 wgmma kernels need. A contiguous view that starts a
+    few elements into its storage is not."""
+    for name, t in tensors.items():
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f'flash_attention needs {name} to start on a {TMA_ALIGN}-'
+                f'byte boundary (TMA); its base {t.data_ptr():#x} is not: '
+                'pass a .clone()')
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -234,6 +252,7 @@ def _check_bwd(q, k, v, segment_ids, out, dout, lse) -> None:
                 or not t.is_contiguous()):
             raise ValueError(f'{name} must be a contiguous {q.dtype} '
                              f'{tuple(q.shape)} tensor on {q.device}')
+    check_aligned(out=out, dout=dout)
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s_q)
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError('lse must be a contiguous fp32 [B, H, S] tensor')
@@ -265,11 +284,26 @@ def _flash_bwd_dkv(q, k, v, segment_ids, out, dout, lse, *, causal=True,
     _check_bwd(q, k, v, segment_ids, out, dout, lse)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    stats = dkv_scratch(q)
     DKV_KERNEL.launch(*_bwd_common(q, k, v, segment_ids, out, dout, lse),
-                      kernels.ptr(dk), kernels.ptr(dv),
+                      kernels.ptr(dk), kernels.ptr(dv), kernels.ptr(stats),
                       *_shape_args(q, k, causal, window, softcap,
                                    scale_override))
     return dk, dv
+
+
+def dkv_scratch(q: torch.Tensor) -> Optional[torch.Tensor]:
+    """Scratch of the dK/dV kernel's pre-pass, or None where the kernel
+    takes none: fp32, as many floats as the kernel's library asks for
+    (each query row's LSE in base 2 and its delta = Σ dO⊙O, computed once
+    per row). The library alone knows which shapes run the wgmma kernel
+    and how far its query tiles pad S."""
+    b, s, h, d = q.shape
+    floats = DKV_KERNEL.query('xsky_flash_bwd_dkv_scratch_floats', b, s, h,
+                              d, kernels.DTYPE_CODES[q.dtype])
+    if not floats:
+        return None
+    return torch.empty(floats, dtype=torch.float32, device=q.device)
 
 
 def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

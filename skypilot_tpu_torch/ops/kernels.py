@@ -55,6 +55,7 @@ class Kernel:
         self.launches = 0
         self.build_log = ''
         self._fn = None
+        self._lib = None
         self._error_string = None
         REGISTRY.append(self)
 
@@ -84,7 +85,7 @@ class Kernel:
         err = lib.xsky_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fn, self._error_string = fn, err
+        self._lib, self._fn, self._error_string = lib, fn, err
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise if the launch was refused."""
@@ -96,6 +97,17 @@ class Kernel:
                 f'CUDA kernel {self.name} failed to launch: '
                 f'{self._error_string(code).decode()} (code {code})')
         self.launches += 1
+
+    def query(self, symbol: str, *args: int) -> int:
+        """Call a C function of this kernel's library that launches
+        nothing and answers with a number (such as a scratch size); the
+        launch count does not move."""
+        if self._fn is None:
+            build_all([self])
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_long
+        return fn(*args)
 
 
 REGISTRY: List[Kernel] = []
@@ -142,17 +154,23 @@ def build_all(kernels: Optional[Sequence[Kernel]] = None
         for source, (tmp, out, t0, proc) in procs.items():
             log, _ = proc.communicate()
             seconds[source] = time.perf_counter() - t0
-            for k in todo:
-                if k.source == source:
-                    k.build_log = log
             if proc.returncode != 0:
                 failures.append(f'--- {source} ---\n{log}')
                 continue
+            # nvcc's -Xptxas -v report (registers, spills) stays beside
+            # the library, so a reused build still shows it.
+            with open(f'{tmp}.log', 'w') as f:
+                f.write(log)
+            os.replace(f'{tmp}.log', f'{out}.log')
             os.replace(tmp, out)
         if failures:
             raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
         for k in todo:
-            k._load(k.library_path())
+            path = k.library_path()
+            if os.path.exists(f'{path}.log'):
+                with open(f'{path}.log') as f:
+                    k.build_log = f.read()
+            k._load(path)
         return seconds
 
 

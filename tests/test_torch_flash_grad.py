@@ -172,3 +172,44 @@ def test_gradient_errors_ragged_rows_and_non_finite():
     bad[0, 3, 1, 7] = float('nan')
     assert flash_attention.gradient_errors(bad, dq) == (float('inf'),
                                                        float('inf'))
+
+
+# The limits the kernels' forward outputs are held to blockwise on the
+# card (chip_smoke.py, tests/test_torch_kernels_gpu.py).
+_BLOCK_TOL = {torch.bfloat16: (1e-2, 0.15), torch.float32: (1e-5, 1e-4)}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('fault', ['late_rows_x0.9', 'tile_from_other_head'])
+def test_gradient_errors_see_a_late_output_fault(dtype, fault):
+    """The forward's output shrinks along a causal sequence too, so it is
+    judged blockwise as well: the plain output rounded to the kernel's
+    type reads under the limits, and a fault confined to late rows (10 %
+    low past the middle; one 64-row tile of head 0 holding head 1's rows,
+    as a wrong V fragment would give) reads over them."""
+    _, out, _, _ = _plain_grads()
+    norm_tol, elem_tol = _BLOCK_TOL[dtype]
+    sound = out.to(dtype)
+    norm_err, elem_err = flash_attention.gradient_errors(sound, out)
+    assert norm_err <= norm_tol and elem_err <= elem_tol
+    bad = sound.clone()
+    if fault == 'late_rows_x0.9':
+        bad[:, 512:] *= 0.9
+    else:
+        bad[:, 768:832, 0] = bad[:, 768:832, 1]
+    norm_err, elem_err = flash_attention.gradient_errors(bad, out)
+    assert norm_err > 0.09 and elem_err > elem_tol
+
+
+def test_check_aligned_names_the_misaligned_tensor():
+    """The TMA loads of the wgmma kernels need 16-byte-aligned bases: a
+    contiguous view two bf16 elements into its storage is refused with
+    the tensor's name; an aligned one passes."""
+    storage = torch.zeros(2 * 64 * 4 * 64 + 8, dtype=torch.bfloat16)
+    good = storage[:-8].view(2, 64, 4, 64)
+    bad = storage[2:-6].view(2, 64, 4, 64)
+    assert good.is_contiguous() and bad.is_contiguous()
+    flash_attention.check_aligned(q=good, dout=good)
+    with pytest.raises(ValueError, match=r'needs dout to start on a 16-byte'
+                                         r' boundary \(TMA\)'):
+        flash_attention.check_aligned(q=good, dout=bad)

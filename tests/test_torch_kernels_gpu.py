@@ -12,9 +12,13 @@ with the card need not have.)
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes.
 Tolerances: fp32 atol 1e-4 (summation order); bf16 atol 2e-2 + 1e-2
 relative (one or two bf16 ulps: the output rounding, and the flash
-kernel's bf16 P before P·V). Gradients: blockwise, see GRAD_TOL.
+kernel's bf16 P before P·V). Forward outputs and gradients also
+blockwise, see BLOCK_TOL.
 """
 from __future__ import annotations
+
+import pathlib
+import sys
 
 import pytest
 import torch
@@ -24,26 +28,37 @@ from skypilot_tpu_torch.ops import decode_attention
 from skypilot_tpu_torch.ops import flash_attention
 from skypilot_tpu_torch.ops import mla_decode
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the flash kernels' tile-edge cases)
+
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
-# Gradients, judged in each block of 64 rows of one head against the
-# reference's own size there (flash_attention.gradient_errors), since
-# attention gradients shrink along the sequence: limits on the blockwise
-# relative error and on the largest element error over the block's RMS.
-# fp32 sums in another order; bf16 also rounds P and dS to bf16 before
-# their products (as the Pallas kernels do) and the gradient on the way
-# out. chip_smoke.py holds the kernels to the same limits.
-GRAD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 0.15)}
+# Gradients and forward outputs, also judged in each block of 64 rows of
+# one head against the reference's own size there
+# (flash_attention.gradient_errors), since both shrink along the
+# sequence: limits on the blockwise relative error and on the largest
+# element error over the block's RMS. fp32 sums in another order; bf16
+# also rounds P and dS to bf16 before their products (as the Pallas
+# kernels do) and the result on the way out. chip_smoke.py holds the
+# kernels to the same limits.
+BLOCK_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 0.15)}
 
 
-def assert_grad_close(got, want, dtype, name):
+def assert_blocks_close(got, want, dtype, name):
     norm_err, elem_err = flash_attention.gradient_errors(got, want)
-    norm_tol, elem_tol = GRAD_TOL[dtype]
+    norm_tol, elem_tol = BLOCK_TOL[dtype]
     assert norm_err <= norm_tol and elem_err <= elem_tol, (
         f'{name}: block rel err {norm_err:.3e} (limit {norm_tol:g}), '
         f'element err / block rms {elem_err:.3e} (limit {elem_tol:g})')
+
+
+def assert_out_close(out, lse, ref, ref_lse, dtype):
+    """A forward's output, elementwise and blockwise, and its LSE."""
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert_blocks_close(out, ref, dtype, 'out')
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
 @pytest.fixture
@@ -60,66 +75,79 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device='cuda').to(dtype)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('kw', [dict(), dict(window=37),
-                                dict(segments=True),
-                                dict(softcap=20.0, scale=0.1),
-                                dict(causal=False)],
-                         ids=['causal', 'window', 'segments',
-                              'softcap_scale', 'non_causal'])
-def test_flash_kernel_matches_plain(card, dtype, kw):
-    kw = dict(kw)
-    b, s, h, h_kv, d = 2, 200, 4, 2, 64
-    q = _randn(card, (b, s, h, d), dtype)
-    k = _randn(card, (b, s, h_kv, d), dtype)
-    v = _randn(card, (b, s, h_kv, d), dtype)
-    seg = None
-    if kw.pop('segments', False):
-        seg = (torch.arange(s, device='cuda')[None, :] >= 90).int().expand(
-            b, s).contiguous()
-    causal = kw.pop('causal', True)
-    out, lse = flash_attention._flash_fwd(
-        q, k, v, seg, causal=causal, window=kw.get('window'),
-        softcap=kw.get('softcap'), scale_override=kw.get('scale'))
-    ref, ref_lse = flash_attention.flash_attention_plain(
-        q, k, v, causal=causal, window=kw.get('window'), segment_ids=seg,
-        logit_softcap=kw.get('softcap'), scale=kw.get('scale'))
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
-    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+# The wgmma kernels' tile edges (chip_smoke.py phase [3] runs the same
+# cases): S 127, 129 and 1000, GQA groups 1, 2 and 4, D 64 and 128, each
+# with one of the mask variants in turn, as extra cases of the two tests
+# below.
+_EDGE_KW = [dict(kw, s=shape[1], h_kv=shape[3], d=shape[4])
+            for _, shape, kw in chip_smoke.edge_cases()]
+_EDGE_IDS = [f"edge_s{kw['s']}_hkv{kw['h_kv']}_d{kw['d']}_" + (
+    '_'.join(k for k in kw if k not in ('s', 'h_kv', 'd')) or 'causal')
+    for kw in _EDGE_KW]
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('kw', [dict(), dict(window=37),
-                                dict(segments=True),
-                                dict(softcap=20.0, scale=0.1),
-                                dict(causal=False), dict(d=16, h_kv=1)],
-                         ids=['causal', 'window', 'segments',
-                              'softcap_scale', 'non_causal', 'd16_hkv1'])
-def test_flash_backward_kernels_match_plain(card, dtype, kw):
-    """dq (K3) and dk/dv (K2) against the plain backward on the same
-    forward output and LSE; S=200 is ragged against the 64-row tiles."""
+def _flash_inputs(gen, dtype, kw, with_dout=False):
+    """(q, k, v[, dout]), segment ids and the kernel's options from a
+    case's kw (B2, 4 query heads; S 200, Hkv 2, D 64 unless it says)."""
     kw = dict(kw)
-    b, s, h = 2, 200, 4
-    h_kv, d = kw.pop('h_kv', 2), kw.pop('d', 64)
-    q = _randn(card, (b, s, h, d), dtype)
-    k = _randn(card, (b, s, h_kv, d), dtype)
-    v = _randn(card, (b, s, h_kv, d), dtype)
-    dout = _randn(card, (b, s, h, d), dtype)
+    b, h = 2, 4
+    s, h_kv, d = kw.pop('s', 200), kw.pop('h_kv', 2), kw.pop('d', 64)
+    q = _randn(gen, (b, s, h, d), dtype)
+    k = _randn(gen, (b, s, h_kv, d), dtype)
+    v = _randn(gen, (b, s, h_kv, d), dtype)
+    tensors = (q, k, v) + ((_randn(gen, (b, s, h, d), dtype),)
+                           if with_dout else ())
     seg = None
     if kw.pop('segments', False):
         seg = (torch.arange(s, device='cuda')[None, :] >= 90).int().expand(
             b, s).contiguous()
     opts = dict(causal=kw.pop('causal', True), window=kw.get('window'),
                 softcap=kw.get('softcap'), scale_override=kw.get('scale'))
+    return tensors, seg, opts
+
+
+def _plain_opts(seg, opts):
+    return dict(causal=opts['causal'], window=opts['window'],
+                segment_ids=seg, logit_softcap=opts['softcap'],
+                scale=opts['scale_override'])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kw', [dict(), dict(window=37),
+                                dict(segments=True),
+                                dict(softcap=20.0, scale=0.1),
+                                dict(causal=False)] + _EDGE_KW,
+                         ids=['causal', 'window', 'segments',
+                              'softcap_scale', 'non_causal'] + _EDGE_IDS)
+def test_flash_kernel_matches_plain(card, dtype, kw):
+    (q, k, v), seg, opts = _flash_inputs(card, dtype, kw)
+    out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
+    ref, ref_lse = flash_attention.flash_attention_plain(
+        q, k, v, **_plain_opts(seg, opts))
+    assert_out_close(out, lse, ref, ref_lse, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kw', [dict(), dict(window=37),
+                                dict(segments=True),
+                                dict(softcap=20.0, scale=0.1),
+                                dict(causal=False), dict(d=16, h_kv=1)]
+                         + _EDGE_KW,
+                         ids=['causal', 'window', 'segments',
+                              'softcap_scale', 'non_causal', 'd16_hkv1']
+                         + _EDGE_IDS)
+def test_flash_backward_kernels_match_plain(card, dtype, kw):
+    """dq (K3) and dk/dv (K2) against the plain backward on the same
+    forward output and LSE; S=200 is ragged against the 64-row tiles."""
+    (q, k, v, dout), seg, opts = _flash_inputs(card, dtype, kw,
+                                               with_dout=True)
     out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
     got = flash_attention._flash_bwd(q, k, v, seg, out, dout, lse, **opts)
     want = flash_attention.flash_attention_bwd_plain(
-        q, k, v, out, dout, lse, causal=opts['causal'],
-        window=opts['window'], segment_ids=seg,
-        logit_softcap=opts['softcap'], scale=opts['scale_override'])
+        q, k, v, out, dout, lse, **_plain_opts(seg, opts))
     for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
         assert g.dtype == dtype and g.shape == w.shape
-        assert_grad_close(g, w, dtype, name)
+        assert_blocks_close(g, w, dtype, name)
 
 
 def test_flash_backward_check_rejects_planted_faults(card):
@@ -134,7 +162,7 @@ def test_flash_backward_check_rejects_planted_faults(card):
     dq, dk, dv = flash_attention._flash_bwd(q, k, v, None, out, dout, lse)
     want = flash_attention.flash_attention_bwd_plain(q, k, v, out, dout, lse)
     for name, g, w in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
-        assert_grad_close(g, w, dtype, name)
+        assert_blocks_close(g, w, dtype, name)
     bad_dk = dk.clone()
     bad_dk[:, s // 2:] *= 0.9
     bad_lse = lse.clone()
@@ -142,7 +170,7 @@ def test_flash_backward_check_rejects_planted_faults(card):
     bad_dq = flash_attention._flash_bwd_dq(q, k, v, None, out, dout, bad_lse)
     for name, g, w in (('dk', bad_dk, want[1]), ('dq', bad_dq, want[0])):
         with pytest.raises(AssertionError):
-            assert_grad_close(g, w, dtype, name)
+            assert_blocks_close(g, w, dtype, name)
 
 
 def test_flash_attention_autograd_on_the_card(card):
@@ -161,9 +189,99 @@ def test_flash_attention_autograd_on_the_card(card):
         grads[device] = [out.detach(), q.grad, k.grad, v.grad]
     torch.testing.assert_close(grads['cuda'][0].cpu(), grads['cpu'][0],
                                **TOL[torch.float32])
-    for name, got, want in zip(('dq', 'dk', 'dv'), grads['cuda'][1:],
-                               grads['cpu'][1:]):
-        assert_grad_close(got.cpu(), want, torch.float32, name)
+    for name, got, want in zip(('out', 'dq', 'dk', 'dv'), grads['cuda'],
+                               grads['cpu']):
+        assert_blocks_close(got.cpu(), want, torch.float32, name)
+
+
+def test_flash_kernels_repeat_bit_for_bit_in_fp32(card):
+    """The fp32 kernels (the autograd test's shapes: D32, S130, window
+    50) give the same bits on the same inputs 200 times over, wherever
+    the allocator places their tensors (a spacer of another size before
+    each run), and the first run agrees with the CPU. A race in the FMA
+    kernels, or a stray write into a neighbouring tensor, would show."""
+    b, s, h, h_kv, d = 1, 130, 4, 2, 32
+    q, dout = (torch.randn((b, s, h, d), generator=card, device='cuda')
+               for _ in range(2))
+    k, v = (torch.randn((b, s, h_kv, d), generator=card, device='cuda')
+            for _ in range(2))
+    opts = dict(window=50)
+
+    def run():
+        out, lse = flash_attention._flash_fwd(q, k, v, None, **opts)
+        return (out, lse) + flash_attention._flash_bwd(
+            q, k, v, None, out, dout, lse, **opts)
+
+    first = [t.clone() for t in run()]
+    for i in range(200):
+        spacer = torch.empty(1 + 4099 * (i % 7), device='cuda')
+        again = run()
+        for name, a, b_ in zip(('out', 'lse', 'dq', 'dk', 'dv'), first,
+                               again):
+            assert torch.equal(a, b_), f'run {i + 1}: {name} changed'
+        del spacer, again
+    cpu = [t.cpu() for t in (q, k, v, dout)]
+    ref, ref_lse = flash_attention.flash_attention_plain(*cpu[:3], **opts)
+    assert_out_close(first[0].cpu(), first[1].cpu(), ref, ref_lse,
+                     torch.float32)
+
+
+def test_flash_dkv_kernel_is_deterministic(card):
+    """K2 sums each GQA group in registers and writes once, without
+    atomics: two runs on the same inputs give the same bits."""
+    b, s, h, h_kv, d = 2, 1000, 8, 2, 128
+    dtype = torch.bfloat16
+    q, dout = (_randn(card, (b, s, h, d), dtype) for _ in range(2))
+    k, v = (_randn(card, (b, s, h_kv, d), dtype) for _ in range(2))
+    out, lse = flash_attention._flash_fwd(q, k, v)
+    first = flash_attention._flash_bwd_dkv(q, k, v, None, out, dout, lse)
+    second = flash_attention._flash_bwd_dkv(q, k, v, None, out, dout, lse)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_flash_kernels_at_the_training_length(card):
+    """B1 S8192 H16/8 D128 bf16 (the training path's length and
+    widths): K1 against the plain forward, K2 and K3 against the plain
+    backward."""
+    b, s, h, h_kv, d = 1, 8192, 16, 8, 128
+    dtype = torch.bfloat16
+    q, dout = (_randn(card, (b, s, h, d), dtype) for _ in range(2))
+    k, v = (_randn(card, (b, s, h_kv, d), dtype) for _ in range(2))
+    out, lse = flash_attention._flash_fwd(q, k, v)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v)
+    assert_out_close(out, lse, ref, ref_lse, dtype)
+    # A fault on the V side (wrong V panel or ring stage, bad rescale)
+    # confined to the later rows, where the output is smallest: 10 % low
+    # past the middle passes the elementwise tolerance and fails the
+    # blockwise one.
+    bad = out.clone()
+    bad[:, s // 2:] *= 0.9
+    torch.testing.assert_close(bad.float(), ref.float(), **TOL[dtype])
+    with pytest.raises(AssertionError):
+        assert_blocks_close(bad, ref, dtype, 'out')
+    del ref, ref_lse, bad
+    got = flash_attention._flash_bwd(q, k, v, None, out, dout, lse)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert_blocks_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize('dtype, d, want', [
+    (torch.bfloat16, 128, 2 * 3 * 4 * 256),
+    (torch.bfloat16, 64, 2 * 3 * 4 * 256),
+    (torch.bfloat16, 32, None),
+    (torch.float32, 128, None)])
+def test_dkv_scratch_only_where_the_wgmma_kernel_runs(card, dtype, d, want):
+    """The dK/dV pre-pass's scratch, sized by the kernel's library: LSE
+    and delta per query row, S padded to the 64-row query tile
+    (200 -> 256); none for fp32 or the mma.sync head dims."""
+    q = torch.zeros(3, 200, 4, d, dtype=dtype, device='cuda')
+    got = flash_attention.dkv_scratch(q)
+    if want is None:
+        assert got is None
+    else:
+        assert got.numel() == want and got.dtype == torch.float32
 
 
 @pytest.mark.parametrize('kv', ['bf16', 'fp32', 'int8'])

@@ -103,6 +103,30 @@ def test_every_cuda_source_is_built():
             flash_attention.KERNEL.library_path())
 
 
+def test_build_report_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """nvcc's -Xptxas -v report (registers, spills) is saved next to the
+    built library, so a later process that reuses the library still has
+    it (chip_smoke.py prints it in phase [2]). nvcc here is a stand-in
+    script; loading the library is skipped."""
+    monkeypatch.setattr(kernels, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(kernels, 'REGISTRY', [])
+    monkeypatch.setattr(kernels.Kernel, '_load',
+                        lambda self, path: setattr(self, '_fn', print))
+    nvcc = tmp_path / 'nvcc'
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 1 ]; do [ "$1" = -o ] && '
+                    'out=$2; shift; done\n: > "$out"\n'
+                    'echo "ptxas info    : Used 42 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, 'nvcc_path', lambda: str(nvcc))
+    first = kernels.Kernel('k', 'flash_fwd.cu', 'xsky_flash_fwd', [])
+    kernels.build_all([first])
+    assert 'Used 42 registers' in first.build_log
+    monkeypatch.setattr(kernels, 'nvcc_path', lambda: '/nonexistent/nvcc')
+    again = kernels.Kernel('k', 'flash_fwd.cu', 'xsky_flash_fwd', [])
+    assert kernels.build_all([again]) == {'flash_fwd.cu': 0.0}
+    assert again.build_log == first.build_log
+
+
 def test_wrappers_never_fall_back_on_a_device_tensor():
     """A tensor that is not on the CPU goes to the kernel's launcher,
     which raises for anything but a CUDA tensor; no launch is counted."""
