@@ -16,12 +16,14 @@ Phases, in order; any failure exits non-zero:
      card, at the main paths' shapes and in the window / segment /
      softcap / int8 / ragged-length cases, in bf16 and fp32, with each
      error beside its tolerance (flash outputs and gradients also
-     blockwise, and three planted faults must be rejected); the flash
-     kernels also at the wgmma kernels' tile edges (S 127, 129, 1000 x
-     GQA groups 1, 2, 4 x D 64, 128), the forward at the training shape
-     (row 0 against the plain version, then timed beside SDPA), and two
-     dK/dV runs at the training shape must be bit-identical; kernel,
-     plain and library times and the least time the card could take
+     blockwise, decode outputs per (slot, head), and four planted faults
+     must be rejected); the flash kernels also at the wgmma kernels'
+     tile edges (S 127, 129, 1000 x GQA groups 1, 2, 4 x D 64, 128), the
+     forward at the training shape (row 0 against the plain version,
+     then timed beside SDPA), and two dK/dV and two dQ runs at the
+     training shape must be bit-identical; dense decode also at its
+     split-KV walk's edges (128-row splits); kernel, plain and library
+     device times (see time_ms) and the least time the card could take
      (bound): the flash forward,
      the flash backward pair (dK/dV, dQ), dense decode, paged decode, and
      the absorbed-MLA decode pair (dense K6, paged K7: ragged lengths,
@@ -149,18 +151,49 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters runs, by CUDA events."""
+    """Mean device time of fn() over iters runs, by CUDA events. The
+    device is first held busy (torch.cuda._sleep) for three times as long
+    as the host takes to queue the runs, so the events bracket device
+    work only, not the host's enqueue rate: a decode kernel takes less
+    device time than its Python wrapper takes host time. Raises if the
+    host did not finish queueing before the hold ran out."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    hold_ms = 1.0 + 3 * iters * call_ms
+    # Cycles at 2 GHz, above the card's clock: the hold lasts at least
+    # hold_ms.
+    torch.cuda._sleep(int(hold_ms * 2e6))
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    if queued_ms > hold_ms:
+        raise AssertionError(f'timing: the host took {queued_ms:.2f} ms to '
+                             f'queue {iters} runs, past the {hold_ms:.2f} ms '
+                             'hold, so the events would include host time')
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one fn() call (checks, scratch, launch), the calls
+    queued back to back without a synchronize in between."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -185,11 +218,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def compare_blocks(name: str, got: torch.Tensor, want: torch.Tensor,
-                   dtype) -> float:
+                   dtype, block_rows: int = 64) -> float:
     """A gradient or a forward output [B, S, H, D] against the plain
     version's, blockwise (see BLOCK_NORM_TOL) → its largest absolute
-    error."""
-    norm_err, elem_err = flash_ops.gradient_errors(got, want)
+    error. A decode output [B, 1, H, D] is judged per (slot, head) with
+    block_rows=1."""
+    norm_err, elem_err = flash_ops.gradient_errors(got, want, block_rows)
     max_err = float((got.float() - want.float()).abs().max())
     log(f'  {name}: block rel err {norm_err:.3e} (limit '
         f'{BLOCK_NORM_TOL[dtype]:g}), element err / block rms '
@@ -205,10 +239,11 @@ def compare_blocks(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def expect_rejected(name: str, got: torch.Tensor, want: torch.Tensor,
-                    dtype) -> None:
-    """A planted fault must fail compare_grad: the check can see it."""
+                    dtype, block_rows: int = 64) -> None:
+    """A planted fault must fail compare_blocks: the check can see it."""
     try:
-        compare_blocks(f'planted fault, {name}', got, want, dtype)
+        compare_blocks(f'planted fault, {name}', got, want, dtype,
+                       block_rows)
     except AssertionError:
         log('    rejected, as it must be')
         return
@@ -293,14 +328,8 @@ def check_flash(gen) -> dict:
         16, 1024, 32, 8, 128)
     b, s, h, d = q.shape
     ms = time_ms(lambda: flash_ops._flash_fwd(q, k, v, None, **kw))
-    # Host time of one wrapper call (checks, tensor maps, launch), the
-    # calls queued without a synchronize in between.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        flash_ops._flash_fwd(q, k, v, None, **kw)
-    host_ms = (time.perf_counter() - t0) / 20 * 1e3
-    torch.cuda.synchronize()
+    # Host time of one wrapper call (checks, tensor maps, launch).
+    wrapper_ms = host_ms(lambda: flash_ops._flash_fwd(q, k, v, None, **kw))
     plain_ms = time_ms(lambda: flash_ops.flash_attention_plain(q, k, v),
                        iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -315,7 +344,7 @@ def check_flash(gen) -> dict:
     log(f'  flash main-path timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, SDPA (library) {library_ms:.4f} ms, bound '
         f'{bound:.4f} ms ({bound_by}); {flops / ms / 1e9:.2f} TFLOP/s; '
-        f'wrapper host time {host_ms:.4f} ms a call')
+        f'wrapper host time {wrapper_ms:.4f} ms a call')
     del q, k, v, qt, kt, vt
     train = flash_train_shape(gen)
     return {'name': 'flash_fwd', 'route': 'cuda',
@@ -323,7 +352,7 @@ def check_flash(gen) -> dict:
             'replaces': REPLACES['flash_fwd'], 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
             'bound_by': bound_by, 'library_ms': library_ms,
-            'host_ms': host_ms, **train}
+            'host_ms': wrapper_ms, **train}
 
 
 def flash_train_shape(gen) -> dict:
@@ -447,17 +476,18 @@ def check_flash_bwd(gen) -> dict:
                     ref[0], dtype)
     del ref, bad_dk, bad_dq
     args = (q, k, v, None, out, dout, lse)
-    # dK/dV have no atomics: a second run gives the same bits.
+    # Neither kernel has atomics: a second run gives the same bits.
     dk2, dv2 = flash_ops._flash_bwd_dkv(*args)
+    dq2 = flash_ops._flash_bwd_dq(*args)
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError('flash_bwd_dkv: two runs on the same inputs '
                              'differ')
-    log('  flash_bwd_dkv: two runs at the training shape bit-identical')
-    del dk2, dv2
-    ms = {'flash_bwd_dq': time_ms(lambda: flash_ops._flash_bwd_dq(*args),
-                                  iters=5, warmup=1),
-          'flash_bwd_dkv': time_ms(
-              lambda: flash_ops._flash_bwd_dkv(*args), iters=5, warmup=1)}
+    if not torch.equal(dq, dq2):
+        raise AssertionError('flash_bwd_dq: two runs on the same inputs '
+                             'differ')
+    log('  flash_bwd_dkv, flash_bwd_dq: two runs at the training shape '
+        'bit-identical')
+    del dk2, dv2, dq2
     plain_b1_ms = time_ms(lambda: flash_ops.flash_attention_bwd_plain(
         *row0), iters=2, warmup=1)
     torch.cuda.empty_cache()
@@ -473,9 +503,19 @@ def check_flash_bwd(gen) -> dict:
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
     dout_t = dout.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dout_t, retain_graph=True), iters=5,
-        warmup=1)
+    # Kernels and the library in turn, three rounds.
+    runs = {'flash_bwd_dq': [], 'flash_bwd_dkv': [], 'library': []}
+    for _ in range(3):
+        runs['flash_bwd_dq'].append(time_ms(
+            lambda: flash_ops._flash_bwd_dq(*args), iters=5, warmup=1))
+        runs['flash_bwd_dkv'].append(time_ms(
+            lambda: flash_ops._flash_bwd_dkv(*args), iters=5, warmup=1))
+        runs['library'].append(time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout_t, retain_graph=True), iters=5,
+            warmup=1))
+    ms = {name: float(np.mean(t)) for name, t in runs.items()}
+    library_ms = ms['library']
+    log(f'  backward timings over three rounds (ms): {runs}')
     del lib_out, qt, kt, vt
     elem = q.element_size()
     causal_pairs = s * (s + 1) / 2
@@ -495,7 +535,8 @@ def check_flash_bwd(gen) -> dict:
             'name': name, 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
             'replaces': REPLACES[name], 'max_abs_err': errs[name],
-            'ms': ms[name], 'plain_ms': plain_b1_ms,
+            'ms': ms[name], 'ms_rounds': runs[name],
+            'library_ms_rounds': runs['library'], 'plain_ms': plain_b1_ms,
             'plain_shape': 'B1 (dq, dk and dv together)',
             'bound_ms': bound, 'bound_by': bound_by,
             'library_ms': library_ms,
@@ -523,6 +564,10 @@ def decode_case(gen, label, q_dtype, kv_dtype, lengths, b=16, max_len=2048,
     torch.cuda.synchronize()
     ref = decode_ops.decode_attention_plain(q, k, v, lens, **kw)
     err = compare(f'decode {label}', out, ref, q_dtype)
+    # Also per (slot, head) against the reference's own size there: an
+    # output averaged over ~1000 rows is small, and one absolute tolerance
+    # would pass a lost split (the planted fault in check_decode).
+    compare_blocks(f'decode {label}', out, ref, q_dtype, block_rows=1)
     empty = [i for i, n in enumerate(lengths) if n == 0]
     if empty:
         # The JAX kernel's answer for a length-0 slot: the mean of its
@@ -535,10 +580,32 @@ def decode_case(gen, label, q_dtype, kv_dtype, lengths, b=16, max_len=2048,
     return (q, k, v, lens, kw), err
 
 
+def without_split(q, k, v, lens, slot: int, split: int) -> torch.Tensor:
+    """What a combine that lost one split's partial state gives for one
+    slot of a bf16 cache: the plain attention over the slot's live rows
+    less the split's SPLIT_ROWS rows → [1, H, D]."""
+    _, _, h, d = q.shape
+    h_kv = k.shape[2]
+    rows = decode_ops.SPLIT_ROWS
+    keep = torch.arange(k.shape[1], device='cuda') < int(lens[slot])
+    keep[split * rows:(split + 1) * rows] = False
+    qg = q[slot, 0].float().reshape(h_kv, h // h_kv, d)
+    s = torch.einsum('hgd,khd->hgk', qg, k[slot].float()) * d ** -0.5
+    p = torch.softmax(s.masked_fill(~keep, -torch.inf), dim=-1)
+    out = torch.einsum('hgk,khd->hgd', p, v[slot].float())
+    return out.reshape(1, h, d).to(q.dtype)
+
+
 def check_decode(gen) -> dict:
     log('[3] decode_attention: kernel vs plain version')
     ragged = [0, 1, 255, 256, 257, 2048, 2100, 7, 1000, 1500, 31, 64,
               513, 777, 1999, 128]
+    # The split-KV walk's edges (splits of SPLIT_ROWS = 128 rows): one
+    # split exactly and one split +- 1, two splits +- 1, max_len and one
+    # past it, length 0 twice; under window=100 most of these start their
+    # window inside a split.
+    edges = [128, 127, 129, 0, 256, 255, 257, 2048, 2049, 0, 1, 384, 130,
+             2047, 1100, 1025]
     bf16, fp32 = torch.bfloat16, torch.float32
     decode_case(gen, 'bf16 cache, ragged lengths', bf16, bf16, ragged)
     decode_case(gen, 'fp32 cache, ragged lengths', fp32, fp32, ragged)
@@ -551,6 +618,22 @@ def check_decode(gen) -> dict:
     decode_case(gen, 'fp32 D16 G2 (LLAMA_TINY widths)', fp32, fp32,
                 [0, 1, 15, 16, 17, 1040], b=6, max_len=1040, h=4,
                 h_kv=2, d=16)
+    decode_case(gen, 'bf16 cache, split edges', bf16, bf16, edges)
+    decode_case(gen, 'bf16 window=100, split edges', bf16, bf16, edges,
+                window=100)
+    decode_case(gen, 'int8 pair (bf16 q), split edges', bf16, torch.int8,
+                edges)
+    decode_case(gen, 'int8 pair window=100, split edges', bf16, torch.int8,
+                edges, window=100)
+    decode_case(gen, 'fp32 cache, split edges', fp32, fp32, edges)
+    decode_case(gen, 'fp32 cache window=100, split edges', fp32, fp32,
+                edges, window=100)
+    decode_case(gen, 'fp32 D16 G2, split edges', fp32, fp32,
+                [0, 127, 128, 129, 1040, 256], b=6, max_len=1040, h=4,
+                h_kv=2, d=16)
+    decode_case(gen, 'fp32 D16 G2 window=100, split edges', fp32, fp32,
+                [0, 127, 128, 129, 1040, 257], b=6, max_len=1040, h=4,
+                h_kv=2, d=16, window=100)
     # The main path's decode steps: 16 slots holding ~1000-token
     # prompts plus up to 64 generated tokens.
     rng = np.random.default_rng(1)
@@ -558,6 +641,21 @@ def check_decode(gen) -> dict:
     cases = [decode_case(gen, 'bf16 main-path lengths', bf16, bf16,
                          lengths) for _ in range(4)]
     (_, _, _, lens, kw), err = cases[0]
+    # The check must see one split's partial state lost (slot 3, rows
+    # 128-255): the whole output of the case, that slot recomputed without
+    # them.
+    q, k, v, _, _ = cases[0][0]
+    out = decode_ops.decode_attention(q, k, v, lens)
+    ref = decode_ops.decode_attention_plain(q, k, v, lens)
+    bad = out.clone()
+    bad[3] = without_split(q, k, v, lens, 3, 1)
+    loose = (bad.float() - ref.float()).abs() <= (
+        ATOL[bf16] + RTOL[bf16] * ref.float().abs())
+    log(f'  planted fault, slot 3 without split 1: the absolute check alone '
+        f'would {"pass" if bool(loose.all()) else "reject"} it')
+    expect_rejected('decode slot 3 without split 1', bad, ref, bf16,
+                    block_rows=1)
+    del out, ref, bad, loose
     # Rotate over four caches (4 x 134 MB) so that no launch finds its
     # K/V in the 50 MB L2, as each layer's cache is cold on the path.
     it = itertools.count()
@@ -578,9 +676,17 @@ def check_decode(gen) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
-    ms = time_ms(run_kernel, iters=40, warmup=4)
+    # Kernel and library in turn, three rounds.
+    rounds = {'kernel': [], 'library': []}
+    for _ in range(3):
+        rounds['kernel'].append(time_ms(run_kernel, iters=40, warmup=4))
+        rounds['library'].append(time_ms(run_library, iters=20, warmup=4))
+    ms = float(np.mean(rounds['kernel']))
+    library_ms = float(np.mean(rounds['library']))
     plain_ms = time_ms(run_plain, iters=8, warmup=2)
-    library_ms = time_ms(run_library, iters=20, warmup=4)
+    wrapper_ms = host_ms(run_kernel)
+    log(f'  decode timings over three rounds (ms): {rounds}; wrapper host '
+        f'time {wrapper_ms:.4f} ms a call')
     q, k = cases[0][0][0], cases[0][0][1]
     b, _, h, d = q.shape
     h_kv = k.shape[2]
@@ -596,8 +702,10 @@ def check_decode(gen) -> dict:
     return {'name': 'decode_attention', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
             'replaces': REPLACES['decode_attention'], 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': bound_by, 'library_ms': library_ms}
+            'ms': ms, 'ms_rounds': rounds['kernel'], 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms,
+            'library_ms_rounds': rounds['library'], 'host_ms': wrapper_ms}
 
 
 def paged_case(gen, label, q_dtype, kv_dtype, lengths, allocated=None,
@@ -1552,15 +1660,21 @@ def small_deepseek_end_to_end() -> None:
 
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
-    pre-pass in an nvcc -Xptxas -v log."""
+    pre-pass, and of the decode split walks and combine at the main
+    paths' types (bf16 queries and cache, D 128), in an nvcc -Xptxas -v
+    log."""
     for chunk in build_log.split('Compiling entry function')[1:]:
         mangled = chunk.split("'")[1]
-        found = re.search(r'(flash_\w+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
-                          mangled)
+        found = re.search(r'(flash_[a-z_]+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
+                          mangled) or re.search(
+            r'((?:paged_)?decode_kernel)I13__nv_bfloat16S\w*?_Li(128ELi\d)E',
+            mangled) or re.search(
+            r'(decode_combine_kernel)I13(__nv_bfloat16)E', mangled)
         regs = re.search(r'Used (\d+) registers', chunk)
         spill = re.search(r'(\d+) bytes spill stores', chunk)
         if found and regs:
-            yield (f'{found.group(1)}<{found.group(2)}>', int(regs.group(1)),
+            args = found.group(2).replace('ELi', ', groups <= ')
+            yield (f'{found.group(1)}<{args}>', int(regs.group(1)),
                    int(spill.group(1)) if spill else 0)
 
 
@@ -1588,9 +1702,15 @@ def main() -> int:
             log(f'  {source}: {len(regs)} kernel instantiations, at most '
                 f'{max(map(int, regs))} registers, '
                 f'{sum(map(int, spills))} bytes spilled')
+        for chunk in build_log.split('Compiling entry function')[1:]:
+            spilled = re.search(r'(\d+) bytes spill stores', chunk)
+            if spilled and int(spilled.group(1)):
+                log(f'    spills {spilled.group(1)} bytes: '
+                    f'{chunk.split(chr(39))[1]}')
         for name, regs, spill in hopper_kernels(build_log):
-            log(f'    {name}: {regs} registers at entry (setmaxnreg then '
-                f'splits them), {spill} bytes spilled')
+            note = (' at entry (setmaxnreg then splits them)'
+                    if 'flash' in name else '')
+            log(f'    {name}: {regs} registers{note}, {spill} bytes spilled')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),

@@ -7,26 +7,33 @@
 //
 // What bounds it on the H100: bytes. Every live K/V row is read once and
 // used for only 2 * groups flops per element, far below the ~295 flops
-// per byte where the tensor cores would become the limit. What the design
-// does about it: dead rows (past a slot's length, or left of its window)
-// are never read; one block serves all `groups` query heads of a KV head,
-// so each K/V row crosses device memory once per group, not once per
-// query head; an int8 cache is read as int8 plus one fp32 scale per
-// (row, head) and dequantized in registers. Eight warps each keep four
-// rows in flight to hide memory latency.
+// per byte where the tensor cores would become the limit; at the
+// Llama-3-8B serving shape (16 slots of ~1000 rows, 8 KV heads, D 128)
+// the live K/V is ~67 MB, 20 µs at 3.35 TB/s. What the design does about
+// it (decode_common.cuh):
+//   * split-KV: a slot's rows are cut into splits of 128, one block per
+//     (KV head, slot, split), so ~1100 live blocks of 4 warps share the
+//     132 SMs (five a SM) where one block per (KV head, slot) gave 128; a
+//     long slot no longer sets the pace alone. Each split leaves its
+//     partial softmax state in fp32 scratch and a combine pass, launched
+//     from the same entry point, merges the live splits;
+//   * rows in flight: each block keeps its next tile of 32 rows in flight
+//     by cp.async (16 bytes a thread) into a two-stage shared-memory ring
+//     while it scores the current one;
+//   * scores without a shuffle per score: one thread per (row, head) reads
+//     its row from shared memory, and the online softmax reduces across a
+//     warp once per tile and head;
+//   * dead rows (past a slot's length, or left of its window) are never
+//     read; one block serves all `groups` query heads of a KV head, so
+//     each K/V row crosses device memory once per group; an int8 cache is
+//     read as int8 plus one fp32 scale per (row, head) and dequantized in
+//     registers.
 //
 // Layout: q [B, 1, H, D]; caches [B, K, Hkv, D] (bf16, fp32 or int8 with
 // fp32 scales [B, K, Hkv, 1]); lengths [B] int32, clamped to K here;
-// out [B, 1, H, D] in q's type. Query head h reads KV head h / groups.
-//
-// Grid: one block per (KV head, slot): 16 slots x 8 KV heads = 128
-// blocks on the 132 SMs at the Llama-3-8B serving shape. Splitting the
-// KV axis over more blocks (split-KV) is the obvious next step.
-//
-// Inside a block, the row walk of decode_common.cuh (shared with the paged
-// kernel): warp w walks row groups first + 4 * (w + 8 n), each warp keeps
-// its own fp32 online softmax per query head, and the eight partial states
-// merge through shared memory at the end.
+// out [B, 1, H, D] in q's type; partials: fp32 scratch of
+// B * ceil(K / 128) * H * (D + 2) floats. Query head h reads KV head
+// h / groups.
 //
 // A slot of length 0 gives the mean of its first min(256, K) V rows
 // (dequantized), as the JAX kernel does: its grid still runs KV block 0
@@ -38,58 +45,55 @@
 
 namespace {
 
-constexpr int kThreads = xsky::kDecodeThreads;
-constexpr int kMaxGroups = xsky::kDecodeMaxGroups;
 constexpr int kEmptyRows = 256;  // rows averaged for a slot of length 0
 
-struct DecodeParams {
-  const void* q;
+struct DenseParams {
+  xsky::DecodeParams p;
   const void* k;
   const void* v;
   const float* k_scale;  // nullptr unless the cache is int8
   const float* v_scale;
-  const int32_t* lengths;
-  void* out;
-  int b, max_len, h, h_kv, groups;
-  int window;  // <= 0: no window
-  float scale;
-  float softcap;  // <= 0: no softcap
 };
 
 // A slot's rows lie one after another from its row 0.
 struct DenseRows {
-  __device__ __forceinline__ int operator()(int pos) const { return pos; }
+  long base;  // b * K
+  __device__ __forceinline__ long operator()(int pos) const {
+    return base + pos;
+  }
 };
 
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
+template <typename TQ, typename TKV, int D, int G>
+__global__ void __launch_bounds__(xsky::kDecodeThreads)
+    decode_kernel(const DenseParams dp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const xsky::DecodeParams& p = dp.p;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int length = min(max(p.lengths[b], 0), p.max_len);
-  const bool empty = length == 0;
-  const int first = p.window > 0 ? max(length - p.window, 0) : 0;
-  const int end = empty ? min(kEmptyRows, p.max_len) : length;
-  const long q_off = (static_cast<long>(b) * p.h + kvh * p.groups) * D;
-  const long slot_off = static_cast<long>(b) * p.max_len;
-  const long kv_off = (slot_off * p.h_kv + kvh) * D + xsky::decode_lane_d0<D>();
-  const long scale_off = slot_off * p.h_kv + kvh;  // int8 only
-  xsky::decode_walk<TQ, TKV, D>(
-      static_cast<const TQ*>(p.q) + q_off, static_cast<TQ*>(p.out) + q_off,
-      static_cast<const TKV*>(p.k) + kv_off,
-      static_cast<const TKV*>(p.v) + kv_off, p.k_scale + scale_off,
-      p.v_scale + scale_off, DenseRows{}, p.h_kv, p.groups, first, end, empty,
-      p.scale, p.softcap);
+  const int split = blockIdx.z;
+  int lo, hi;
+  bool empty;
+  if (!xsky::decode_split_rows(p, b, split, &lo, &hi, &empty)) return;
+  const long kv_off = static_cast<long>(kvh) * D;
+  xsky::decode_split<TQ, TKV, D, G>(
+      p, smem, static_cast<const TKV*>(dp.k) + kv_off,
+      static_cast<const TKV*>(dp.v) + kv_off, dp.k_scale + kvh,
+      dp.v_scale + kvh, DenseRows{static_cast<long>(b) * p.slots.cap}, b,
+      kvh, split, lo, hi, empty);
 }
 
 template <typename TQ, typename TKV, int D>
-cudaError_t launch(const DecodeParams& p, cudaStream_t stream) {
-  dim3 grid(p.h_kv, p.b);
-  decode_kernel<TQ, TKV, D><<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch(const DenseParams& dp, cudaStream_t stream) {
+  if (dp.p.groups <= 4)
+    return xsky::decode_launch<TQ>(decode_kernel<TQ, TKV, D, 4>, dp, dp.p,
+                                   D, xsky::DecodeSmem<TKV, D, 4>::kBytes,
+                                   stream);
+  return xsky::decode_launch<TQ>(decode_kernel<TQ, TKV, D, 8>, dp, dp.p, D,
+                                 xsky::DecodeSmem<TKV, D, 8>::kBytes, stream);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch_d(int d, const DecodeParams& p, cudaStream_t stream) {
+cudaError_t dispatch_d(int d, const DenseParams& p, cudaStream_t stream) {
   switch (d) {
     case 16: return launch<TQ, TKV, 16>(p, stream);
     case 32: return launch<TQ, TKV, 32>(p, stream);
@@ -100,7 +104,7 @@ cudaError_t dispatch_d(int d, const DecodeParams& p, cudaStream_t stream) {
 }
 
 template <typename TQ>
-cudaError_t dispatch_kv(int kv_dtype, int d, const DecodeParams& p,
+cudaError_t dispatch_kv(int kv_dtype, int d, const DenseParams& p,
                         cudaStream_t stream) {
   switch (kv_dtype) {
     case xsky::kFloat32: return dispatch_d<TQ, float>(d, p, stream);
@@ -114,21 +118,39 @@ cudaError_t dispatch_kv(int kv_dtype, int d, const DecodeParams& p,
 
 XSKY_ERROR_STRING_FN
 
+// partials: fp32 scratch of b * splits * h * (d + 2) floats, splits =
+// ceil(max_len / 128) (the wrapper's decode_attention.partials).
 extern "C" int xsky_decode_attention(
     const void* q, const void* k, const void* v, const float* k_scale,
-    const float* v_scale, const int32_t* lengths, void* out, int b,
-    int max_len, int h, int h_kv, int d, int window, float scale,
-    float softcap, int q_dtype, int kv_dtype, void* stream) {
-  if (h % h_kv != 0 || h / h_kv > kMaxGroups)
+    const float* v_scale, const int32_t* lengths, void* out,
+    float* partials, int b, int max_len, int h, int h_kv, int d, int splits,
+    int window, float scale, float softcap, int q_dtype, int kv_dtype,
+    void* stream) {
+  if (h_kv <= 0 || h % h_kv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  DecodeParams p{q, k, v, k_scale, v_scale, lengths, out, b, max_len,
-                 h, h_kv, h / h_kv, window, scale, softcap};
+  xsky::DecodeParams p{};
+  p.q = q;
+  p.out = out;
+  p.part_acc = partials;
+  p.part_ml = partials + static_cast<long>(b) * splits * h * d;
+  p.slots = xsky::DecodeSlots{lengths, max_len, window, kEmptyRows};
+  p.b = b;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.groups = h / h_kv;
+  p.splits = splits;
+  p.scale = scale;
+  p.softcap = softcap;
+  if (!xsky::decode_params_ok(p) ||
+      ((k_scale == nullptr) != (kv_dtype != xsky::kInt8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DenseParams dp{p, k, v, k_scale, v_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == xsky::kFloat32)
-    err = dispatch_kv<float>(kv_dtype, d, p, st);
+    err = dispatch_kv<float>(kv_dtype, d, dp, st);
   else if (q_dtype == xsky::kBFloat16)
-    err = dispatch_kv<__nv_bfloat16>(kv_dtype, d, p, st);
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, d, dp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

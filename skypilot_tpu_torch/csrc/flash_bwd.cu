@@ -12,28 +12,41 @@
 // What bounds them on the H100: operations. At the training shape (B4
 // S8192 H16/Hkv8 D128, causal) dK/dV does four products and dQ three of
 // 2·D·S(S+1)/2 each per (batch, head), against S·D bytes per operand.
-// What the design does about it:
-//   * dK/dV, bf16, D = 64 and 128 (the training path): warp-specialised
-//     wgmma. A block owns 128 keys of one KV head; a producer warpgroup
-//     (24 registers, setmaxnreg) loads K and V once by TMA and then
-//     streams the (query head, query tile) pairs of Q and dO, 64 rows
-//     each, with the tile's LSE and delta, through a two-stage mbarrier
-//     ring; two consumer warpgroups (240 registers) own 64 keys each and
-//     their dK, dV accumulators (fp32, 128 registers a thread at D 128).
-//     Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma from shared memory (K and V
-//     resident as A, Q and dO K-major as B); dV += Pᵀ·dO and dK += dSᵀ·Q
-//     take Pᵀ and dSᵀ as register A operands (rounded to bf16, as the
-//     Pallas kernel's astype does) and read dO and Q in place through the
-//     descriptor's transpose flag: no transposed copy. delta = Σ dO⊙O is
-//     computed once per query row by a pre-pass launched from the same
-//     entry point (with the LSE in base 2), not once per visit of a row;
-//     the softmax runs in base 2 (exp2f); masks only where a tile needs
-//     one; tiles fully masked for a warpgroup are skipped;
-//   * dQ and the D = 16 / 32 dK/dV path (only the tiny configs use those
-//     dims: a shape dispatch inside the same entry point, not a fallback)
-//     run mma.sync.m16n8k16 (bf16 in, fp32 accumulate), reusing the
-//     forward's fragment trick: the C fragments of P and dS become, once
-//     rounded to bf16, the A fragments of the next product;
+// What the design does about it (bf16, D = 64 and 128: the training path):
+//   * a row pre-pass computes each query row's LSE in base 2 and
+//     delta = Σ dO⊙O once into wrapper scratch (flash_bwd_rowstats_kernel),
+//     not once per visit of a row; either entry point launches it when
+//     asked (fill_stats), so one backward runs it once and hands the same
+//     scratch to both kernels; the softmax runs in base 2 (exp2f);
+//   * dK/dV: warp-specialised wgmma. A block owns 128 keys of one KV head;
+//     a producer warpgroup (24 registers, setmaxnreg) loads K and V once
+//     by TMA and then streams the (query head, query tile) pairs of Q and
+//     dO, 64 rows each, with the tile's LSE and delta, through a two-stage
+//     mbarrier ring; two consumer warpgroups (240 registers) own 64 keys
+//     each and their dK, dV accumulators (fp32, 128 registers a thread at
+//     D 128). Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma from shared memory (K
+//     and V resident as A, Q and dO K-major as B); dV += Pᵀ·dO and
+//     dK += dSᵀ·Q take Pᵀ and dSᵀ as register A operands (rounded to bf16,
+//     as the Pallas kernel's astype does) and read dO and Q in place
+//     through the descriptor's transpose flag: no transposed copy;
+//   * dQ: the same shape turned around. A block owns 128 query rows of
+//     one head; the producer loads Q and dO once by TMA and streams the
+//     live (K, V) tiles of 64 keys through a two-stage ring; two consumer
+//     warpgroups own 64 rows each and their dQ accumulator (fp32, 64
+//     registers a thread at D 128). S = Q·Kᵀ and dP = dO·Vᵀ are wgmma from
+//     shared memory, every operand K-major; dS is formed in registers,
+//     rounded to bf16 and becomes the register A operand of dQ += dS·K,
+//     with K read in place (MN-major, transpose flag) as the forward reads
+//     V: no transposed copy of K. A 64-key tile keeps S, dP, dQ and the A
+//     fragments inside the consumers' 240 registers;
+//   * masks only where a tile needs one (the causal diagonal, a window's
+//     edge, the ragged last tile, segment ids); tiles fully masked for a
+//     warpgroup are skipped;
+//   * the D = 16 / 32 paths (only the tiny configs use those dims: a shape
+//     dispatch inside each entry point, keyed on wg::takes, not a
+//     fallback) run mma.sync.m16n8k16 (bf16 in, fp32 accumulate), reusing
+//     the forward's fragment trick: the C fragments of P and dS become,
+//     once rounded to bf16, the A fragments of the next product;
 //   * no S x S matrix reaches device memory, and whole tiles above the
 //     causal diagonal, outside a sliding window or past the sequence are
 //     neither loaded nor computed (q_tiles / kv_tiles in common.cuh, the
@@ -118,8 +131,9 @@ constexpr int pad_rows(int s) {
   return (s + kBQ - 1) / kBQ * kBQ;
 }
 
-// bf16 dK/dV runs this kernel at these head dims (D 16 and 32 run the
-// mma.sync one); the one definition, for the dispatch and the scratch.
+// bf16 dK/dV and dQ run the wgmma kernels at these head dims (D 16 and 32
+// run the mma.sync ones); the one definition, for both dispatches and the
+// scratch.
 constexpr bool takes(int d) { return d == 64 || d == 128; }
 
 // fp32 floats of the pre-pass's scratch: LSE and delta per padded row.
@@ -134,7 +148,7 @@ constexpr long scratch_floats(int b, int h, int s_q) {
 // + q. D / 8 lanes a row, 16 bytes each.
 template <int D>
 __global__ void __launch_bounds__(256)
-    flash_bwd_dkv_rowstats_kernel(const FlashParams p, float* stats,
+    flash_bwd_rowstats_kernel(const FlashParams p, float* stats,
                                   int s_pad) {
   constexpr int kLanes = D / 8;
   const long rows = static_cast<long>(p.b) * p.h * s_pad;
@@ -415,17 +429,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The pre-pass, then the main kernel, on one stream: one launch of
-// flash_bwd_dkv as the wrapper counts it.
+// The pre-pass over every query row into `stats` (pad_rows(S_q) rows a
+// (b, h)); part of whichever counted launch asks for it.
 template <int D>
-cudaError_t launch_dkv(const FlashParams& p, float* stats, cudaStream_t st) {
-  if (stats == nullptr) return cudaErrorInvalidValue;
+cudaError_t launch_rowstats(const FlashParams& p, float* stats,
+                            cudaStream_t st) {
   const int s_pad = pad_rows(p.s_q);
   const long lanes = static_cast<long>(p.b) * p.h * s_pad * (D / 8);
-  flash_bwd_dkv_rowstats_kernel<D>
+  flash_bwd_rowstats_kernel<D>
       <<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, st>>>(p, stats,
                                                                   s_pad);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// The pre-pass (when fill_stats), then the main kernel, on one stream:
+// one launch of flash_bwd_dkv as the wrapper counts it.
+template <int D>
+cudaError_t launch_dkv(const FlashParams& p, float* stats, int fill_stats,
+                       cudaStream_t st) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = fill_stats ? launch_rowstats<D>(p, stats, st)
+                               : cudaSuccess;
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_k, map_v, map_do;
   err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kBQ);
@@ -443,7 +467,251 @@ cudaError_t launch_dkv(const FlashParams& p, float* stats, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const dim3 grid(p.b * p.h_kv, (p.s_kv + kBKV - 1) / kBKV);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, smem, st>>>(
-      map_q, map_k, map_v, map_do, p, stats, s_pad);
+      map_q, map_k, map_v, map_do, p, stats, pad_rows(p.s_q));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ, bf16, D = 64 and 128: TMA + mbarrier ring + wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int kDqRows = 128;   // query rows a block: two consumers of 64
+constexpr int kDqKeys = 64;    // keys a (K, V) tile
+constexpr int kDqStages = 2;   // (K, V) ring depth
+
+// Shared memory, in bytes from a 1024-byte-aligned base: the resident Q
+// and dO panels, the K and V panels of each stage, then the mbarriers
+// (q, full[stage], empty[stage]).
+template <int D>
+struct DqSmem {
+  static constexpr int kPanels = D / hw::kPanelCols;
+  static constexpr uint32_t kQPanel = kDqRows * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVPanel = kDqKeys * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVTile = kPanels * kKVPanel;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kQ + kPanels * kQPanel;
+  static constexpr uint32_t kK = kDO + kPanels * kQPanel;
+  static constexpr uint32_t kV = kK + kDqStages * kKVTile;
+  static constexpr uint32_t kBar = kV + kDqStages * kKVTile;
+  static constexpr size_t kAlloc = kBar + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const FlashParams p, const float* stats,
+                              int s_pad) {
+  static_assert(D == 64 || D == 128, "the wgmma dQ takes D 64 or 128");
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hw::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kDqStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.h;
+  const int h = bh % p.h;
+  const int kvh = h / (p.h / p.h_kv);
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // heaviest first
+  const int2 tiles = xsky::kv_tiles(p, q_start, kDqRows, kDqKeys);
+  const int n_tiles = tiles.y - tiles.x;
+
+  if (tid == 0) {
+    hw::mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hw::mbar_init(bar_full + 8 * s, 1);
+      hw::mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer: one thread issues every load.
+    hw::reg_dealloc<24>();
+    if (tid == 0) {
+      hw::prefetch_map(&map_k);
+      hw::prefetch_map(&map_v);
+      hw::mbar_expect_tx(bar_q, 2 * L::kPanels * L::kQPanel);
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        hw::tma_load_4d(base + L::kQ + pn * L::kQPanel, &map_q, bar_q,
+                        pn * hw::kPanelCols, h, q_start, b);
+        hw::tma_load_4d(base + L::kDO + pn * L::kQPanel, &map_do, bar_q,
+                        pn * hw::kPanelCols, h, q_start, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kDqStages;
+        const uint32_t phase = (it / kDqStages) & 1;
+        const int kv_start = (tiles.x + it) * kDqKeys;
+        const uint32_t full = bar_full + 8 * s;
+        hw::mbar_wait(bar_empty + 8 * s, phase ^ 1);
+        hw::mbar_expect_tx(full, 2 * L::kKVTile);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          hw::tma_load_4d(base + L::kK + s * L::kKVTile + pn * L::kKVPanel,
+                          &map_k, full, pn * hw::kPanelCols, kvh, kv_start,
+                          b);
+          hw::tma_load_4d(base + L::kV + s * L::kKVTile + pn * L::kKVPanel,
+                          &map_v, full, pn * hw::kPanelCols, kvh, kv_start,
+                          b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns query rows q_start + 64c .. + 63; in it,
+    // this thread rows row0 and row0 + 8 (accumulator layout, hopper.cuh)
+    // and, in S / dP, key columns 8n + 2t + {0, 1}.
+    hw::reg_alloc<240>();
+    const int c = tid / 128 - 1;
+    const int w = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_q = q_start + 64 * c;
+    const int row0 = wg_q + 16 * w + g;
+    const float scale_log2 = p.scale * xsky::kLog2e;
+    // The pre-pass's base-2 LSE and delta of the two rows (a row past S_q:
+    // +inf and 0, so its P is 0).
+    const long stat_rows = static_cast<long>(p.b) * p.h * s_pad;
+    float lse2[2], delta[2];
+    int seg_q[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      const long at = static_cast<long>(bh) * s_pad + qp;
+      lse2[r] = qp < p.s_q ? stats[at] : INFINITY;
+      delta[r] = qp < p.s_q ? stats[stat_rows + at] : 0.f;
+      seg_q[r] = segment(p, b, qp, p.s_q);
+    }
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    hw::mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kDqStages;
+      const uint32_t phase = (it / kDqStages) & 1;
+      const int kv_start = (tiles.x + it) * kDqKeys;
+      const uint32_t k_tile = base + L::kK + s * L::kKVTile;
+      const uint32_t v_tile = base + L::kV + s * L::kKVTile;
+      hw::mbar_wait(bar_full + 8 * s, phase);
+      // Nothing to add where every pair of this warpgroup is masked.
+      bool skip = wg_q >= p.s_q;
+      if (p.causal) skip = skip || kv_start > wg_q + 63;
+      if (p.window > 0)
+        skip = skip || wg_q - (kv_start + kDqKeys - 1) >= p.window;
+      if (!skip) {
+        // S = Q·Kᵀ and dP = dO·Vᵀ: 64 queries x 64 keys each.
+        float sc[kDqKeys / 2], dp[kDqKeys / 2];
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::wgmma_ss(sc,
+                       hw::kmajor_desc(base + L::kQ, L::kQPanel, 64 * c, kk),
+                       hw::kmajor_desc(k_tile, L::kKVPanel, 0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::wgmma_ss(dp,
+                       hw::kmajor_desc(base + L::kDO, L::kQPanel, 64 * c, kk),
+                       hw::kmajor_desc(v_tile, L::kKVPanel, 0, kk), kk);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+
+        // dS in place of dP.
+        bool need_mask = p.seg != nullptr || kv_start + kDqKeys > p.s_kv;
+        if (p.causal) need_mask = need_mask || kv_start + kDqKeys - 1 > wg_q;
+        if (p.window > 0)
+          need_mask = need_mask || wg_q + 63 - kv_start >= p.window;
+#pragma unroll
+        for (int i = 0; i < kDqKeys / 2; ++i) {
+          const int kp = kv_start + 8 * (i / 4) + 2 * t + (i & 1);
+          const int r = (i >> 1) & 1;
+          float dcap = 1.f, x;
+          if (need_mask)
+            x = xsky::score_log2(p, sc[i], row0 + 8 * r, kp, seg_q[r],
+                                 segment(p, b, kp, p.s_kv), &dcap);
+          else if (p.softcap > 0.f)
+            x = xsky::capped_score(p, sc[i], &dcap) * xsky::kLog2e;
+          else
+            x = sc[i] * scale_log2;
+          const float pr = exp2f(x - lse2[r]);
+          dp[i] = pr * (dp[i] - delta[r]) * p.scale * dcap;
+        }
+        // dS's n-blocks 2kk and 2kk + 1 are the A fragment of k-step kk
+        // (keys 16kk .. 16kk + 15) of dS·K.
+        uint32_t dsa[kDqKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dsa[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+
+        // dQ += dS·K, K read in place ([key][d], MN-major).
+        hw::fence_regs(dq);
+        hw::fence_regs(dsa);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)
+          hw::wgmma_rs_t(dq, dsa[kk],
+                         hw::mnmajor_desc(k_tile, L::kKVPanel, kk));
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(dq);
+        hw::fence_regs(dsa);
+      }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(bar_empty + 8 * s);
+    }
+
+    bf16* dq_base = static_cast<bf16*>(p.dq) +
+                    static_cast<long>(b) * p.s_q * p.h * D +
+                    static_cast<long>(h) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      if (qp >= p.s_q) continue;
+      bf16* qrow = dq_base + static_cast<long>(qp) * p.h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * t) =
+            pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// The pre-pass (when fill_stats), then the main kernel, on one stream:
+// one launch of flash_bwd_dq as the wrapper counts it.
+template <int D>
+cudaError_t launch_dq(const FlashParams& p, float* stats, int fill_stats,
+                      cudaStream_t st) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = fill_stats ? launch_rowstats<D>(p, stats, st)
+                               : cudaSuccess;
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kDqRows);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_do, p.dout, p.b, p.s_q, p.h, D, kDqRows);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kDqKeys);
+  if (err == cudaSuccess)
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kDqKeys);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = DqSmem<D>::kAlloc;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.b * p.h, (p.s_q + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, smem, st>>>(
+      map_q, map_k, map_v, map_do, p, stats, pad_rows(p.s_q));
   return cudaGetLastError();
 }
 
@@ -652,7 +920,7 @@ constexpr size_t dq_mma_smem() {
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dq_mma_kernel(FlashParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D == 16 || D == 32, "D 64 and 128 take the wgmma kernel");
   constexpr int RS = D + 8, TS = kBT + 8, DK = D / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
@@ -1090,11 +1358,11 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 template <int D>
 cudaError_t launch_dkv(const FlashParams& p, int dtype, float* stats,
-                       cudaStream_t st) {
+                       int fill_stats, cudaStream_t st) {
   const dim3 grid((p.s_kv + kBT - 1) / kBT, p.b * p.h_kv);
   if (dtype == xsky::kBFloat16) {
     if constexpr (wg::takes(D))
-      return wg::launch_dkv<D>(p, stats, st);
+      return wg::launch_dkv<D>(p, stats, fill_stats, st);
     else
       return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
                     dkv_mma_smem<D>(), p, st);
@@ -1104,11 +1372,16 @@ cudaError_t launch_dkv(const FlashParams& p, int dtype, float* stats,
 }
 
 template <int D>
-cudaError_t launch_dq(const FlashParams& p, int dtype, cudaStream_t st) {
+cudaError_t launch_dq(const FlashParams& p, int dtype, float* stats,
+                      int fill_stats, cudaStream_t st) {
   const dim3 grid((p.s_q + kBT - 1) / kBT, p.b * p.h);
-  if (dtype == xsky::kBFloat16)
-    return launch(flash_bwd_dq_mma_kernel<D>, grid, kMmaThreads,
-                  dq_mma_smem<D>(), p, st);
+  if (dtype == xsky::kBFloat16) {
+    if constexpr (wg::takes(D))
+      return wg::launch_dq<D>(p, stats, fill_stats, st);
+    else
+      return launch(flash_bwd_dq_mma_kernel<D>, grid, kMmaThreads,
+                    dq_mma_smem<D>(), p, st);
+  }
   return launch(flash_bwd_dq_fma_kernel<D>, grid, kFmaThreads,
                 dq_fma_smem<D>(), p, st);
 }
@@ -1142,12 +1415,15 @@ FlashParams make_params(const void* q, const void* k, const void* v,
 
 XSKY_ERROR_STRING_FN
 
-// Floats of the fp32 scratch that xsky_flash_bwd_dkv needs for these
-// shapes (the wgmma path's pre-pass: base-2 LSE and delta per query row,
-// S_q padded to its query tile); 0 where the shapes take none. The caller
-// sizes the scratch by it, so this library alone knows the rule.
-extern "C" long xsky_flash_bwd_dkv_scratch_floats(int b, int s_q, int h,
-                                                  int d, int dtype) {
+// Floats of the fp32 scratch that xsky_flash_bwd_dkv and xsky_flash_bwd_dq
+// need for these shapes (the wgmma paths' pre-pass: base-2 LSE and delta
+// per query row, S_q padded to the 64-row query tile); 0 where the shapes
+// take none. The caller sizes the scratch by it, so this library alone
+// knows the rule. One backward can share one scratch between its two
+// launches: the first fills it (fill_stats = 1), the second reads it
+// (fill_stats = 0).
+extern "C" long xsky_flash_bwd_scratch_floats(int b, int s_q, int h, int d,
+                                              int dtype) {
   return dtype == xsky::kBFloat16 && wg::takes(d)
              ? wg::scratch_floats(b, h, s_q)
              : 0;
@@ -1155,15 +1431,17 @@ extern "C" long xsky_flash_bwd_dkv_scratch_floats(int b, int s_q, int h,
 
 // dtype: xsky::kFloat32 or xsky::kBFloat16 (q, k, v, out, dout and the
 // gradients share it). dk, dv: [B, S_kv, Hkv, D]. stats: fp32 scratch of
-// xsky_flash_bwd_dkv_scratch_floats floats (null where that is 0).
+// xsky_flash_bwd_scratch_floats floats (null where that is 0); with
+// fill_stats the launch first computes its rows' statistics into it,
+// without it they must already be there from this backward's other launch.
 extern "C" int xsky_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const int32_t* seg,
                                   const void* out, const void* dout,
                                   const float* lse, void* dk, void* dv,
-                                  float* stats, int b, int s_q, int s_kv,
-                                  int h, int h_kv, int d, int causal,
-                                  int window, float scale, float softcap,
-                                  int dtype, void* stream) {
+                                  float* stats, int fill_stats, int b,
+                                  int s_q, int s_kv, int h, int h_kv, int d,
+                                  int causal, int window, float scale,
+                                  float softcap, int dtype, void* stream) {
   if ((dtype != xsky::kFloat32 && dtype != xsky::kBFloat16) || h % h_kv)
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p = make_params(q, k, v, seg, out, dout, lse, b, s_q, s_kv, h,
@@ -1173,23 +1451,23 @@ extern "C" int xsky_flash_bwd_dkv(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = launch_dkv<16>(p, dtype, stats, st); break;
-    case 32: err = launch_dkv<32>(p, dtype, stats, st); break;
-    case 64: err = launch_dkv<64>(p, dtype, stats, st); break;
-    case 128: err = launch_dkv<128>(p, dtype, stats, st); break;
+    case 16: err = launch_dkv<16>(p, dtype, stats, fill_stats, st); break;
+    case 32: err = launch_dkv<32>(p, dtype, stats, fill_stats, st); break;
+    case 64: err = launch_dkv<64>(p, dtype, stats, fill_stats, st); break;
+    case 128: err = launch_dkv<128>(p, dtype, stats, fill_stats, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// dq: [B, S_q, H, D].
+// dq: [B, S_q, H, D]; stats and fill_stats as for xsky_flash_bwd_dkv.
 extern "C" int xsky_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const int32_t* seg, const void* out,
                                  const void* dout, const float* lse,
-                                 void* dq, int b, int s_q, int s_kv, int h,
-                                 int h_kv, int d, int causal, int window,
-                                 float scale, float softcap, int dtype,
-                                 void* stream) {
+                                 void* dq, float* stats, int fill_stats,
+                                 int b, int s_q, int s_kv, int h, int h_kv,
+                                 int d, int causal, int window, float scale,
+                                 float softcap, int dtype, void* stream) {
   if ((dtype != xsky::kFloat32 && dtype != xsky::kBFloat16) || h % h_kv)
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p = make_params(q, k, v, seg, out, dout, lse, b, s_q, s_kv, h,
@@ -1198,10 +1476,10 @@ extern "C" int xsky_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = launch_dq<16>(p, dtype, st); break;
-    case 32: err = launch_dq<32>(p, dtype, st); break;
-    case 64: err = launch_dq<64>(p, dtype, st); break;
-    case 128: err = launch_dq<128>(p, dtype, st); break;
+    case 16: err = launch_dq<16>(p, dtype, stats, fill_stats, st); break;
+    case 32: err = launch_dq<32>(p, dtype, stats, fill_stats, st); break;
+    case 64: err = launch_dq<64>(p, dtype, stats, fill_stats, st); break;
+    case 128: err = launch_dq<128>(p, dtype, stats, fill_stats, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -8,23 +8,21 @@
 //
 // What bounds it on the H100: bytes, as for the dense kernel
 // (decode_attention.cu): every live K/V row is read once and used for
-// 2 * groups flops per element. What the design does about it: rows past
-// a slot's length are never read, whatever pages its table names there;
-// one block serves all `groups` query heads of a KV head, so each K/V row
-// crosses device memory once per group; a page is `page` whole
-// [Hkv, D] rows, so a warp's reads inside a page are as contiguous as in
-// the dense cache and paging costs no extra traffic. The Pallas grid axis
-// over logical blocks becomes the row loop of decode_common.cuh inside
-// one block per (KV head, slot); the table lookup per row is a
-// shared-memory read, since the block first copies (and clamps) the part
-// of the slot's table row that its length can reach.
+// 2 * groups flops per element. It runs the dense kernel's split-KV walk
+// (decode_common.cuh) through its own `Rows` functor: splits of 128
+// logical rows, one block per (KV head, slot, split), rows in flight by
+// cp.async into a two-stage ring, a combine pass from the same entry
+// point. A page is `page` whole [Hkv, D] rows, so a warp's copies inside
+// a page are as contiguous as in the dense cache and paging costs no
+// extra traffic; the table lookup per row is a shared-memory read, since
+// each block first copies (and clamps) the table entries its split
+// covers. Rows past a slot's length are never read, whatever pages its
+// table names there. The paged layout has no design of its own yet.
 //
 // Layout: q [B, 1, H, D]; arenas [P, page, Hkv, D] (bf16 or fp32);
 // tables [B, nblk] int32; lengths [B] int32, clamped to nblk * page here;
-// out [B, 1, H, D] in q's type. page is a power of two.
-//
-// Grid: one block per (KV head, slot): 32 slots x 8 KV heads = 256 blocks
-// at the Llama-3-8B paged serving shape.
+// out [B, 1, H, D] in q's type; partials: fp32 scratch of
+// B * ceil(nblk * page / 128) * H * (D + 2) floats. page is a power of two.
 //
 // Edges, as the Pallas grid gives them. A slot of length 0 still runs
 // logical block 0 with every score masked to the same -1e30, so its
@@ -37,74 +35,66 @@
 
 namespace {
 
-constexpr int kThreads = xsky::kDecodeThreads;
-constexpr int kMaxGroups = xsky::kDecodeMaxGroups;
-// Dynamic shared memory a launch may use beside the walk's static arrays
-// without opting in to more than 48 KB a block.
-constexpr int kPlainTableBytes = 12 * 1024;
+// Table entries one split can cover: a split of 128 rows starting inside
+// a page of one row spans 128 pages (129 with slack for any alignment).
+constexpr int kSplitPages = xsky::kDecodeSplitRows + 1;
 
 struct PagedParams {
-  const void* q;
+  xsky::DecodeParams p;
   const void* k;
   const void* v;
-  const int32_t* lengths;
   const int32_t* tables;
-  void* out;
-  int b, num_pages, page_shift, nblk, h, h_kv, groups;
-  float scale;
-  float softcap;  // <= 0: no softcap
+  int num_pages, page_shift, nblk;
 };
 
 // Logical row pos → its row in the [P * page, ...] arena, through the
-// block's clamped copy of the slot's table row (`used` entries).
+// block's clamped copy of the table entries from logical block blk0 on.
 struct PagedRows {
   const int32_t* table;  // shared memory
-  int used;
+  int blk0;
   int page_shift;
   __device__ __forceinline__ long operator()(int pos) const {
-    const long page = table[min(pos >> page_shift, used - 1)];
+    const long page = table[(pos >> page_shift) - blk0];
     return (page << page_shift) + (pos & ((1 << page_shift) - 1));
   }
 };
 
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    PagedParams p) {
-  extern __shared__ int32_t table_s[];
+template <typename TQ, typename TKV, int D, int G>
+__global__ void __launch_bounds__(xsky::kDecodeThreads)
+    paged_decode_kernel(const PagedParams pp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int32_t table_s[kSplitPages];
+  const xsky::DecodeParams& p = pp.p;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int page = 1 << p.page_shift;
-  const int length = min(max(p.lengths[b], 0), p.nblk << p.page_shift);
-  const bool empty = length == 0;
-  const int end = empty ? page : length;
-  const int used = (end + page - 1) >> p.page_shift;  // table entries read
-  const int32_t* table = p.tables + static_cast<long>(b) * p.nblk;
-  for (int i = threadIdx.x; i < used; i += kThreads)
-    table_s[i] = min(max(table[i], 0), p.num_pages - 1);
+  const int split = blockIdx.z;
+  int lo, hi;
+  bool empty;
+  if (!xsky::decode_split_rows(p, b, split, &lo, &hi, &empty)) return;
+  const int blk0 = lo >> pp.page_shift;
+  const int used = ((hi - 1) >> pp.page_shift) - blk0 + 1;
+  const int32_t* table = pp.tables + static_cast<long>(b) * pp.nblk + blk0;
+  for (int i = threadIdx.x; i < used; i += xsky::kDecodeThreads)
+    table_s[i] = min(max(table[i], 0), pp.num_pages - 1);
   __syncthreads();
-  const long q_off = (static_cast<long>(b) * p.h + kvh * p.groups) * D;
-  const long kv_off = static_cast<long>(kvh) * D + xsky::decode_lane_d0<D>();
-  xsky::decode_walk<TQ, TKV, D>(
-      static_cast<const TQ*>(p.q) + q_off, static_cast<TQ*>(p.out) + q_off,
-      static_cast<const TKV*>(p.k) + kv_off,
-      static_cast<const TKV*>(p.v) + kv_off, nullptr, nullptr,
-      PagedRows{table_s, used, p.page_shift}, p.h_kv, p.groups, 0, end, empty,
-      p.scale, p.softcap);
+  const long kv_off = static_cast<long>(kvh) * D;
+  xsky::decode_split<TQ, TKV, D, G>(
+      p, smem, static_cast<const TKV*>(pp.k) + kv_off,
+      static_cast<const TKV*>(pp.v) + kv_off, nullptr, nullptr,
+      PagedRows{table_s, blk0, pp.page_shift}, b, kvh, split, lo, hi,
+      empty);
 }
 
 template <typename TQ, typename TKV, int D>
-cudaError_t launch(const PagedParams& p, cudaStream_t stream) {
-  const int table_bytes = p.nblk * static_cast<int>(sizeof(int32_t));
-  if (table_bytes > kPlainTableBytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<TQ, TKV, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, table_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(p.h_kv, p.b);
-  paged_decode_kernel<TQ, TKV, D>
-      <<<grid, kThreads, table_bytes, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch(const PagedParams& pp, cudaStream_t stream) {
+  if (pp.p.groups <= 4)
+    return xsky::decode_launch<TQ>(paged_decode_kernel<TQ, TKV, D, 4>, pp,
+                                   pp.p, D,
+                                   xsky::DecodeSmem<TKV, D, 4>::kBytes,
+                                   stream);
+  return xsky::decode_launch<TQ>(paged_decode_kernel<TQ, TKV, D, 8>, pp,
+                                 pp.p, D, xsky::DecodeSmem<TKV, D, 8>::kBytes,
+                                 stream);
 }
 
 template <typename TQ, typename TKV>
@@ -132,24 +122,43 @@ cudaError_t dispatch_kv(int kv_dtype, int d, const PagedParams& p,
 
 XSKY_ERROR_STRING_FN
 
+// partials: fp32 scratch of b * splits * h * (d + 2) floats, splits =
+// ceil(nblk * page / 128) (the wrapper's decode_attention.partials).
 extern "C" int xsky_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const int32_t* lengths, const int32_t* tables, void* out, int b,
-    int num_pages, int page, int nblk, int h, int h_kv, int d, float scale,
-    float softcap, int q_dtype, int kv_dtype, void* stream) {
-  if (h % h_kv != 0 || h / h_kv > kMaxGroups || num_pages <= 0 ||
-      nblk <= 0 || page <= 0 || (page & (page - 1)) != 0)
+    const int32_t* lengths, const int32_t* tables, void* out,
+    float* partials, int b, int num_pages, int page, int nblk, int h,
+    int h_kv, int d, int splits, float scale, float softcap, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (h_kv <= 0 || h % h_kv != 0 || num_pages <= 0 || nblk <= 0 ||
+      page <= 0 || (page & (page - 1)) != 0 ||
+      static_cast<long>(nblk) * page > (1L << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   int page_shift = 0;
   while ((1 << page_shift) < page) ++page_shift;
-  PagedParams p{q, k_pages, v_pages, lengths, tables, out, b, num_pages,
-                page_shift, nblk, h, h_kv, h / h_kv, scale, softcap};
+  xsky::DecodeParams p{};
+  p.q = q;
+  p.out = out;
+  p.part_acc = partials;
+  p.part_ml = partials + static_cast<long>(b) * splits * h * d;
+  p.slots = xsky::DecodeSlots{lengths, nblk * page, 0, page};
+  p.b = b;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.groups = h / h_kv;
+  p.splits = splits;
+  p.scale = scale;
+  p.softcap = softcap;
+  if (!xsky::decode_params_ok(p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedParams pp{p, k_pages, v_pages, tables, num_pages, page_shift,
+                       nblk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == xsky::kFloat32)
-    err = dispatch_kv<float>(kv_dtype, d, p, st);
+    err = dispatch_kv<float>(kv_dtype, d, pp, st);
   else if (q_dtype == xsky::kBFloat16)
-    err = dispatch_kv<__nv_bfloat16>(kv_dtype, d, p, st);
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, d, pp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -12,9 +12,12 @@ attends each slot's single query token over that slot's live cache rows:
     ``block_tables[b, i]``; kernel ``csrc/paged_decode_attention.cu``.
 
 Each source's header says what bounds the kernel on the H100 (bytes) and
-what the design does about it; the two share their row walk
-(``csrc/decode_common.cuh``). The multi-device layout comes in a later
-slice.
+what the design does about it; the two share their split-KV walk
+(``csrc/decode_common.cuh``): each block walks one split of
+``SPLIT_ROWS`` rows of one (KV head, slot) and leaves its partial softmax
+state in fp32 scratch (``partials``), and a combine pass from the same
+entry point merges a slot's live splits. The multi-device layout comes in
+a later slice.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version, the same function in plain PyTorch.
@@ -22,7 +25,7 @@ takes the plain version, the same function in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,22 +40,50 @@ MAX_GROUPS = 8
 # (the default block, 256 rows, capped at max_len: its line 303).
 EMPTY_SLOT_ROWS = 256
 
+# Logical rows one block of either kernel walks: csrc/decode_common.cuh's
+# kDecodeSplitRows. The wrapper sizes the per-split scratch with it (the
+# kernels refuse another count of splits).
+SPLIT_ROWS = 128
+
 KERNEL = kernels.Kernel(
     'decode_attention', 'decode_attention.cu', 'xsky_decode_attention',
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 +
     [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p])
 
 PAGE_SIZES = (8, 16, 32, 64, 128, 256)
-# The kernel keeps a slot's table row in shared memory (128 KB at most).
+# Logical blocks a slot's table row may name: the split walk's scratch grows
+# with nblk * page (b * nblk * page / SPLIT_ROWS * h * (d + 2) floats).
 MAX_BLOCKS = 32768
 
 PAGED_KERNEL = kernels.Kernel(
     'paged_decode_attention', 'paged_decode_attention.cu',
     'xsky_paged_decode_attention',
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
     [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p])
+# The kernels copy rows with 16-byte cp.async from 16-byte-aligned bases.
+CACHE_ALIGN = 16
+
+
+def partials(b: int, rows: int, h: int, d: int,
+             device) -> Tuple[torch.Tensor, int]:
+    """fp32 scratch of the split-KV walk for ``b`` slots of ``rows``
+    logical rows each → (scratch, splits): each split's unnormalised
+    accumulator [b, splits, h, d], then its (max, sum) [b, splits, h, 2],
+    in one flat tensor."""
+    splits = -(-rows // SPLIT_ROWS)
+    return (torch.empty(b * splits * h * (d + 2), dtype=torch.float32,
+                        device=device), splits)
+
+
+def _check_cache_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % CACHE_ALIGN:
+            raise ValueError(
+                f'decode attention needs {name} to start on a '
+                f'{CACHE_ALIGN}-byte boundary (cp.async); its base '
+                f'{t.data_ptr():#x} is not: pass a .clone()')
 
 
 def _split(cache):
@@ -144,12 +175,14 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, window,
         raise ValueError('decode_attention inputs must share a device')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('decode_attention needs contiguous inputs')
+    _check_cache_aligned(k=k, v=v)
     out = torch.empty_like(q)
+    scratch, splits = partials(b, max_len, h, d, q.device)
     KERNEL.launch(
         kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(k_scale), kernels.ptr(v_scale), kernels.ptr(lengths),
-        kernels.ptr(out), b, max_len, h, h_kv, d,
-        0 if window is None else int(window),
+        kernels.ptr(out), kernels.ptr(scratch), b, max_len, h, h_kv, d,
+        splits, 0 if window is None else int(window),
         float(d ** -0.5 if scale is None else scale),
         0.0 if logit_softcap is None else float(logit_softcap),
         kernels.DTYPE_CODES[q.dtype], kernels.DTYPE_CODES[k.dtype],
@@ -270,11 +303,13 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, block_tables,
                          'device')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('paged_decode_attention needs contiguous inputs')
+    _check_cache_aligned(k_pages=k_pages, v_pages=v_pages)
     out = torch.empty_like(q)
+    scratch, splits = partials(b, nblk * page, h, d, q.device)
     PAGED_KERNEL.launch(
         kernels.ptr(q), kernels.ptr(k_pages), kernels.ptr(v_pages),
         kernels.ptr(lengths), kernels.ptr(block_tables), kernels.ptr(out),
-        b, num_pages, page, nblk, h, h_kv, d,
+        kernels.ptr(scratch), b, num_pages, page, nblk, h, h_kv, d, splits,
         float(d ** -0.5 if scale is None else scale),
         0.0 if logit_softcap is None else float(logit_softcap),
         kernels.DTYPE_CODES[q.dtype], kernels.DTYPE_CODES[k_pages.dtype],

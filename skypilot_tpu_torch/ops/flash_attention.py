@@ -5,9 +5,10 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``: the forward
 (``_fwd_kernel`` / ``_flash_fwd``) is ``csrc/flash_fwd.cu``; the backward
 pair (``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` / ``_bwd_flash``) is
 ``csrc/flash_bwd.cu``, one library with two entry points and two launch
-counts. In bf16 at head dims 64 and 128 the forward and dK/dV are the
-TMA + wgmma kernels built on ``csrc/hopper.cuh``; the sources' headers
-say what bounds each kernel on the H100 and how it is laid out.
+counts. In bf16 at head dims 64 and 128 the forward, dK/dV and dQ are
+TMA + wgmma kernels built on ``csrc/hopper.cuh``, and one backward runs
+the row pre-pass they share (LSE in base 2, delta) once; the sources'
+headers say what bounds each kernel on the H100 and how it is laid out.
 ``flash_attention`` is a ``torch.autograd.Function`` (the JAX
 ``custom_vjp``): its forward saves the LSE, its backward recomputes P
 from it.
@@ -33,14 +34,16 @@ _SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
 KERNEL = kernels.Kernel(
     'flash_fwd', 'flash_fwd.cu', 'xsky_flash_fwd',
     [ctypes.c_void_p] * 6 + _SHAPE_ARGS)
+# The backward pair: pointers, then the scratch of the row pre-pass and
+# whether this launch fills it.
 DKV_KERNEL = kernels.Kernel(
     'flash_bwd_dkv', 'flash_bwd.cu', 'xsky_flash_bwd_dkv',
-    [ctypes.c_void_p] * 10 + _SHAPE_ARGS)
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] + _SHAPE_ARGS)
 # The TMA loads of the bf16 wgmma kernels read from 16-byte-aligned bases.
 TMA_ALIGN = 16
 DQ_KERNEL = kernels.Kernel(
     'flash_bwd_dq', 'flash_bwd.cu', 'xsky_flash_bwd_dq',
-    [ctypes.c_void_p] * 8 + _SHAPE_ARGS)
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] + _SHAPE_ARGS)
 
 
 def _plain_scores(q, k, causal, window, segment_ids, logit_softcap, scale):
@@ -264,43 +267,54 @@ def _bwd_common(q, k, v, segment_ids, out, dout, lse):
             kernels.ptr(lse))
 
 
-def _flash_bwd_dq(q, k, v, segment_ids, out, dout, lse, *, causal=True,
-                  window=None, softcap=None, scale_override=None
-                  ) -> torch.Tensor:
-    """Launch the dQ kernel (K3) → dq [B, S, H, D]."""
+def _flash_bwd_dq(q, k, v, segment_ids, out, dout, lse, *, stats=None,
+                  fill_stats=True, causal=True, window=None, softcap=None,
+                  scale_override=None) -> torch.Tensor:
+    """Launch the dQ kernel (K3) → dq [B, S, H, D].
+
+    stats / fill_stats: the row pre-pass's scratch (``bwd_scratch``) and
+    whether this launch computes it. By default the launch fills scratch
+    of its own; ``_flash_bwd`` hands one scratch to both kernels and lets
+    only the first fill it."""
     _check_bwd(q, k, v, segment_ids, out, dout, lse)
+    if stats is None:
+        stats, fill_stats = bwd_scratch(q), True
     dq = torch.empty_like(q)
     DQ_KERNEL.launch(*_bwd_common(q, k, v, segment_ids, out, dout, lse),
-                     kernels.ptr(dq),
+                     kernels.ptr(dq), kernels.ptr(stats), int(fill_stats),
                      *_shape_args(q, k, causal, window, softcap,
                                   scale_override))
     return dq
 
 
-def _flash_bwd_dkv(q, k, v, segment_ids, out, dout, lse, *, causal=True,
-                   window=None, softcap=None, scale_override=None
+def _flash_bwd_dkv(q, k, v, segment_ids, out, dout, lse, *, stats=None,
+                   fill_stats=True, causal=True, window=None, softcap=None,
+                   scale_override=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel (K2) → (dk, dv) [B, S_kv, Hkv, D]."""
+    """Launch the dK/dV kernel (K2) → (dk, dv) [B, S_kv, Hkv, D].
+    stats / fill_stats as for ``_flash_bwd_dq``."""
     _check_bwd(q, k, v, segment_ids, out, dout, lse)
+    if stats is None:
+        stats, fill_stats = bwd_scratch(q), True
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    stats = dkv_scratch(q)
     DKV_KERNEL.launch(*_bwd_common(q, k, v, segment_ids, out, dout, lse),
                       kernels.ptr(dk), kernels.ptr(dv), kernels.ptr(stats),
+                      int(fill_stats),
                       *_shape_args(q, k, causal, window, softcap,
                                    scale_override))
     return dk, dv
 
 
-def dkv_scratch(q: torch.Tensor) -> Optional[torch.Tensor]:
-    """Scratch of the dK/dV kernel's pre-pass, or None where the kernel
-    takes none: fp32, as many floats as the kernel's library asks for
+def bwd_scratch(q: torch.Tensor) -> Optional[torch.Tensor]:
+    """Scratch of the backward kernels' row pre-pass, or None where they
+    take none: fp32, as many floats as the kernels' library asks for
     (each query row's LSE in base 2 and its delta = Σ dO⊙O, computed once
-    per row). The library alone knows which shapes run the wgmma kernel
-    and how far its query tiles pad S."""
+    per row). The library alone knows which shapes run the wgmma kernels
+    and how far their query tiles pad S."""
     b, s, h, d = q.shape
-    floats = DKV_KERNEL.query('xsky_flash_bwd_dkv_scratch_floats', b, s, h,
-                              d, kernels.DTYPE_CODES[q.dtype])
+    floats = DQ_KERNEL.query('xsky_flash_bwd_scratch_floats', b, s, h, d,
+                             kernels.DTYPE_CODES[q.dtype])
     if not floats:
         return None
     return torch.empty(floats, dtype=torch.float32, device=q.device)
@@ -311,9 +325,15 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                dout: torch.Tensor, lse: torch.Tensor, **options
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the dQ kernel, then the dK/dV kernel → (dq, dk, dv).
-    options: causal, window, softcap, scale_override (as _flash_fwd)."""
-    dq = _flash_bwd_dq(q, k, v, segment_ids, out, dout, lse, **options)
-    dk, dv = _flash_bwd_dkv(q, k, v, segment_ids, out, dout, lse, **options)
+    The row pre-pass runs once, inside the dQ launch, and the dK/dV launch
+    reads the same scratch. options: causal, window, softcap,
+    scale_override (as _flash_fwd)."""
+    _check_bwd(q, k, v, segment_ids, out, dout, lse)
+    stats = bwd_scratch(q)
+    dq = _flash_bwd_dq(q, k, v, segment_ids, out, dout, lse, stats=stats,
+                       fill_stats=True, **options)
+    dk, dv = _flash_bwd_dkv(q, k, v, segment_ids, out, dout, lse,
+                            stats=stats, fill_stats=False, **options)
     return dq, dk, dv
 
 

@@ -9,6 +9,9 @@ differs).
 """
 from __future__ import annotations
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,3 +191,22 @@ def test_plain_decode_matches_jax_kernel(case):
         torch.from_numpy(q), tk, tv, torch.from_numpy(lengths), **kw)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     assert np.abs(want[0]).max() > 0
+
+
+@pytest.mark.parametrize('rows, splits', [(1, 1), (127, 1), (128, 1),
+                                          (129, 2), (2048, 16), (2049, 17)])
+def test_decode_partials_hold_one_state_per_split(rows, splits):
+    """The split-KV walk's scratch: for each slot, split and query head an
+    unnormalised accumulator of D floats and its (max, sum)."""
+    scratch, got = decode_attention.partials(3, rows, 8, 64, 'cpu')
+    assert got == splits
+    assert scratch.dtype == torch.float32
+    assert scratch.numel() == 3 * splits * 8 * (64 + 2)
+
+
+def test_decode_split_rows_match_the_kernels():
+    """The wrapper sizes the scratch with the kernels' own split length."""
+    source = (pathlib.Path(decode_attention.__file__).parents[1] / 'csrc' /
+              'decode_common.cuh').read_text()
+    found = re.search(r'kDecodeSplitRows = (\d+);', source)
+    assert int(found.group(1)) == decode_attention.SPLIT_ROWS

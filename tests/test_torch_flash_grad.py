@@ -213,3 +213,69 @@ def test_check_aligned_names_the_misaligned_tensor():
     with pytest.raises(ValueError, match=r'needs dout to start on a 16-byte'
                                          r' boundary \(TMA\)'):
         flash_attention.check_aligned(q=good, dout=bad)
+
+
+def _record_backward_launches(monkeypatch, scratch_floats):
+    """Stand-ins for the backward kernels' library on a machine without a
+    card: the launches are recorded, not run, and the library's scratch
+    rule answers ``scratch_floats``."""
+    calls = []
+    monkeypatch.setattr(flash_attention, '_check_bwd', lambda *args: None)
+    monkeypatch.setattr(flash_attention.kernels, 'stream_ptr',
+                        lambda device: 0)
+    monkeypatch.setattr(flash_attention.DQ_KERNEL, 'query',
+                        lambda symbol, *args: scratch_floats)
+    for name, kern in (('dq', flash_attention.DQ_KERNEL),
+                       ('dkv', flash_attention.DKV_KERNEL)):
+        monkeypatch.setattr(kern, 'launch',
+                            lambda *args, name=name: calls.append(
+                                (name, args)))
+    return calls
+
+
+# Positions of (scratch pointer, fill flag) in each entry point's
+# arguments: seven input pointers, then the outputs (dq; dk, dv).
+_STATS_ARG = {'dq': 8, 'dkv': 9}
+
+
+def test_one_backward_runs_the_row_pre_pass_once(monkeypatch):
+    """_flash_bwd hands one pre-pass scratch, sized by the library, to both
+    kernels: the dQ launch fills it, the dK/dV launch reads it."""
+    calls = _record_backward_launches(monkeypatch, 2 * 2 * 4 * 64)
+    q = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 64, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 4, 64))
+    flash_attention._flash_bwd(q, k, k, None, q, q, lse, causal=True)
+    assert [name for name, _ in calls] == ['dq', 'dkv']
+    (_, dq_args), (_, dkv_args) = calls
+    stats, fill = dq_args[_STATS_ARG['dq']:_STATS_ARG['dq'] + 2]
+    assert stats is not None and fill == 1
+    assert dkv_args[_STATS_ARG['dkv']:_STATS_ARG['dkv'] + 2] == (stats, 0)
+
+
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+def test_a_backward_kernel_alone_fills_its_own_scratch(monkeypatch, kernel):
+    """Launched on its own, either backward kernel gets scratch of its
+    own and computes the row statistics into it."""
+    calls = _record_backward_launches(monkeypatch, 2 * 2 * 4 * 64)
+    q = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 64, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 4, 64))
+    launch = {'dq': flash_attention._flash_bwd_dq,
+              'dkv': flash_attention._flash_bwd_dkv}[kernel]
+    launch(q, k, k, None, q, q, lse)
+    launch(q, k, k, None, q, q, lse)
+    (_, first), (_, second) = calls
+    at = _STATS_ARG[kernel]
+    assert first[at + 1] == second[at + 1] == 1
+    assert first[at] is not None and second[at] is not None
+
+
+def test_no_scratch_where_the_library_asks_for_none(monkeypatch):
+    """fp32 and the mma.sync head dims take no pre-pass: both kernels get
+    a null scratch pointer."""
+    calls = _record_backward_launches(monkeypatch, 0)
+    q = torch.zeros((1, 32, 2, 32))
+    lse = torch.zeros((1, 2, 32))
+    flash_attention._flash_bwd(q, q, q, None, q, q, lse)
+    assert [args[_STATS_ARG[name]] for name, args in calls] == [None, None]

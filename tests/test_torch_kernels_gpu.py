@@ -226,18 +226,28 @@ def test_flash_kernels_repeat_bit_for_bit_in_fp32(card):
                      torch.float32)
 
 
-def test_flash_dkv_kernel_is_deterministic(card):
-    """K2 sums each GQA group in registers and writes once, without
-    atomics: two runs on the same inputs give the same bits."""
+@pytest.mark.parametrize('kernel', ['dkv', 'dq'])
+def test_flash_dkv_kernel_is_deterministic(card, kernel):
+    """Neither backward kernel has atomics: K2 sums each GQA group in
+    registers and writes once, K3 owns its query rows' dQ. Two runs on the
+    same inputs give the same bits, each alone and inside one backward
+    (where the two share the row pre-pass's scratch)."""
     b, s, h, h_kv, d = 2, 1000, 8, 2, 128
     dtype = torch.bfloat16
     q, dout = (_randn(card, (b, s, h, d), dtype) for _ in range(2))
     k, v = (_randn(card, (b, s, h_kv, d), dtype) for _ in range(2))
     out, lse = flash_attention._flash_fwd(q, k, v)
-    first = flash_attention._flash_bwd_dkv(q, k, v, None, out, dout, lse)
-    second = flash_attention._flash_bwd_dkv(q, k, v, None, out, dout, lse)
-    for a, b_ in zip(first, second):
+    launch = {'dkv': flash_attention._flash_bwd_dkv,
+              'dq': flash_attention._flash_bwd_dq}[kernel]
+    args = (q, k, v, None, out, dout, lse)
+    first, second = launch(*args), launch(*args)
+    if kernel == 'dq':
+        first, second = (first,), (second,)
+    together = flash_attention._flash_bwd(*args)
+    together = together[1:] if kernel == 'dkv' else together[:1]
+    for a, b_, c in zip(first, second, together):
         assert torch.equal(a, b_)
+        assert torch.equal(a, c)
 
 
 def test_flash_kernels_at_the_training_length(card):
@@ -273,20 +283,32 @@ def test_flash_kernels_at_the_training_length(card):
     (torch.bfloat16, 32, None),
     (torch.float32, 128, None)])
 def test_dkv_scratch_only_where_the_wgmma_kernel_runs(card, dtype, d, want):
-    """The dK/dV pre-pass's scratch, sized by the kernel's library: LSE
-    and delta per query row, S padded to the 64-row query tile
-    (200 -> 256); none for fp32 or the mma.sync head dims."""
+    """The backward pre-pass's scratch (shared by dK/dV and dQ), sized by
+    the kernels' library: LSE and delta per query row, S padded to the
+    64-row query tile (200 -> 256); none for fp32 or the mma.sync head
+    dims."""
     q = torch.zeros(3, 200, 4, d, dtype=dtype, device='cuda')
-    got = flash_attention.dkv_scratch(q)
+    got = flash_attention.bwd_scratch(q)
     if want is None:
         assert got is None
     else:
         assert got.numel() == want and got.dtype == torch.float32
 
 
+# Slot lengths of the decode tests over a 300-row cache: ragged ones, and
+# the split-KV walk's edges (splits of SPLIT_ROWS = 128 rows: one split,
+# one split +- 1, two splits +- 1, max_len and past it).
+DECODE_LENGTHS = {'ragged': [0, 1, 63, 64, 300, 400],
+                  'split edges': [127, 128, 129, 255, 256, 257],
+                  'split edges, max_len': [0, 300, 301, 1, 130, 299]}
+
+
 @pytest.mark.parametrize('kv', ['bf16', 'fp32', 'int8'])
 @pytest.mark.parametrize('window', [None, 50])
-def test_decode_kernel_matches_plain(card, kv, window):
+@pytest.mark.parametrize('lengths', list(DECODE_LENGTHS))
+def test_decode_kernel_matches_plain(card, kv, window, lengths):
+    """K4 against the plain version; under window=50 the split-edge
+    lengths start their window inside a split."""
     b, max_len, h, h_kv, d = 6, 300, 8, 2, 128
     q = _randn(card, (b, 1, h, d), torch.bfloat16)
     k = _randn(card, (b, max_len, h_kv, d), torch.float32)
@@ -296,13 +318,16 @@ def test_decode_kernel_matches_plain(card, kv, window):
     else:
         dtype = torch.bfloat16 if kv == 'bf16' else torch.float32
         k, v = k.to(dtype), v.to(dtype)
-    lengths = torch.tensor([0, 1, 63, 64, 300, 400], dtype=torch.int32,
+    lengths = torch.tensor(DECODE_LENGTHS[lengths], dtype=torch.int32,
                            device='cuda')
     out = decode_attention.decode_attention(q, k, v, lengths, window=window)
     ref = decode_attention.decode_attention_plain(q, k, v, lengths,
                                                   window=window)
     torch.testing.assert_close(out.float(), ref.float(),
                                **TOL[torch.bfloat16])
+    # Per (slot, head) against the output's own size: a lost split would
+    # hide inside the absolute tolerance.
+    assert_blocks_close(out, ref, torch.bfloat16, 'decode out')
 
 
 @pytest.mark.parametrize('kv', ['bf16', 'fp32', 'int8'])

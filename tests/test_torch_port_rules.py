@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps, checked on the CPU.
 
-* No module of ``skypilot_tpu_torch`` (nor ``chip_smoke.py``) imports
-  jax or anything of ``skypilot_tpu``.
+* No module of ``skypilot_tpu_torch`` (nor ``chip_smoke.py``, nor the
+  ``tools/torch_*.py`` scripts) imports jax or anything of
+  ``skypilot_tpu``.
 * Entry points (the engine, ``init``, the ``Trainer``) run on the card
   unless the caller asks for the CPU: without a card and without
   ``device='cpu'`` they raise.
@@ -32,7 +33,7 @@ from skypilot_tpu_torch.train import trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'skypilot_tpu_torch').rglob('*.py')) + [
-    REPO / 'chip_smoke.py']
+    REPO / 'chip_smoke.py'] + sorted((REPO / 'tools').glob('torch_*.py'))
 
 
 def _imported_modules(path: pathlib.Path):

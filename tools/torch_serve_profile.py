@@ -49,7 +49,7 @@ MODELS = ('llama3-8b', 'deepseek-v2-lite')
 # Device kernels by kind, matched on the kernel's name (first match wins).
 CATEGORIES = (
     ('port kernels', ('mla_decode', 'mla_combine', 'decode_kernel',
-                      'flash_')),
+                      'decode_combine', 'flash_')),
     ('matrix products', ('gemm', 'gemv', 'nvjet', 'cutlass', 'xmma',
                          'cublas', 'splitk', 'dot_kernel')),
     ('index, scan and sort ops', ('index', 'scatter', 'gather', 'scan',

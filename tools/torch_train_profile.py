@@ -36,7 +36,8 @@ from tools.torch_serve_profile import nvidia_smi_line, traced  # noqa: E402
 GROUPS = (
     ('flash_fwd (K1)', ('flash_fwd',)),
     ('flash_bwd_dkv (K2)', ('flash_bwd_dkv',)),
-    ('flash_bwd_dq (K3)', ('flash_bwd_dq',)),
+    # The row pre-pass runs inside the dQ launch (once per backward).
+    ('flash_bwd_dq (K3)', ('flash_bwd_dq', 'flash_bwd_rowstats')),
     ('matrix products (cuBLAS/CUTLASS)',
      ('gemm', 'gemv', 'xmma', 'cutlass', 'nvjet', 'sm90_', 'splitk')),
 )
