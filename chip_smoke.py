@@ -27,8 +27,11 @@ Phases, in order; any failure exits non-zero:
      (bound): the flash forward,
      the flash backward pair (dK/dV, dQ), dense decode, paged decode, and
      the absorbed-MLA decode pair (dense K6, paged K7: ragged lengths,
-     length 0, inactive slots, sentinel tables, and K7 bit for bit equal
-     to K6 on an identity table);
+     length 0, inactive slots, sentinel tables, pages of 1-256 rows,
+     4 heads and r + dr up to 1024, K7 bit for bit equal to K6 on an
+     identity table, two calls bit-identical, and planted faults: a slot
+     without one split must be rejected, and p without its third bf16
+     term is rejected or its distance from the tolerance logged);
   4. serving main path: Llama-3-8B (bf16, random weights from a seeded
      torch.Generator) served by InferenceEngine + Orchestrator: 16
      prompts of ~1000 tokens, 64 new tokens each;
@@ -872,6 +875,9 @@ def check_paged_decode(gen) -> dict:
 # the absorbed step's scale is (qk_nope + qk_rope) ** -0.5.
 MLA_H, MLA_R, MLA_DR = 16, 512, 64
 MLA_SCALE = 192 ** -0.5
+# bf16 terms of each fp32 operand that is not from the cache (q and p) in
+# the kernels' tensor-core walk over a bf16 cache.
+MLA_TERMS = 3
 
 
 def mla_inputs(gen, b, h=MLA_H, r=MLA_R, dr=MLA_DR):
@@ -881,9 +887,10 @@ def mla_inputs(gen, b, h=MLA_H, r=MLA_R, dr=MLA_DR):
 
 def mla_case(gen, label, kv_dtype, lengths, max_len=2048, h=MLA_H,
              r=MLA_R, dr=MLA_DR, check=True):
-    """K6 vs its plain version. Both compute in fp32 (the cache is upcast)
-    and differ only by summation order, so the fp32 tolerance holds for a
-    bf16 cache too."""
+    """K6 vs its plain version. Both compute in fp32 and differ only by
+    summation order (over a bf16 cache the kernel's three-term products
+    are the fp32 products), so the fp32 tolerance holds for a bf16 cache
+    too."""
     b = len(lengths)
     q_eff, q_rope = mla_inputs(gen, b, h, r, dr)
     ckv = rand(gen, (b, max_len, r), kv_dtype)
@@ -909,16 +916,73 @@ def mla_case(gen, label, kv_dtype, lengths, max_len=2048, h=MLA_H,
 
 
 def mla_bound(q_eff, q_rope, live, elem, extra_bytes=0):
-    """(bound ms, what bounds it): each input read once (queries fp32, the
-    live cache rows in the cache's type), the fp32 output written once;
-    fp32 products at the 67 TFLOP/s non-tensor-core peak (the kernel's
-    math is fp32, as the TPU kernel's)."""
+    """(bound ms, what bounds it, bytes, products): each input read once
+    (queries fp32, the live cache rows in the cache's type), the fp32
+    output written once; the products at the bf16 tensor-core peak,
+    counted MLA_TERMS times: over a bf16 cache the kernels keep the math
+    fp32 by splitting q and p into three bf16 terms
+    (csrc/mla_common.cuh), so each fp32 product costs three bf16 ones."""
     b, h, r = q_eff.shape
     dr = q_rope.shape[-1]
     nbytes = ((q_eff.numel() + q_rope.numel() + b * h * r) * 4 + 4 * b +
               live * (r + dr) * elem + extra_bytes)
-    flops = 2.0 * live * h * ((r + dr) + r)
-    return bound_ms(nbytes, flops, torch.float32) + (nbytes, flops)
+    flops = 2.0 * live * h * ((r + dr) + r) * MLA_TERMS
+    return bound_ms(nbytes, flops, torch.bfloat16) + (nbytes, flops)
+
+
+def mla_faulty(q_eff, q_rope, ckv, krope, lens, slot, drop_split=None,
+               p_terms=MLA_TERMS):
+    """One slot's output [H, r] over its live rows as a faulty kernel
+    would give it: without the rows of split `drop_split` (a partial lost
+    in the merge), or with each probability cut to its first `p_terms`
+    bf16 terms (the kernel's split of p)."""
+    keep = torch.arange(int(lens[slot]), device='cuda')
+    if drop_split is not None:
+        keep = keep[keep // mla_ops.SPLIT_ROWS != drop_split]
+    c, k = ckv[slot, keep].float(), krope[slot, keep].float()
+    s = (q_eff[slot] @ c.T + q_rope[slot] @ k.T) * MLA_SCALE
+    e = torch.exp(s - s.max(dim=1, keepdim=True).values)
+    p = sum(t.float() for t in mla_ops.bf16_terms(e, p_terms))
+    return (p @ c) / e.sum(dim=1, keepdim=True)
+
+
+def mla_planted_faults(name, out, ref, dense, slot) -> None:
+    """The unchanged fp32 comparison must reject `slot` without its split
+    1; p without its lo term is rejected, or the log says by how much it
+    stays inside the tolerance."""
+    bad = out.clone()
+    bad[slot] = mla_faulty(*dense, slot, drop_split=1)
+    try:
+        compare(f'planted fault, {name} slot {slot} without split 1', bad,
+                ref, torch.float32)
+    except AssertionError:
+        log('    rejected, as it must be')
+    else:
+        raise AssertionError(f'the {name} check passed a slot without one '
+                             'split')
+    lens = dense[-1]
+    two = torch.stack([mla_faulty(*dense, i, p_terms=MLA_TERMS - 1)
+                       if int(lens[i]) else ref[i]
+                       for i in range(len(lens))])
+    err = float((two - ref).abs().max())
+    atol = ATOL[torch.float32]
+    if err > atol:
+        log(f'  planted fault, {name} without p\'s lo term: max_abs_err '
+            f'{err:.3e}, rejected')
+    else:
+        log(f'  planted fault, {name} without p\'s lo term: max_abs_err '
+            f'{err:.3e}, inside the fp32 tolerance {atol:g} by '
+            f'{atol / err:.1f}x: the comparison cannot see it')
+
+
+def mla_repeat(name, fn) -> None:
+    """Two calls on the same inputs give the same bits: the combine merges
+    a slot's splits in split order, whichever split ended last."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f'{name}: two calls on the same inputs differ')
+    log(f'  {name}: two calls on the same inputs, bit for bit equal')
 
 
 def check_mla_decode(gen) -> dict:
@@ -926,19 +990,34 @@ def check_mla_decode(gen) -> dict:
     bf16, fp32 = torch.bfloat16, torch.float32
     max_len = 2048
     ragged = [1, 255, 256, 257, max_len, 0, max_len + 1, 1000]
-    for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32')):
-        mla_case(gen, f'{name} cache, lengths 1/255/256/257/K, length 0, '
-                 'inactive K+1', dtype, ragged)
-    mla_case(gen, 'fp32 cache, DEEPSEEK_TINY widths', fp32,
-             [0, 1, 31, 33, 127, 129, 300], max_len=300, h=4, r=32, dr=8)
+    errs = [mla_case(gen, f'{name} cache, lengths 1/255/256/257/K, length '
+                     '0, inactive K+1', dtype, ragged)[1]
+            for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32'))]
+    tiny = [0, 1, 31, 33, 127, 129, 300]
+    errs += [mla_case(gen, f'{name} cache, DEEPSEEK_TINY widths (4 of 16 '
+                      'heads, 40 of 48 columns)', dtype, tiny, max_len=300,
+                      h=4, r=32, dr=8)[1]
+             for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32'))]
+    errs.append(mla_case(gen, 'bf16 cache, r + dr = 1024 (a one-stage ring)',
+                         bf16, [0, 1, 129, 1000, max_len], dr=512)[1])
     rng = np.random.default_rng(10)
     lengths = [int(x) for x in rng.integers(990, 1065, 16)]
-    mla_case(gen, 'fp32 main-path lengths', fp32, lengths)
+    errs.append(mla_case(gen, 'fp32 main-path lengths', fp32, lengths)[1])
     # The main path's decode steps: 16 slots, bf16 cache. Four caches in
     # turn (4 x 38 MB): no launch finds its rows in the 50 MB L2.
     cases = [mla_case(gen, 'bf16 main-path lengths', bf16, lengths,
                       check=i == 0) for i in range(4)]
     err = cases[0][1]
+    errs.append(err)
+    log(f'  largest mla decode error over these {len(errs)} cases: '
+        f'{max(errs):.3e} (fp32 tolerance {ATOL[fp32]:g})')
+    dense = cases[0][0]
+    out = mla_ops.mla_decode_attention(*dense, MLA_SCALE)
+    ref = mla_ops.mla_decode_attention_plain(*dense, MLA_SCALE)
+    mla_planted_faults('mla decode', out, ref, dense, slot=3)
+    mla_repeat('mla decode (bf16, main-path lengths)',
+               lambda: mla_ops.mla_decode_attention(*dense, MLA_SCALE))
+    del out, ref
     # The library yardstick's inputs, prepared outside the timed region:
     # [q_eff | q_rope] in the cache's type against one KV head
     # [c_kv | k_rope], value c_kv, a length mask.
@@ -972,9 +1051,9 @@ def check_mla_decode(gen) -> dict:
                                                ckv.element_size())
     log(f'  mla decode main-path timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, masked SDPA (library) {library_ms:.4f} ms, '
-        f'bound {bound:.4f} ms ({bound_by}; bf16 cache bytes, fp32 '
-        f'products); {live} live rows, {nbytes / ms / 1e6:.1f} GB/s, '
-        f'{flops / ms / 1e9:.2f} TFLOP/s fp32')
+        f'bound {bound:.4f} ms ({bound_by}; bf16 cache bytes, products x'
+        f'{MLA_TERMS} at the bf16 peak); {live} live rows, '
+        f'{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s bf16')
     return {'name': 'mla_decode', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/mla_decode.cu',
             'replaces': REPLACES['mla_decode'], 'max_abs_err': err,
@@ -1028,12 +1107,21 @@ def check_paged_mla_decode(gen) -> dict:
     # all-sentinel row); the others end in sentinel tails.
     ragged = [1, 16, 17, 0, 0, cap + 1, cap, 1000, 3064, 255, 256, 257]
     held = [1, 16, 17, 16, 0, 0, cap, 1000, 3064, 255, 256, 257]
-    for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32')):
-        paged_mla_case(gen, f'{name} arena, ragged lengths', dtype, ragged,
-                       held)
-    paged_mla_case(gen, 'fp32 page 8, DEEPSEEK_TINY widths', fp32,
-                   [0, 1, 8, 9, 65, 64, 30], [8, 1, 8, 9, 0, 64, 30],
-                   num_pages=40, page=8, nblk=8, h=4, r=32, dr=8)
+    errs = [paged_mla_case(gen, f'{name} arena, ragged lengths', dtype,
+                           ragged, held)[1]
+            for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32'))]
+    errs += [paged_mla_case(gen, f'{name} page 8, DEEPSEEK_TINY widths',
+                            dtype, [0, 1, 8, 9, 65, 64, 30],
+                            [8, 1, 8, 9, 0, 64, 30], num_pages=40, page=8,
+                            nblk=8, h=4, r=32, dr=8)[1]
+             for dtype, name in ((bf16, 'bf16'), (fp32, 'fp32'))]
+    # Pages of one row and of 256 rows (one bulk copy a row either way).
+    errs.append(paged_mla_case(gen, 'bf16 page 1', bf16, [0, 1, 2, 129, 640],
+                               [1, 1, 2, 129, 640], num_pages=4096, page=1,
+                               nblk=640)[1])
+    errs.append(paged_mla_case(gen, 'bf16 page 256', bf16, [0, 300, 1025, 256],
+                               [256, 300, 1025, 256], num_pages=24, page=256,
+                               nblk=5)[1])
     # On a contiguous identity table K7 walks the same rows in the same
     # order as K6 (one shared split walk, csrc/mla_common.cuh).
     for dtype in (bf16, fp32):
@@ -1064,10 +1152,25 @@ def check_paged_mla_decode(gen) -> dict:
     rng = np.random.default_rng(11)
     lengths = [int(x) for x in rng.integers(990, 1101, 32)]
     lengths[5], lengths[17], lengths[30] = 3064, 3001, 3050
-    paged_mla_case(gen, 'fp32 main-path lengths', fp32, lengths)
+    errs.append(paged_mla_case(gen, 'fp32 main-path lengths', fp32,
+                               lengths)[1])
     cases = [paged_mla_case(gen, 'bf16 main-path lengths', bf16, lengths,
                             check=i == 0) for i in range(3)]
     err = cases[0][1]
+    errs.append(err)
+    log(f'  largest paged mla decode error over these {len(errs)} cases: '
+        f'{max(errs):.3e} (fp32 tolerance {ATOL[fp32]:g})')
+    paged = cases[0][0]
+    q_eff, q_rope, ckv, krope, lens, tables = paged
+    safe = tables.long().clamp(0, ckv.shape[0] - 1)
+    dense = (q_eff, q_rope, ckv[safe].reshape(len(lens), -1, MLA_R),
+             krope[safe].reshape(len(lens), -1, MLA_DR), lens)
+    out = mla_ops.paged_mla_decode_attention(*paged, MLA_SCALE)
+    ref = mla_ops.paged_mla_decode_attention_plain(*paged, MLA_SCALE)
+    mla_planted_faults('paged mla decode', out, ref, dense, slot=5)
+    mla_repeat('paged mla decode (bf16, main-path lengths)',
+               lambda: mla_ops.paged_mla_decode_attention(*paged, MLA_SCALE))
+    del out, ref, dense, safe
     it = itertools.count()
 
     def run_kernel():
@@ -1102,8 +1205,8 @@ def check_paged_mla_decode(gen) -> dict:
     log(f'  paged mla decode main-path timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, page gather + masked SDPA (library) '
         f'{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; bf16 cache '
-        f'bytes, fp32 products); {live} live rows, '
-        f'{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s fp32')
+        f'bytes, products x{MLA_TERMS} at the bf16 peak); {live} live rows, '
+        f'{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s bf16')
     return {'name': 'paged_mla_decode', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/paged_mla_decode.cu',
             'replaces': REPLACES['paged_mla_decode'], 'max_abs_err': err,
@@ -1660,21 +1763,24 @@ def small_deepseek_end_to_end() -> None:
 
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
-    pre-pass, and of the decode split walks and combine at the main
-    paths' types (bf16 queries and cache, D 128), in an nvcc -Xptxas -v
-    log."""
+    pre-pass, of the decode split walks and combine at the main paths'
+    types (bf16 queries and cache, D 128), and of the MLA tensor-core
+    walks (bf16 cache), in an nvcc -Xptxas -v log."""
     for chunk in build_log.split('Compiling entry function')[1:]:
         mangled = chunk.split("'")[1]
         found = re.search(r'(flash_[a-z_]+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
                           mangled) or re.search(
             r'((?:paged_)?decode_kernel)I13__nv_bfloat16S\w*?_Li(128ELi\d)E',
             mangled) or re.search(
-            r'(decode_combine_kernel)I13(__nv_bfloat16)E', mangled)
+            r'(decode_combine_kernel)I13(__nv_bfloat16)E',
+            mangled) or re.search(
+            r'((?:paged_)?mla_decode_tc_kernel)E', mangled)
         regs = re.search(r'Used (\d+) registers', chunk)
         spill = re.search(r'(\d+) bytes spill stores', chunk)
         if found and regs:
-            args = found.group(2).replace('ELi', ', groups <= ')
-            yield (f'{found.group(1)}<{args}>', int(regs.group(1)),
+            args = (f'<{found.group(2)}>'.replace('ELi', ', groups <= ')
+                    if found.lastindex > 1 else '')
+            yield (f'{found.group(1)}{args}', int(regs.group(1)),
                    int(spill.group(1)) if spill else 0)
 
 

@@ -19,7 +19,9 @@ The two kernels share their row walk (``csrc/mla_common.cuh``); each
 source's header says what bounds it on the H100 and what the design does
 about it. The rank-side products (q_nope·W_uk before, out_c·W_uv after)
 stay with the caller, as in the reference. The math is fp32 whatever the
-cache's type.
+cache's type: over a bf16 cache the kernels take their products on the
+tensor cores with q and the probabilities split into three bf16 terms
+each (``bf16_terms``), every bf16 product exact in fp32.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version, the same function in plain PyTorch.
@@ -39,7 +41,7 @@ _NEG_INF = -1e30
 
 # Rows one block of either kernel walks; csrc/mla_common.cuh's
 # kMlaSplitRows. The wrapper sizes the per-split scratch with it.
-SPLIT_ROWS = 128
+SPLIT_ROWS = 192
 MAX_HEADS = 16
 MAX_RANK = 512
 MAX_WIDTH = 1024          # r + dr: the staged row and the queries in smem
@@ -54,6 +56,22 @@ PAGED_KERNEL = kernels.Kernel(
     'paged_mla_decode', 'paged_mla_decode.cu', 'xsky_paged_mla_decode',
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 +
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def bf16_terms(x: torch.Tensor, n: int = 3) -> list:
+    """x as n bf16 tensors, largest first, whose sum in fp32 is x: each
+    term rounds what the earlier ones left (an exact fp32 difference), so
+    three terms hold fp32's 24-bit mantissa. The kernels split q and the
+    probabilities p so over a bf16 cache; a bf16 × bf16 product is exact
+    in fp32, so the terms' products, summed in fp32, are the fp32 product
+    up to summation order."""
+    terms = []
+    rest = x.float()
+    for _ in range(n):
+        term = rest.to(torch.bfloat16)
+        terms.append(term)
+        rest = rest - term.float()
+    return terms
 
 
 def _last_block(length: torch.Tensor, block_kv: int) -> torch.Tensor:

@@ -495,7 +495,12 @@ def test_paged_engine_tokens_on_the_card_match_the_cpu(card):
 
 # ---- the absorbed-MLA decode kernels (K6 dense, K7 paged) ----
 
-MLA_SHAPES = {'tiny': (4, 32, 8), 'v2_lite': (16, 512, 64)}
+# (heads, r, dr): DEEPSEEK_TINY's (fewer than 16 heads and a width that is
+# not a multiple of 16 pad the tensor-core tiles), DeepSeek-V2-Lite's, and
+# the widest row the kernels take (r + dr = 1024: the bf16 walk's ring
+# then holds one stage of 32 rows).
+MLA_SHAPES = {'tiny': (4, 32, 8), 'v2_lite': (16, 512, 64),
+              'widest': (16, 512, 512)}
 
 
 def _mla_queries(gen, b, h, r, dr):
@@ -507,13 +512,14 @@ def _mla_queries(gen, b, h, r, dr):
 @pytest.mark.parametrize('shape', sorted(MLA_SHAPES))
 def test_mla_decode_kernel_matches_plain(card, dtype, shape):
     """K6 vs its plain version (both fp32 math: TOL fp32 for either cache
-    type): ragged lengths around the 32-row tiles and 128-row splits, a
-    length-0 slot (the mean of its first min(256, K) rows), an inactive
-    slot (length past the cache); K = 300 ends in a partial split."""
+    type): ragged lengths around the 32- and 64-row tiles and the 192-row
+    splits, a length-0 slot (the mean of its first min(256, K) rows), an
+    inactive slot (length past the cache); K = 300 ends in a partial
+    split."""
     h, r, dr = MLA_SHAPES[shape]
     max_len = 300
     lengths = [0, 1, 31, 32, 33, 127, 128, 129, 255, 256, 257, max_len,
-               max_len + 1]
+               max_len + 1, 63, 64, 65, 191, 192, 193]
     b = len(lengths)
     q_eff, q_rope = _mla_queries(card, b, h, r, dr)
     ckv = _randn(card, (b, max_len, r), dtype)
@@ -530,7 +536,7 @@ def test_mla_decode_kernel_matches_plain(card, dtype, shape):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('page', [8, 16, 256])
+@pytest.mark.parametrize('page', [1, 8, 16, 256])
 def test_paged_mla_decode_kernel_matches_plain(card, dtype, page):
     """K7 over per-slot random page permutations with sentinel tails: a
     length-0 slot with and without an allocated first block (the mean of
@@ -583,6 +589,70 @@ def test_paged_mla_kernel_equals_dense_kernel_on_an_identity_table(card):
             q_eff, q_rope, ckv.reshape(-1, page, r),
             krope.reshape(-1, page, dr), lens, tables, 0.07)
         assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize('shape', ['tiny', 'widest'])
+def test_paged_mla_decode_kernel_pads_heads_and_widths(card, shape):
+    """K7 over a bf16 arena at the padded shapes (4 heads of a 16-head
+    tile, r + dr = 40 of 48 columns; and r + dr = 1024), pages of 8."""
+    h, r, dr = MLA_SHAPES[shape]
+    page, nblk, num_pages = 8, 40, 100
+    lengths = [0, 1, 9, 129, 300, nblk * page]
+    b = len(lengths)
+    q_eff, q_rope = _mla_queries(card, b, h, r, dr)
+    ckv = _randn(card, (num_pages, page, r), torch.bfloat16)
+    krope = _randn(card, (num_pages, page, dr), torch.bfloat16)
+    tables = torch.stack([torch.randperm(num_pages, generator=card,
+                                         device='cuda')[:nblk]
+                          for _ in range(b)]).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    out = mla_decode.paged_mla_decode_attention(q_eff, q_rope, ckv, krope,
+                                                lens, tables, 0.07)
+    ref = mla_decode.paged_mla_decode_attention_plain(
+        q_eff, q_rope, ckv, krope, lens, tables, 0.07)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+
+def _mla_long_case(gen, dtype, b=6, page=16, nblk=128):
+    """V2-Lite widths, a contiguous identity table over a [b, nblk*page]
+    cache, lengths over 8 to 11 splits of 192 rows (and one short)."""
+    h, r, dr = MLA_SHAPES['v2_lite']
+    q_eff, q_rope = _mla_queries(gen, b, h, r, dr)
+    ckv = _randn(gen, (b, nblk * page, r), dtype)
+    krope = _randn(gen, (b, nblk * page, dr), dtype)
+    lens = torch.tensor([1537, 1700, 2048, 1900, 1601, 77][:b],
+                        dtype=torch.int32, device='cuda')
+    tables = torch.arange(b * nblk, dtype=torch.int32,
+                          device='cuda').reshape(b, nblk)
+    paged = (q_eff, q_rope, ckv.reshape(-1, page, r),
+             krope.reshape(-1, page, dr), lens, tables)
+    return (q_eff, q_rope, ckv, krope, lens), paged
+
+
+def test_mla_kernels_repeat_bit_for_bit(card):
+    """The combine merges a slot's splits in split order, whichever split
+    ended last: two calls on the same bf16 inputs give the same bits, K6
+    and K7 alike."""
+    dense, paged = _mla_long_case(card, torch.bfloat16)
+    first = mla_decode.mla_decode_attention(*dense, 0.07)
+    again = mla_decode.mla_decode_attention(*dense, 0.07)
+    assert torch.equal(first, again)
+    first = mla_decode.paged_mla_decode_attention(*paged, 0.07)
+    again = mla_decode.paged_mla_decode_attention(*paged, 0.07)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_mla_kernel_equals_dense_kernel_over_many_splits(card, dtype):
+    """K7 on an identity table equals K6 bit for bit at lengths of 8 to
+    11 splits, and both agree with the plain version."""
+    dense, paged = _mla_long_case(card, dtype)
+    want = mla_decode.mla_decode_attention(*dense, 0.07)
+    got = mla_decode.paged_mla_decode_attention(*paged, 0.07)
+    assert torch.equal(want, got)
+    torch.testing.assert_close(
+        want, mla_decode.mla_decode_attention_plain(*dense, 0.07),
+        **TOL[torch.float32])
 
 
 def test_mla_wrappers_name_their_limits(card):

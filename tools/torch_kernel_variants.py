@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Design variants of the split-KV decode walk (K4) and of the wgmma dQ
-kernel (K3), timed on one card against the kernels as built.
+"""Design variants of the split-KV decode walk (K4), of the wgmma dQ
+kernel (K3) and of the MLA tensor-core walk (K6), timed on one card
+against the kernels as built.
 
 Each variant is a copy of ``skypilot_tpu_torch/csrc/`` with one design
 constant changed, built with the same nvcc flags as
@@ -15,9 +16,16 @@ queues the calls), after checking that each gives the kernel's answer:
     (kDecodeStages 3, 4), the split length (kDecodeSplitRows 64, 256) and
     the walk for groups of at most 8 heads used for every group;
   * K3 at the training shape (B4 S8192 H16/8 D128 bf16, causal): a
-    three-stage (K, V) ring (kDqStages 3).
+    three-stage (K, V) ring (kDqStages 3);
+  * K6 at its main-path shape (16 slots of 990-1064 rows, 16 heads, r
+    512, dr 64, bf16 cache, four caches in turn): splits of 128, 160 and
+    256 rows, one consumer group, a ring of two stages; and, timed only
+    since their answers are wrong, the walk without its score products,
+    without its P·V products, with one bf16 term in place of three,
+    without the q loads and without the combine pass: what each part
+    costs.
 
-    python3 tools/torch_kernel_variants.py
+    python3 tools/torch_kernel_variants.py [decode] [dq] [mla]
 
 Prints one line per variant (mean device ms and the three rounds) and
 writes them to ``chiprun_out/torch_kernel_variants.json``. Needs a CUDA
@@ -45,6 +53,7 @@ import chip_smoke as cs  # noqa: E402
 from skypilot_tpu_torch.ops import decode_attention as dec  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fl  # noqa: E402
 from skypilot_tpu_torch.ops import kernels  # noqa: E402
+from skypilot_tpu_torch.ops import mla_decode as mla  # noqa: E402
 
 # name: (source, {file: [(pattern, replacement)]})
 DECODE_VARIANTS = {
@@ -61,6 +70,35 @@ DECODE_VARIANTS = {
     'decode: the groups-of-8 walk for every group': {
         'decode_attention.cu': [(r'if \(dp\.p\.groups <= 4\)',
                                  'if (dp.p.groups < 0)')]},
+}
+# The MLA tensor-core walk (K6). Those marked "without" drop work and
+# give wrong answers: they are timed only, to show where the time goes.
+MLA_VARIANTS = {
+    'mla: splits of 128 rows': {
+        'mla_common.cuh': [(r'kMlaSplitRows = \d+;', 'kMlaSplitRows = 128;')]},
+    'mla: splits of 256 rows': {
+        'mla_common.cuh': [(r'kMlaSplitRows = \d+;', 'kMlaSplitRows = 256;')]},
+    'mla: splits of 160 rows': {
+        'mla_common.cuh': [(r'kMlaSplitRows = \d+;', 'kMlaSplitRows = 160;')]},
+    'mla: one consumer group': {
+        'mla_common.cuh': [(r'const int groups = [^;]*;',
+                            'const int groups = 1;')]},
+    'mla: two stages': {
+        'mla_common.cuh': [(r'kMlaStages = \d+;', 'kMlaStages = 2;')]},
+    'mla: without the score products': {
+        'mla_common.cuh': [(r'mma_bf16\(s\[k\], a, b0, b1\);', ';')]},
+    'mla: without the P.V products': {
+        'mla_common.cuh': [(r'mma_bf16\(o\[n\], a, bv\[0\], bv\[1\]\);',
+                            ';'),
+                           (r'if \(second\) mma_bf16\(o\[n \+ 1\], a, '
+                            r'bv\[2\], bv\[3\]\);', ';')]},
+    'mla: one bf16 term': {
+        'mla_common.cuh': [(r'kMlaTerms = \d+;', 'kMlaTerms = 1;')]},
+    'mla: without the q loads': {
+        'mla_common.cuh': [(r'if \(h < p\.h && e < width\)\n',
+                            'if (false)\n')]},
+    'mla: without the combine': {
+        'mla_common.cuh': [(r'mla_combine_kernel<<<[^;]*;', ';')]},
 }
 DQ_VARIANTS = {
     'dq: 3 ring stages': {
@@ -86,8 +124,9 @@ def build(variants, source, root):
                     raise SystemExit(f'{name}: {pattern} not found once')
             with open(path, 'w') as f:
                 f.write(text)
-        with open(os.path.join(d, 'decode_common.cuh')) as f:
-            split_rows = int(re.search(r'kDecodeSplitRows = (\d+);',
+        common = 'mla_common.cuh' if 'mla' in source else 'decode_common.cuh'
+        with open(os.path.join(d, common)) as f:
+            split_rows = int(re.search(r'k\w+SplitRows = (\d+);',
                                        f.read()).group(1))
         cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, '-o',
                os.path.join(d, 'lib.so'), os.path.join(d, source)]
@@ -154,6 +193,52 @@ def decode_variants(gen, root):
     return rounds(fns, iters=40, warmup=4)
 
 
+def mla_variants(gen, root):
+    libs = build(MLA_VARIANTS, 'mla_decode.cu', root)
+    rng = np.random.default_rng(10)
+    lengths = [int(x) for x in rng.integers(990, 1065, 16)]
+    cases = [cs.mla_case(gen, 'bf16 main-path lengths', torch.bfloat16,
+                         lengths, check=False)[0] for _ in range(4)]
+
+    def variant(lib, split_rows):
+        fn = lib.xsky_mla_decode
+        fn.argtypes = mla.KERNEL.argtypes
+        fn.restype = ctypes.c_int
+
+        def call(q_eff, q_rope, ckv, krope, lens):
+            b, h, r = q_eff.shape
+            max_len = ckv.shape[1]
+            splits = -(-max_len // split_rows)
+            acc = torch.empty((b, splits, h, r), dtype=torch.float32,
+                              device='cuda')
+            ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
+                             device='cuda')
+            out = torch.zeros_like(q_eff)
+            code = fn(*(t.data_ptr() for t in (q_eff, q_rope, ckv, krope,
+                                               lens, out, acc, ml)),
+                      b, max_len, h, r, q_rope.shape[-1],
+                      mla.DEFAULT_BLOCK_KV, splits, cs.MLA_SCALE,
+                      kernels.DTYPE_CODES[ckv.dtype],
+                      kernels.stream_ptr(q_eff.device))
+            if code:
+                raise RuntimeError(f'variant launch failed: code {code}')
+            return out
+        return call
+
+    calls = {'mla: as built': lambda *a: mla.mla_decode_attention(
+        *a, cs.MLA_SCALE)}
+    calls.update({name: variant(*lib) for name, lib in libs.items()})
+    ref = mla.mla_decode_attention_plain(*cases[0], cs.MLA_SCALE)
+    for name, call in calls.items():
+        if 'without' in name or 'one bf16' in name:
+            continue
+        cs.compare(name, call(*cases[0]), ref, torch.float32)
+    it = itertools.count()
+    fns = {name: (lambda call=call: call(*cases[next(it) % 4]))
+           for name, call in calls.items()}
+    return rounds(fns, iters=40, warmup=4)
+
+
 def dq_variants(gen, root):
     libs = build(DQ_VARIANTS, 'flash_bwd.cu', root)
     bf16 = torch.bfloat16
@@ -197,8 +282,12 @@ def main() -> int:
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     with tempfile.TemporaryDirectory() as root:
-        times = decode_variants(gen, os.path.join(root, 'decode'))
-        times.update(dq_variants(gen, os.path.join(root, 'dq')))
+        only = sys.argv[1:]
+        times = {}
+        for name, run in (('decode', decode_variants), ('dq', dq_variants),
+                          ('mla', mla_variants)):
+            if not only or name in only:
+                times.update(run(gen, os.path.join(root, name)))
     for name, ms in times.items():
         print(f'{name}: {np.mean(ms):.4f} ms (rounds {ms})', flush=True)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
