@@ -65,10 +65,29 @@ Phases, in order; any failure exits non-zero:
      of 16 rows, the traffic of phase 8(a), with deferral: K7 only;
  12. small DeepSeek end to end: fp32 DEEPSEEK_TINY widths, a dense and a
      paged engine, a wave padded to 4 rows, on the card and on the CPU;
-     the greedy tokens must be identical.
-Before each main path (4, 6, 8a, 8b, 10, 11) every kernel's launch count is
-set to 0; just after, the kernels of that path must each have run, and no
-other.
+     the greedy tokens must be identical;
+ 13. int8 replica: bench.py serve's first rung through the port's HTTP
+     server (infer/server.py on 127.0.0.1): Llama-3-8B, int8 weights
+     quantized on the card from the seeded bf16 init, int8 KV, 16 slots,
+     max_target_len 2048, decode_steps 16; four prompts one at a time must
+     give Orchestrator.generate's tokens on the same engine, then 32
+     concurrent POST /generate of 512-token prompts, 128 new tokens each:
+     every request whole, K4 only, /metrics counters equal to what
+     was sent; tok/s, mean TTFT (/metrics), peak memory, weight bytes (K4
+     only: 512-token prompts take the plain prefill attention, below the
+     flash kernel's 1024, as in the reference);
+ 14. int4 replica: the same with int4 weights (bench.py's second rung);
+ 15. small quantized models: fp32 LLAMA_TINY and DEEPSEEK_TINY widths with
+     int8 and int4 weights (Llama int8 also over an int8 KV cache),
+     quantized on the card and on the CPU to the same bytes, greedy tokens
+     on the card equal to the CPU's; at full width, the int8 and int4
+     matmul ([16, 4096] x [4096, 14336]), the fp32-output LM head and the
+     int8 expert product at DeepSeek-V2-Lite's widths against their plain
+     form (dequantize to fp32, fp32 product), and the quantized embedding
+     rows equal to the CPU's bit for bit.
+Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14) every kernel's launch
+count is set to 0; just after, the kernels of that path must each have
+run, and no other.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -1761,6 +1780,324 @@ def small_deepseek_end_to_end() -> None:
             raise AssertionError(f'{kernel.name} did not run on the card')
 
 
+# ---- phases 13 and 14: quantized replicas through the HTTP server ----
+
+# bench.py serve's first two rungs: Llama-3-8B with int8, then int4
+# weights and an int8 KV cache; 16 slots, max_target_len 2048, prompts of
+# 512 tokens ((i * 7 + j) % vocab), 128 new tokens each, decode fused 16
+# steps a tick; 32 requests. The path's kernel is K4 alone: a 512-token
+# prompt takes the plain prefill attention, as the reference's dispatch
+# sends every sequence below 1024 to its XLA path (ops/attention.py
+# _FLASH_MIN_SEQ in both packages).
+QUANT_SERVE_KERNELS = ('decode_attention',)
+RUNG = dict(slots=16, max_len=2048, requests=32, prompt_len=512,
+            new_tokens=128, decode_steps=16)
+
+
+def http_json(url: str, path: str, body=None, timeout: float = 600.0):
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers={
+        'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        text = resp.read().decode()
+    return json.loads(text) if body is not None else text
+
+
+def metric(text: str, name: str) -> float:
+    """The value of an unlabelled (or the one labelled) series."""
+    for line in text.splitlines():
+        if line.startswith(name) and not line.startswith('#'):
+            return float(line.rsplit(' ', 1)[1])
+    raise AssertionError(f'{name} missing from /metrics:\n{text[:2000]}')
+
+
+def quantized_replica(records: dict, bits: str) -> None:
+    import threading
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import quantization as qops
+    phase = {'int8': 13, 'int4': 14}[bits]
+    cfg = llama.LLAMA3_8B
+    r = RUNG
+    log(f'[{phase}] {bits} replica: Llama-3-8B ({cfg.n_layers} layers, '
+        f'public widths) with {bits} weights quantized on the card from the '
+        f'seeded bf16 init, int8 KV; {r["slots"]} slots, max_target_len '
+        f'{r["max_len"]}, decode_steps {r["decode_steps"]}; the port\'s '
+        'infer/server.py on 127.0.0.1')
+    t0 = time.perf_counter()
+    replica = server_lib.build_replica(server_lib.parse_args([
+        '--model', 'llama3-8b', '--weight-dtype', bits, '--kv-dtype', 'int8',
+        '--max-slots', str(r['slots']), '--max-target-len', str(r['max_len']),
+        '--decode-steps', str(r['decode_steps']), '--port', '0']),
+        host='127.0.0.1')
+    torch.cuda.synchronize()
+    nbytes = qops.params_nbytes(replica.engine.params)
+    log(f'  init + quantize + engine + warm-up {time.perf_counter() - t0:.2f}'
+        f' s; weights {nbytes / 1e9:.3f} GB (params_nbytes), '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    try:
+        if json.loads(http_json(url, '/health'))['status'] != 'healthy':
+            raise AssertionError('/health did not answer healthy')
+        vocab = cfg.vocab_size
+        prompts = [[(i * 7 + j) % vocab for j in range(r['prompt_len'])]
+                   for i in range(r['requests'])]
+        # The server adds nothing: the first four prompts, one at a time
+        # (a wave of one, then decode), give the tokens of
+        # Orchestrator.generate on the same engine, run with the serving
+        # loop held.
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts[:4]):
+            served = http_json(url, '/generate', {
+                'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})
+            with replica.loop._lock:
+                direct = replica.loop.orch.generate(
+                    [p], max_new_tokens=r['new_tokens'])[0]
+            if served['output_tokens'] != direct:
+                raise AssertionError(f'request {i}: the server gave other '
+                                     'tokens than Orchestrator.generate')
+        log(f'  four requests one at a time ({time.perf_counter() - t0:.2f} '
+            's with their direct runs): the server\'s tokens equal '
+            'Orchestrator.generate on the same engine')
+        before = http_json(url, '/metrics')
+        results = [None] * r['requests']
+
+        def client(i):
+            try:
+                results[i] = http_json(url, '/generate', {
+                    'prompt_tokens': prompts[i],
+                    'max_new_tokens': r['new_tokens']})
+            except Exception as e:  # pylint: disable=broad-except
+                results[i] = e
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(r['requests'])]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        after = http_json(url, '/metrics')
+        for i, res in enumerate(results):
+            if not isinstance(res, dict) or len(
+                    res['output_tokens']) != r['new_tokens'] or not all(
+                    0 <= t < vocab for t in res['output_tokens']):
+                raise AssertionError(f'request {i}: {str(res)[:300]}')
+        check_launches(f'{bits} replica', launches, QUANT_SERVE_KERNELS,
+                       cfg.n_layers)
+        for name in QUANT_SERVE_KERNELS:
+            records[name].setdefault('launches_by_path', {})[
+                f'serve_{bits}'] = launches[name]
+        n_req = 4 + r['requests']
+        want = {'xsky_serve_requests_total{endpoint="/generate",'
+                'outcome="ok"}': n_req,
+                'xsky_serve_prompt_tokens_total': n_req * r['prompt_len'],
+                'xsky_serve_generated_tokens_total':
+                    n_req * r['new_tokens']}
+        got = {name: metric(after, name) for name in want}
+        if got != want:
+            raise AssertionError(f'/metrics counters {got}, sent {want}')
+        ttft_n = (metric(after, 'xsky_serve_ttft_seconds_count')
+                  - metric(before, 'xsky_serve_ttft_seconds_count'))
+        ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
+                  - metric(before, 'xsky_serve_ttft_seconds_sum'))
+        if ttft_n != r['requests']:
+            raise AssertionError(f'{ttft_n} TTFT samples for '
+                                 f'{r["requests"]} requests')
+        out_tokens = r['requests'] * r['new_tokens']
+        log(f'  {r["requests"]} concurrent POST /generate x '
+            f'{r["new_tokens"]} tokens in {dt:.3f} s: '
+            f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
+            f'{ttft_s / ttft_n * 1e3:.1f} ms (/metrics), peak memory '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, weights '
+            f'{nbytes} bytes; /metrics counters equal what was sent; '
+            f'launches {launches} on {nvidia_smi_line()}')
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    del replica
+    release_card()
+
+
+# ---- phase 15: small quantized models card vs CPU, full-width ops ----
+
+# The quantized forms round to bf16 where the plain form (dequantize to
+# fp32, fp32 product) does not: the int8 product and its scale (int8),
+# each dequantized weight (int4), at 2^-9 relative each. Against the
+# largest |output|, with the same relative bound per element.
+QUANT_RTOL = 2.0 ** -7
+QUANT_ATOL_OF_MAX = 2.0 ** -7
+# fp32 outputs (the fp32 LM head, the fp32 expert gate): exact products
+# summed in fp32 in another order.
+QUANT_FP32_ATOL_OF_MAX = 1e-5
+
+
+def small_quantized_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import deepseek
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import quantization as qops
+    log('[15] small quantized models, card (kernels) vs CPU (plain '
+        'versions); quantized ops at full width against their plain form')
+    cases = [('llama', dataclasses.replace(llama.LLAMA_TINY,
+                                           dtype=torch.float32), llama),
+             ('deepseek', dataclasses.replace(deepseek.DEEPSEEK_TINY,
+                                              dtype=torch.float32),
+              deepseek)]
+    rng = np.random.default_rng(15)
+    for name, cfg, mod in cases:
+        gen = torch.Generator()
+        gen.manual_seed(15)
+        cpu_params = mod.init(cfg, gen, device='cpu')
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                   for n in (120, 77, 128)]
+        for bits, wd in (('int8', torch.int8), ('int4', 'int4')):
+            quant = (qops.quantize_params if bits == 'int8'
+                     else qops.quantize_params_int4)
+            tree = quant(cpu_params)
+            on_card = quant(to_device(cpu_params, 'cuda'))
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tensors(on_card), tensors(tree)))
+            if not same:
+                raise AssertionError(f'{name} {bits}: quantizing on the '
+                                     'card gave other bytes than the CPU')
+            kv = (torch.int8 if name == 'llama' and bits == 'int8'
+                  else torch.float32)
+            outputs = {}
+            for device in ('cuda', 'cpu'):
+                engine = engine_lib.InferenceEngine(
+                    engine_lib.EngineConfig(
+                        model=cfg, max_slots=4, max_target_len=256,
+                        prefill_buckets=(128,), kv_dtype=kv,
+                        weight_dtype=wd),
+                    to_device(tree, device), device=device)
+                outputs[device] = orch_lib.Orchestrator(
+                    engine, decode_steps=4).generate(prompts,
+                                                     max_new_tokens=12)
+            log(f'  {name} {bits} weights, {str(kv)[6:]} KV: card tokens '
+                f'{outputs["cuda"]}; quantized on the card = on the CPU, '
+                'bit for bit')
+            if outputs['cuda'] != outputs['cpu']:
+                raise AssertionError(f'{name} {bits}: greedy tokens differ '
+                                     'between the card and the CPU '
+                                     f'({outputs["cpu"]})')
+    release_card()
+    full_width_quantized_ops()
+
+
+def tensors(tree):
+    """Every tensor of a params tree (a quantized leaf's values and
+    scales), in key order."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from tensors(value)
+        elif hasattr(value, 'scale'):
+            yield value.q_packed if hasattr(value, 'q_packed') else value.q
+            yield value.scale
+        else:
+            yield value
+
+
+def compare_quantized(name, got, want, atol_of_max, rtol) -> float:
+    atol = atol_of_max * float(want.abs().max())
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    log(f'  {name}: max_abs_err={max_err:.3e} (tolerance atol '
+        f'{atol:.3e} = {atol_of_max:g} x max|plain|, rtol {rtol:g})')
+    if not torch.isfinite(got.float()).all() or bool(
+            (err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f'{name}: the quantized form disagrees with '
+                             'its plain form')
+    return max_err
+
+
+def full_width_quantized_ops() -> None:
+    from skypilot_tpu_torch.models import deepseek
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import quantization as qops
+    cfg = llama.LLAMA3_8B
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(150)
+    x = rand(gen, (16, cfg.d_model), torch.bfloat16)
+    w = (rand(gen, (cfg.d_model, cfg.d_ff), torch.float32)
+         * cfg.d_model ** -0.5).to(torch.bfloat16)
+    bound = bound_ms(w.numel() * w.element_size(), 0, torch.bfloat16)[0]
+    bf16_ms = time_ms(lambda: torch.matmul(x, w))
+    for bits, quant, deq in (('int8', qops.quantize, qops.dequantize),
+                             ('int4', qops.quantize4, qops.dequantize4)):
+        qw = quant(w)
+        cpu = quant(w.cpu())
+        for a, b in zip(tensors({'w': qw}), tensors({'w': cpu})):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f'{bits} quantization of a [4096, '
+                                     '14336] bf16 weight: the card differs '
+                                     'from the CPU')
+        want = x.float() @ deq(qw, torch.float32)
+        compare_quantized(f'{bits} matmul [16, 4096] x [4096, 14336] (bf16 '
+                          'out)', qops.matmul(x, qw), want,
+                          QUANT_ATOL_OF_MAX, QUANT_RTOL)
+        ms = time_ms(lambda: qops.matmul(x, qw))
+        log(f'    {bits} matmul {ms:.4f} ms (the bf16 weight\'s own product '
+            f'{bf16_ms:.4f} ms; weight bytes over 3.35 TB/s: '
+            f'{bound_ms(qw.nbytes, 0, torch.bfloat16)[0]:.4f} ms at {bits}, '
+            f'{bound:.4f} ms at bf16) on the card, quantized weights '
+            'bit for bit equal to the CPU\'s')
+    # The fp32-output LM head, int8 (the int8 replica's) and int4.
+    head = (rand(gen, (cfg.d_model, cfg.vocab_size), torch.float32)
+            * cfg.d_model ** -0.5).to(torch.bfloat16)
+    for bits, quant, deq in (('int8', qops.quantize, qops.dequantize),
+                             ('int4', qops.quantize4, qops.dequantize4)):
+        qh = quant(head)
+        got = qops.matmul(x, qh, preferred_element_type=torch.float32)
+        if bits == 'int8':
+            want = (x.float() @ qh.q.float()) * qh.scale
+            tol = QUANT_FP32_ATOL_OF_MAX
+        else:
+            want = x.float() @ deq(qh, torch.float32)
+            tol = QUANT_ATOL_OF_MAX
+        if got.dtype != torch.float32:
+            raise AssertionError(f'{bits} LM head: {got.dtype} logits')
+        compare_quantized(f'{bits} LM head [16, 4096] x [4096, 128256], '
+                          'fp32 out', got, want, tol,
+                          0.0 if bits == 'int8' else QUANT_RTOL)
+        del qh, got, want
+    del head
+    # DeepSeek-V2-Lite's experts: 64 of [2048, 1408], a decode step's 16
+    # rows each, the gate product in fp32.
+    ds = deepseek.DEEPSEEK_V2_LITE
+    xe = rand(gen, (ds.n_experts, 16, ds.d_model), torch.bfloat16)
+    we = (rand(gen, (ds.n_experts, ds.d_model, ds.moe_d_ff), torch.float32)
+          * ds.d_model ** -0.5).to(torch.bfloat16)
+    qe = qops.quantize(we)
+    got = qops.expert_matmul(xe, qe, torch.float32)
+    want = torch.bmm(xe.float(), qe.q.float()) * qe.scale[:, None, :]
+    compare_quantized('int8 expert_matmul [64, 16, 2048] x [64, 2048, 1408],'
+                      ' fp32 out', got, want, QUANT_FP32_ATOL_OF_MAX, 0.0)
+    # The quantized embedding: rows on the card equal the CPU's bit for bit.
+    table = qops.quantize((rand(gen, (cfg.vocab_size, cfg.d_model),
+                                torch.float32)).to(torch.bfloat16), -1)
+    tokens = torch.randint(0, cfg.vocab_size, (16, 64), generator=gen,
+                           device='cuda')
+    rows = qops.embed_rows(table, tokens)
+    if not torch.equal(rows.cpu(), qops.embed_rows(table.to('cpu'),
+                                                   tokens.cpu())):
+        raise AssertionError('quantized embed_rows: the card differs from '
+                             'the CPU')
+    log('  int8 embed_rows [128256, 4096] table, 16 x 64 tokens: the card\'s '
+        'rows equal the CPU\'s bit for bit')
+    del table, rows, xe, we, qe
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the decode split walks and combine at the main paths'
@@ -1832,6 +2169,9 @@ def main() -> int:
     small_paged_end_to_end()
     deepseek_main_paths(records)
     small_deepseek_end_to_end()
+    quantized_replica(records, 'int8')
+    quantized_replica(records, 'int4')
+    small_quantized_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

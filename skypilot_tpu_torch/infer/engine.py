@@ -25,8 +25,13 @@ Counterpart of ``skypilot_tpu/infer/engine.py``:
     the prefix cache, is prefilled in bucket-sized chunks against a
     one-slot scratch cache (``ChunkedPrefill``, ``prefill_any``).
 
+  * ``weight_dtype`` int8 or ``'int4'`` quantizes the weight matrices
+    when the engine is built (``ops/quantization.py``: int8 per output
+    channel, or int4 in groups of 128 with int8 for the embedding); the
+    model's products then run on the quantized weights.
+
 Every method runs on the engine's device under ``torch.no_grad``.
-Speculative verification and weight quantization come in later slices.
+Speculative verification comes in a later slice.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from skypilot_tpu_torch import models
 from skypilot_tpu_torch.infer import paged_kv
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import quantization as qops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +60,10 @@ class EngineConfig:
     # bf16 (or fp32), or torch.int8 for a quantized cache (per-head
     # symmetric scales, dequantized inside the decode kernel).
     kv_dtype: torch.dtype = torch.bfloat16
+    # Weight storage for serving: the model's own type (bf16 default:
+    # no quantization), torch.int8 (per-channel scales) or 'int4'
+    # (packed nibbles, group-128 scales).
+    weight_dtype: Any = torch.bfloat16
     # > 0 enables the host-side LRU of device-resident KV prefixes:
     # requests sharing a prompt prefix (the usual shared system prompt)
     # skip recomputing it; the cached rows are copied into the
@@ -70,6 +80,9 @@ class EngineConfig:
     # Pages in the arena; 0 sizes it to the dense cache's footprint
     # (max_slots * max_target_len / kv_page_size).
     kv_num_pages: int = 0
+    # Batched prefill admission (one forward per bucket group of a
+    # wave); False admits prompt by prompt.
+    batched_admission: bool = True
 
     @property
     def paged(self) -> bool:
@@ -199,6 +212,10 @@ class InferenceEngine:
             raise ValueError(f'kv_dtype {config.kv_dtype}: need bf16, '
                              'fp32 or int8')
         self.config = config
+        if config.weight_dtype == torch.int8:
+            params = qops.quantize_params(params)
+        elif config.weight_dtype == 'int4':
+            params = qops.quantize_params_int4(params)
         self.params = params
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -64,6 +65,10 @@ class Request:
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # Cross-hop trace context, set by the serving handler from the
+    # X-Xsky-* relay headers before submit (None for direct callers):
+    trace_id: Optional[str] = None
+    client_request_id: Optional[str] = None
     # Absolute perf_counter deadline. None = no deadline.
     deadline_at: Optional[float] = None
     # Anatomy phase accumulators (seconds), pure float adds:
@@ -125,6 +130,14 @@ class Orchestrator:
         # Deadline admission: requests rejected because their remaining
         # deadline could not cover the estimated prefill+decode budget.
         self.deadline_rejects = 0
+        # Fused decode rows burned after a slot finished: the masked tick
+        # burns none, so this stays 0 (the reference counts them on its
+        # legacy tick; /metrics exports it).
+        self.wasted_decode_steps = 0
+        # Per-request anatomy: when on, ticks amortize one timestamp pair
+        # over the resident requests (infer/anatomy.py seals them);
+        # XSKY_ANATOMY=0 turns the accumulators off.
+        self._anatomy = os.environ.get('XSKY_ANATOMY', '1') != '0'
         # EWMA budget estimators feeding the deadline gate (seconds).
         self._ewma_prefill_s: Optional[float] = None
         self._ewma_decode_per_token_s: Optional[float] = None
@@ -246,7 +259,7 @@ class Orchestrator:
         if self.engine.reserve_kv(slot, len(request.prompt_tokens),
                                   request.max_new_tokens):
             pages = self.engine.kv_page_stats
-            if pages and pages.get('total'):
+            if self._anatomy and pages and pages.get('total'):
                 headroom = pages['free'] / pages['total']
                 request.kv_headroom_at_admit = headroom
                 self.last_admit_kv_headroom = headroom
@@ -299,9 +312,10 @@ class Orchestrator:
     def _admit_wave(self) -> None:
         """Admit pending requests, batching same-bucket prefills into one
         forward + one insert per bucket group. Logprobs requests, long
-        prompts (chunked path) and prefix-cached engines take the single
-        path."""
-        if not self.engine.supports_batched_prefill:
+        prompts (chunked path), prefix-cached engines and engines built
+        without batched admission take the single path."""
+        if not (self.engine.config.batched_admission
+                and self.engine.supports_batched_prefill):
             while self._admit_one():
                 pass
             return
@@ -514,8 +528,9 @@ class Orchestrator:
         the mask kept."""
         if not self._slot_req:
             return
-        t_tick = time.perf_counter()
-        residents = list(self._slot_req.values())
+        anatomy = self._anatomy
+        t_tick = time.perf_counter() if anatomy else 0.0
+        residents = list(self._slot_req.values()) if anatomy else None
         if self._params_dirty:
             self._rebuild_device_params()
         n = self.decode_steps
@@ -549,8 +564,10 @@ class Orchestrator:
                     or len(request.output_tokens) >= request.max_new_tokens
                     or request.cancel_requested):
                 self._release(slot, now)
-        self._attribute_tick(residents, max(0.0, now - t_tick),
-                             max(0.0, time.perf_counter() - now), committed)
+        if anatomy:
+            self._attribute_tick(residents, max(0.0, now - t_tick),
+                                 max(0.0, time.perf_counter() - now),
+                                 committed)
 
     def fail_all(self, error: str) -> None:
         """Finish every active and pending request with `error` and free

@@ -195,10 +195,11 @@ def init(config: DeepSeekConfig, generator: Optional[torch.Generator] = None,
     come from ``generator`` (seeded 0 if omitted), which must live on
     ``device``. Stacked weights are drawn one layer at a time, so the fp32
     scratch never exceeds one layer's weight. The router stays fp32.
+    ``device='meta'`` gives the shapes and types alone.
     """
     c = config
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != 'meta':
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     d = c.d_model
@@ -257,7 +258,8 @@ def params_from_numpy(tree: Params, device: Device,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """``llama.params_from_numpy`` for this family: the JAX ``init`` tree
     as numpy arrays → the port's tree; ``dtype`` recasts every floating
-    array except the router, which stays fp32."""
+    array except the router, which stays fp32, and quantized leaves,
+    which cross unchanged."""
     params = llama.params_from_numpy(tree, device, dtype)
     params['moe_layers']['router'] = llama.params_from_numpy(
         tree['moe_layers']['router'], device, torch.float32)

@@ -120,11 +120,12 @@ def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
     Same names, shapes and distribution as the JAX ``init``; the draws
     come from ``generator`` (seeded 0 if omitted), which must live on
     ``device``. Stacked layer weights are drawn one layer at a time, so
-    the fp32 scratch never exceeds one layer's weight.
+    the fp32 scratch never exceeds one layer's weight. ``device='meta'``
+    gives the shapes and types alone (the JAX ``eval_shape`` of init).
     """
     c = config
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != 'meta':
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     hd = c.head_dim
@@ -180,11 +181,16 @@ def _to_tensor(array: np.ndarray, device: torch.device,
 def params_from_numpy(tree: Params, device: Device,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """Carry weights across: the JAX ``init`` tree as numpy arrays → the
-    port's tree, one to one by name. ``dtype`` recasts floating arrays."""
+    port's tree, one to one by name. ``dtype`` recasts floating arrays.
+    A quantized leaf (the JAX ``QuantizedTensor`` / ``Quantized4Tensor``
+    with numpy children) crosses with its int8 bytes and fp32 scales
+    unchanged."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
+    if hasattr(tree, 'scale'):
+        return qops.from_numpy(tree, device)
     return _to_tensor(tree, device, dtype)
 
 

@@ -709,3 +709,18 @@ def test_deepseek_engine_tokens_on_the_card_match_the_cpu(card, paged):
         if device == 'cuda':
             assert kernel.launches > before
     assert outputs['cuda'] == outputs['cpu']
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_quantization_on_the_card_gives_the_cpu_bytes(card, dtype):
+    """The server quantizes on the card: int8 and int4 values and fp32
+    scales equal the CPU's (which tests/test_torch_quantization.py holds
+    equal to JAX's) bit for bit, for per-channel and per-row axes."""
+    from skypilot_tpu_torch.ops import quantization as qops
+    w = _randn(card, (3, 512, 384), dtype)
+    for got, want in ((qops.quantize(w), qops.quantize(w.cpu())),
+                      (qops.quantize(w, -1), qops.quantize(w.cpu(), -1)),
+                      (qops.quantize4(w), qops.quantize4(w.cpu()))):
+        values = 'q_packed' if hasattr(got, 'q_packed') else 'q'
+        assert torch.equal(getattr(got, values).cpu(), getattr(want, values))
+        assert torch.equal(got.scale.cpu(), want.scale)

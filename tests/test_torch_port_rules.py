@@ -191,3 +191,58 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                            env=dict(env, PYTHONPATH=''), timeout=120)
     assert alone.returncode != 0
     assert '"ok": true' not in alone.stdout
+
+
+def test_server_refuses_to_start_without_a_card(no_card):
+    """The replica's entry point runs on the card: without one it raises,
+    unless asked for the CPU."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        server_lib.main(['--model', 'tiny', '--port', '0'])
+    replica = server_lib.build_replica(server_lib.parse_args(
+        ['--model', 'tiny', '--device', 'cpu', '--port', '0',
+         '--max-slots', '2', '--max-target-len', '64']), host='127.0.0.1')
+    try:
+        assert replica.engine.device.type == 'cpu'
+    finally:
+        replica.httpd.server_close()
+        replica.loop.close()
+
+
+@pytest.mark.parametrize('flags,item', [
+    (['--hf-checkpoint', '/nowhere'], 'queue 1 item 3'),
+    (['--mesh', 'tensor=4'], 'queue 1 item 8'),
+    (['--draft-model', 'llama3-1b'], 'queue 1 item 4'),
+    (['--spec-ngram'], 'queue 1 item 4'),
+])
+def test_server_flags_not_ported_yet_exit_naming_their_item(capsys, flags,
+                                                            item):
+    from skypilot_tpu_torch.infer import server as server_lib
+    with pytest.raises(SystemExit) as exit_info:
+        server_lib.parse_args(['--model', 'tiny'] + flags)
+    assert exit_info.value.code == 2
+    err = capsys.readouterr().err
+    assert f'{flags[0]} is not ported' in err and item in err
+
+
+def test_chip_smoke_quantized_phases_name_their_kernels():
+    """Phases [13] and [14] hold the replica's path to K4 alone (its
+    512-token prompts take the plain prefill attention, below the flash
+    kernel's 1024); main runs [13], [14] and [15] after [12]."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from skypilot_tpu_torch.ops import attention
+    assert chip_smoke.QUANT_SERVE_KERNELS == ('decode_attention',)
+    assert chip_smoke.RUNG['prompt_len'] < attention._FLASH_MIN_SEQ
+    assert chip_smoke.RUNG == dict(slots=16, max_len=2048, requests=32,
+                                   prompt_len=512, new_tokens=128,
+                                   decode_steps=16)
+    body = inspect.getsource(chip_smoke.quantized_replica)
+    assert 'zero_launches()' in body
+    assert 'QUANT_SERVE_KERNELS,' in body and 'check_launches(' in body
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_deepseek_end_to_end()', "quantized_replica(records, 'int8')",
+        "quantized_replica(records, 'int4')", 'small_quantized_end_to_end()')]
+    assert order == sorted(order)

@@ -13,13 +13,19 @@ that take the most time. A JSON summary goes to
 ``chiprun_out/torch_serve_profile[_paged][_<model>].json``.
 
     python3 tools/torch_serve_profile.py [--paged] [--model MODEL]
+        [--weight-dtype bf16|int8|int4] [--kv-dtype bf16|int8]
 
 With ``--paged`` it runs ``chip_smoke.py``'s paged main path instead (32
 slots over 2048 pages of 16 rows, max_target_len 4096; 30 prompts, as
 many as the arena holds at once), and, for a family with chunked
 prefill, also traces one 1024-token prompt chunk. ``--model
 deepseek-v2-lite`` serves DeepSeek-V2-Lite (``chip_smoke.py`` [10] and
-[11]) in place of the default ``llama3-8b``.
+[11]) in place of the default ``llama3-8b``. ``--weight-dtype int8|int4``
+quantizes the weights on the card after the seeded init (as the port's
+server does) and also reports the device time of the dequantized weight
+copies the quantized products make (``ops/quantization._weight_operand``,
+timed under a profiler range); ``--kv-dtype int8`` takes the int8 KV
+cache.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -44,8 +50,10 @@ from skypilot_tpu_torch import models  # noqa: E402
 from skypilot_tpu_torch.infer import engine as engine_lib  # noqa: E402
 from skypilot_tpu_torch.infer import orchestrator as orch_lib  # noqa: E402
 from skypilot_tpu_torch.infer import sampling  # noqa: E402
+from skypilot_tpu_torch.ops import quantization as qops  # noqa: E402
 
 MODELS = ('llama3-8b', 'deepseek-v2-lite')
+DEQUANT_RANGE = 'xsky.dequant_weight'
 # Device kernels by kind, matched on the kernel's name (first match wins).
 CATEGORIES = (
     ('port kernels', ('mla_decode', 'mla_combine', 'decode_kernel',
@@ -66,10 +74,13 @@ def _category(name: str) -> str:
 
 
 def _kernel_events(prof):
-    """(name, device µs) of every kernel the trace saw on the card."""
+    """(name, device µs) of every kernel the trace saw on the card. The
+    dequant range's own device-side span (a user annotation, not a
+    kernel) is left out: its kernels are counted already."""
     out = []
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.name != DEQUANT_RANGE):
             out.append((evt.name, evt.device_time_total))
     return out
 
@@ -84,6 +95,10 @@ def traced(label: str, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us in kernels) / 1e3
+    dequant_ms = sum(evt.device_time_total for evt in prof.events()
+                     if evt.name == DEQUANT_RANGE
+                     and evt.device_type == torch.autograd.DeviceType.CPU
+                     ) / 1e3
     by_name = collections.Counter()
     counts = collections.Counter()
     for name, us in kernels:
@@ -97,11 +112,13 @@ def traced(label: str, fn) -> dict:
     summary = {'phase': label, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
                'idle_share': max(0.0, 1 - busy_ms / wall_ms),
                'kernel_launches': len(kernels), 'top_kernels': top,
+               'dequant_copies_ms': dequant_ms,
                'ms_by_category': dict(by_category),
                'ms_by_kernel': dict(by_name)}
     print(f'{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms '
           f'(idle share {summary["idle_share"]:.3f}), '
-          f'{len(kernels)} kernel launches; by kind '
+          f'{len(kernels)} kernel launches, dequantized weight copies '
+          f'{dequant_ms:.3f} ms; by kind '
           f'{ {k: round(v, 3) for k, v in by_category.most_common()} }',
           flush=True)
     for row in top:
@@ -122,28 +139,48 @@ def main() -> int:
                         help="trace chip_smoke.py's paged main path")
     parser.add_argument('--model', choices=MODELS, default=MODELS[0],
                         help='the model served (default %(default)s)')
+    parser.add_argument('--weight-dtype', choices=('bf16', 'int8', 'int4'),
+                        default='bf16')
+    parser.add_argument('--kv-dtype', choices=('bf16', 'int8'),
+                        default='bf16')
     args = parser.parse_args()
     paged = args.paged
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
     smi = nvidia_smi_line()
-    print(f'card: {smi}; torch {torch.__version__}; model {args.model}',
-          flush=True)
+    print(f'card: {smi}; torch {torch.__version__}; model {args.model}, '
+          f'{args.weight_dtype} weights, {args.kv_dtype} KV', flush=True)
+    kv_dtype = torch.int8 if args.kv_dtype == 'int8' else torch.bfloat16
     cfg = models.get_config(args.model)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     if paged:
         ecfg = engine_lib.EngineConfig(
             model=cfg, max_slots=32, max_target_len=4096,
-            prefill_buckets=(1024,), kv_page_size=16, kv_num_pages=2048)
+            prefill_buckets=(1024,), kv_page_size=16, kv_num_pages=2048,
+            kv_dtype=kv_dtype)
         n_prompts = 30
     else:
         ecfg = engine_lib.EngineConfig(model=cfg, max_slots=16,
                                        max_target_len=2048,
-                                       prefill_buckets=(1024,))
+                                       prefill_buckets=(1024,),
+                                       kv_dtype=kv_dtype)
         n_prompts = 16
-    engine = engine_lib.InferenceEngine(
-        ecfg, models.module_for(cfg).init(cfg, gen))
+    params = models.module_for(cfg).init(cfg, gen)
+    if args.weight_dtype != 'bf16':
+        qops.quantize_params_in_place(
+            params, torch.int8 if args.weight_dtype == 'int8' else 'int4')
+        torch.cuda.empty_cache()
+        operand = qops._weight_operand
+
+        def timed_operand(w, dtype):
+            with torch.profiler.record_function(DEQUANT_RANGE):
+                return operand(w, dtype)
+
+        qops._weight_operand = timed_operand
+    engine = engine_lib.InferenceEngine(ecfg, params)
+    del params
+    print(f'weights {qops.params_nbytes(engine.params)} bytes', flush=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
                for n in rng.integers(960, 1025, n_prompts)]
@@ -190,11 +227,14 @@ def main() -> int:
                                 prompt_chunk))
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     name = 'torch_serve_profile' + ('_paged' if paged else '') + (
-        '' if args.model == MODELS[0] else f'_{args.model}') + '.json'
+        '' if args.model == MODELS[0] else f'_{args.model}') + (
+        '' if args.weight_dtype == 'bf16' else f'_{args.weight_dtype}') + (
+        '' if args.kv_dtype == 'bf16' else '_kv_int8') + '.json'
     with open(os.path.join(REPO, 'chiprun_out', name), 'w') as f:
         json.dump({'card': smi, 'torch': torch.__version__,
-                   'model': args.model, 'warm_generate': result, 'phases': summaries}, f,
-                  indent=1)
+                   'model': args.model, 'weight_dtype': args.weight_dtype,
+                   'kv_dtype': args.kv_dtype, 'warm_generate': result,
+                   'phases': summaries}, f, indent=1)
     return 0
 
 
