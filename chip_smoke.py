@@ -84,10 +84,37 @@ Phases, in order; any failure exits non-zero:
      matmul ([16, 4096] x [4096, 14336]), the fp32-output LM head and the
      int8 expert product at DeepSeek-V2-Lite's widths against their plain
      form (dequantize to fp32, fp32 product), and the quantized embedding
-     rows equal to the CPU's bit for bit.
-Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14) every kernel's launch
-count is set to 0; just after, the kernels of that path must each have
-run, and no other.
+     rows equal to the CPU's bit for bit;
+ 16. launch, checkpoint, resume: python -m skypilot_tpu_torch.train.launch
+     (run in-process, so the launch counts stay readable) at phase 6's
+     configuration (Llama-3-1B bf16, seq 8192, global batch 4, qkvo_gup,
+     adafactor) over uint32 token shards written from a numpy seed and
+     read by the native loader (g++ build): 6 steps uninterrupted; 3 steps
+     with --checkpoint-every 3; then --steps 6 --resume auto on the same
+     directory, which must log "Resumed from checkpoint step 3", run only
+     steps 4-6 and give the uninterrupted run's losses within rel 1e-4;
+     the metrics file has the reference's keys; tokens/s, the step loop's
+     cost of a save, restore seconds, checkpoint bytes and the flight
+     recorder's phase shares;
+ 17. LoRA: examples/tpu/lora_finetune_llama3.yaml on one card (Llama-3-8B
+     bf16, rank 16, alpha 32, wq,wk,wv,wo, adamw, lr 1e-3, seq 8192,
+     global batch 4 in 4 accumulated rows) for 4 steps on a repeated
+     batch: loss finite and falling, the base bit-identical to its seeded
+     init, the optimizer state adapter-sized only; tokens/s, model
+     TFLOP/s, peak memory;
+ 18. the converter and the server's --hf-checkpoint: a random Llama-3-1B
+     written in HF's layout (config.json + bf16 safetensors from numpy),
+     converted (equal bit for bit to the tree built directly from the same
+     tensors) and served by infer/server.py; the greedy tokens of three
+     prompts (16, 300 and 1000 tokens) equal Orchestrator.generate on the
+     directly built tree: K1 and K4 only;
+ 19. small checks, card vs CPU (fp32 LLAMA_TINY widths, seq 1024): the
+     converter's fp32 and bf16 trees equal bit for bit; three launcher
+     steps from one --init-params and --data, full and LoRA, give the
+     same losses within phase 7's tolerance.
+Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
+18) every kernel's launch count is set to 0; just after, the kernels of
+that path must each have run, and no other.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -95,10 +122,13 @@ The second-to-last lines are the kernels' JSON record and the
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
+import logging
 import os
 import re
 import subprocess
@@ -1368,7 +1398,7 @@ def small_end_to_end() -> None:
 
 # ---- phase 6: training main path ----
 
-def train_main_path(records: dict) -> None:
+def train_main_path(records: dict) -> dict:
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import trainer as trainer_lib
     cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True,
@@ -1410,6 +1440,7 @@ def train_main_path(records: dict) -> None:
     log(f'  measure_throughput: {json.dumps(result)}')
     del trainer
     release_card()
+    return result
 
 
 # ---- phase 7: small training check, card vs CPU ----
@@ -2098,6 +2129,559 @@ def full_width_quantized_ops() -> None:
     release_card()
 
 
+# ---- phases 16-19: the training entry point, LoRA, the converter ----
+
+LAUNCH_LOGGER = 'skypilot_tpu_torch.train.launch'
+
+
+class LaunchLog(logging.Handler):
+    """Collects the launcher's log lines (its logger at INFO) while a
+    phase runs it in-process, so the kernel counters stay readable."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logger = logging.getLogger(LAUNCH_LOGGER)
+        self._level = logger.level
+        logger.setLevel(logging.INFO)
+        logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logger = logging.getLogger(LAUNCH_LOGGER)
+        logger.removeHandler(self)
+        logger.setLevel(self._level)
+        return False
+
+
+class registered_config:
+    """``name`` → ``cfg`` in the port's Llama configs while a phase runs
+    the launcher (``--model name``), as bench.py builds its own rungs."""
+
+    def __init__(self, name, cfg):
+        from skypilot_tpu_torch.models import llama
+        self.configs, self.name, self.cfg = llama.CONFIGS, name, cfg
+
+    def __enter__(self):
+        self.configs[self.name] = self.cfg
+        return self.name
+
+    def __exit__(self, *exc):
+        del self.configs[self.name]
+        return False
+
+
+class short_warmup:
+    """The trainer's learning-rate warm-up cut from its fixed 100 steps to
+    ``steps`` while a phase runs the launcher, so that a loss moves within
+    a few steps: ``TrainConfig`` becomes a subclass with that default
+    (the launcher, like the reference's, has no flag for it)."""
+
+    def __init__(self, steps: int):
+        from skypilot_tpu_torch.train import trainer as trainer_lib
+        self.module, self.steps = trainer_lib, steps
+
+    def __enter__(self):
+        self.real = self.module.TrainConfig
+        self.module.TrainConfig = dataclasses.make_dataclass(
+            'TrainConfig', [('warmup_steps', int, self.steps)],
+            bases=(self.real,))
+        return self.steps
+
+    def __exit__(self, *exc):
+        self.module.TrainConfig = self.real
+        return False
+
+
+def write_token_shards(root: str, n_tokens: int, vocab: int, seed: int,
+                       n_shards: int = 2) -> str:
+    """uint32 token shards from a numpy seed, split over n_shards files."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, n_tokens).astype('<u4')
+    os.makedirs(root, exist_ok=True)
+    for i, part in enumerate(np.array_split(tokens, n_shards)):
+        part.tofile(os.path.join(root, f'part-{i:02d}.bin'))
+    return root
+
+
+def launch_run(argv, label: str, kernels_wanted=TRAIN_KERNELS,
+               n_layers: int = 16):
+    """launch.run on argv with the launch counts zeroed just before and
+    read just after; the flight recorder's ring starts empty."""
+    from skypilot_tpu_torch.agent import flight_recorder
+    from skypilot_tpu_torch.train import launch
+    flight_recorder.reset_for_test()
+    zero_launches()
+    with LaunchLog() as captured:
+        out = launch.run(launch.parse_args(argv))
+    if out['trainer'].device.type == 'cuda':
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    if kernels_wanted:
+        check_launches(label, launches, kernels_wanted, n_layers)
+    out['log'] = captured.lines
+    out['launches'] = launches
+    out['records'] = flight_recorder.get_recorder().records()[::-1]
+    return out
+
+
+def phase_shares(records) -> dict:
+    """Each flight-recorder phase's share of the steps' summed wall."""
+    wall = sum(r['wall_s'] for r in records)
+    return {name: sum(r['phases'][name] for r in records) / wall
+            for name in records[0]['phases']}
+
+
+# Resumed losses against the uninterrupted run's: the reference's own
+# bound (tests/unit_tests/test_checkpoint_resume.py:75-78).
+RESUME_RTOL = 1e-4
+METRIC_KEYS = {'step', 'loss', 'tokens_per_sec', 'model_tflops_per_chip',
+               'grad_norm', 'time'}
+
+
+def launch_main_path(records: dict, train_result: dict) -> None:
+    import tempfile
+    from skypilot_tpu_torch.agent import checkpointd
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import launch
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True,
+                              remat_policy='qkvo_gup')
+    gb, seq = 4, 8192
+    log(f'[16] launch, checkpoint, resume: python -m '
+        f'skypilot_tpu_torch.train.launch in-process, Llama-3-1B bf16 '
+        f'({cfg.n_layers} layers), seq {seq}, global batch {gb}, remat '
+        'qkvo_gup, adafactor, uint32 token shards through the native loader '
+        '(built by g++ here; one worker, so that batches arrive in order)')
+    with tempfile.TemporaryDirectory(prefix='xsky-launch-') as tmp, \
+            registered_config('llama3-1b-qkvo_gup', cfg) as name:
+        os.environ['XSKY_NATIVE_CACHE'] = os.path.join(tmp, 'native')
+        data = write_token_shards(os.path.join(tmp, 'tokens'),
+                                  7 * gb * seq + 1, cfg.vocab_size, seed=16)
+        common = ['--model', name, '--global-batch-size', str(gb),
+                  '--seq-len', str(seq), '--optimizer', 'adafactor',
+                  '--device', 'cuda', '--log-every', '1', '--data', data,
+                  '--data-loader', 'native', '--data-workers', '1']
+        ckpt = os.path.join(tmp, 'ckpt')
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        t0 = time.perf_counter()
+        solid = launch_run(common + ['--steps', '6', '--metrics-file',
+                                     metrics], 'launch (6 steps)')
+        t_solid = time.perf_counter() - t0
+        if solid['data'] != 'NativeTokenLoader':
+            raise AssertionError(f'loader {solid["data"]}, want native')
+        rows = [json.loads(line) for line in open(metrics, encoding='utf-8')]
+        if [set(r) for r in rows] != [METRIC_KEYS] * 6:
+            raise AssertionError(f'metrics file rows {rows}')
+        shares = phase_shares(solid['records'])
+        launches = {k: v for k, v in solid['launches'].items()
+                    if k in TRAIN_KERNELS}
+        del solid['state'], solid['trainer']
+        release_card()
+        counted0 = checkpointd.counters().get('xsky_ckpt_bytes_total', 0.0)
+        t0 = time.perf_counter()
+        first = launch_run(common + ['--steps', '3', '--checkpoint-every',
+                                     '3', '--checkpoint-dir', ckpt],
+                           'launch (3 steps, checkpoint)')
+        t_first = time.perf_counter() - t0
+        copy_ms = [r['phases']['ckpt_copy'] * 1e3 for r in first['records']]
+        fast_bytes = checkpointd.counters()['xsky_ckpt_bytes_total'] - counted0
+        store = launch.StepCheckpoints(ckpt)
+        if store.steps() != [3]:
+            raise AssertionError(f'step directories {store.steps()}')
+        step_bytes = os.path.getsize(os.path.join(ckpt, '3',
+                                                  launch.STATE_FILE))
+        del first['state'], first['trainer']
+        release_card()
+        t0 = time.perf_counter()
+        resumed = launch_run(common + ['--steps', '6', '--resume', 'auto',
+                                       '--checkpoint-every', '3',
+                                       '--checkpoint-dir', ckpt],
+                             'launch (resumed to 6)')
+        t_resumed = time.perf_counter() - t0
+        del resumed['state'], resumed['trainer']
+        release_card()
+        os.environ.pop('XSKY_NATIVE_CACHE')
+    if 'Resumed from checkpoint step 3.' not in resumed['log']:
+        raise AssertionError(f'no resume line in {resumed["log"]}')
+    if sorted(resumed['losses']) != [4, 5, 6] or any(
+            line.startswith(f'step {k}/6 ') for line in resumed['log']
+            for k in (1, 2, 3)):
+        raise AssertionError(f'resumed run logged {resumed["log"]}')
+    if first['losses'] != {k: solid['losses'][k] for k in (1, 2, 3)}:
+        log(f'  note: steps 1-3 of the checkpointing run '
+            f'{first["losses"]} vs {solid["losses"]}')
+    errs = {k: abs(resumed['losses'][k] - solid['losses'][k]) /
+            abs(solid['losses'][k]) for k in (4, 5, 6)}
+    identical = all(resumed['losses'][k] == solid['losses'][k]
+                    for k in (4, 5, 6))
+    log(f'  uninterrupted losses {solid["losses"]}')
+    log(f'  resumed from step 3 ({resumed["restore"]["tier"]} tier in '
+        f'{resumed["restore"]["seconds"]:.3f} s): losses '
+        f'{resumed["losses"]}; relative differences {errs} (tolerance '
+        f'{RESUME_RTOL:g}); bit-identical: {identical}')
+    if max(errs.values()) > RESUME_RTOL:
+        raise AssertionError('resumed losses differ from the uninterrupted '
+                             'run')
+    tps = [r['tokens_per_sec'] for r in rows[1:]]
+    copies = [ms for ms in copy_ms if ms > 0]
+    log(f'  launched steps 2-6: {np.mean(tps):.1f} tokens/s (metrics file; '
+        f'{[round(t, 1) for t in tps]}) against measure_throughput\'s '
+        f'{train_result["tokens_per_sec"]:.1f} in [6]; runs took '
+        f'{t_solid:.1f} / {t_first:.1f} / {t_resumed:.1f} s with init')
+    log(f'  save: the step loop paid {copies} ms of device->host copy '
+        f'(ckpt_copy, per forced snapshot); checkpoint bytes: step '
+        f'directory {step_bytes}, fast tier {fast_bytes:.0f} over '
+        f'{len(copies)} snapshots; restore '
+        f'{resumed["restore"]["seconds"]:.3f} s')
+    log('  flight recorder shares of the 6-step run\'s wall: ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in shares.items()) +
+        ' (dispatch = the host\'s launch of the step, unsynced)')
+    total = {name: launches[name] + first['launches'][name] +
+             resumed['launches'][name] for name in TRAIN_KERNELS}
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['launch'] = (
+            total[name])
+    log(f'  launches per run: {launches}, '
+        f'{ {k: first["launches"][k] for k in TRAIN_KERNELS} }, '
+        f'{ {k: resumed["launches"][k] for k in TRAIN_KERNELS} }; decode '
+        f'kernels 0; on {nvidia_smi_line()}')
+
+
+def lora_main_path(records: dict) -> None:
+    import tempfile
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    cfg = llama.LLAMA3_8B
+    gb, seq, steps = 4, 8192, 4
+    # remat 'dots' keeps ~86 KB a token and layer (every product): one
+    # 8192-token row is ~23 GB for 32 layers beside the 16 GB base, so
+    # the batch of 4 runs as 4 accumulated microbatches of one row.
+    accum = 4
+    log(f'[17] LoRA: examples/tpu/lora_finetune_llama3.yaml on one card: '
+        f'Llama-3-8B bf16 ({cfg.n_layers} layers, random base), rank 16, '
+        f'alpha 32, targets wq,wk,wv,wo, adamw, lr 1e-3 (warm-up 1), seq '
+        f'{seq}, global batch {gb} as --accum-steps {accum}; {steps} steps '
+        'on a repeated batch (a shard of exactly one batch)')
+    with tempfile.TemporaryDirectory(prefix='xsky-lora-') as tmp:
+        os.environ['XSKY_NATIVE_CACHE'] = os.path.join(tmp, 'native')
+        data = write_token_shards(os.path.join(tmp, 'tokens'),
+                                  gb * seq + 1, cfg.vocab_size, seed=17,
+                                  n_shards=1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with short_warmup(1):
+            out = launch_run([
+                '--model', 'llama3-8b', '--seq-len', str(seq),
+                '--global-batch-size', str(gb), '--accum-steps', str(accum),
+                '--lora-rank', '16', '--lora-alpha', '32', '--lora-targets',
+                'wq,wk,wv,wo', '--learning-rate', '1e-3', '--optimizer',
+                'adamw', '--steps', str(steps), '--log-every', '1',
+                '--data', data, '--data-loader', 'native',
+                '--device', 'cuda'], 'LoRA', n_layers=cfg.n_layers)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        os.environ.pop('XSKY_NATIVE_CACHE')
+    losses = [out['losses'][k] for k in sorted(out['losses'])]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f'LoRA losses {losses}: want finite, falling')
+    state = out['state']
+    adapters = trainer_lib.param_leaves(state['params'])
+    shapes = {tuple(a.shape) for a in adapters}
+    opt = []
+
+    def walk(x):
+        if torch.is_tensor(x):
+            opt.append(x)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+    walk(state['opt_state'])
+    if not opt or any(tuple(t.shape) not in shapes for t in opt if t.ndim):
+        raise AssertionError('optimizer state holds a tensor that is not '
+                             f'adapter-sized: {[tuple(t.shape) for t in opt]}')
+    n_adapter = sum(a.numel() for a in adapters)
+    opt_bytes = sum(t.numel() * t.element_size() for t in opt)
+    # The base is frozen: equal bit for bit to the seeded init it started
+    # from (the trainer draws it from a generator seeded with the seed).
+    base = state['base']
+    del out['state'], out['trainer'], state
+    release_card()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    fresh = llama.init(cfg, gen, device='cuda')
+    same = all(torch.equal(a, b) for a, b in zip(
+        trainer_lib.param_leaves(base), trainer_lib.param_leaves(fresh)))
+    if not same:
+        raise AssertionError('the frozen base changed during LoRA steps')
+    del base, fresh
+    release_card()
+    rows = out['log']
+    tps = [float(line.split(' tok/s')[0].split()[-1].replace(',', ''))
+           for line in rows if ' tok/s ' in line][1:]
+    flops = dataclasses.replace(cfg, max_seq_len=seq).train_flops_per_token()
+    log(f'  losses {losses} (finite, falling); base bit-identical to its '
+        f'seeded init; optimizer state {len(opt)} tensors, {opt_bytes} '
+        f'bytes, all adapter-sized ({n_adapter} adapter parameters)')
+    log(f'  steps 2-{steps}: {np.mean(tps):.1f} tokens/s, model '
+        f'{np.mean(tps) * flops / 1e12:.2f} TFLOP/s by the 6N + 12LdS '
+        f'formula (a LoRA step computes no weight gradient for the frozen '
+        f'base); peak memory {peak / 2**30:.2f} GiB; {dt:.1f} s with init; '
+        f'launches {out["launches"]} on {nvidia_smi_line()}')
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['lora'] = (
+            out['launches'][name])
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A .safetensors file from {name: torch tensor} in a few lines of
+    numpy: an 8-byte header length, a JSON header, raw little-endian
+    bytes (bf16 as its uint16 bits)."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            raw, code = t.view(torch.int16).numpy().tobytes(), 'BF16'
+        else:
+            raw, code = t.float().numpy().astype('<f4').tobytes(), 'F32'
+        header[name] = {'dtype': code, 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    text = json.dumps(header).encode()
+    text += b' ' * (-len(text) % 8)
+    with open(path, 'wb') as f:
+        f.write(len(text).to_bytes(8, 'little'))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
+
+
+def random_hf_llama(root: str, cfg, dtype, seed: int) -> dict:
+    """A random checkpoint in HF's layout for cfg's widths (config.json +
+    model.safetensors), drawn on the card; returns the port's tree built
+    directly from the same tensors (stacked, transposed to [in, out])."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    hd = cfg.head_dim
+
+    def draw(out_dim, in_dim):
+        return (torch.randn((out_dim, in_dim), generator=gen, device='cuda')
+                * in_dim ** -0.5).to(dtype)
+
+    def norm(d):
+        return (1 + 0.1 * torch.randn((d,), generator=gen,
+                                      device='cuda')).to(dtype)
+
+    hf, layers = {}, {k: [] for k in (
+        'wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down', 'attn_norm',
+        'mlp_norm')}
+    shapes = {'q_proj': ('wq', cfg.n_heads * hd, cfg.d_model),
+              'k_proj': ('wk', cfg.n_kv_heads * hd, cfg.d_model),
+              'v_proj': ('wv', cfg.n_kv_heads * hd, cfg.d_model),
+              'o_proj': ('wo', cfg.d_model, cfg.n_heads * hd),
+              'gate_proj': ('w_gate', cfg.d_ff, cfg.d_model),
+              'up_proj': ('w_up', cfg.d_ff, cfg.d_model),
+              'down_proj': ('w_down', cfg.d_model, cfg.d_ff)}
+    for i in range(cfg.n_layers):
+        for proj, (ours, o, n) in shapes.items():
+            kind = 'self_attn' if ours in ('wq', 'wk', 'wv', 'wo') else 'mlp'
+            w = draw(o, n)
+            hf[f'model.layers.{i}.{kind}.{proj}.weight'] = w
+            layers[ours].append(w.t())
+        for hf_name, ours in (('input_layernorm', 'attn_norm'),
+                              ('post_attention_layernorm', 'mlp_norm')):
+            w = norm(cfg.d_model)
+            hf[f'model.layers.{i}.{hf_name}.weight'] = w
+            layers[ours].append(w)
+    hf['model.embed_tokens.weight'] = draw(cfg.vocab_size, cfg.d_model)
+    hf['model.norm.weight'] = norm(cfg.d_model)
+    hf['lm_head.weight'] = draw(cfg.vocab_size, cfg.d_model)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, 'config.json'), 'w',
+              encoding='utf-8') as f:
+        json.dump({'model_type': 'llama', 'architectures':
+                   ['LlamaForCausalLM'], 'vocab_size': cfg.vocab_size,
+                   'hidden_size': cfg.d_model, 'num_hidden_layers':
+                   cfg.n_layers, 'num_attention_heads': cfg.n_heads,
+                   'num_key_value_heads': cfg.n_kv_heads,
+                   'intermediate_size': cfg.d_ff,
+                   'max_position_embeddings': cfg.max_seq_len,
+                   'rope_theta': cfg.rope_theta, 'rms_norm_eps':
+                   cfg.norm_eps, 'tie_word_embeddings': False,
+                   'torch_dtype': str(dtype).split('.')[-1]}, f)
+    write_safetensors(os.path.join(root, 'model.safetensors'), hf)
+    direct = {'embed': hf['model.embed_tokens.weight'],
+              'layers': {k: torch.stack(v).contiguous()
+                         for k, v in layers.items()},
+              'final_norm': hf['model.norm.weight'],
+              'lm_head': hf['lm_head.weight'].t().contiguous()}
+    del hf
+    return direct
+
+
+HF_SERVE_KERNELS = ('flash_fwd', 'decode_attention')
+
+
+def hf_checkpoint_path(records: dict) -> None:
+    import tempfile
+    import threading
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train.trainer import param_leaves
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=False)
+    new_tokens = 24
+    log(f'[18] converter and --hf-checkpoint: a random Llama-3-1B '
+        f'({cfg.n_layers} layers) in HF\'s layout (config.json + bf16 '
+        'safetensors written with numpy), converted, and served by '
+        'infer/server.py --hf-checkpoint on 127.0.0.1; greedy tokens '
+        'against Orchestrator.generate on the tree built directly')
+    with tempfile.TemporaryDirectory(prefix='xsky-hf-') as tmp:
+        root = os.path.join(tmp, 'llama-3-1b-random')
+        t0 = time.perf_counter()
+        direct = random_hf_llama(root, cfg, torch.bfloat16, seed=18)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(root, 'model.safetensors'))
+        t0 = time.perf_counter()
+        converted_cfg, converted = convert.from_hf(root, device='cuda')
+        torch.cuda.synchronize()
+        t_convert = time.perf_counter() - t0
+        if dataclasses.replace(converted_cfg, remat=False) != cfg:
+            raise AssertionError(f'converted config {converted_cfg}')
+        same = all(torch.equal(a, b) for a, b in zip(
+            param_leaves(converted), param_leaves(direct)))
+        if not same:
+            raise AssertionError('the converted tree differs from the tree '
+                                 'built directly')
+        del converted
+        release_card()
+        zero_launches()
+        t0 = time.perf_counter()
+        replica = server_lib.build_replica(server_lib.parse_args([
+            '--hf-checkpoint', root, '--max-slots', '4', '--max-target-len',
+            '2048', '--port', '0', '--device', 'cuda']), host='127.0.0.1')
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    rng = np.random.default_rng(18)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (16, 300, 1000)]
+    try:
+        model_id = json.loads(http_json(url, '/v1/models'))['data'][0]['id']
+        served = [http_json(url, '/generate', {
+            'prompt_tokens': p, 'max_new_tokens': new_tokens})[
+                'output_tokens'] for p in prompts]
+        # The served path's own launches (build, warm-up, the requests),
+        # read before the comparison run below launches anything.
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        check_launches('hf-checkpoint serving', launches, HF_SERVE_KERNELS,
+                       cfg.n_layers)
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    del replica
+    release_card()
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=4, max_target_len=2048),
+        direct, device='cuda')
+    orch = orch_lib.Orchestrator(engine, decode_steps=4)
+    built = [orch.generate([p], max_new_tokens=new_tokens)[0]
+             for p in prompts]
+    del orch, engine, direct
+    release_card()
+    if model_id != 'llama-3-1b-random':
+        raise AssertionError(f'/v1/models id {model_id!r}')
+    if served != built:
+        raise AssertionError(f'served tokens {served} differ from the '
+                             f'directly built tree\'s {built}')
+    for name in HF_SERVE_KERNELS:
+        records[name].setdefault('launches_by_path', {})['hf_checkpoint'] = (
+            launches[name])
+    log(f'  checkpoint {size} bytes written in {t_write:.2f} s; from_hf '
+        f'{t_convert:.2f} s (read, stack, cast on the card), equal bit for '
+        f'bit to the tree built directly; server build (conversion on the '
+        f'host + engine + warm-up) {t_build:.2f} s; model id {model_id!r}')
+    log(f'  prompts of {[len(p) for p in prompts]} tokens, {new_tokens} new '
+        f'each, one at a time: served tokens equal Orchestrator.generate on '
+        f'the directly built tree; served launches {launches} on '
+        f'{nvidia_smi_line()}')
+
+
+def small_launch_checks() -> None:
+    import tempfile
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train.trainer import param_leaves
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    seq = 1024
+    log(f'[19] small checks, card vs CPU: fp32 LLAMA_TINY widths, seq {seq} '
+        '(so the flash kernels run on the card): the converter\'s trees, '
+        'three launcher steps from one --init-params and --data, and three '
+        'LoRA steps')
+    with tempfile.TemporaryDirectory(prefix='xsky-small-') as tmp, \
+            registered_config('tiny-fp32', cfg) as name:
+        root = os.path.join(tmp, 'hf')
+        random_hf_llama(root, cfg, torch.float32, seed=19)
+        trees = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for device in ('cuda', 'cpu'):
+                trees[dtype, device] = param_leaves(
+                    convert.from_hf(root, dtype, device=device)[1])
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(
+                    trees[dtype, 'cuda'], trees[dtype, 'cpu'])):
+                raise AssertionError(f'{dtype} trees differ between the '
+                                     'card and the CPU')
+        init = os.path.join(tmp, 'init')
+        printed = io.StringIO()   # stdout keeps only the result lines
+        with contextlib.redirect_stdout(printed):
+            convert.main(['--src', root, '--out', init, '--dtype', 'f32',
+                          '--device', 'cpu'])
+        log(f'  convert.main: {printed.getvalue().strip()}')
+        data = write_token_shards(os.path.join(tmp, 'tokens'),
+                                  3 * 2 * seq + 1, cfg.vocab_size, seed=19)
+        common = ['--model', name, '--global-batch-size', '2', '--seq-len',
+                  str(seq), '--steps', '3', '--log-every', '1',
+                  '--learning-rate', '1e-3', '--init-params', init,
+                  '--data', data, '--data-loader', 'python']
+        for label, extra in (('full', ['--optimizer', 'adamw']),
+                             ('LoRA', ['--lora-rank', '4', '--optimizer',
+                                       'adamw'])):
+            runs = {}
+            for device in ('cuda', 'cpu'):
+                with short_warmup(1):
+                    out = launch_run(common + extra + ['--device', device],
+                                     f'small {label} on {device}',
+                                     kernels_wanted=None)
+                runs[device] = (out['losses'], out['launches'])
+            losses = {d: [runs[d][0][k] for k in (1, 2, 3)] for d in runs}
+            used = runs['cuda'][1]
+            log(f'  {label}: card losses {losses['cuda']}, CPU '
+                f'{losses["cpu"]} (atol {TRAIN_LOSS_ATOL:g}); card launches '
+                f'{ {k: used[k] for k in TRAIN_KERNELS} }')
+            if max(abs(a - b) for a, b in zip(losses['cuda'],
+                                              losses['cpu'])) > \
+                    TRAIN_LOSS_ATOL:
+                raise AssertionError(f'{label} losses differ between the '
+                                     'card and the CPU')
+            if not all(used[k] for k in TRAIN_KERNELS):
+                raise AssertionError(f'a kernel did not run: {used}')
+    log('  converter trees (fp32 and bf16) equal bit for bit on the card '
+        'and the CPU')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the decode split walks and combine at the main paths'
@@ -2163,7 +2747,7 @@ def main() -> int:
                'paged_mla_decode': check_paged_mla_decode(gen)}
     main_path(records)
     small_end_to_end()
-    train_main_path(records)
+    train_result = train_main_path(records)
     small_train_check()
     paged_main_path(records)
     small_paged_end_to_end()
@@ -2172,6 +2756,10 @@ def main() -> int:
     quantized_replica(records, 'int8')
     quantized_replica(records, 'int4')
     small_quantized_end_to_end()
+    launch_main_path(records, train_result)
+    lora_main_path(records)
+    hf_checkpoint_path(records)
+    small_launch_checks()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

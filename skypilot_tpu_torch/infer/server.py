@@ -30,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -54,8 +55,6 @@ logger = logging.getLogger(__name__)
 # Flags of the reference whose paths are not ported yet: each refuses to
 # start, naming where the work stands in ROADMAP.md.
 _NOT_PORTED = {
-    'hf_checkpoint': ('--hf-checkpoint', 'ROADMAP.md queue 1 item 3: the '
-                      'checkpoint converter (models/convert.py)'),
     'mesh': ('--mesh', 'ROADMAP.md queue 1 item 8: more than one card'),
     'draft_model': ('--draft-model', 'ROADMAP.md queue 1 item 4: '
                     'speculative decoding'),
@@ -518,8 +517,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         prog='python -m skypilot_tpu_torch.infer.server')
     parser.add_argument('--model', default='llama3-1b')
     parser.add_argument('--hf-checkpoint', default=None,
-                        help='Local HuggingFace checkpoint dir (not '
-                             'ported yet: refuses to start)')
+                        help='Local HuggingFace checkpoint dir '
+                             '(config.json + safetensors or '
+                             'pytorch_model*.bin), converted on the '
+                             'host at start-up; replaces --model')
     parser.add_argument('--port', type=int, default=8080)
     parser.add_argument('--max-slots', type=int, default=16)
     parser.add_argument('--max-target-len', type=int, default=2048)
@@ -550,7 +551,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              'refuses to start)')
     parser.add_argument('--model-id', default=None,
                         help='Model id reported by /v1/models '
-                             '(default: --model)')
+                             '(default: the --hf-checkpoint directory\'s '
+                             'name, else --model)')
     parser.add_argument('--max-queue', type=int, default=64,
                         help='Pending-admission cap: beyond this the '
                              'replica sheds load with 429 so the serve '
@@ -601,7 +603,18 @@ def build_replica(args: argparse.Namespace,
     ``args``; the server listens on (host, args.port) once the caller
     runs ``httpd.serve_forever()``."""
     device = resolve_device(args.device)
-    model = models.get_config(args.model)
+    hf_params = None
+    if args.hf_checkpoint:
+        # Convert on the HOST: the converter reads and stacks fp32
+        # arrays, and a real checkpoint's fp32 tree is larger than
+        # its bf16 one on the card.
+        from skypilot_tpu_torch.models import convert as convert_lib
+        model, hf_params = convert_lib.from_hf(args.hf_checkpoint,
+                                               device='cpu')
+        logger.info('Converted %s: %s, %.2fB params', args.hf_checkpoint,
+                    type(model).__name__, model.num_params() / 1e9)
+    else:
+        model = models.get_config(args.model)
     if hasattr(model, 'remat'):
         model = dataclasses.replace(model, remat=False)
     model_lib = models.module_for(model)
@@ -621,8 +634,15 @@ def build_replica(args: argparse.Namespace,
         kv_num_pages=args.kv_num_pages)
     name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
             else 'cpu')
-    logger.info('Initializing %s on %s', args.model, name)
-    params = model_lib.init(model, device=device)
+    logger.info('Initializing %s on %s', args.hf_checkpoint or args.model,
+                name)
+    if hf_params is not None:
+        params = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(device))
+                  for k, v in hf_params.items()}
+        del hf_params
+    else:
+        params = model_lib.init(model, device=device)
     if args.weight_dtype in ('int8', 'int4'):
         # The reference inits and quantizes on the host because its chip
         # cannot hold the bf16 tree (16.06 GB for Llama-3-8B). One H100
@@ -646,10 +666,12 @@ def build_replica(args: argparse.Namespace,
         # endpoint still works, /v1 routes report 503.
         logger.warning('No tokenizer: %s', e)
         tokenizer = None
+    default_id = (os.path.basename(args.hf_checkpoint.rstrip('/'))
+                  if args.hf_checkpoint else args.model)
     httpd = ThreadingHTTPServer(
         (host, args.port),
         build_handler(loop, config, tokenizer=tokenizer,
-                      model_id=args.model_id or args.model,
+                      model_id=args.model_id or default_id,
                       max_queue=args.max_queue))
     return Replica(httpd, loop, engine)
 

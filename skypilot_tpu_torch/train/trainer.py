@@ -5,24 +5,37 @@ step runs eagerly: the model's loss (``loss_fn`` of the config's family,
 remat as the config says), its gradient, gradient accumulation over
 strided microbatches, the optimizer chain of ``make_optimizer`` and an
 in-place parameter update (the JAX step donates the old state instead).
+With ``lora_rank > 0`` the base weights are frozen and only the LoRA
+adapters (``train/lora.py``) train, merged into the base inside the
+loss. Every step emits the telemetry heartbeat and marks its dispatch
+time in the flight recorder, without syncing the device.
+``host_state`` and ``load_state`` carry the state to the host and back
+for checkpoints (``train/launch.py``).
 
-Not ported yet (ROADMAP queue 1): LoRA (``lora_rank > 0``), pipeline and
-sharded meshes, and the step's profiler, telemetry and flight-recorder
-hooks; the token loader and ``launch.py`` with checkpoints and resume.
+Not ported yet (ROADMAP.md queue 1): pipeline and sharded meshes (item
+8), and the profiler's sampled step probe (item 7).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from skypilot_tpu_torch import Device, models, resolve_device
+from skypilot_tpu_torch.agent import flight_recorder
+from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.train import lora as lora_lib
 from skypilot_tpu_torch.train import optim
 
 Batch = Dict[str, torch.Tensor]
+
+# Canonical mesh axis order (``skypilot_tpu/parallel/mesh.py``):
+# outermost first.
+MESH_AXES = ('data', 'stage', 'fsdp', 'sequence', 'expert', 'tensor')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +48,28 @@ class MeshPlan:
     sequence: int = 1
     expert: int = 1
     tensor: int = 1
+
+    def resolve(self, num_devices: int) -> 'MeshPlan':
+        sizes = dataclasses.asdict(self)
+        fixed = math.prod(v for v in sizes.values() if v != -1)
+        free = [k for k, v in sizes.items() if v == -1]
+        if len(free) > 1:
+            raise ValueError('At most one mesh axis may be -1.')
+        if free:
+            if num_devices % fixed:
+                raise ValueError(
+                    f'{num_devices} devices not divisible by fixed axes '
+                    f'product {fixed} ({sizes}).')
+            sizes[free[0]] = num_devices // fixed
+        elif fixed != num_devices:
+            raise ValueError(
+                f'Mesh plan {sizes} needs {fixed} devices, got '
+                f'{num_devices}.')
+        return MeshPlan(**sizes)
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        d = dataclasses.asdict(self)
+        return tuple(d[a] for a in MESH_AXES)
 
 
 @dataclasses.dataclass
@@ -54,7 +89,9 @@ class TrainConfig:
     # microbatches and applies ONE averaged optimizer update.
     accum_steps: int = 1
     seed: int = 0
-    # LoRA fine-tuning (rank > 0): not ported yet.
+    # LoRA fine-tuning: rank 0 = full fine-tune; rank > 0 freezes the
+    # base weights (held outside the optimizer) and trains only A/B
+    # adapters on `lora_targets`, merged inside the step's loss.
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ('wq', 'wk', 'wv', 'wo')
@@ -79,17 +116,28 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [params]
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a state tree (dicts, lists, tuples);
+    other leaves (Python ints, None) as they are."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
 def _check_mesh(plan: MeshPlan) -> None:
     if plan.stage > 1:
         raise NotImplementedError(
             'Pipeline parallelism (mesh stage > 1) is not ported yet: '
-            'ROADMAP queue 1, "pipeline and FSDP".')
+            'ROADMAP.md queue 1 item 8, "more than one card".')
     sharded = {name: n for name, n in dataclasses.asdict(plan).items()
                if name not in ('data', 'stage') and n > 1}
     if sharded or plan.data > 1:
         raise NotImplementedError(
             f'The port trains on one card; mesh axes {sharded or plan} '
-            'are not ported yet: ROADMAP queue 1, "pipeline and FSDP".')
+            'are not ported yet: ROADMAP.md queue 1 item 8, "more than '
+            'one card".')
 
 
 class Trainer:
@@ -104,58 +152,152 @@ class Trainer:
             raise ValueError(
                 f'global_batch_size {config.global_batch_size} not '
                 f'divisible by accum_steps {config.accum_steps}')
-        if config.lora_rank > 0:
-            raise NotImplementedError(
-                'LoRA fine-tuning (lora_rank > 0) is not ported yet: '
-                'ROADMAP queue 1, "LoRA".')
         _check_mesh(config.mesh_plan)
+        self._model_lib = models.module_for(config.model)
+        if not hasattr(self._model_lib, 'loss_fn'):
+            raise NotImplementedError(
+                f'{self._model_lib.__name__} has no loss_fn yet, so it '
+                'cannot train (full or LoRA): ROADMAP.md queue 1 item '
+                '6.4, "DeepSeek training".')
         self.device = resolve_device(device)
         if self.device.type == 'cuda' and self.device.index is None:
             # What tensors report, so that devices compare equal.
             self.device = torch.device('cuda', torch.cuda.current_device())
         self.optimizer = make_optimizer(config)
-        self._model_lib = models.module_for(config.model)
+        # Host-side step telemetry: dispatch-to-dispatch wall time (no
+        # device sync).
+        self._host_step = 0
+        self._last_step_t: Optional[float] = None
 
     # ---- state ----
 
-    def init_state(self, params: Optional[Dict[str, Any]] = None
+    @property
+    def _lora(self) -> bool:
+        return self.config.lora_rank > 0
+
+    def _check_device(self, tree) -> None:
+        for p in param_leaves(tree):
+            if p.device != self.device:
+                raise ValueError(f'a parameter lies on {p.device}, the '
+                                 f'trainer on {self.device}')
+
+    def init_state(self, params: Optional[Dict[str, Any]] = None,
+                   adapters: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, Any]:
-        """{'params', 'opt_state', 'step'}. ``params`` defaults to the
-        family's ``init`` from a generator seeded with config.seed (the
-        JAX PRNG's draws cannot be reproduced); given params are used
-        as they are, and updated in place by every step."""
+        """{'params', 'opt_state', 'step'}, and with LoRA also 'base'.
+
+        ``params`` (the model's weights) defaults to the family's
+        ``init`` from a generator seeded with config.seed (the JAX
+        PRNG's draws cannot be reproduced); given params are used as
+        they are, and updated in place by every step. With LoRA they
+        are the frozen base, and 'params' holds the adapters:
+        ``adapters`` as given, else ``init_lora`` from a CPU generator
+        seeded with config.seed + 1. Only 'params' enters the
+        optimizer."""
         c = self.config
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(c.seed)
             params = self._model_lib.init(c.model, gen, device=self.device)
+        self._check_device(params)
+        state: Dict[str, Any] = {}
+        if self._lora:
+            for p in param_leaves(params):
+                p.requires_grad_(False)
+            if adapters is None:
+                gen = torch.Generator()   # the same draws on every device
+                gen.manual_seed(c.seed + 1)
+                adapters = lora_lib.init_lora(params, c.lora_rank, gen,
+                                              targets=tuple(c.lora_targets))
+            self._check_device(adapters)
+            state['base'] = params
+            params = adapters
         leaves = param_leaves(params)
         for p in leaves:
-            if p.device != self.device:
-                raise ValueError(f'a parameter lies on {p.device}, the '
-                                 f'trainer on {self.device}')
             p.requires_grad_(True)
-        return {'params': params, 'opt_state': self.optimizer.init(leaves),
-                'step': 0}
+        state.update(params=params, opt_state=self.optimizer.init(leaves),
+                     step=0)
+        return state
+
+    def host_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A copy of ``state`` on the host, for a checkpoint: parameters,
+        optimizer state (its counts included), step, and with LoRA the
+        base. Later steps do not change it."""
+        def to_host(t):
+            t = t.detach()
+            return t.clone() if t.device.type == 'cpu' else t.cpu()
+        return _tree_map(to_host, state)
+
+    def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """A state from ``host_state``'s copy (or its unpickled form) on
+        this trainer's device, with the leaves' roles as ``init_state``
+        gives them: 'params' requires grad, the LoRA base does not."""
+        state = _tree_map(
+            lambda t: t.to(self.device, copy=True), host)
+        for p in param_leaves(state['params']):
+            p.requires_grad_(True)
+        if 'base' in state:
+            for p in param_leaves(state['base']):
+                p.requires_grad_(False)
+        return state
 
     # ---- step ----
 
-    def _forward_loss(self, params, batch: Batch) -> torch.Tensor:
-        return self._model_lib.loss_fn(self.config.model, params,
+    def _forward_loss(self, state: Dict[str, Any], params,
+                      batch: Batch) -> torch.Tensor:
+        """The model loss for ``params``: shared by the training step
+        and the (grad-free) eval step. With LoRA ``params`` are the
+        adapters, merged into the frozen base first."""
+        c = self.config
+        if self._lora:
+            params = lora_lib.merge(state['base'], params, c.lora_alpha,
+                                    c.lora_rank)
+        return self._model_lib.loss_fn(c.model, params,
                                        batch['tokens'], batch['targets'],
                                        loss_mask=batch.get('mask'))
 
-    def _loss_and_grads(self, params, batch: Batch
+    def _loss_and_grads(self, state, batch: Batch
                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        params = state['params']
         leaves = param_leaves(params)
-        loss = self._forward_loss(params, batch)
+        loss = self._forward_loss(state, params, batch)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
     def step(self, state: Dict[str, Any], batch: Batch
              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """One optimizer step → (state, metrics). The parameters in
         ``state`` are updated in place; loss and grad_norm stay 0-dim
-        tensors on the device (reading them waits for the step)."""
+        tensors on the device (reading them waits for the step). The
+        flight recorder gets the step's dispatch wall (the host's
+        launch of its kernels; no device sync), and the telemetry
+        heartbeat its step."""
+        t0 = time.perf_counter()
+        out = self._step(state, batch)
+        flight_recorder.mark_compute(time.perf_counter() - t0)
+        self._note_step()
+        return out
+
+    def _note_step(self) -> None:
+        """Per-step telemetry heartbeat (phase/step/step-time/tokens-s)
+        — a no-op single env lookup outside a gang job, and never a
+        device sync either way."""
+        now = time.perf_counter()
+        c = self.config
+        if self._last_step_t is not None:
+            dt = now - self._last_step_t
+            telemetry.emit(
+                phase=telemetry.PHASE_STEP, step=self._host_step,
+                step_time_s=dt,
+                tokens_per_sec=(c.global_batch_size * c.seq_len / dt
+                                if dt > 0 else None))
+        else:
+            telemetry.emit(phase=telemetry.PHASE_STEP,
+                           step=self._host_step)
+        self._host_step += 1
+        self._last_step_t = now
+
+    def _step(self, state: Dict[str, Any], batch: Batch
+              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         accum = self.config.accum_steps
         params = state['params']
         leaves = param_leaves(params)
@@ -170,7 +312,7 @@ class Trainer:
             w_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(accum):
                 mb = {k: v[i::accum].contiguous() for k, v in batch.items()}
-                loss, grads = self._loss_and_grads(params, mb)
+                loss, grads = self._loss_and_grads(state, mb)
                 if 'mask' in mb:
                     w = mb['mask'].sum().float()
                 else:
@@ -187,7 +329,7 @@ class Trainer:
             del g_sum
             loss = l_sum / w_safe
         else:
-            loss, grads = self._loss_and_grads(params, batch)
+            loss, grads = self._loss_and_grads(state, batch)
         with torch.no_grad():
             grad_norm = optim.global_norm(grads)
             updates, opt_state = self.optimizer.update(
@@ -196,6 +338,8 @@ class Trainer:
             optim.apply_updates(leaves, updates)
         new_state = {'params': params, 'opt_state': opt_state,
                      'step': state['step'] + 1}
+        if self._lora:
+            new_state['base'] = state['base']
         return new_state, {'loss': loss, 'grad_norm': grad_norm,
                            'step': new_state['step']}
 
@@ -203,7 +347,7 @@ class Trainer:
     def eval_step(self, state: Dict[str, Any], batch: Batch
                   ) -> torch.Tensor:
         """Loss only (no gradient, no update): the validation pass."""
-        return self._forward_loss(state['params'], batch)
+        return self._forward_loss(state, state['params'], batch)
 
     # ---- data ----
 

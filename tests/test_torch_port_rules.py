@@ -53,6 +53,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not banned, f'{path} imports {banned}'
 
 
+def test_native_loader_builds_from_the_port_copy():
+    """The token loader's C++ source is the port's own copy, and the
+    build reads nothing of the JAX package."""
+    from skypilot_tpu_torch.train import data
+    src = pathlib.Path(data._SOURCE).resolve()
+    assert src == REPO / 'skypilot_tpu_torch' / 'native' / 'dataloader.cc'
+    text = src.read_text()
+    assert 'xsky_dl_open' in text and '#include "' not in text
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -75,6 +85,21 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         trainer.measure_throughput(trainer.Trainer(train_cfg), num_steps=1)
     assert trainer.Trainer(train_cfg, device='cpu').device.type == 'cpu'
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The launcher and the converter, like every entry point: the card
+    unless the caller asks for the CPU."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.train import launch
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        launch.main(['--model', 'tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        convert.from_hf(str(tmp_path))
+    out = launch.run(launch.parse_args(
+        ['--model', 'tiny', '--steps', '1', '--global-batch-size', '2',
+         '--seq-len', '8', '--device', 'cpu']))
+    assert out['trainer'].device.type == 'cpu'
 
 
 def test_every_cuda_source_is_built():
@@ -210,7 +235,7 @@ def test_server_refuses_to_start_without_a_card(no_card):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--hf-checkpoint', '/nowhere'], 'queue 1 item 3'),
+    (['--mesh', 'data=2'], 'queue 1 item 8'),
     (['--mesh', 'tensor=4'], 'queue 1 item 8'),
     (['--draft-model', 'llama3-1b'], 'queue 1 item 4'),
     (['--spec-ngram'], 'queue 1 item 4'),
@@ -245,4 +270,32 @@ def test_chip_smoke_quantized_phases_name_their_kernels():
     order = [main.index(call) for call in (
         'small_deepseek_end_to_end()', "quantized_replica(records, 'int8')",
         "quantized_replica(records, 'int4')", 'small_quantized_end_to_end()')]
+    assert order == sorted(order)
+
+
+def test_chip_smoke_launch_phases_follow_the_quantized_ones():
+    """Phases [16]-[19] run after [15], on the card; each launcher run of
+    [16] and [17] zeroes the launch counts just before it and checks the
+    training kernels just after; [18] checks K1 and K4 on the served
+    path alone, before its comparison run builds an engine."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    body = inspect.getsource(chip_smoke.launch_run)
+    assert body.index('zero_launches()') < body.index('launch.run(') < \
+        body.index('check_launches(')
+    for phase in (chip_smoke.launch_main_path, chip_smoke.lora_main_path,
+                  chip_smoke.hf_checkpoint_path):
+        assert "'--device', 'cuda'" in inspect.getsource(phase)
+    assert chip_smoke.HF_SERVE_KERNELS == ('flash_fwd', 'decode_attention')
+    hf = inspect.getsource(chip_smoke.hf_checkpoint_path)
+    assert hf.index('zero_launches()') < hf.index('build_replica(') < \
+        hf.index('/generate') < hf.index('check_launches(') < \
+        hf.index('replica.loop.close()') < hf.index('InferenceEngine(')
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_quantized_end_to_end()',
+        'launch_main_path(records, train_result)',
+        'lora_main_path(records)', 'hf_checkpoint_path(records)',
+        'small_launch_checks()')]
     assert order == sorted(order)

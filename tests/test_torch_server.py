@@ -675,3 +675,67 @@ def test_telemetry_spool_line_parses_with_the_reference(tmp_path,
             str(tmp_path / 'x.json'), 0).sample)
     finally:
         emitter.stop()
+
+
+# ---- --hf-checkpoint: both packages convert and serve one checkpoint ----
+
+def test_hf_checkpoint_replicas_serve_the_same_tokens(tmp_path,
+                                                      monkeypatch):
+    """A tiny HF Llama saved with ``save_pretrained``; each package's
+    server main converts it (bf16, on the host) and serves it live. The
+    greedy tokens of /generate agree, and /v1/models reports the
+    directory's name."""
+    transformers = pytest.importorskip('transformers')
+    cfg = transformers.LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-5,
+        tie_word_embeddings=False)
+    torch.manual_seed(0)
+    ckpt = tmp_path / 'tiny-hf-llama'
+    transformers.LlamaForCausalLM(cfg).save_pretrained(ckpt)
+    monkeypatch.setenv('XSKY_STATE_DB', str(tmp_path / 'state.db'))
+    flags = ['--hf-checkpoint', str(ckpt), '--port', '0', '--max-slots',
+             '2', '--max-target-len', '128']
+    started = []
+
+    class Captured(ThreadingHTTPServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            started.append(self)
+
+    monkeypatch.setattr(jax_server, 'ThreadingHTTPServer', Captured)
+    monkeypatch.setattr('sys.argv', ['server'] + flags)
+    jax_thread = threading.Thread(target=jax_server.main, daemon=True)
+    jax_thread.start()
+    replica = server_lib.build_replica(
+        server_lib.parse_args(flags + ['--device', 'cpu']), host='127.0.0.1')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    deadline = time.time() + 240
+    while not started and time.time() < deadline:
+        time.sleep(0.1)
+    assert started, 'the JAX server did not start'
+    urls = {'jax': f'http://127.0.0.1:{started[0].server_address[1]}',
+            'port': f'http://127.0.0.1:{replica.httpd.server_address[1]}'}
+    try:
+        assert _call(urls['jax'], '/health')[0] == 200
+        for url in urls.values():
+            status, models = _call(url, '/v1/models')
+            assert status == 200
+            assert models['data'][0]['id'] == 'tiny-hf-llama'
+        for prompt in ([1, 2, 3], [200, 17, 5, 9, 44, 101, 7],
+                       list(range(3, 40))):
+            body = {'prompt_tokens': prompt, 'max_new_tokens': 8,
+                    'temperature': 0.0}
+            got = {name: _call(url, '/generate', body)
+                   for name, url in urls.items()}
+            assert got['port'][0] == got['jax'][0] == 200
+            assert got['port'][1]['output_tokens'] == \
+                got['jax'][1]['output_tokens']
+            assert len(got['port'][1]['output_tokens']) == 8
+    finally:
+        for httpd in (started[0], replica.httpd):
+            httpd.shutdown()
+            httpd.server_close()
+        replica.loop.close()
+        jax_thread.join(timeout=30)

@@ -334,10 +334,9 @@ def test_synthetic_batch_is_seeded_by_the_step():
     assert int(a['tokens'].max()) < llama.LLAMA_TINY.vocab_size
 
 
-@pytest.mark.parametrize('kw', [dict(lora_rank=4),
-                                dict(mesh_plan=trainer.MeshPlan(stage=2)),
+@pytest.mark.parametrize('kw', [dict(mesh_plan=trainer.MeshPlan(stage=2)),
                                 dict(mesh_plan=trainer.MeshPlan(fsdp=2))],
-                         ids=['lora', 'pipeline', 'fsdp'])
+                         ids=['pipeline', 'fsdp'])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trainer.Trainer(trainer.TrainConfig(model=llama.LLAMA_TINY, **kw),
