@@ -31,7 +31,9 @@ Phases, in order; any failure exits non-zero:
      4 heads and r + dr up to 1024, K7 bit for bit equal to K6 on an
      identity table, two calls bit-identical, and planted faults: a slot
      without one split must be rejected, and p without its third bf16
-     term is rejected or its distance from the tolerance logged);
+     term is rejected or its distance from the tolerance logged); the
+     flash forward and dense decode also at Qwen2-7B's heads (28 over 4
+     KV heads, a GQA group of 7), checked and timed (the gqa7_* keys);
   4. serving main path: Llama-3-8B (bf16, random weights from a seeded
      torch.Generator) served by InferenceEngine + Orchestrator: 16
      prompts of ~1000 tokens, 64 new tokens each;
@@ -111,10 +113,27 @@ Phases, in order; any failure exits non-zero:
  19. small checks, card vs CPU (fp32 LLAMA_TINY widths, seq 1024): the
      converter's fp32 and bf16 trees equal bit for bit; three launcher
      steps from one --init-params and --data, full and LoRA, give the
-     same losses within phase 7's tolerance.
+     same losses within phase 7's tolerance;
+ 20. Qwen3-8B replica: examples/tpu/serve_qwen.yaml's command without its
+     speculative flags (the next slice) through infer/server.py on
+     127.0.0.1: --model qwen3-8b --max-slots 32 --max-target-len 4096,
+     bf16, random weights from a seeded generator; three prompts (16, 300
+     and 1000 tokens) one at a time, then 32 concurrent prompts of
+     1000-1024 tokens, 64 new tokens each: K1 and K4 only, counted from
+     the served requests alone; the three served prompts' tokens equal
+     Orchestrator.generate on the same engine; tok/s, mean TTFT
+     (/metrics), peak memory;
+ 21. Qwen2-7B (28 query heads over 4 KV heads: GQA group 7, Q/K/V biases)
+     served by InferenceEngine + Orchestrator: 16 slots, max_target_len
+     2048, bucket 1024, 16 prompts of 1000-1024 tokens, 32 new tokens:
+     K1 and K4 only, at group 7;
+ 22. small Qwen checks, card vs CPU: fp32 qwen-tiny and qwen3-tiny widths
+     with random biases and norm scales, bucket 1024: the greedy tokens,
+     a chunked prefill with a prefix-cache hit against the whole prompt
+     in one 2048 bucket, and loss_fn with every gradient at seq 1024.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
-18) every kernel's launch count is set to 0; just after, the kernels of
-that path must each have run, and no other.
+18, 20, 21) every kernel's launch count is set to 0; just after, the
+kernels of that path must each have run, and no other.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -374,10 +393,22 @@ def check_flash(gen) -> dict:
         flash_case(gen, f'{name} D16 S1024 (LLAMA_TINY widths)', dtype,
                    2, 1024, 4, 2, 16)
     # The main path's prefill wave: 16 prompts in one 1024 bucket.
-    dtype = torch.bfloat16
     (q, k, v, _, kw), err = flash_case(
-        gen, 'bf16 main-path B16 S1024 H32/8 D128', dtype,
+        gen, 'bf16 main-path B16 S1024 H32/8 D128', torch.bfloat16,
         16, 1024, 32, 8, 128)
+    times = flash_timings('main-path', q, k, v, kw)
+    del q, k, v
+    gqa7 = flash_group7(gen)
+    train = flash_train_shape(gen)
+    return {'name': 'flash_fwd', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
+            'replaces': REPLACES['flash_fwd'], 'max_abs_err': err,
+            **times, **gqa7, **train}
+
+
+def flash_timings(label, q, k, v, kw) -> dict:
+    """Kernel, plain and SDPA (library) device times of one causal bf16
+    forward at q's shape, beside its bound, and the wrapper's host time."""
     b, s, h, d = q.shape
     ms = time_ms(lambda: flash_ops._flash_fwd(q, k, v, None, **kw))
     # Host time of one wrapper call (checks, tensor maps, launch).
@@ -392,19 +423,33 @@ def check_flash(gen) -> dict:
         b * h * s * 4)
     # Causal: each row attends to itself and the keys before it.
     flops = 4.0 * b * h * d * (s * (s + 1) / 2)
-    bound, bound_by = bound_ms(nbytes, flops, dtype)
-    log(f'  flash main-path timing: kernel {ms:.4f} ms, plain '
+    bound, bound_by = bound_ms(nbytes, flops, q.dtype)
+    log(f'  flash {label} timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, SDPA (library) {library_ms:.4f} ms, bound '
         f'{bound:.4f} ms ({bound_by}); {flops / ms / 1e9:.2f} TFLOP/s; '
         f'wrapper host time {wrapper_ms:.4f} ms a call')
-    del q, k, v, qt, kt, vt
-    train = flash_train_shape(gen)
-    return {'name': 'flash_fwd', 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
-            'replaces': REPLACES['flash_fwd'], 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+    return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
             'bound_by': bound_by, 'library_ms': library_ms,
-            'host_ms': wrapper_ms, **train}
+            'host_ms': wrapper_ms}
+
+
+def flash_group7(gen) -> dict:
+    """Qwen2-7B's heads, 28 query heads over 4 KV heads (a GQA group of
+    7): B2 in bf16 and fp32 against the plain version, then phase [21]'s
+    prefill wave (B16 S1024) against it and timed → the record's gqa7_*
+    entries."""
+    errs = []
+    for dtype, name in ((torch.bfloat16, 'bf16'), (torch.float32, 'fp32')):
+        errs.append(flash_case(gen, f'{name} B2 S1024 H28/4 D128 causal '
+                               '(GQA group 7)', dtype, 2, 1024, 28, 4,
+                               128)[1])
+    (q, k, v, _, kw), err = flash_case(
+        gen, 'bf16 B16 S1024 H28/4 D128 causal (GQA group 7, the wave of '
+        '[21])', torch.bfloat16, 16, 1024, 28, 4, 128)
+    times = flash_timings('GQA group 7 wave', q, k, v, kw)
+    return {'gqa7_shape': 'B16 S1024 H28/4 D128 causal',
+            'gqa7_max_abs_err': max(errs + [err]),
+            **{f'gqa7_{key}': value for key, value in times.items()}}
 
 
 def flash_train_shape(gen) -> dict:
@@ -708,8 +753,22 @@ def check_decode(gen) -> dict:
     expect_rejected('decode slot 3 without split 1', bad, ref, bf16,
                     block_rows=1)
     del out, ref, bad, loose
-    # Rotate over four caches (4 x 134 MB) so that no launch finds its
-    # K/V in the 50 MB L2, as each layer's cache is cold on the path.
+    times = decode_timings('main-path', cases)
+    del cases
+    gqa7 = decode_group7(gen)
+    return {'name': 'decode_attention', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
+            'replaces': REPLACES['decode_attention'], 'max_abs_err': err,
+            **times, **gqa7}
+
+
+def decode_timings(label, cases) -> dict:
+    """Kernel and masked-SDPA (library) device times over three rounds in
+    turn, the plain version's, the bound and the wrapper's host time, for
+    four bf16 decode cases of one shape."""
+    # Rotate over four caches (4 x 134 MB at 16 slots x 2048 rows) so that
+    # no launch finds its K/V in the 50 MB L2, as each layer's cache is
+    # cold on the path.
     it = itertools.count()
 
     def run_kernel():
@@ -737,27 +796,45 @@ def check_decode(gen) -> dict:
     library_ms = float(np.mean(rounds['library']))
     plain_ms = time_ms(run_plain, iters=8, warmup=2)
     wrapper_ms = host_ms(run_kernel)
-    log(f'  decode timings over three rounds (ms): {rounds}; wrapper host '
-        f'time {wrapper_ms:.4f} ms a call')
-    q, k = cases[0][0][0], cases[0][0][1]
+    log(f'  decode {label} timings over three rounds (ms): {rounds}; '
+        f'wrapper host time {wrapper_ms:.4f} ms a call')
+    q, k, _, lens, _ = cases[0][0]
     b, _, h, d = q.shape
     h_kv = k.shape[2]
     live = int(lens.clamp(max=k.shape[1]).sum())
     nbytes = (2 * q.numel() * q.element_size() + 4 * b +
               2 * live * h_kv * d * k.element_size())
     flops = 4.0 * live * h * d
-    bound, bound_by = bound_ms(nbytes, flops, bf16)
-    log(f'  decode main-path timing: kernel {ms:.4f} ms, plain '
+    bound, bound_by = bound_ms(nbytes, flops, torch.bfloat16)
+    log(f'  decode {label} timing: kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, masked SDPA (library) {library_ms:.4f} ms, '
         f'bound {bound:.4f} ms ({bound_by}); '
         f'{nbytes / ms / 1e6:.1f} GB/s of live KV')
-    return {'name': 'decode_attention', 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
-            'replaces': REPLACES['decode_attention'], 'max_abs_err': err,
-            'ms': ms, 'ms_rounds': rounds['kernel'], 'plain_ms': plain_ms,
+    return {'ms': ms, 'ms_rounds': rounds['kernel'], 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
             'library_ms': library_ms,
             'library_ms_rounds': rounds['library'], 'host_ms': wrapper_ms}
+
+
+def decode_group7(gen) -> dict:
+    """Qwen2-7B's decode step: 16 slots over a 2048-row cache, 28 query
+    heads over 4 KV heads (a GQA group of 7, which the walk for groups of
+    up to 8 takes with one idle head), ragged lengths around 1000 and one
+    empty slot, in bf16 and fp32 against the plain version; the bf16 case
+    timed → the record's gqa7_* entries."""
+    rng = np.random.default_rng(7)
+    lengths = [0] + [int(x) for x in rng.integers(990, 1060, 15)]
+    shape = dict(h=28, h_kv=4, d=128)
+    errs = [decode_case(gen, 'fp32 cache, GQA group 7 (H28/4 D128)',
+                        torch.float32, torch.float32, lengths, **shape)[1]]
+    cases = [decode_case(gen, 'bf16 cache, GQA group 7 (H28/4 D128)',
+                         torch.bfloat16, torch.bfloat16, lengths, **shape)
+             for _ in range(4)]
+    errs += [err for _, err in cases]
+    times = decode_timings('GQA group 7', cases)
+    return {'gqa7_shape': 'B16 K2048 H28/4 D128, lengths 0 and 990-1059',
+            'gqa7_max_abs_err': max(errs),
+            **{f'gqa7_{key}': value for key, value in times.items()}}
 
 
 def paged_case(gen, label, q_dtype, kv_dtype, lengths, allocated=None,
@@ -2682,6 +2759,282 @@ def small_launch_checks() -> None:
     release_card()
 
 
+# ---- phases 20-22: the Qwen family ----
+
+# serve_qwen.yaml's replica without its speculative flags, which come in
+# the next slice: 32 slots over a 4096-row cache, 32 concurrent prompts
+# of 1000-1024 tokens (so the prefill waves take the flash kernel's 1024
+# bucket), 64 new tokens each.
+QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=64)
+
+
+def qwen_replica(records: dict) -> None:
+    import threading
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import qwen
+    cfg = qwen.QWEN3_8B
+    r = QWEN_SERVE
+    log(f'[20] serve_qwen.yaml on one card, without --spec-ngram (the next '
+        f'slice): Qwen3-8B bf16 ({cfg.n_layers} layers, d_model '
+        f'{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim '
+        f'{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QK-norm, '
+        f'rope theta {cfg.rope_theta:g}; {cfg.num_params() / 1e9:.2f} B '
+        f'parameters), seeded random weights; infer/server.py --model '
+        f'qwen3-8b --max-slots {r["slots"]} --max-target-len {r["max_len"]} '
+        'on 127.0.0.1')
+    t0 = time.perf_counter()
+    replica = server_lib.build_replica(server_lib.parse_args([
+        '--model', 'qwen3-8b', '--max-slots', str(r['slots']),
+        '--max-target-len', str(r['max_len']), '--port', '0',
+        '--device', 'cuda']), host='127.0.0.1')
+    torch.cuda.synchronize()
+    log(f'  init + engine + warm-up {time.perf_counter() - t0:.2f} s; '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    rng = np.random.default_rng(20)
+    singles = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (16, 300, 1000)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(1000, 1025, r['requests'])]
+    try:
+        # The served requests' own launches: counted from here (after the
+        # warm-up) and read before anything else runs on the engine.
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        served = [http_json(url, '/generate', {
+            'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})[
+                'output_tokens'] for p in singles]
+        before = http_json(url, '/metrics')
+        results = [None] * r['requests']
+
+        def client(i):
+            try:
+                results[i] = http_json(url, '/generate', {
+                    'prompt_tokens': prompts[i],
+                    'max_new_tokens': r['new_tokens']})
+            except Exception as e:  # pylint: disable=broad-except
+                results[i] = e
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(r['requests'])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        after = http_json(url, '/metrics')
+        for i, res in enumerate(results):
+            if not isinstance(res, dict) or len(
+                    res['output_tokens']) != r['new_tokens'] or not all(
+                    0 <= t < cfg.vocab_size for t in res['output_tokens']):
+                raise AssertionError(f'request {i}: {str(res)[:300]}')
+        check_launches('qwen3-8b replica', launches, SERVE_KERNELS,
+                       cfg.n_layers)
+        for name in SERVE_KERNELS:
+            records[name].setdefault('launches_by_path', {})[
+                'qwen_serve'] = launches[name]
+        ttft_n = (metric(after, 'xsky_serve_ttft_seconds_count')
+                  - metric(before, 'xsky_serve_ttft_seconds_count'))
+        ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
+                  - metric(before, 'xsky_serve_ttft_seconds_sum'))
+        if ttft_n != r['requests']:
+            raise AssertionError(f'{ttft_n} TTFT samples for '
+                                 f'{r["requests"]} requests')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # The server adds nothing: the prompts sent one at a time give the
+        # tokens of Orchestrator.generate on the same engine, run with the
+        # serving loop held.
+        with replica.loop._lock:
+            direct = [replica.loop.orch.generate(
+                [p], max_new_tokens=r['new_tokens'])[0] for p in singles]
+        if served != direct:
+            raise AssertionError('the server gave other tokens than '
+                                 'Orchestrator.generate')
+        out_tokens = r['requests'] * r['new_tokens']
+        log(f'  prompts of {[len(p) for p in singles]} tokens one at a time: '
+            'the served tokens equal Orchestrator.generate on the same '
+            'engine')
+        log(f'  {r["requests"]} concurrent POST /generate (prompts of '
+            f'{min(map(len, prompts))}-{max(map(len, prompts))} tokens) x '
+            f'{r["new_tokens"]} tokens in {dt:.3f} s: {out_tokens / dt:.1f} '
+            f'output tok/s, mean TTFT {ttft_s / ttft_n * 1e3:.1f} ms '
+            f'(/metrics), peak memory {peak:.2f} GiB; served launches '
+            f'{launches} on {nvidia_smi_line()}')
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    del replica
+    release_card()
+
+
+def qwen2_main_path(records: dict) -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import qwen
+    cfg = qwen.QWEN2_7B
+    log(f'[21] Qwen2-7B bf16 ({cfg.n_layers} layers, d_model {cfg.d_model}, '
+        f'{cfg.n_heads}/{cfg.n_kv_heads} heads: GQA group '
+        f'{cfg.n_heads // cfg.n_kv_heads}, Q/K/V biases, vocab '
+        f'{cfg.vocab_size}; {cfg.num_params() / 1e9:.2f} B parameters), '
+        'seeded random weights, InferenceEngine + Orchestrator: 16 slots, '
+        'max_target_len 2048, bucket 1024')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(21)
+    t0 = time.perf_counter()
+    params = qwen.init(cfg, gen)
+    torch.cuda.synchronize()
+    log(f'  init {time.perf_counter() - t0:.2f} s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=16,
+                                max_target_len=2048,
+                                prefill_buckets=(1024,)), params)
+    orch = orch_lib.Orchestrator(engine, decode_steps=8)
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(1000, 1025, 16)]
+    new_tokens = 32
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, prompts, new_tokens)
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('qwen2-7b serving', launches, SERVE_KERNELS, cfg.n_layers)
+    for name in SERVE_KERNELS:
+        records[name].setdefault('launches_by_path', {})['qwen2_serve'] = (
+            launches[name])
+    out_tokens = sum(len(r.output_tokens) for r in requests)
+    log(f'  16 requests x {new_tokens} tokens done in {dt:.3f} s: '
+        f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
+        f'{mean_ms(requests):.1f} ms, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+        f'launches {launches} on {nvidia_smi_line()}')
+    del orch, engine, params
+    release_card()
+
+
+# Loss and gradients of the small Qwen models, card against CPU: fp32 sums
+# in another order, the flash kernels' against the plain versions'; [19]'s
+# tolerance.
+QWEN_GRAD_ATOL = 1e-4
+
+
+def small_qwen_params(cfg, seed: int):
+    """The port's init for cfg on the CPU, with the Qwen leaves drawn too
+    (biases 0.1 N(0, 1), norm scales 1 + 0.2 N(0, 1)): zero biases and
+    unit scales would not show a misplaced one, and larger V biases swamp
+    the attention output over ~1000-token prompts, so that every prompt
+    gives the same greedy tokens."""
+    from skypilot_tpu_torch.models import qwen
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = qwen.init(cfg, gen, device='cpu')
+    for key, value in params['layers'].items():
+        if key in ('bq', 'bk', 'bv'):
+            value.copy_(0.1 * torch.randn(value.shape, generator=gen))
+        elif key in ('q_norm', 'k_norm'):
+            value.copy_(1 + 0.2 * torch.randn(value.shape, generator=gen))
+    return params
+
+
+def small_qwen_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import qwen
+    from skypilot_tpu_torch.train.trainer import param_leaves
+    log('[22] small Qwen checks, card (kernels) vs CPU (plain versions): '
+        'fp32 qwen-tiny (Q/K/V biases) and qwen3-tiny (QK-norm) widths with '
+        'random biases and norm scales, bucket 1024 (so the flash kernel '
+        'runs): served greedy tokens; a chunked prefill with a prefix-cache '
+        'hit against the whole prompt in one 2048 bucket; loss_fn and its '
+        'gradients at seq 1024')
+    for cfg in (qwen.QWEN_TINY_F32, qwen.QWEN3_TINY_F32):
+        label = 'qwen-tiny' if cfg.qkv_bias else 'qwen3-tiny'
+        cpu_params = small_qwen_params(cfg, seed=22)
+        rng = np.random.default_rng(22)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                   for n in (1024, 700, 913, 1000, 64)]
+        long = [int(t) for t in rng.integers(0, cfg.vocab_size, 1500)]
+        hit = long[:1200] + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          100)]
+        tokens = rng.integers(0, cfg.vocab_size, (2, 1024))
+
+        def generate(device, prompt_list, new_tokens, one_by_one=False,
+                     **kw):
+            """Greedy tokens of an engine of its own, and its prefix-cache
+            statistics. one_by_one: each prompt after the one before has
+            finished, so that a later prompt can hit an earlier one's
+            cache entry."""
+            engine = engine_lib.InferenceEngine(
+                engine_lib.EngineConfig(model=cfg, max_slots=4,
+                                        kv_dtype=torch.float32, **kw),
+                to_device(cpu_params, device), device=device)
+            orch = orch_lib.Orchestrator(engine, decode_steps=4)
+            groups = ([[p] for p in prompt_list] if one_by_one
+                      else [prompt_list])
+            out = [t for group in groups
+                   for t in orch.generate(group, max_new_tokens=new_tokens)]
+            return out, engine.prefix_cache_stats
+
+        runs, used = {}, {}
+        for device in ('cuda', 'cpu'):
+            before = {k.name: k.launches for k in kernels.REGISTRY}
+            served = generate(device, prompts, 12, max_target_len=1040,
+                              prefill_buckets=(1024,))[0]
+            chunked, stats = generate(device, [long, hit], 8,
+                                      one_by_one=True, max_target_len=2100,
+                                      prefill_buckets=(1024,),
+                                      prefix_cache_entries=4)
+            whole = generate(device, [long, hit], 8, max_target_len=2100,
+                             prefill_buckets=(2048,))[0]
+            params = {k: ({kk: vv.to(device, copy=True)
+                           for kk, vv in v.items()} if isinstance(v, dict)
+                          else v.to(device, copy=True))
+                      for k, v in cpu_params.items()}
+            for leaf in param_leaves(params):
+                leaf.requires_grad_(True)
+            batch = torch.from_numpy(tokens).to(device)
+            loss = qwen.loss_fn(cfg, params, batch, batch.roll(-1, 1))
+            loss.backward()
+            used[device] = {k.name: k.launches - before[k.name]
+                            for k in kernels.REGISTRY}
+            runs[device] = dict(served=served, chunked=chunked,
+                                whole=whole, stats=stats,
+                                loss=float(loss.detach()),
+                                grads=[p.grad.cpu()
+                                       for p in param_leaves(params)])
+        card, cpu = runs['cuda'], runs['cpu']
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(
+            card['grads'], cpu['grads']))
+        log(f'  {label}: card tokens {card["served"]}; chunked + prefix '
+            f'hit {card["chunked"]} ({card["stats"]}); loss card '
+            f'{card["loss"]!r} CPU {cpu["loss"]!r}, largest gradient error '
+            f'{grad_err:.3e} (atol {QWEN_GRAD_ATOL:g}); card launches '
+            f'{used["cuda"]}')
+        for key in ('served', 'chunked', 'whole', 'stats'):
+            if card[key] != cpu[key]:
+                raise AssertionError(f'{label}: {key} differs between the '
+                                     f'card and the CPU')
+        for device, run in runs.items():
+            if run['chunked'] != run['whole'] or not run['stats']['hits']:
+                raise AssertionError(
+                    f'{label} on {device}: the chunked prefill with a '
+                    f'prefix-cache hit gave {run["chunked"]}, the whole '
+                    f'prompt {run["whole"]} ({run["stats"]})')
+        if abs(card['loss'] - cpu['loss']) > TRAIN_LOSS_ATOL or \
+                grad_err > QWEN_GRAD_ATOL:
+            raise AssertionError(f'{label}: loss or gradients differ '
+                                 'between the card and the CPU')
+        if not all(used['cuda'][name] for name in TRAIN_KERNELS + (
+                'decode_attention',)):
+            raise AssertionError(f'a kernel did not run on the card: '
+                                 f'{used["cuda"]}')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the decode split walks and combine at the main paths'
@@ -2760,6 +3113,9 @@ def main() -> int:
     lora_main_path(records)
     hf_checkpoint_path(records)
     small_launch_checks()
+    qwen_replica(records)
+    qwen2_main_path(records)
+    small_qwen_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -1,7 +1,9 @@
 """HuggingFace checkpoint → the port's param tree.
 
 Counterpart of ``skypilot_tpu/models/convert.py`` for the Llama family
-(Llama-3 and Mistral, which share ``LlamaConfig``):
+(Llama-3 and Mistral, which share ``LlamaConfig``) and Qwen-2/Qwen-3
+(``QwenConfig``: Q/K/V biases detected from ``q_proj.bias``, QK-norm
+from ``q_norm.weight``):
 
     from skypilot_tpu_torch.models import convert
     config, params = convert.from_hf('/ckpts/Llama-3.1-8B', device='cpu')
@@ -23,7 +25,7 @@ from torch's ``[out, in]``; the cast to the model type happens on the
 target device, so the tree equals the reference's bit for bit.
 
 The output is ``params.pt`` (``torch.save`` of the tree, host tensors)
-beside the reference's ``xsky_model.json`` metadata. The Qwen, Gemma and
+beside the reference's ``xsky_model.json`` metadata. The Gemma and
 Mixtral families are not ported yet (ROADMAP.md queue 1 item 6).
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import qwen
 
 Params = Dict[str, Any]
 
@@ -159,7 +162,6 @@ def _detect_family(hf_config: dict) -> str:
 
 # Families the reference converts and the port does not model yet.
 _NOT_PORTED = {
-    'qwen': 'ROADMAP.md queue 1 item 6.1, "Qwen"',
     'gemma': 'ROADMAP.md queue 1 item 6.2, "Gemma"',
     'moe': 'ROADMAP.md queue 1 item 6.3, "the Mixtral family"',
 }
@@ -233,6 +235,16 @@ def _check_head_dim(hf: dict) -> None:
             'converted weights would not reshape (e.g. Mistral-Nemo).')
 
 
+def _caster(dtype: torch.dtype,
+            device: torch.device) -> Callable[[np.ndarray], torch.Tensor]:
+    def cast(a: np.ndarray) -> torch.Tensor:
+        # fp32 onto the device, then the round to the model type there.
+        # A copy: the reader's arrays may be views of a read-only map.
+        return torch.from_numpy(np.array(a, np.float32, order='C')).to(
+            device).to(dtype)
+    return cast
+
+
 def _convert_llama(source: _TensorSource, dtype: torch.dtype,
                    device: torch.device):
     hf = source.config
@@ -254,16 +266,58 @@ def _convert_llama(source: _TensorSource, dtype: torch.dtype,
         dtype=dtype,
     )
 
-    def cast(a: np.ndarray) -> torch.Tensor:
-        # fp32 onto the device, then the round to the model type there.
-        # A copy: the reader's arrays may be views of a read-only map.
-        return torch.from_numpy(np.array(a, np.float32, order='C')).to(
-            device).to(dtype)
-
+    cast = _caster(dtype, device)
     params = {
         'embed': cast(source.get('embed_tokens.weight')),
         'layers': {k: cast(v) for k, v in
                    _common_layers(source, n_layers).items()},
+        'final_norm': cast(source.get('norm.weight')),
+        'lm_head': cast(_lm_head(source, hf)),
+    }
+    return config, params
+
+
+def _convert_qwen(source: _TensorSource, dtype: torch.dtype,
+                  device: torch.device):
+    hf = source.config
+    n_layers = hf['num_hidden_layers']
+    if _rope_scaling_tuple(hf) is not None:
+        raise ValueError('rope_scaling is not supported for qwen '
+                         'conversion yet.')
+    qkv_bias = 'layers.0.self_attn.q_proj.bias' in source
+    qk_norm = 'layers.0.self_attn.q_norm.weight' in source
+    config = qwen.QwenConfig(
+        vocab_size=hf['vocab_size'],
+        d_model=hf['hidden_size'],
+        n_layers=n_layers,
+        n_heads=hf['num_attention_heads'],
+        n_kv_heads=hf.get('num_key_value_heads',
+                          hf['num_attention_heads']),
+        head_dim=hf.get('head_dim', hf['hidden_size'] //
+                        hf['num_attention_heads']),
+        d_ff=hf['intermediate_size'],
+        max_seq_len=hf.get('max_position_embeddings', 8192),
+        rope_theta=float(hf.get('rope_theta', 1e6)),
+        norm_eps=float(hf.get('rms_norm_eps', 1e-6)),
+        qkv_bias=qkv_bias,
+        qk_norm=qk_norm,
+        dtype=dtype,
+    )
+    cast = _caster(dtype, device)
+    layers = {k: cast(v) for k, v in
+              _common_layers(source, n_layers).items()}
+    p = 'layers.{i}.self_attn.'
+    extra = {}
+    if qkv_bias:
+        extra.update(bq='q_proj.bias', bk='k_proj.bias', bv='v_proj.bias')
+    if qk_norm:
+        extra.update(q_norm='q_norm.weight', k_norm='k_norm.weight')
+    for ours, theirs in extra.items():
+        layers[ours] = cast(_stack(source, p + theirs, n_layers,
+                                   transpose=False))
+    params = {
+        'embed': cast(source.get('embed_tokens.weight')),
+        'layers': layers,
         'final_norm': cast(source.get('norm.weight')),
         'lm_head': cast(_lm_head(source, hf)),
     }
@@ -284,7 +338,8 @@ def from_hf(src, dtype: Optional[torch.dtype] = None,
         raise NotImplementedError(
             f'model_type {source.config.get("model_type")!r}: the port '
             f'has no such family yet ({_NOT_PORTED[family]}).')
-    return _convert_llama(source, dtype, device)
+    convert = _convert_qwen if family == 'qwen' else _convert_llama
+    return convert(source, dtype, device)
 
 
 def load(path: str, device: Device = None) -> Params:

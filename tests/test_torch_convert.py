@@ -7,8 +7,12 @@ both packages convert it. In fp32 the trees agree bit for bit and the
 logits of the two ``forward`` functions within 1e-5 (fp32, another
 summation order); in bf16 the trees agree bit for bit too. The port's
 own safetensors reader and the ``.bin`` path read what the
-``safetensors`` package reads, also for a bf16 file. The Qwen, Gemma and
-Mixtral families raise, naming ROADMAP.md queue 1 item 6.
+``safetensors`` package reads, also for a bf16 file. Tiny Qwen-2 (Q/K/V
+biases) and Qwen-3 (QK-norm, an explicit head_dim) checkpoints, written
+here from a numpy seed, convert to the JAX converter's trees bit for
+bit, in fp32 and bf16, and its logits within 1e-5; rope_scaling is
+refused for Qwen as in the reference. The Gemma and Mixtral families
+raise, naming ROADMAP.md queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ import torch
 
 from skypilot_tpu.models import convert as jax_convert
 from skypilot_tpu.models import llama as jax_llama
+from skypilot_tpu.models import qwen as jax_qwen
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import qwen
 
 transformers = pytest.importorskip('transformers')
 
@@ -148,18 +154,106 @@ def test_in_memory_model_converts_like_its_directory(saved):
 
 
 @pytest.mark.parametrize('family,item', [
-    ('qwen2', '6.1'), ('gemma', '6.2'), ('mixtral', '6.3')])
+    ('gemma', '6.2'), ('mixtral', '6.3')])
 def test_other_families_name_their_roadmap_item(family, item):
     small = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                  num_hidden_layers=1, num_attention_heads=4,
                  num_key_value_heads=2)
-    cfg = {'qwen2': transformers.Qwen2Config,
-           'gemma': transformers.GemmaConfig,
+    cfg = {'gemma': transformers.GemmaConfig,
            'mixtral': transformers.MixtralConfig}[family](**small)
     model = transformers.AutoModelForCausalLM.from_config(cfg)
     jax_convert.from_hf(model, dtype=jnp.float32)   # the reference takes it
     with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
         convert.from_hf(model, device='cpu')
+
+
+def _write_qwen(root, kind, **overrides):
+    """A tiny checkpoint in HF's Qwen layout, written here: config.json and
+    one safetensors file of fp32 weights from a numpy seed. Qwen-2 carries
+    Q/K/V biases; Qwen-3 carries q_norm/k_norm and a head_dim (32) that
+    hidden_size / heads (16) does not give."""
+    from safetensors.numpy import save_file
+    rng = np.random.default_rng(0 if kind == 'qwen2' else 1)
+    d, ff, vocab, h, kvh, layers = 64, 128, 256, 4, 2, 2
+    hd = 16 if kind == 'qwen2' else 32
+
+    def draw(*shape, mean=0.0):
+        return (mean + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    tensors = {'model.embed_tokens.weight': draw(vocab, d),
+               'model.norm.weight': draw(d, mean=1.0),
+               'lm_head.weight': draw(vocab, d)}
+    for i in range(layers):
+        p = f'model.layers.{i}.'
+        tensors.update({
+            p + 'self_attn.q_proj.weight': draw(h * hd, d),
+            p + 'self_attn.k_proj.weight': draw(kvh * hd, d),
+            p + 'self_attn.v_proj.weight': draw(kvh * hd, d),
+            p + 'self_attn.o_proj.weight': draw(d, h * hd),
+            p + 'mlp.gate_proj.weight': draw(ff, d),
+            p + 'mlp.up_proj.weight': draw(ff, d),
+            p + 'mlp.down_proj.weight': draw(d, ff),
+            p + 'input_layernorm.weight': draw(d, mean=1.0),
+            p + 'post_attention_layernorm.weight': draw(d, mean=1.0)})
+        if kind == 'qwen2':
+            tensors.update({p + 'self_attn.q_proj.bias': draw(h * hd),
+                            p + 'self_attn.k_proj.bias': draw(kvh * hd),
+                            p + 'self_attn.v_proj.bias': draw(kvh * hd)})
+        else:
+            tensors.update({
+                p + 'self_attn.q_norm.weight': draw(hd, mean=1.0),
+                p + 'self_attn.k_norm.weight': draw(hd, mean=1.0)})
+    config = {'model_type': kind, 'vocab_size': vocab, 'hidden_size': d,
+              'intermediate_size': ff, 'num_hidden_layers': layers,
+              'num_attention_heads': h, 'num_key_value_heads': kvh,
+              'max_position_embeddings': 128, 'rope_theta': 1e6,
+              'rms_norm_eps': 1e-6, 'tie_word_embeddings': False,
+              **({'head_dim': hd} if kind == 'qwen3' else {}), **overrides}
+    root.mkdir(parents=True, exist_ok=True)
+    (root / 'config.json').write_text(json.dumps(config))
+    save_file(tensors, str(root / 'model.safetensors'))
+    return str(root)
+
+
+@pytest.mark.parametrize('kind', ['qwen2', 'qwen3'])
+def test_qwen_trees_equal_jax_and_logits_agree(kind, tmp_path):
+    src = _write_qwen(tmp_path / kind, kind)
+    jcfg, jp = jax_convert.from_hf(src, dtype=jnp.float32)
+    tcfg, tp = convert.from_hf(src, dtype=torch.float32, device='cpu')
+    assert isinstance(tcfg, qwen.QwenConfig)
+    assert dataclasses.asdict(tcfg) == {
+        **dataclasses.asdict(jcfg), 'dtype': torch.float32}
+    assert (tcfg.qkv_bias, tcfg.qk_norm) == (kind == 'qwen2',
+                                             kind == 'qwen3')
+    want, got = _flat(jp), _flat(tp)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].dtype == torch.float32
+        np.testing.assert_array_equal(_bits(got[key]), _bits(w),
+                                      err_msg=key)
+    logits_j = jax_qwen.forward(jcfg, jp, jnp.asarray(TOKENS, jnp.int32))
+    logits_t = qwen.forward(tcfg, tp, torch.tensor(TOKENS))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=LOGITS_ATOL, rtol=0)
+    _, jp16 = jax_convert.from_hf(src)
+    _, tp16 = convert.from_hf(src, device='cpu')
+    for key, w in _flat(jp16).items():
+        got16 = _flat(tp16)[key]
+        assert got16.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(got16), _bits(w), err_msg=key)
+
+
+@pytest.mark.parametrize('scaling,match', [
+    ({'rope_type': 'llama3', 'factor': 8.0,
+      'original_max_position_embeddings': 32},
+     'rope_scaling is not supported for qwen'),
+    ({'rope_type': 'yarn', 'factor': 2.0}, 'Unsupported rope_scaling')])
+def test_qwen_rope_scaling_is_refused_like_jax(tmp_path, scaling, match):
+    src = _write_qwen(tmp_path / 'qwen3', 'qwen3', rope_scaling=scaling)
+    with pytest.raises(ValueError, match=match):
+        jax_convert.from_hf(src, dtype=jnp.float32)
+    with pytest.raises(ValueError, match=match):
+        convert.from_hf(src, dtype=torch.float32, device='cpu')
 
 
 def test_refusals_match_jax(saved, tmp_path):

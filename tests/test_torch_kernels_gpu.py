@@ -86,11 +86,16 @@ _EDGE_IDS = [f"edge_s{kw['s']}_hkv{kw['h_kv']}_d{kw['d']}_" + (
     for kw in _EDGE_KW]
 
 
+# Qwen2-7B's heads: 28 query heads over 4 KV heads, a GQA group of 7,
+# which no power-of-two tile divides.
+_GQA7_KW = dict(s=1000, h=28, h_kv=4, d=128)
+
+
 def _flash_inputs(gen, dtype, kw, with_dout=False):
     """(q, k, v[, dout]), segment ids and the kernel's options from a
-    case's kw (B2, 4 query heads; S 200, Hkv 2, D 64 unless it says)."""
+    case's kw (B2; 4 query heads, S 200, Hkv 2, D 64 unless it says)."""
     kw = dict(kw)
-    b, h = 2, 4
+    b, h = 2, kw.pop('h', 4)
     s, h_kv, d = kw.pop('s', 200), kw.pop('h_kv', 2), kw.pop('d', 64)
     q = _randn(gen, (b, s, h, d), dtype)
     k = _randn(gen, (b, s, h_kv, d), dtype)
@@ -116,9 +121,11 @@ def _plain_opts(seg, opts):
 @pytest.mark.parametrize('kw', [dict(), dict(window=37),
                                 dict(segments=True),
                                 dict(softcap=20.0, scale=0.1),
-                                dict(causal=False)] + _EDGE_KW,
+                                dict(causal=False)] + _EDGE_KW
+                         + [_GQA7_KW],
                          ids=['causal', 'window', 'segments',
-                              'softcap_scale', 'non_causal'] + _EDGE_IDS)
+                              'softcap_scale', 'non_causal'] + _EDGE_IDS
+                         + ['gqa7_h28_hkv4_d128'])
 def test_flash_kernel_matches_plain(card, dtype, kw):
     (q, k, v), seg, opts = _flash_inputs(card, dtype, kw)
     out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
@@ -132,10 +139,10 @@ def test_flash_kernel_matches_plain(card, dtype, kw):
                                 dict(segments=True),
                                 dict(softcap=20.0, scale=0.1),
                                 dict(causal=False), dict(d=16, h_kv=1)]
-                         + _EDGE_KW,
+                         + _EDGE_KW + [_GQA7_KW],
                          ids=['causal', 'window', 'segments',
                               'softcap_scale', 'non_causal', 'd16_hkv1']
-                         + _EDGE_IDS)
+                         + _EDGE_IDS + ['gqa7_h28_hkv4_d128'])
 def test_flash_backward_kernels_match_plain(card, dtype, kw):
     """dq (K3) and dk/dv (K2) against the plain backward on the same
     forward output and LSE; S=200 is ragged against the 64-row tiles."""
@@ -327,6 +334,29 @@ def test_decode_kernel_matches_plain(card, kv, window, lengths):
                                **TOL[torch.bfloat16])
     # Per (slot, head) against the output's own size: a lost split would
     # hide inside the absolute tolerance.
+    assert_blocks_close(out, ref, torch.bfloat16, 'decode out')
+
+
+@pytest.mark.parametrize('kv', ['bf16', 'fp32', 'int8'])
+def test_decode_kernel_matches_plain_at_gqa_group_7(card, kv):
+    """K4 at Qwen2-7B's heads (28 over 4 KV heads: the walk for groups of
+    up to 8 with one idle head) over 16 slots of a 2048-row cache, ragged
+    lengths around 1000 and an empty slot."""
+    b, max_len, h, h_kv, d = 16, 2048, 28, 4, 128
+    q = _randn(card, (b, 1, h, d), torch.bfloat16)
+    k = _randn(card, (b, max_len, h_kv, d), torch.float32)
+    v = _randn(card, (b, max_len, h_kv, d), torch.float32)
+    if kv == 'int8':
+        k, v = llama.quantize_kv(k), llama.quantize_kv(v)
+    else:
+        dtype = torch.bfloat16 if kv == 'bf16' else torch.float32
+        k, v = k.to(dtype), v.to(dtype)
+    lengths = torch.tensor([0] + [990 + 5 * i for i in range(b - 1)],
+                           dtype=torch.int32, device='cuda')
+    out = decode_attention.decode_attention(q, k, v, lengths)
+    ref = decode_attention.decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
     assert_blocks_close(out, ref, torch.bfloat16, 'decode out')
 
 

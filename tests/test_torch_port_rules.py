@@ -299,3 +299,31 @@ def test_chip_smoke_launch_phases_follow_the_quantized_ones():
         'lora_main_path(records)', 'hf_checkpoint_path(records)',
         'small_launch_checks()')]
     assert order == sorted(order)
+
+
+def test_chip_smoke_qwen_phases_follow_the_launch_checks():
+    """Phases [20]-[22] run after [19], on the card. [20] counts the
+    launches of its served requests alone (zeroed after the replica's
+    build and warm-up, read before the comparison run and before the
+    loop closes) and holds them to K1 and K4; [21] zeroes its counts just
+    before it serves and checks them just after."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    replica = inspect.getsource(chip_smoke.qwen_replica)
+    assert "'--device', 'cuda'" in replica
+    assert replica.index('build_replica(') < replica.index(
+        'zero_launches()') < replica.index('/generate') < replica.index(
+        'check_launches(') < replica.index('.generate(') < replica.index(
+        'replica.loop.close()')
+    assert 'SERVE_KERNELS,' in replica
+    direct = inspect.getsource(chip_smoke.qwen2_main_path)
+    assert direct.index('zero_launches()') < direct.index(
+        'serve_and_check(') < direct.index('check_launches(')
+    assert chip_smoke.SERVE_KERNELS == ('flash_fwd', 'decode_attention')
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_launch_checks()', 'qwen_replica(records)',
+        'qwen2_main_path(records)', 'small_qwen_end_to_end()',
+        "print(json.dumps({'ok': True")]
+    assert order == sorted(order)

@@ -739,3 +739,44 @@ def test_hf_checkpoint_replicas_serve_the_same_tokens(tmp_path,
             httpd.server_close()
         replica.loop.close()
         jax_thread.join(timeout=30)
+
+
+# ---- a Qwen replica ----
+
+def test_qwen_replica_serves_the_engines_tokens(capsys):
+    """``build_replica --model qwen3-tiny --device cpu``: /generate gives
+    the tokens that the replica's own orchestrator generates for the same
+    prompt (run with the serving loop held, its drain bounded); the
+    speculative-decoding flags still refuse with a Qwen model."""
+    from skypilot_tpu_torch.models import qwen
+    for flags in (['--spec-ngram'], ['--draft-model', 'qwen-tiny']):
+        with pytest.raises(SystemExit) as exit_info:
+            server_lib.parse_args(['--model', 'qwen3-8b'] + flags)
+        assert exit_info.value.code == 2
+        err = capsys.readouterr().err
+        assert f'{flags[0]} is not ported' in err and 'queue 1 item 4' in err
+    replica = server_lib.build_replica(server_lib.parse_args(
+        ['--model', 'qwen3-tiny', '--device', 'cpu', '--port', '0',
+         '--max-slots', '2', '--max-target-len', '64']), host='127.0.0.1')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    try:
+        assert replica.engine.config.model == dataclasses.replace(
+            qwen.QWEN3_TINY, remat=False)
+        for prompt in ([1, 2, 3], [200, 17, 5, 9, 44, 101, 7],
+                       list(range(3, 40))):
+            status, served = _call(url, '/generate', {
+                'prompt_tokens': prompt, 'max_new_tokens': 8})
+            assert status == 200
+            orch = replica.loop.orch
+            with replica.loop._lock:
+                request = orch.submit(orch_lib.Request(prompt_tokens=prompt,
+                                                       max_new_tokens=8))
+                orch.run_until_drained(max_steps=32)
+            assert request.error is None
+            assert served['output_tokens'] == request.output_tokens
+            assert len(request.output_tokens) == 8
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()

@@ -20,12 +20,14 @@ slots over 2048 pages of 16 rows, max_target_len 4096; 30 prompts, as
 many as the arena holds at once), and, for a family with chunked
 prefill, also traces one 1024-token prompt chunk. ``--model
 deepseek-v2-lite`` serves DeepSeek-V2-Lite (``chip_smoke.py`` [10] and
-[11]) in place of the default ``llama3-8b``. ``--weight-dtype int8|int4``
-quantizes the weights on the card after the seeded init (as the port's
-server does) and also reports the device time of the dequantized weight
-copies the quantized products make (``ops/quantization._weight_operand``,
-timed under a profiler range); ``--kv-dtype int8`` takes the int8 KV
-cache.
+[11]) in place of the default ``llama3-8b``; ``--model qwen3-8b`` and
+``--model qwen2-7b`` serve Qwen3-8B and Qwen2-7B (GQA groups 4 and 7;
+dense cache only: the Qwen family has no paged hook).
+``--weight-dtype int8|int4`` quantizes the weights on the card after the
+seeded init (as the port's server does) and also reports the device
+time of the dequantized weight copies the quantized products make
+(``ops/quantization._weight_operand``, timed under a profiler range);
+``--kv-dtype int8`` takes the int8 KV cache.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -52,7 +54,7 @@ from skypilot_tpu_torch.infer import orchestrator as orch_lib  # noqa: E402
 from skypilot_tpu_torch.infer import sampling  # noqa: E402
 from skypilot_tpu_torch.ops import quantization as qops  # noqa: E402
 
-MODELS = ('llama3-8b', 'deepseek-v2-lite')
+MODELS = ('llama3-8b', 'deepseek-v2-lite', 'qwen3-8b', 'qwen2-7b')
 DEQUANT_RANGE = 'xsky.dequant_weight'
 # Device kernels by kind, matched on the kernel's name (first match wins).
 CATEGORIES = (
