@@ -115,7 +115,7 @@ Phases, in order; any failure exits non-zero:
      steps from one --init-params and --data, full and LoRA, give the
      same losses within phase 7's tolerance;
  20. Qwen3-8B replica: examples/tpu/serve_qwen.yaml's command without its
-     speculative flags (the next slice) through infer/server.py on
+     speculative flags (phase 23 adds them) through infer/server.py on
      127.0.0.1: --model qwen3-8b --max-slots 32 --max-target-len 4096,
      bf16, random weights from a seeded generator; three prompts (16, 300
      and 1000 tokens) one at a time, then 32 concurrent prompts of
@@ -130,10 +130,38 @@ Phases, in order; any failure exits non-zero:
  22. small Qwen checks, card vs CPU: fp32 qwen-tiny and qwen3-tiny widths
      with random biases and norm scales, bucket 1024: the greedy tokens,
      a chunked prefill with a prefix-cache hit against the whole prompt
-     in one 2048 bucket, and loss_fn with every gradient at seq 1024.
+     in one 2048 bucket, and loss_fn with every gradient at seq 1024;
+ 23. serve_qwen.yaml as written: phase 20's replica with --spec-ngram
+     --spec-gamma 4 (prompt-lookup speculation), phase 20's 32 prompts plus
+     4 copy-heavy ones (a 64-token block 8 times) and one sampled request,
+     so that plain rounds run too: two prompts one at a time give the
+     speculator's own generate; K1 launches once per layer for each
+     prompt in the 1024 bucket (admission is one at a time) and K4 once
+     per layer per plain round, none in a verify round; every greedy
+     stream equals plain greedy decoding on the same engine, or parts
+     from it at a tie (the plain margin between the two tokens at most
+     twice the largest logit difference of the decode and verify paths
+     there); tok/s, mean TTFT, the spec counters of /metrics, acceptance
+     and peak memory beside phase 20's;
+ 24. draft-model speculation: --model llama3-8b --draft-model llama3-1b
+     is refused with the reference's ValueError (the repo's llama3-1b has
+     a 32,768-token vocabulary); served instead through the HTTP handler
+     as the server wires it: Llama-3-8B with a draft at llama3-1b's widths
+     and Llama-3's vocabulary, 16 slots x 2048, 16 prompts of 960-1024
+     tokens and one sampled request; the checks of phase 23, with K1 for
+     both engines' prefills and K4 for the draft's 5 steps a speculative
+     round and the target's plain rounds; then a Llama-3-1B self-draft
+     (one engine, its own draft) must accept at least half its proposals;
+ 25. small speculative checks, card vs CPU: fp32 LLAMA_TINY and
+     qwen3-tiny targets, bucket 1024: NgramSpeculator and
+     SpeculativeOrchestrator (a one-layer draft, and the target drafting
+     for itself) give plain greedy tokens and equal accept_stats on both;
+     the self-draft accepts every proposal.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21) every kernel's launch count is set to 0; just after, the
-kernels of that path must each have run, and no other.
+kernels of that path must each have run, and no other. Phases 23 and 24
+(and its self-draft) hold each kernel to the count derived from the run's
+prefills and rounds, every other kernel to 0.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -1912,6 +1940,33 @@ def http_json(url: str, path: str, body=None, timeout: float = 600.0):
     return json.loads(text) if body is not None else text
 
 
+def concurrent_generate(url: str, bodies, vocab: int):
+    """POST /generate every body at once, each whole → (streams, s)."""
+    import threading
+    results = [None] * len(bodies)
+
+    def client(i):
+        try:
+            results[i] = http_json(url, '/generate', bodies[i])
+        except Exception as e:  # pylint: disable=broad-except
+            results[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    dt = time.perf_counter() - t0
+    for i, res in enumerate(results):
+        if not isinstance(res, dict) or len(res['output_tokens']) != \
+                bodies[i]['max_new_tokens'] or not all(
+                0 <= t < vocab for t in res['output_tokens']):
+            raise AssertionError(f'request {i}: {str(res)[:300]}')
+    return [res['output_tokens'] for res in results], dt
+
+
 def metric(text: str, name: str) -> float:
     """The value of an unlabelled (or the one labelled) series."""
     for line in text.splitlines():
@@ -1970,33 +2025,13 @@ def quantized_replica(records: dict, bits: str) -> None:
             's with their direct runs): the server\'s tokens equal '
             'Orchestrator.generate on the same engine')
         before = http_json(url, '/metrics')
-        results = [None] * r['requests']
-
-        def client(i):
-            try:
-                results[i] = http_json(url, '/generate', {
-                    'prompt_tokens': prompts[i],
-                    'max_new_tokens': r['new_tokens']})
-            except Exception as e:  # pylint: disable=broad-except
-                results[i] = e
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(r['requests'])]
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        dt = time.perf_counter() - t0
+        _, dt = concurrent_generate(url, [
+            {'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+            for p in prompts], vocab)
         launches = {k.name: k.launches for k in kernels.REGISTRY}
         after = http_json(url, '/metrics')
-        for i, res in enumerate(results):
-            if not isinstance(res, dict) or len(
-                    res['output_tokens']) != r['new_tokens'] or not all(
-                    0 <= t < vocab for t in res['output_tokens']):
-                raise AssertionError(f'request {i}: {str(res)[:300]}')
         check_launches(f'{bits} replica', launches, QUANT_SERVE_KERNELS,
                        cfg.n_layers)
         for name in QUANT_SERVE_KERNELS:
@@ -2761,21 +2796,21 @@ def small_launch_checks() -> None:
 
 # ---- phases 20-22: the Qwen family ----
 
-# serve_qwen.yaml's replica without its speculative flags, which come in
-# the next slice: 32 slots over a 4096-row cache, 32 concurrent prompts
+# serve_qwen.yaml's replica without its speculative flags, which phase 23
+# adds: 32 slots over a 4096-row cache, 32 concurrent prompts
 # of 1000-1024 tokens (so the prefill waves take the flash kernel's 1024
 # bucket), 64 new tokens each.
 QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=64)
 
 
-def qwen_replica(records: dict) -> None:
+def qwen_replica(records: dict) -> dict:
     import threading
     from skypilot_tpu_torch.infer import server as server_lib
     from skypilot_tpu_torch.models import qwen
     cfg = qwen.QWEN3_8B
     r = QWEN_SERVE
-    log(f'[20] serve_qwen.yaml on one card, without --spec-ngram (the next '
-        f'slice): Qwen3-8B bf16 ({cfg.n_layers} layers, d_model '
+    log(f'[20] serve_qwen.yaml on one card, without --spec-ngram (phase '
+        f'[23] adds it): Qwen3-8B bf16 ({cfg.n_layers} layers, d_model '
         f'{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim '
         f'{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QK-norm, '
         f'rope theta {cfg.rope_theta:g}; {cfg.num_params() / 1e9:.2f} B '
@@ -2806,31 +2841,11 @@ def qwen_replica(records: dict) -> None:
             'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})[
                 'output_tokens'] for p in singles]
         before = http_json(url, '/metrics')
-        results = [None] * r['requests']
-
-        def client(i):
-            try:
-                results[i] = http_json(url, '/generate', {
-                    'prompt_tokens': prompts[i],
-                    'max_new_tokens': r['new_tokens']})
-            except Exception as e:  # pylint: disable=broad-except
-                results[i] = e
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(r['requests'])]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        dt = time.perf_counter() - t0
+        _, dt = concurrent_generate(url, [
+            {'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+            for p in prompts], cfg.vocab_size)
         launches = {k.name: k.launches for k in kernels.REGISTRY}
         after = http_json(url, '/metrics')
-        for i, res in enumerate(results):
-            if not isinstance(res, dict) or len(
-                    res['output_tokens']) != r['new_tokens'] or not all(
-                    0 <= t < cfg.vocab_size for t in res['output_tokens']):
-                raise AssertionError(f'request {i}: {str(res)[:300]}')
         check_launches('qwen3-8b replica', launches, SERVE_KERNELS,
                        cfg.n_layers)
         for name in SERVE_KERNELS:
@@ -2854,6 +2869,8 @@ def qwen_replica(records: dict) -> None:
             raise AssertionError('the server gave other tokens than '
                                  'Orchestrator.generate')
         out_tokens = r['requests'] * r['new_tokens']
+        numbers = {'tok_s': out_tokens / dt,
+                   'ttft_ms': ttft_s / ttft_n * 1e3, 'peak_gib': peak}
         log(f'  prompts of {[len(p) for p in singles]} tokens one at a time: '
             'the served tokens equal Orchestrator.generate on the same '
             'engine')
@@ -2869,6 +2886,7 @@ def qwen_replica(records: dict) -> None:
         replica.loop.close()
     del replica
     release_card()
+    return numbers
 
 
 def qwen2_main_path(records: dict) -> None:
@@ -3035,6 +3053,472 @@ def small_qwen_end_to_end() -> None:
     release_card()
 
 
+# ---- phases 23-25: speculative decoding ----
+
+SPEC_GAMMA = 4
+# The sampled request of [23] and [24]: its rounds are plain (only greedy
+# rounds speculate), so that both kinds run in one served run.
+SAMPLED_NEW = 16
+DRAFT_SERVE = dict(slots=16, max_len=2048, requests=16, new_tokens=64)
+# A self-draft with the target's own weights: bf16 near-ties between the
+# decode kernel's and the verify pass's logits are the only rejections.
+SELF_DRAFT_MIN_ACCEPT = 0.5
+
+
+def count_plain_rounds(orch) -> list:
+    """Wrap a speculator's _decode_tick, through which its plain rounds
+    go, so that a run can count them; each is one decode step of every
+    slot."""
+    rounds = [0]
+    tick = orch._decode_tick
+
+    def counted():
+        rounds[0] += 1
+        tick()
+
+    orch._decode_tick = counted
+    return rounds
+
+
+def flash_prefills(engine, prompts) -> int:
+    """How many of these prompts a one-at-a-time admission prefills
+    through the flash kernel (their bucket reaches its shortest
+    sequence; one launch per layer each)."""
+    from skypilot_tpu_torch.ops import attention
+    return sum(engine.bucket_for(len(p)) >= attention._FLASH_MIN_SEQ
+               for p in prompts)
+
+
+def check_derived_launches(path: str, launches: dict, want: dict) -> None:
+    """Each kernel ran exactly as often as derived from the run's rounds
+    and prefills; every other kernel not at all."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f'{name}: {n} launches on the {path} path; '
+                                 f'derived {want.get(name, 0)} '
+                                 f'(all derived: {want})')
+
+
+def path_logits(engine, prefix):
+    """The fp32 logits [V] for the token after ``prefix`` through the
+    two numeric paths, on a one-slot scratch cache whose rows before the
+    last token one verify_hidden pass fills: decode_forward (the decode
+    kernel, as plain rounds run it) and verify_forward (the verify
+    pass's plain attention)."""
+    c = engine.config.model
+    lib = engine._model_lib
+    dev = engine.device
+    n = len(prefix)
+    shape = (c.n_layers, 1, engine.config.max_target_len, c.n_kv_heads,
+             c.head_dim)
+    kv = {key: torch.zeros(shape, dtype=engine.config.kv_dtype, device=dev)
+          for key in ('k', 'v')}
+    tokens = torch.tensor([prefix], device=dev)
+    last = torch.tensor([n - 1], device=dev)
+    with torch.no_grad():
+        lib.verify_hidden(c, engine.params, tokens[:, :-1],
+                          torch.arange(n - 1, device=dev)[None], kv)
+        dec, _ = lib.decode_forward(c, engine.params, tokens[:, -1], last,
+                                    kv)
+        ver, _ = lib.verify_forward(c, engine.params, tokens[:, -1:],
+                                    last[None], kv)
+    return dec[0], ver[0, 0]
+
+
+def check_ties(label: str, engine, prompts, spec_streams,
+               plain_streams) -> int:
+    """Each greedy stream of the speculative run equals the plain run's,
+    or parts from it at a tie: at the first token where the two differ,
+    the plain path's logit margin between the two tokens is at most
+    twice the largest difference, over that row, between the decode and
+    verify paths' logits at that position. → the number of partings."""
+    partings = []
+    for prompt, got, want in zip(prompts, spec_streams, plain_streams):
+        if got == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        dec, ver = path_logits(engine, list(prompt) + list(want[:j]))
+        margin = abs(float(dec[want[j]] - dec[got[j]]))
+        diff = float((ver - dec).abs().max())
+        partings.append((j, margin, diff))
+        if margin > 2 * diff:
+            raise AssertionError(
+                f'{label}: the speculative stream parts from plain greedy '
+                f'at token {j} ({got[j]} for {want[j]}) with a plain margin '
+                f'of {margin:.6f} > 2 x the paths\' largest logit '
+                f'difference {diff:.6f}: not a tie')
+    log(f'  {label}: {len(partings)} of {len(plain_streams)} greedy streams '
+        'part from plain greedy decoding on the same engine, each at a '
+        'tie (token, plain margin, paths\' largest logit difference): '
+        f'{[(j, round(m, 6), round(d, 6)) for j, m, d in partings]}')
+    return len(partings)
+
+
+def plain_streams(engine, prompts, new_tokens: int):
+    """Plain greedy decoding of ``prompts`` on ``engine``, admitted one at
+    a time as the speculators admit them (so that both runs prefill with
+    the same numerics)."""
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    plain = orch_lib.Orchestrator(engine, decode_steps=4)
+    plain._batched_admit = False
+    requests, _ = serve_and_check(plain, engine.config.model, prompts,
+                                  new_tokens)
+    return [r.output_tokens for r in requests]
+
+
+def spec_counters(text: str) -> dict:
+    return {key: metric(text, f'xsky_serve_spec_{key}_total')
+            for key in ('rounds', 'proposed', 'accepted')}
+
+
+def serve_speculative(label: str, records: dict, path: str, url: str, orch,
+                      loop, singles, bodies, want_launches):
+    """The speculative replica's checks and numbers: singles one at a
+    time (served tokens = the speculator's own generate, loop lock held),
+    then ``bodies`` at once; launch counts from these requests alone,
+    checked against ``want_launches(plain_rounds, spec_rounds)``.
+    → (streams, numbers)."""
+    cfg = orch.engine.config.model
+    with loop._lock:
+        plain_rounds = count_plain_rounds(orch)
+        rounds0 = orch.accept_stats['rounds']
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+    served = [http_json(url, '/generate', {
+        'prompt_tokens': p, 'max_new_tokens': 64})['output_tokens']
+        for p in singles]
+    before = http_json(url, '/metrics')
+    streams, dt = concurrent_generate(url, bodies, cfg.vocab_size)
+    with loop._lock:
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        n_plain = plain_rounds[0]
+        n_spec = orch.accept_stats['rounds'] - rounds0
+        totals = dict(orch.accept_stats)
+    after = http_json(url, '/metrics')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_derived_launches(path, launches, want_launches(n_plain, n_spec))
+    if not n_plain or not n_spec:
+        raise AssertionError(f'{label}: {n_plain} plain and {n_spec} '
+                             'speculative rounds; both kinds must run')
+    for name, n in launches.items():
+        if n:
+            records[name].setdefault('launches_by_path', {})[path] = n
+    if spec_counters(after) != totals:
+        raise AssertionError(f'/metrics spec counters {spec_counters(after)}'
+                             f', accept_stats {totals}')
+    spec = {key: spec_counters(after)[key] - spec_counters(before)[key]
+            for key in totals}
+    ttft_n = (metric(after, 'xsky_serve_ttft_seconds_count')
+              - metric(before, 'xsky_serve_ttft_seconds_count'))
+    ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
+              - metric(before, 'xsky_serve_ttft_seconds_sum'))
+    if ttft_n != len(bodies):
+        raise AssertionError(f'{ttft_n} TTFT samples for {len(bodies)} '
+                             'requests')
+    with loop._lock:
+        direct = [orch.generate([p], max_new_tokens=64)[0] for p in singles]
+    if served != direct:
+        raise AssertionError(f'{label}: the server gave other tokens than '
+                             'the speculator\'s own generate')
+    out_tokens = sum(b['max_new_tokens'] for b in bodies)
+    numbers = {'tok_s': out_tokens / dt, 'ttft_ms': ttft_s / ttft_n * 1e3,
+               'peak_gib': peak, 'spec': spec,
+               'acceptance': spec['accepted'] / max(spec['proposed'], 1),
+               'plain_rounds': n_plain, 'spec_rounds': n_spec}
+    log(f'  prompts of {[len(p) for p in singles]} tokens one at a time: the '
+        'served tokens equal the speculator\'s own generate')
+    log(f'  {len(bodies)} concurrent POST /generate ({out_tokens} tokens) in '
+        f'{dt:.3f} s: {numbers["tok_s"]:.1f} output tok/s, mean TTFT '
+        f'{numbers["ttft_ms"]:.1f} ms (/metrics), peak memory {peak:.2f} '
+        f'GiB; the concurrent run\'s /metrics '
+        f'xsky_serve_spec_{{rounds,proposed,accepted}}_total grew by '
+        f'{spec["rounds"]:.0f}, {spec["proposed"]:.0f}, '
+        f'{spec["accepted"]:.0f} (acceptance {numbers["acceptance"]:.4f}); '
+        f'with the singles, {n_spec} speculative and {n_plain} plain rounds '
+        f'and launches {launches} as derived, on {nvidia_smi_line()}')
+    return streams, numbers
+
+
+def spec_qwen_replica(records: dict, plain: dict) -> None:
+    import threading
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import qwen
+    cfg = qwen.QWEN3_8B
+    r = QWEN_SERVE
+    log(f'[23] serve_qwen.yaml as written: infer/server.py --model qwen3-8b '
+        f'--max-slots {r["slots"]} --max-target-len {r["max_len"]} '
+        f'--spec-ngram --spec-gamma {SPEC_GAMMA} on 127.0.0.1 (Qwen3-8B '
+        f'bf16 at its published widths, seeded random weights)')
+    t0 = time.perf_counter()
+    replica = server_lib.build_replica(server_lib.parse_args([
+        '--model', 'qwen3-8b', '--max-slots', str(r['slots']),
+        '--max-target-len', str(r['max_len']), '--spec-ngram',
+        '--spec-gamma', str(SPEC_GAMMA), '--port', '0',
+        '--device', 'cuda']), host='127.0.0.1')
+    torch.cuda.synchronize()
+    orch, engine = replica.loop.orch, replica.engine
+    if not isinstance(orch, orch_lib.NgramSpeculator):
+        raise AssertionError(f'--spec-ngram built a {type(orch).__name__}')
+    log(f'  init + engine + warm-up {time.perf_counter() - t0:.2f} s; '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    rng = np.random.default_rng(23)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(1000, 1025, r['requests'])]
+    # Copy-heavy: a 64-token block repeated 8 times.
+    copies = [[int(t) for t in rng.integers(0, cfg.vocab_size, 64)] * 8
+              for _ in range(4)]
+    sampled = [int(t) for t in rng.integers(0, cfg.vocab_size, 1000)]
+    greedy = prompts + copies
+    bodies = ([{'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+               for p in greedy]
+              + [{'prompt_tokens': sampled, 'max_new_tokens': SAMPLED_NEW,
+                  'temperature': 1.0}])
+    singles = [prompts[0], copies[0]]
+    n_flash = flash_prefills(engine, singles + greedy + [sampled])
+
+    def want(n_plain, n_spec):
+        del n_spec   # verify passes take the plain attention
+        return {'flash_fwd': cfg.n_layers * n_flash,
+                'decode_attention': cfg.n_layers * n_plain}
+
+    try:
+        streams, numbers = serve_speculative(
+            '[23]', records, 'qwen_spec_ngram', url, orch, replica.loop,
+            singles, bodies, want)
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    orch.state = None      # the plain run below needs the room
+    release_card()
+    expected = plain_streams(engine, greedy, r['new_tokens'])
+    partings = check_ties('[23]', engine, greedy,
+                          streams[:len(greedy)], expected)
+    log(f'  [23] beside [20] (same model, slots, cache and 32 prompts; [23] '
+        f'adds 4 copy-heavy and 1 sampled request): output tok/s '
+        f'{numbers["tok_s"]:.1f} vs {plain["tok_s"]:.1f}, mean TTFT '
+        f'{numbers["ttft_ms"]:.1f} vs {plain["ttft_ms"]:.1f} ms, peak '
+        f'{numbers["peak_gib"]:.2f} vs {plain["peak_gib"]:.2f} GiB; '
+        f'acceptance {numbers["acceptance"]:.4f}; {partings} tie partings')
+    del replica, orch, engine
+    release_card()
+
+
+def draft_model_paths(records: dict) -> None:
+    import threading
+    from http.server import ThreadingHTTPServer
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama
+    r = DRAFT_SERVE
+    target_cfg = dataclasses.replace(llama.LLAMA3_8B, remat=False)
+    small = llama.LLAMA3_1B
+    log(f'[24] draft-model speculation, gamma {SPEC_GAMMA}: --model llama3-8b '
+        f'--draft-model llama3-1b is refused, as the reference refuses it '
+        f'(the repo\'s llama3-1b has a {small.vocab_size}-token vocabulary, '
+        f'Llama-3-8B {target_cfg.vocab_size})')
+    argv = ['--model', 'llama3-8b', '--draft-model', 'llama3-1b',
+            '--spec-gamma', str(SPEC_GAMMA), '--max-slots', str(r['slots']),
+            '--max-target-len', str(r['max_len']), '--port', '0',
+            '--device', 'cuda']
+    try:
+        server_lib.build_replica(server_lib.parse_args(argv),
+                                 host='127.0.0.1')
+    except ValueError as e:
+        if str(e) != 'draft/target vocab_size must match':
+            raise
+        log(f'  refused: ValueError({str(e)!r})')
+    else:
+        raise AssertionError('--draft-model llama3-1b was not refused')
+    release_card()
+
+    draft_cfg = dataclasses.replace(small, vocab_size=target_cfg.vocab_size,
+                                    remat=False)
+    log(f'  served instead: Llama-3-8B (bf16, {target_cfg.n_layers} layers, '
+        f'seed 0) with a draft at llama3-1b\'s widths ({draft_cfg.n_layers} '
+        f'layers, d_model {draft_cfg.d_model}) and Llama-3\'s '
+        f'{draft_cfg.vocab_size}-token vocabulary (seed 1), as the server '
+        f'wires --draft-model: SpeculativeOrchestrator, warm_up, '
+        f'ServingLoop and the HTTP handler on 127.0.0.1; {r["slots"]} '
+        f'slots, max_target_len {r["max_len"]}')
+    t0 = time.perf_counter()
+    engines = []
+    for cfg, seed in ((target_cfg, 0), (draft_cfg, 1)):
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(seed)
+        engines.append(engine_lib.InferenceEngine(
+            engine_lib.EngineConfig(model=cfg, max_slots=r['slots'],
+                                    max_target_len=r['max_len']),
+            llama.init(cfg, gen)))
+    engine, draft = engines
+    orch = orch_lib.SpeculativeOrchestrator(engine, draft, gamma=SPEC_GAMMA)
+    server_lib.warm_up(orch)
+    loop = server_lib.ServingLoop(orch)
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), server_lib.build_handler(
+        loop, engine.config, model_id='llama3-8b', max_queue=64))
+    torch.cuda.synchronize()
+    log(f'  init + engines + warm-up {time.perf_counter() - t0:.2f} s; '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}'
+    rng = np.random.default_rng(24)
+    # 960-1024 tokens, so that both engines prefill in the flash kernel's
+    # 1024 bucket.
+    prompts = [[int(t) for t in rng.integers(0, target_cfg.vocab_size, n)]
+               for n in rng.integers(960, 1025, r['requests'])]
+    sampled = [int(t) for t in rng.integers(0, target_cfg.vocab_size, 1000)]
+    bodies = ([{'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+               for p in prompts]
+              + [{'prompt_tokens': sampled, 'max_new_tokens': SAMPLED_NEW,
+                  'temperature': 1.0}])
+    singles = [prompts[0]]
+    n_flash = flash_prefills(engine, singles + prompts + [sampled])
+
+    def want(n_plain, n_spec):
+        return {'flash_fwd': (target_cfg.n_layers + draft_cfg.n_layers)
+                * n_flash,
+                'decode_attention': draft_cfg.n_layers * (SPEC_GAMMA + 1)
+                * n_spec + target_cfg.n_layers * n_plain}
+
+    try:
+        streams, numbers = serve_speculative(
+            '[24]', records, 'llama_spec_draft', url, orch, loop, singles,
+            bodies, want)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        loop.close()
+    orch.state = orch.draft_state = None
+    release_card()
+    expected = plain_streams(engine, prompts, r['new_tokens'])
+    check_ties('[24]', engine, prompts, streams[:len(prompts)], expected)
+    del orch, loop, httpd, engine, draft, engines
+    release_card()
+
+    cfg = dataclasses.replace(small, remat=False)
+    log(f'  self-draft: Llama-3-1B (llama3-1b, bf16, {cfg.n_layers} layers, '
+        f'seed 0) drafting for itself (one engine, two caches), '
+        f'{r["slots"]} slots, {r["requests"]} prompts of 960-1024 tokens x '
+        f'{r["new_tokens"]} new')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=r['slots'],
+                                max_target_len=r['max_len']),
+        llama.init(cfg, gen))
+    orch = orch_lib.SpeculativeOrchestrator(engine, engine, gamma=SPEC_GAMMA)
+    plain_rounds = count_plain_rounds(orch)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(960, 1025, r['requests'])]
+    zero_launches()
+    requests, dt = serve_and_check(orch, cfg, prompts, r['new_tokens'])
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    stats = orch.accept_stats
+    check_derived_launches('llama3-1b self-draft', launches, {
+        'flash_fwd': 2 * cfg.n_layers * flash_prefills(engine, prompts),
+        'decode_attention': cfg.n_layers * (
+            (SPEC_GAMMA + 1) * stats['rounds'] + plain_rounds[0])})
+    for name, n in launches.items():
+        if n:
+            records[name].setdefault('launches_by_path', {})[
+                'llama_spec_self_draft'] = n
+    acceptance = stats['accepted'] / stats['proposed']
+    out_tokens = sum(len(q.output_tokens) for q in requests)
+    log(f'  self-draft: {out_tokens / dt:.1f} output tok/s, {stats} '
+        f'(acceptance {acceptance:.4f}, at least {SELF_DRAFT_MIN_ACCEPT}); '
+        f'launches {launches} as derived, on {nvidia_smi_line()}')
+    if acceptance < SELF_DRAFT_MIN_ACCEPT:
+        raise AssertionError(f'self-draft acceptance {acceptance:.4f} < '
+                             f'{SELF_DRAFT_MIN_ACCEPT}')
+    del orch, engine
+    release_card()
+
+
+def small_speculative_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import qwen
+    log('[25] small speculative checks, card (kernels, TF32 off) vs CPU '
+        '(plain versions): fp32 LLAMA_TINY and qwen3-tiny targets, bucket '
+        '1024 (so the flash kernel runs); NgramSpeculator, '
+        'SpeculativeOrchestrator with a one-layer draft and with the target '
+        'drafting for itself: tokens and accept_stats')
+    draft_cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32,
+                                    n_layers=1, d_model=32, n_heads=2,
+                                    n_kv_heads=2, d_ff=64)
+    gen = torch.Generator()
+    gen.manual_seed(26)
+    draft_params = llama.init(draft_cfg, gen, device='cpu')
+    for label, cfg in (
+            ('llama-tiny', dataclasses.replace(llama.LLAMA_TINY,
+                                               dtype=torch.float32)),
+            ('qwen3-tiny', qwen.QWEN3_TINY_F32)):
+        if label == 'qwen3-tiny':
+            params = small_qwen_params(cfg, seed=25)
+        else:
+            gen = torch.Generator()
+            gen.manual_seed(25)
+            params = llama.init(cfg, gen, device='cpu')
+        rng = np.random.default_rng(25)
+        prompts = ([[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                    for n in (1000, 700, 20)]
+                   + [[int(t) for t in rng.integers(0, cfg.vocab_size, 64)]
+                      * 8])
+        runs, used = {}, {}
+        for device in ('cuda', 'cpu'):
+            before = {k.name: k.launches for k in kernels.REGISTRY}
+
+            def engine(c, p):
+                return engine_lib.InferenceEngine(
+                    engine_lib.EngineConfig(model=c, max_slots=4,
+                                            max_target_len=1100,
+                                            prefill_buckets=(1024,),
+                                            kv_dtype=torch.float32),
+                    to_device(p, device), device=device)
+
+            target, draft = engine(cfg, params), engine(draft_cfg,
+                                                        draft_params)
+            run = {'plain': (orch_lib.Orchestrator(target).generate(
+                prompts, max_new_tokens=12), None)}
+            for kind, spec in (
+                    ('ngram', orch_lib.NgramSpeculator(target,
+                                                       gamma=SPEC_GAMMA)),
+                    ('draft', orch_lib.SpeculativeOrchestrator(
+                        target, draft, gamma=SPEC_GAMMA)),
+                    ('self-draft', orch_lib.SpeculativeOrchestrator(
+                        target, target, gamma=SPEC_GAMMA))):
+                run[kind] = (spec.generate(prompts, max_new_tokens=12),
+                             dict(spec.accept_stats))
+            runs[device] = run
+            used[device] = {k.name: k.launches - before[k.name]
+                            for k in kernels.REGISTRY}
+        card, cpu = runs['cuda'], runs['cpu']
+        log(f'  {label}: card {card}; card launches {used["cuda"]}')
+        if card != cpu:
+            raise AssertionError(f'{label}: the card gave other tokens or '
+                                 f'accept_stats than the CPU: {cpu}')
+        for device, run in runs.items():
+            for kind, (tokens, stats) in run.items():
+                if tokens != run['plain'][0]:
+                    raise AssertionError(f'{label} on {device}: {kind} gave '
+                                         'other tokens than plain greedy')
+                if stats is not None and not stats['rounds']:
+                    raise AssertionError(f'{label}: {kind} never speculated')
+            stats = run['self-draft'][1]
+            if stats['accepted'] != stats['proposed']:
+                raise AssertionError(f'{label} on {device}: the fp32 '
+                                     f'self-draft rejected proposals: {stats}')
+        if not all(used['cuda'][name] for name in SERVE_KERNELS):
+            raise AssertionError(f'a kernel did not run on the card: '
+                                 f'{used["cuda"]}')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the decode split walks and combine at the main paths'
@@ -3113,9 +3597,12 @@ def main() -> int:
     lora_main_path(records)
     hf_checkpoint_path(records)
     small_launch_checks()
-    qwen_replica(records)
+    plain_qwen = qwen_replica(records)
     qwen2_main_path(records)
     small_qwen_end_to_end()
+    spec_qwen_replica(records, plain_qwen)
+    draft_model_paths(records)
+    small_speculative_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

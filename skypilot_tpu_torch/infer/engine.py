@@ -30,8 +30,11 @@ Counterpart of ``skypilot_tpu/infer/engine.py``:
     channel, or int4 in groups of 128 with int8 for the embedding); the
     model's products then run on the quantized weights.
 
+  * ``verify_step`` scores a slot's last token and γ proposals in one
+    multi-token pass (speculative decoding's greedy verification) on the
+    dense cache; a paged engine opts out, as in the reference.
+
 Every method runs on the engine's device under ``torch.no_grad``.
-Speculative verification comes in a later slice.
 """
 from __future__ import annotations
 
@@ -786,10 +789,15 @@ class InferenceEngine:
         engine's generator draws any sampling noise.
         """
         slots = self.config.max_slots
-        temps, top_k, top_p, gen = self._sampling_args(
-            np.zeros(slots) if temperatures is None else temperatures,
-            np.zeros(slots) if top_k is None else top_k,
-            np.ones(slots) if top_p is None else top_p)
+        if temperatures is None and top_k is None and top_p is None:
+            # All greedy: nothing goes to the device and no noise is
+            # drawn, so a run of draft steps never waits on the host.
+            temps = top_k = top_p = gen = None
+        else:
+            temps, top_k, top_p, gen = self._sampling_args(
+                np.zeros(slots) if temperatures is None else temperatures,
+                np.zeros(slots) if top_k is None else top_k,
+                np.ones(slots) if top_p is None else top_p)
         if penalties is not None:
             penalties = tuple(torch.as_tensor(np.asarray(a, np.float32),
                                               device=self.device)
@@ -799,6 +807,84 @@ class InferenceEngine:
         if logprobs_k > 0:
             return state, tokens, lp
         return state, tokens
+
+    # ---- speculative verification ----
+
+    @property
+    def supports_verify(self) -> bool:
+        """Paged engines opt out: verify_forward writes [B, S] positions
+        straight into per-slot rows, which the page arena does not expose
+        (speculation then refuses the engine)."""
+        return (hasattr(self._model_lib, 'verify_forward')
+                and self._page_alloc is None)
+
+    @torch.no_grad()
+    def verify_step(self, state, proposals):
+        """Greedy speculative verification: one target pass for γ+1
+        tokens.
+
+        proposals [B, γ] (a tensor, or a host array): the next γ tokens
+        proposed per slot. The target scores [t0, d1..dγ] (t0 = each
+        slot's last accepted token) in ONE verify_forward; d_{i+1}
+        survives while it equals the target's argmax after d_1..d_i, and
+        the first mismatch is replaced by the target's own argmax (the
+        bonus token), so every round emits at least one token and the
+        output equals plain greedy decoding.
+
+        Returns (state, emitted [B, γ+1], n_emitted [B]), all on the
+        device. The cache is written in place at rows length..length+γ
+        (none at or past max_target_len); rows before each slot's length
+        are untouched, and rejected rows lie past the new length, where
+        later writes overwrite them: rollback is just the length.
+        """
+        proposals = torch.as_tensor(proposals, device=self.device).to(
+            torch.int32)
+        gamma = proposals.shape[1]
+        c = self.config.model
+        tokens_in = torch.cat([state['tokens'][:, None], proposals], dim=1)
+        steps = torch.arange(gamma + 1, device=self.device)
+        positions = state['lengths'][:, None] + steps[None, :]
+        kv = {'k': state['kv_k'], 'v': state['kv_v']}
+        logits, new_kv = self._model_lib.verify_forward(
+            c, self.params, tokens_in, positions, kv)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)     # [B, γ+1]
+        matches = (proposals == preds[:, :-1]).to(torch.int32)   # [B, γ]
+        accepted = torch.cumprod(matches, dim=1).sum(dim=1)      # [B]
+        bonus = torch.gather(preds, 1, accepted[:, None].long())[:, 0]
+        idx = steps[None, :]
+        emitted = torch.where(
+            idx < accepted[:, None],
+            torch.cat([proposals, torch.zeros_like(bonus)[:, None]], dim=1),
+            torch.where(idx == accepted[:, None], bonus[:, None], 0))
+        n_emitted = (accepted + 1).to(torch.int32)
+        active = state['active']
+        new_state = {
+            'kv_k': new_kv['k'], 'kv_v': new_kv['v'],
+            'lengths': torch.where(
+                active, (state['lengths'] + n_emitted).clamp(
+                    max=self.config.max_target_len), state['lengths']),
+            'tokens': torch.where(active, bonus, state['tokens']),
+            'active': active,
+            # Not updated: speculation only runs rounds where no slot is
+            # penalized (the orchestrator falls back otherwise), and stale
+            # counts are neutral at penalty 0.
+            'counts': state['counts'],
+        }
+        return new_state, emitted.to(torch.int32), n_emitted
+
+    def sync_slots_from(self, state, other_state):
+        """Align this (draft) state's bookkeeping with the target's after
+        a speculative round: lengths, tokens and active are copied over;
+        the cache keeps whatever the draft wrote (rows past a slot's
+        length are dead, rows before it hold the accepted tokens).
+
+        The per-slot tensors are COPIED, not aliased: both engines update
+        their state in place (insert, release), and a shared tensor would
+        move the other engine's slots too."""
+        state = dict(state)
+        for key in ('lengths', 'tokens', 'active'):
+            state[key] = other_state[key].clone()
+        return state
 
 
 class ChunkedPrefill:

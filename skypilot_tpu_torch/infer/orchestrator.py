@@ -11,8 +11,12 @@ chunked prefill one chunk per tick between decode ticks; on a paged
 engine a request that finds no free pages is deferred and retried ahead
 of the queue.
 
-Speculative decoding, the profiler and chaos hooks and the legacy tick
-come in later slices.
+Speculative decoding: ``SpeculativeOrchestrator`` (a draft engine
+proposes γ tokens per slot) and ``NgramSpeculator`` (prompt lookup)
+verify the proposals in one target pass (``engine.verify_step``), with
+greedy acceptance, so the output equals plain greedy decoding.
+
+The profiler and chaos hooks and the legacy tick come in later slices.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -309,12 +313,18 @@ class Orchestrator:
         self._admit_claimed(request, slot)
         return True
 
+    #: Subclasses with per-request admission hooks (speculation mirrors
+    #: each prefill into a draft cache) keep the single path.
+    _batched_admit = True
+
     def _admit_wave(self) -> None:
         """Admit pending requests, batching same-bucket prefills into one
         forward + one insert per bucket group. Logprobs requests, long
-        prompts (chunked path), prefix-cached engines and engines built
-        without batched admission take the single path."""
-        if not (self.engine.config.batched_admission
+        prompts (chunked path), prefix-cached engines, engines built
+        without batched admission and speculators take the single
+        path."""
+        if not (self._batched_admit
+                and self.engine.config.batched_admission
                 and self.engine.supports_batched_prefill):
             while self._admit_one():
                 pass
@@ -456,6 +466,12 @@ class Orchestrator:
         chunk, then decode."""
         self._admit_wave()
         self._advance_partials()
+        self._decode_tick()
+
+    def _decode_tick(self) -> None:
+        """The decode half of a tick: the speculators' plain rounds call
+        it directly, so admission and the partials budget run once per
+        tick."""
         self._decode_tick_fast()
 
     def _attribute_tick(self, residents: List[Request], decode_share: float,
@@ -569,6 +585,28 @@ class Orchestrator:
                                  max(0.0, time.perf_counter() - now),
                                  committed)
 
+    def _verify_round(self, active_before: Dict[int, Request],
+                      proposals) -> None:
+        """One greedy verify pass over [slots, γ] proposals: append the
+        accepted tokens and the bonus per slot and update accept_stats
+        (the speculators own that dict). The round's one host copy brings
+        back emitted and n_emitted together."""
+        gamma = proposals.shape[1]
+        self.state, emitted, n_emitted = self.engine.verify_step(
+            self.state, proposals)
+        both = torch.cat([emitted, n_emitted[:, None]], dim=1).cpu().numpy()
+        emitted, n_emitted = both[:, :-1], both[:, -1]
+        for slot, request in active_before.items():
+            for i in range(int(n_emitted[slot])):
+                if slot not in self._slot_req:
+                    break  # finished mid-round: drop the tail
+                request.output_tokens.append(int(emitted[slot, i]))
+                self._maybe_finish(slot, int(emitted[slot, i]))
+        self.accept_stats['rounds'] += 1
+        self.accept_stats['proposed'] += gamma * len(active_before)
+        self.accept_stats['accepted'] += int(
+            sum(n_emitted[s] - 1 for s in active_before))
+
     def fail_all(self, error: str) -> None:
         """Finish every active and pending request with `error` and free
         their slots — never hand back silently-truncated outputs."""
@@ -643,3 +681,224 @@ class Orchestrator:
             'output_token_throughput_tps': out_tokens / dt,
             'mean_ttft_s': float(np.mean(ttfts)) if ttfts else 0.0,
         }
+
+
+def _all_greedy(requests) -> bool:
+    """Whether a speculative round may run: every resident is greedy,
+    wants no logprobs (verify_forward surfaces none) and is not penalized
+    (only plain rounds update the penalty counts)."""
+    return all(r.temperature == 0.0 and not r.logprobs
+               and not r.presence_penalty and not r.frequency_penalty
+               for r in requests)
+
+
+class SpeculativeOrchestrator(Orchestrator):
+    """Continuous batching with draft-model speculative decoding.
+
+    A small draft engine proposes γ tokens per slot (γ+1 cheap decode
+    steps); the target engine verifies them in ONE multi-token pass
+    (engine.verify_step), so the target's weights stream from memory once
+    per round instead of once per token. Greedy acceptance keeps outputs
+    equal to plain greedy decoding whatever the draft; a bad draft only
+    lowers the accepted-token rate (``accept_stats``).
+
+    Speculation applies to rounds where every active slot is greedy.
+    Mixed batches fall back to plain per-token decoding for that round;
+    the draft's bookkeeping is re-synced each round either way, and a
+    stale draft cache can only cost acceptance, never correctness.
+    """
+
+    # Admission mirrors every prefill into the draft cache per request
+    # (_finish_admit hook): keep the single path.
+    _batched_admit = False
+
+    def __init__(self, engine: engine_lib.InferenceEngine,
+                 draft_engine: engine_lib.InferenceEngine,
+                 gamma: int = 4, seed: int = 0) -> None:
+        if draft_engine.config.max_slots != engine.config.max_slots:
+            raise ValueError('draft/target max_slots must match')
+        if draft_engine.config.max_target_len != \
+                engine.config.max_target_len:
+            raise ValueError('draft/target max_target_len must match')
+        if draft_engine.config.model.vocab_size != \
+                engine.config.model.vocab_size:
+            raise ValueError('draft/target vocab_size must match')
+        if gamma < 1:
+            raise ValueError(f'gamma must be >= 1, got {gamma}')
+        if not engine.supports_verify:
+            raise NotImplementedError(
+                'target model family has no verify_forward')
+        super().__init__(engine, seed)
+        self.draft = draft_engine
+        self.draft_state = draft_engine.init_decode_state()
+        self.gamma = gamma
+        self.accept_stats = {'rounds': 0, 'proposed': 0, 'accepted': 0}
+        # slot → (request, ChunkedPrefill) for draft mirrors of long
+        # prompts still prefilling (see _advance_draft_partials).
+        self._draft_partials: Dict[int, Any] = {}
+
+    def _admit_limit(self) -> int:
+        # Both engines prefill every admitted prompt, so the admit gate
+        # is the tighter of the two.
+        return min(self.engine.max_admit_len, self.draft.max_admit_len)
+
+    def _insert_draft(self, slot: int, request: Request, out) -> None:
+        """Write a draft prefill into the draft cache; the draft chain
+        continues from the TARGET's first token."""
+        _, draft_kv, true_len = out
+        self.draft_state = self.draft.insert(
+            self.draft_state, draft_kv,
+            np.int32(request.output_tokens[-1]), true_len, slot)
+
+    def _finish_admit(self, slot, request, out) -> None:
+        # Mirror every completed admission (direct or interleaved
+        # chunked) into the draft cache, so its proposals have context.
+        super()._finish_admit(slot, request, out)
+        if slot not in self._slot_req:
+            return   # finished during admit (EOS or budget on token one)
+        if (len(request.prompt_tokens) > self.draft.config.max_prompt_len
+                and self.draft.supports_chunked_prefill):
+            # A long prompt's draft prefill is chunked and budgeted
+            # across ticks too; until it lands, rounds fall back to plain
+            # decoding (the late mirror costs acceptance only).
+            self._draft_partials[slot] = (
+                request, self.draft.start_chunked_prefill(
+                    request.prompt_tokens))
+            return
+        self._insert_draft(slot, request,
+                           self.draft.prefill_any(request.prompt_tokens))
+
+    def _advance_draft_partials(self) -> None:
+        budget = self.prefill_chunks_per_tick
+        for slot in list(self._draft_partials):
+            request, cp = self._draft_partials[slot]
+            # Identity check, not just occupancy: if the owning request
+            # finished and the slot was re-admitted in the same tick, a
+            # stale partial's finalize() would overwrite the NEW
+            # request's draft cache with the old prompt's KV.
+            if request.done or self._slot_req.get(slot) is not request:
+                del self._draft_partials[slot]
+                continue
+            if budget <= 0:
+                continue
+            budget -= 1
+            if cp.step():
+                del self._draft_partials[slot]
+                self._insert_draft(slot, request, cp.finalize())
+                # Bookkeeping catches up to the target's frontier; the
+                # generated tokens' draft rows stay absent (acceptance
+                # cost only).
+                self.draft_state = self.draft.sync_slots_from(
+                    self.draft_state, self.state)
+
+    def step(self) -> None:
+        while self._admit_one():
+            pass
+        self._advance_partials()
+        self._advance_draft_partials()
+        if not self._slot_req:
+            return
+        if not _all_greedy(self._slot_req.values()) or self._draft_partials:
+            # Plain round; the draft's bookkeeping stays aligned (its
+            # cache rows for these tokens are missing: acceptance pays,
+            # not correctness).
+            self._decode_tick()
+            self.draft_state = self.draft.sync_slots_from(
+                self.draft_state, self.state)
+            return
+        active_before = dict(self._slot_req)
+        # γ draft proposals (+1 ingest step, so that a fully accepted
+        # round leaves no hole in the draft cache), all greedy; they stay
+        # on the device, so the round's only host sync is the verify's.
+        proposals = []
+        for _ in range(self.gamma):
+            self.draft_state, toks = self.draft.decode_step(
+                self.draft_state)
+            proposals.append(toks)
+        self.draft_state, _ = self.draft.decode_step(self.draft_state)
+        self._verify_round(active_before, torch.stack(proposals, dim=1))
+        # The draft follows the target's accepted frontier.
+        self.draft_state = self.draft.sync_slots_from(
+            self.draft_state, self.state)
+
+
+class NgramSpeculator(Orchestrator):
+    """Draft-model-free speculation: prompt-lookup (n-gram) proposals.
+
+    The last ``match_len`` tokens of each slot's history (prompt +
+    generated so far) are matched against their most recent earlier
+    occurrence in that history; the γ tokens that followed it become the
+    proposals, verified in ONE multi-token target pass
+    (engine.verify_step) as in draft-model speculation. A failed lookup
+    only wastes the round's extra verify columns. Wins on copy-heavy
+    generation (quoting the prompt, code, RAG answers) with no second
+    model and no extra memory.
+    """
+
+    # Keep per-request admission: gram indexes key off request state at
+    # admit time.
+    _batched_admit = False
+
+    def __init__(self, engine: engine_lib.InferenceEngine,
+                 gamma: int = 4, match_len: int = 2,
+                 seed: int = 0) -> None:
+        if gamma < 1:
+            raise ValueError(f'gamma must be >= 1, got {gamma}')
+        if match_len < 1:
+            raise ValueError(f'match_len must be >= 1, got {match_len}')
+        if not engine.supports_verify:
+            raise NotImplementedError(
+                'target model family has no verify_forward')
+        super().__init__(engine, seed)
+        self.gamma = gamma
+        self.match_len = match_len
+        self.accept_stats = {'rounds': 0, 'proposed': 0, 'accepted': 0}
+        # slot → (request_id, gram → most recent start, tokens indexed so
+        # far): maintained incrementally, so a round's lookup costs the
+        # new tokens only. Keyed by request_id, so a slot reused by a new
+        # request never inherits a stale index.
+        self._grams: Dict[int, Tuple[int, Dict[tuple, int], int]] = {}
+
+    def _propose(self, slot: int, request: Request) -> List[int]:
+        """γ proposals from the most recent earlier occurrence of the
+        history's trailing match_len-gram; repeats of the last token when
+        nothing matches (wrong proposals cost only acceptance)."""
+        history = request.prompt_tokens + request.output_tokens
+        k = self.match_len
+        fallback = [history[-1]] * self.gamma
+        if len(history) <= k:
+            return fallback
+        entry = self._grams.get(slot)
+        if entry is None or entry[0] != request.request_id:
+            entry = (request.request_id, {}, 0)
+        _, index, upto = entry
+        # Index every gram STARTING before the trailing one (the trailing
+        # gram itself must not match in place).
+        for j in range(upto, len(history) - k):
+            index[tuple(history[j:j + k])] = j
+        self._grams[slot] = (request.request_id, index, len(history) - k)
+        j = index.get(tuple(history[-k:]))
+        if j is None:
+            return fallback
+        return (history[j + k:j + k + self.gamma] + fallback)[:self.gamma]
+
+    def step(self) -> None:
+        while self._admit_one():
+            pass
+        self._advance_partials()
+        # Drop the gram indexes of released slots (memory hygiene; the
+        # request_id key already prevents staleness).
+        for slot in list(self._grams):
+            if slot not in self._slot_req:
+                del self._grams[slot]
+        if not self._slot_req:
+            return
+        if not _all_greedy(self._slot_req.values()):
+            self._decode_tick()
+            return
+        active_before = dict(self._slot_req)
+        proposals = np.zeros((self.engine.config.max_slots, self.gamma),
+                             np.int32)
+        for slot, request in active_before.items():
+            proposals[slot] = self._propose(slot, request)
+        self._verify_round(active_before, proposals)

@@ -56,10 +56,6 @@ logger = logging.getLogger(__name__)
 # start, naming where the work stands in ROADMAP.md.
 _NOT_PORTED = {
     'mesh': ('--mesh', 'ROADMAP.md queue 1 item 8: more than one card'),
-    'draft_model': ('--draft-model', 'ROADMAP.md queue 1 item 4: '
-                    'speculative decoding'),
-    'spec_ngram': ('--spec-ngram', 'ROADMAP.md queue 1 item 4: '
-                   'speculative decoding'),
 }
 
 
@@ -541,14 +537,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              'or a local HuggingFace tokenizer path '
                              '(enables the /v1 text endpoints)')
     parser.add_argument('--draft-model', default=None,
-                        help='Speculative decoding with a draft model '
-                             '(not ported yet: refuses to start)')
+                        help='Enable speculative decoding with this '
+                             'draft model (same vocab as --model)')
     parser.add_argument('--spec-gamma', type=int, default=4,
                         help='Draft tokens proposed per speculative '
                              'round')
     parser.add_argument('--spec-ngram', action='store_true',
-                        help='Prompt-lookup speculation (not ported yet: '
-                             'refuses to start)')
+                        help='Draft-model-free speculation: propose '
+                             'continuations by prompt lookup (n-gram '
+                             'match against the request history), '
+                             'verified in one target pass')
     parser.add_argument('--model-id', default=None,
                         help='Model id reported by /v1/models '
                              '(default: the --hf-checkpoint directory\'s '
@@ -595,6 +593,46 @@ class Replica:
     httpd: ThreadingHTTPServer
     loop: ServingLoop
     engine: engine_lib.InferenceEngine
+
+
+def _orchestrator(args: argparse.Namespace,
+                  engine: engine_lib.InferenceEngine
+                  ) -> orch_lib.Orchestrator:
+    """The replica's scheduler: draft-model speculation (the draft's
+    weights seeded 1, the target's 0), prompt-lookup speculation, or
+    plain continuous batching. A speculator refuses a paged engine
+    (NotImplementedError), as in the reference."""
+    if args.draft_model:
+        draft_cfg = models.get_config(args.draft_model)
+        if hasattr(draft_cfg, 'remat'):
+            draft_cfg = dataclasses.replace(draft_cfg, remat=False)
+        draft_config = engine_lib.EngineConfig(
+            model=draft_cfg, max_slots=args.max_slots,
+            max_target_len=args.max_target_len)
+        gen = torch.Generator(device=engine.device)
+        gen.manual_seed(1)
+        draft_params = models.module_for(draft_cfg).init(
+            draft_cfg, gen, device=engine.device)
+        draft_engine = engine_lib.InferenceEngine(
+            draft_config, draft_params, device=engine.device)
+        orch = orch_lib.SpeculativeOrchestrator(
+            engine, draft_engine, gamma=args.spec_gamma)
+        logger.info('Speculative decoding: draft=%s gamma=%d',
+                    args.draft_model, args.spec_gamma)
+        if args.spec_ngram:
+            logger.warning('--spec-ngram is ignored with --draft-model: '
+                           'draft-model speculation takes precedence.')
+    elif args.spec_ngram:
+        orch = orch_lib.NgramSpeculator(engine, gamma=args.spec_gamma)
+        logger.info('Prompt-lookup speculation: gamma=%d', args.spec_gamma)
+    else:
+        return orch_lib.Orchestrator(engine, decode_steps=args.decode_steps)
+    if args.decode_steps != 1:
+        logger.warning('--decode-steps is ignored with %s: speculation '
+                       'already amortizes dispatch per round (γ+1 tokens).',
+                       '--draft-model' if args.draft_model
+                       else '--spec-ngram')
+    return orch
 
 
 def build_replica(args: argparse.Namespace,
@@ -655,7 +693,7 @@ def build_replica(args: argparse.Namespace,
         if device.type == 'cuda':
             torch.cuda.empty_cache()
     engine = engine_lib.InferenceEngine(config, params, device=device)
-    orch = orch_lib.Orchestrator(engine, decode_steps=args.decode_steps)
+    orch = _orchestrator(args, engine)
     warm_up(orch)
     loop = ServingLoop(orch)
     try:

@@ -237,8 +237,6 @@ def test_server_refuses_to_start_without_a_card(no_card):
 @pytest.mark.parametrize('flags,item', [
     (['--mesh', 'data=2'], 'queue 1 item 8'),
     (['--mesh', 'tensor=4'], 'queue 1 item 8'),
-    (['--draft-model', 'llama3-1b'], 'queue 1 item 4'),
-    (['--spec-ngram'], 'queue 1 item 4'),
 ])
 def test_server_flags_not_ported_yet_exit_naming_their_item(capsys, flags,
                                                             item):
@@ -327,3 +325,60 @@ def test_chip_smoke_qwen_phases_follow_the_launch_checks():
         'qwen2_main_path(records)', 'small_qwen_end_to_end()',
         "print(json.dumps({'ok': True")]
     assert order == sorted(order)
+
+
+def test_chip_smoke_speculative_phases_check_their_derived_launches():
+    """Phases [23]-[25] run after [22], on the card. The served runs of
+    [23] and [24] count their plain rounds and zero the launch counts
+    after the replica's warm-up, then hold every kernel to the count
+    derived from their prefills and rounds before any comparison run;
+    [24]'s self-draft does the same around its drain."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    serve = inspect.getsource(chip_smoke.serve_speculative)
+    assert serve.index('count_plain_rounds(') < serve.index(
+        'zero_launches()') < serve.index('/generate') < serve.index(
+        'check_derived_launches(') < serve.index('.generate(')
+    for phase in (chip_smoke.spec_qwen_replica, chip_smoke.draft_model_paths):
+        body = inspect.getsource(phase)
+        assert body.index('serve_speculative(') < body.index(
+            'plain_streams(') < body.index('check_ties(')
+    ngram = inspect.getsource(chip_smoke.spec_qwen_replica)
+    assert "'--spec-ngram'" in ngram and "'--device', 'cuda'" in ngram
+    draft = inspect.getsource(chip_smoke.draft_model_paths)
+    assert draft.index("'--draft-model', 'llama3-1b'") < draft.index(
+        'serve_speculative(') < draft.index('zero_launches()') < \
+        draft.index('serve_and_check(') < draft.index(
+        'check_derived_launches(')
+    assert 'SERVE_KERNELS' in inspect.getsource(
+        chip_smoke.small_speculative_end_to_end)
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_qwen_end_to_end()', 'spec_qwen_replica(records, plain_qwen)',
+        'draft_model_paths(records)', 'small_speculative_end_to_end()',
+        "print(json.dumps({'ok': True")]
+    assert order == sorted(order)
+
+
+def test_derived_launch_check_and_round_counter():
+    """check_derived_launches accepts the exact counts only, and
+    count_plain_rounds counts each plain round of the wrapped tick."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    chip_smoke.check_derived_launches('p', {'a': 36, 'b': 0}, {'a': 36})
+    for launches in ({'a': 35, 'b': 0}, {'a': 36, 'b': 1}):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_derived_launches('p', launches, {'a': 36})
+
+    class Orch:
+        ticks = 0
+
+        def _decode_tick(self):
+            self.ticks += 1
+
+    orch = Orch()
+    rounds = chip_smoke.count_plain_rounds(orch)
+    orch._decode_tick()
+    orch._decode_tick()
+    assert rounds == [2] and orch.ticks == 2

@@ -743,18 +743,11 @@ def test_hf_checkpoint_replicas_serve_the_same_tokens(tmp_path,
 
 # ---- a Qwen replica ----
 
-def test_qwen_replica_serves_the_engines_tokens(capsys):
+def test_qwen_replica_serves_the_engines_tokens():
     """``build_replica --model qwen3-tiny --device cpu``: /generate gives
     the tokens that the replica's own orchestrator generates for the same
-    prompt (run with the serving loop held, its drain bounded); the
-    speculative-decoding flags still refuse with a Qwen model."""
+    prompt (run with the serving loop held, its drain bounded)."""
     from skypilot_tpu_torch.models import qwen
-    for flags in (['--spec-ngram'], ['--draft-model', 'qwen-tiny']):
-        with pytest.raises(SystemExit) as exit_info:
-            server_lib.parse_args(['--model', 'qwen3-8b'] + flags)
-        assert exit_info.value.code == 2
-        err = capsys.readouterr().err
-        assert f'{flags[0]} is not ported' in err and 'queue 1 item 4' in err
     replica = server_lib.build_replica(server_lib.parse_args(
         ['--model', 'qwen3-tiny', '--device', 'cpu', '--port', '0',
          '--max-slots', '2', '--max-target-len', '64']), host='127.0.0.1')
@@ -780,3 +773,77 @@ def test_qwen_replica_serves_the_engines_tokens(capsys):
         replica.httpd.shutdown()
         replica.httpd.server_close()
         replica.loop.close()
+
+
+# ---- speculative replicas ----
+
+SPEC_REPLICAS = {
+    # serve_qwen.yaml's flags at tiny widths.
+    'ngram': (['--model', 'qwen3-tiny', '--spec-ngram'],
+              orch_lib.NgramSpeculator),
+    # A Llama draft for a Qwen target (same vocabulary); --spec-ngram is
+    # ignored beside it, with the reference's warning.
+    'draft': (['--model', 'qwen3-tiny', '--draft-model', 'tiny',
+               '--spec-ngram'], orch_lib.SpeculativeOrchestrator),
+}
+
+
+@pytest.mark.parametrize('case', sorted(SPEC_REPLICAS))
+def test_speculative_replica_serves_the_speculators_tokens(caplog, case):
+    """A replica with a speculation flag serves, on the CPU, the tokens
+    of its own speculator (run with the serving loop held, its drain
+    bounded), and /metrics carries the xsky_serve_spec_* series of its
+    accept_stats."""
+    flags, kind = SPEC_REPLICAS[case]
+    caplog.set_level('INFO', logger=server_lib.logger.name)
+    replica = server_lib.build_replica(server_lib.parse_args(
+        flags + ['--device', 'cpu', '--port', '0', '--max-slots', '2',
+                 '--max-target-len', '64', '--spec-gamma', '3']),
+        host='127.0.0.1')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    try:
+        orch = replica.loop.orch
+        assert type(orch) is kind and orch.gamma == 3
+        assert '--decode-steps is ignored' in caplog.text
+        if case == 'draft':
+            assert '--spec-ngram is ignored with --draft-model' in caplog.text
+            assert orch.draft.config.model.n_layers == \
+                llama.LLAMA_TINY.n_layers
+        copy = [5, 9, 2, 7] * 4
+        for prompt in ([1, 2, 3], copy, list(range(3, 40))):
+            status, served = _call(url, '/generate', {
+                'prompt_tokens': prompt, 'max_new_tokens': 8})
+            assert status == 200
+            with replica.loop._lock:
+                request = orch.submit(orch_lib.Request(prompt_tokens=prompt,
+                                                       max_new_tokens=8))
+                orch.run_until_drained(max_steps=32)
+            assert request.error is None
+            assert served['output_tokens'] == request.output_tokens
+            assert len(request.output_tokens) == 8
+        status, text = _call(url, '/metrics')
+        assert status == 200
+        with replica.loop._lock:
+            stats = dict(orch.accept_stats)
+        assert stats['rounds'] > 0
+        for key, value in stats.items():
+            assert f'xsky_serve_spec_{key}_total {value}' in text
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+
+
+@pytest.mark.parametrize('flags', [['--spec-ngram'],
+                                   ['--draft-model', 'tiny']])
+def test_speculation_refuses_a_paged_engine_as_the_reference(flags):
+    """No verify on the page arena: the replica raises the speculator's
+    NotImplementedError (the reference's text) instead of quietly
+    decoding without speculation."""
+    with pytest.raises(NotImplementedError,
+                       match='target model family has no verify_forward'):
+        server_lib.build_replica(server_lib.parse_args(
+            ['--model', 'tiny', '--device', 'cpu', '--port', '0',
+             '--max-slots', '2', '--max-target-len', '64',
+             '--kv-page-size', '16'] + flags), host='127.0.0.1')

@@ -4,7 +4,9 @@
 Runs the same configuration as ``chip_smoke.py``'s main path (Llama-3-8B
 bf16 with random weights, 16 slots, bucket 1024, dense bf16 KV), warms it
 up with one full generate, then traces one prefill wave of 16 prompts
-and one fused decode tick (8 steps) with ``torch.profiler``. For each it
+and one fused decode tick (8 steps), and on a dense engine one
+speculative verify round (``engine.verify_step``, γ = 4 proposals a
+slot), with ``torch.profiler``. For each it
 prints the host wall time, the device busy time (sum of kernel times —
 one stream, so kernels do not overlap), the idle share, the number of
 kernel launches, the device time by kind of kernel (the port's own
@@ -215,6 +217,15 @@ def main() -> int:
     decode()  # same shapes as traced, outside the trace
     summaries.append(traced(f'decode tick (8 steps x {slots} slots)',
                             decode))
+    if engine.supports_verify:
+        proposals = torch.zeros((slots, 4), dtype=torch.int32, device='cuda')
+
+        def verify():
+            engine.verify_step(holder['state'], proposals)
+
+        verify()
+        summaries.append(traced(f'verify round (gamma 4 x {slots} slots)',
+                                verify))
     if paged and engine.supports_chunked_prefill:
         # The third 1024-token chunk of a 3000-token prompt's prefill.
         scratch = engine._make_scratch_cache()
