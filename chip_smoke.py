@@ -157,11 +157,33 @@ Phases, in order; any failure exits non-zero:
      SpeculativeOrchestrator (a one-layer draft, and the target drafting
      for itself) give plain greedy tokens and equal accept_stats on both;
      the self-draft accepts every proposal.
+ 26. Gemma2-9B replica: infer/server.py --model gemma2-9b --max-slots 8
+     --max-target-len 8192 on 127.0.0.1, bf16, random weights from a
+     seeded generator (head_dim 256, softcap 50, scale 1/16, a window of
+     4096 on even layers, a tied soft-capped head); two prompts of
+     6000-8000 tokens one at a time (prefilled in 1024-token chunks, then
+     decoded over their even layers' live window alone), then 8 concurrent
+     prompts of 1000-1024 tokens, 64 new tokens each: K1 = 42 layers x
+     prefill waves in the 1024 bucket, K4 = 42 x decode steps, no other
+     kernel; the long prompts' served tokens equal Orchestrator.generate
+     on the same engine; tok/s, mean TTFT (/metrics), peak memory;
+ 27. small Gemma checks, card vs CPU: fp32 gemma-tiny, gemma2-tiny and
+     gemma2-tiny at head_dim 256 (so K1 and K4 run at D 256 inside a
+     model), random norms, bucket 1024: served greedy tokens,
+     NgramSpeculator's tokens equal plain greedy, a chunked prefill with a
+     prefix-cache hit against the whole prompt in one 2048 bucket; only K1
+     and K4 on the card.
+Phase 3 also holds K1 at D 256 (Gemma's head dim: tile edges, Gemma2-9B's
+wave of 8192 tokens with and without its window, Gemma-2B's and
+Gemma-7B's heads, bf16 and fp32, timed), K4 at D 256 (8 slots x 8192,
+window 4096, softcap 50, scale 1/16: bf16, fp32 and int8 caches, GQA
+groups 1, 2 and 8, timed) and K5 at D 256; they land in the kernels line
+as the `d256` entries.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21) every kernel's launch count is set to 0; just after, the
-kernels of that path must each have run, and no other. Phases 23 and 24
-(and its self-draft) hold each kernel to the count derived from the run's
-prefills and rounds, every other kernel to 0.
+kernels of that path must each have run, and no other. Phases 23, 24
+(and its self-draft) and 26 hold each kernel to the count derived from
+the run's prefills, steps and rounds, every other kernel to 0.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -428,10 +450,11 @@ def check_flash(gen) -> dict:
     del q, k, v
     gqa7 = flash_group7(gen)
     train = flash_train_shape(gen)
+    gemma = flash_head_dim_256(gen)
     return {'name': 'flash_fwd', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
             'replaces': REPLACES['flash_fwd'], 'max_abs_err': err,
-            **times, **gqa7, **train}
+            **times, **gqa7, **train, 'd256': gemma}
 
 
 def flash_timings(label, q, k, v, kw) -> dict:
@@ -478,6 +501,76 @@ def flash_group7(gen) -> dict:
     return {'gqa7_shape': 'B16 S1024 H28/4 D128 causal',
             'gqa7_max_abs_err': max(errs + [err]),
             **{f'gqa7_{key}': value for key, value in times.items()}}
+
+
+def causal_pairs(s: int, window=None) -> int:
+    """(query, key) pairs a causal attention over s rows computes: each
+    row attends to itself and the keys before it, at most ``window``."""
+    rows = np.arange(1, s + 1)
+    return int((rows if window is None else np.minimum(rows, window)).sum())
+
+
+# Gemma's head dim: K1 at Gemma2-9B's prefill wave (B1 S8192, 16 query
+# heads over 8, softcap 50, scale 1/16, with the even layers' window of
+# 4096 and without), in bf16 and fp32, and at Gemma-2B's (8 over 1) and
+# Gemma-7B's (16 over 16) heads; first at the wgmma kernel's tile edges
+# (64-key tiles at D 256).
+D256_EDGES = list(itertools.product((127, 129, 1000), (1, 2, 8)))
+D256_WAVES = (
+    ('bf16 Gemma2-9B wave B1 S8192 H16/8 D256, window 4096', torch.bfloat16,
+     16, 8, 4096, 50.0),
+    ('bf16 Gemma2-9B wave B1 S8192 H16/8 D256, no window', torch.bfloat16,
+     16, 8, None, 50.0),
+    ('fp32 Gemma2-9B wave B1 S8192 H16/8 D256, window 4096', torch.float32,
+     16, 8, 4096, 50.0),
+    ('fp32 Gemma2-9B wave B1 S8192 H16/8 D256, no window', torch.float32,
+     16, 8, None, 50.0),
+    ('bf16 Gemma-2B wave B1 S8192 H8/1 D256', torch.bfloat16, 8, 1, None,
+     None),
+    ('bf16 Gemma-7B wave B1 S8192 H16/16 D256', torch.bfloat16, 16, 16,
+     None, None))
+
+
+def flash_head_dim_256(gen) -> list:
+    """K1 at D 256 against its plain version: the tile edges, then each
+    wave of D256_WAVES checked and timed beside its bound (the pairs its
+    mask keeps) and SDPA's time at the same shapes without the softcap
+    and the window (one PyTorch call takes neither) → one record each."""
+    for i, (s, groups) in enumerate(D256_EDGES):
+        kw = EDGE_VARIANTS[i % len(EDGE_VARIANTS)]
+        tag = ' '.join(f'{k}={v}' for k, v in kw.items()) or 'causal'
+        flash_case(gen, f'bf16 edge S{s} H8/{8 // groups} D256 {tag}',
+                   torch.bfloat16, 2, s, 8, 8 // groups, 256, **kw)
+    out = []
+    for label, dtype, h, h_kv, window, softcap in D256_WAVES:
+        b, s, d = 1, 8192, 256
+        (q, k, v, _, kw), err = flash_case(
+            gen, label, dtype, b, s, h, h_kv, d, window=window,
+            softcap=softcap, scale=d ** -0.5)
+        ms = time_ms(lambda: flash_ops._flash_fwd(q, k, v, None, **kw),
+                     iters=5, warmup=1)
+        plain_ms = time_ms(lambda: flash_ops.flash_attention_plain(
+            q, k, v, window=window, logit_softcap=softcap,
+            scale=d ** -0.5), iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=d ** -0.5),
+            iters=5, warmup=1)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size(
+        ) + b * h * s * 4
+        flops = 4.0 * b * h * d * causal_pairs(s, window)
+        bound, bound_by = bound_ms(nbytes, flops, dtype)
+        log(f'  flash {label} timing: kernel {ms:.4f} ms, plain '
+            f'{plain_ms:.4f} ms, SDPA (library, causal, no softcap or '
+            f'window) {library_ms:.4f} ms, bound {bound:.4f} ms '
+            f'({bound_by}); {flops / ms / 1e9:.2f} TFLOP/s')
+        out.append({'shape': label, 'max_abs_err': err, 'ms': ms,
+                    'plain_ms': plain_ms, 'bound_ms': bound,
+                    'bound_by': bound_by, 'library_ms': library_ms,
+                    'library': 'SDPA, causal, without softcap and window'})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_train_shape(gen) -> dict:
@@ -784,64 +877,117 @@ def check_decode(gen) -> dict:
     times = decode_timings('main-path', cases)
     del cases
     gqa7 = decode_group7(gen)
+    gemma = decode_head_dim_256(gen)
     return {'name': 'decode_attention', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/decode_attention.cu',
             'replaces': REPLACES['decode_attention'], 'max_abs_err': err,
-            **times, **gqa7}
+            **times, **gqa7, 'd256': gemma}
 
 
 def decode_timings(label, cases) -> dict:
     """Kernel and masked-SDPA (library) device times over three rounds in
     turn, the plain version's, the bound and the wrapper's host time, for
-    four bf16 decode cases of one shape."""
-    # Rotate over four caches (4 x 134 MB at 16 slots x 2048 rows) so that
+    decode cases of one shape and one set of options, launched in turn.
+    The library call masks what the kernel's window masks and scales as
+    it does, without its softcap (SDPA takes none); over an int8 cache
+    there is no one library call (library_ms None)."""
+    # Rotate over the caches (4 x 134 MB at 16 slots x 2048 rows) so that
     # no launch finds its K/V in the 50 MB L2, as each layer's cache is
     # cold on the path.
     it = itertools.count()
 
+    def case():
+        return cases[next(it) % len(cases)][0]
+
     def run_kernel():
-        q, k, v, ln, _ = cases[next(it) % 4][0]
-        decode_ops.decode_attention(q, k, v, ln)
+        q, k, v, ln, kw = case()
+        decode_ops.decode_attention(q, k, v, ln, **kw)
 
     def run_plain():
-        q, k, v, ln, _ = cases[next(it) % 4][0]
-        decode_ops.decode_attention_plain(q, k, v, ln)
+        q, k, v, ln, kw = case()
+        decode_ops.decode_attention_plain(q, k, v, ln, **kw)
 
     def run_library():
-        q, k, v, ln, _ = cases[next(it) % 4][0]
+        q, k, v, ln, kw = case()
         pos = torch.arange(k.shape[1], device='cuda')[None, :]
-        mask = (pos < ln[:, None].long())[:, None, None, :]
+        length = ln[:, None].long()
+        mask = pos < length
+        if kw['window'] is not None:
+            mask &= pos >= length - kw['window']
         F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
+            attn_mask=mask[:, None, None, :], enable_gqa=True,
+            scale=kw['scale'])
 
+    q, k, _, lens, kw = cases[0][0]
+    quantized = isinstance(k, tuple)
     # Kernel and library in turn, three rounds.
     rounds = {'kernel': [], 'library': []}
     for _ in range(3):
         rounds['kernel'].append(time_ms(run_kernel, iters=40, warmup=4))
-        rounds['library'].append(time_ms(run_library, iters=20, warmup=4))
+        if not quantized:
+            rounds['library'].append(time_ms(run_library, iters=20,
+                                             warmup=4))
     ms = float(np.mean(rounds['kernel']))
-    library_ms = float(np.mean(rounds['library']))
+    library_ms = None if quantized else float(np.mean(rounds['library']))
     plain_ms = time_ms(run_plain, iters=8, warmup=2)
     wrapper_ms = host_ms(run_kernel)
     log(f'  decode {label} timings over three rounds (ms): {rounds}; '
         f'wrapper host time {wrapper_ms:.4f} ms a call')
-    q, k, _, lens, _ = cases[0][0]
     b, _, h, d = q.shape
-    h_kv = k.shape[2]
-    live = int(lens.clamp(max=k.shape[1]).sum())
-    nbytes = (2 * q.numel() * q.element_size() + 4 * b +
-              2 * live * h_kv * d * k.element_size())
+    values = k[0] if quantized else k
+    h_kv, max_len = values.shape[2], values.shape[1]
+    length = lens.clamp(0, max_len)
+    first = (length - kw['window']).clamp(min=0) if kw['window'] else 0
+    live = int((length - first).sum())
+    row_bytes = h_kv * (d * values.element_size() + (4 if quantized else 0))
+    nbytes = 2 * q.numel() * q.element_size() + 4 * b + 2 * live * row_bytes
     flops = 4.0 * live * h * d
     bound, bound_by = bound_ms(nbytes, flops, torch.bfloat16)
+    library = ('none (int8 cache)' if quantized else
+               f'masked SDPA{" (no softcap)" if kw["logit_softcap"] else ""}')
     log(f'  decode {label} timing: kernel {ms:.4f} ms, plain '
-        f'{plain_ms:.4f} ms, masked SDPA (library) {library_ms:.4f} ms, '
+        f'{plain_ms:.4f} ms, {library} (library) {library_ms} ms, '
         f'bound {bound:.4f} ms ({bound_by}); '
         f'{nbytes / ms / 1e6:.1f} GB/s of live KV')
     return {'ms': ms, 'ms_rounds': rounds['kernel'], 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
             'library_ms': library_ms,
             'library_ms_rounds': rounds['library'], 'host_ms': wrapper_ms}
+
+
+# Gemma's decode step at D 256: 8 slots over an 8192-row cache (phase
+# [26]'s replica), lengths 4500-8100 under the even layers' window of
+# 4096 with softcap 50 and scale 1/16; Gemma2-9B's heads (16 over 8) over
+# bf16, fp32 and int8 caches, and Gemma-7B's (16 over 16, group 1) and
+# Gemma-2B's (8 over 1, group 8) over bf16.
+D256_DECODE = (('bf16 cache', torch.bfloat16, torch.bfloat16, 16, 8),
+               ('fp32 cache', torch.float32, torch.float32, 16, 8),
+               ('int8 pair (bf16 q)', torch.bfloat16, torch.int8, 16, 8),
+               ('bf16 cache, group 1 (Gemma-7B heads)', torch.bfloat16,
+                torch.bfloat16, 16, 16),
+               ('bf16 cache, group 8 (Gemma-2B heads)', torch.bfloat16,
+                torch.bfloat16, 8, 1))
+
+
+def decode_head_dim_256(gen) -> list:
+    """K4 at D 256 against its plain version, each case of D256_DECODE
+    over two caches, then timed beside its bound → one record each."""
+    rng = np.random.default_rng(26)
+    lengths = [int(x) for x in rng.integers(4500, 8101, 8)]
+    out = []
+    for label, q_dtype, kv_dtype, h, h_kv in D256_DECODE:
+        full = f'{label} 8 slots x 8192 H{h}/{h_kv} D256 window 4096'
+        cases = [decode_case(gen, full, q_dtype, kv_dtype, lengths, b=8,
+                             max_len=8192, h=h, h_kv=h_kv, d=256,
+                             window=4096, softcap=50.0, scale=1 / 16)
+                 for _ in range(2)]
+        times = decode_timings(full, cases)
+        out.append({'shape': full, 'lengths': lengths,
+                    'max_abs_err': max(err for _, err in cases), **times})
+        del cases
+        torch.cuda.empty_cache()
+    return out
 
 
 def decode_group7(gen) -> dict:
@@ -929,6 +1075,13 @@ def check_paged_decode(gen) -> dict:
     paged_case(gen, 'bf16 page 8, 8192-block table rows', bf16, bf16,
                [65536, 12345, 3], num_pages=8192, page=8, nblk=8192, h=4,
                h_kv=2, d=64)
+    # D 256 through K4's walk (Gemma's width; Gemma has no paged engine).
+    d256 = max(paged_case(
+        gen, f'{name} page 16, H16/8 D256 softcap=50 scale=1/16', dtype,
+        dtype, [0, 1, 17, 300, 4000, 1000], [16, 1, 17, 300, 4000, 1000],
+        num_pages=1024, page=16, nblk=256, h=16, h_kv=8, d=256,
+        softcap=50.0, scale=1 / 16)[1]
+        for name, dtype in (('bf16', bf16), ('fp32', fp32)))
     # On a contiguous identity table K5 walks the same rows in the same
     # order as K4 (they share one row walk, csrc/decode_common.cuh), so
     # live slots must agree bit for bit.
@@ -1020,7 +1173,8 @@ def check_paged_decode(gen) -> dict:
             'replaces': REPLACES['paged_decode_attention'],
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
-            'library_ms': library_ms, 'ms_at_most_1100_rows': even_ms}
+            'library_ms': library_ms, 'ms_at_most_1100_rows': even_ms,
+            'd256_max_abs_err': d256}
 
 
 # ---- phase 3: the MLA decode kernels (K6 dense, K7 paged) ----
@@ -3519,16 +3673,233 @@ def small_speculative_end_to_end() -> None:
     release_card()
 
 
+# ---- phases 26-27: the Gemma family ----
+
+# Phase [26]: Gemma2-9B behind infer/server.py, 8 slots over an 8192-row
+# cache (the model's context); two prompts of 6000-8000 tokens one at a
+# time (past the even layers' window of 4096: prefilled in 1024-token
+# chunks, then decoded over their live window alone), then 8 concurrent
+# prompts of 1000-1024 tokens (one prefill bucket, the flash kernel's).
+GEMMA_SERVE = dict(slots=8, max_len=8192, long=(6000, 8000),
+                   prompt_len=(1000, 1024), requests=8, new_tokens=64)
+
+
+def count_flash_waves(engine) -> list:
+    """Wrap the engine's prefill forward so that a run can count the
+    waves whose bucket reaches the flash kernel's shortest sequence (one
+    K1 launch per layer each); prompt chunks take the plain attention."""
+    from skypilot_tpu_torch.ops import attention
+    waves = [0]
+    prefill = engine._prefill_batch
+
+    def counted(tokens, *args, **kwargs):
+        waves[0] += int(tokens.shape[1] >= attention._FLASH_MIN_SEQ)
+        return prefill(tokens, *args, **kwargs)
+
+    engine._prefill_batch = counted
+    return waves
+
+
+def gemma2_replica(records: dict) -> None:
+    import threading
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import gemma
+    cfg = gemma.GEMMA2_9B
+    r = GEMMA_SERVE
+    kv_gb = (2 * cfg.n_layers * r['slots'] * r['max_len'] * cfg.n_kv_heads
+             * cfg.head_dim * 2 / 1e9)
+    log(f'[26] Gemma2-9B replica on one card: bf16 ({cfg.n_layers} layers, '
+        f'd_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of '
+        f'{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied '
+        f'head, softcaps {cfg.attn_logit_softcap:g}/'
+        f'{cfg.final_logit_softcap:g}, window {cfg.sliding_window} on even '
+        f'layers; {cfg.num_params() / 1e9:.2f} B parameters), seeded '
+        f'random weights; infer/server.py --model gemma2-9b --max-slots '
+        f'{r["slots"]} --max-target-len {r["max_len"]} on 127.0.0.1 (KV '
+        f'cache {kv_gb:.1f} GB)')
+    t0 = time.perf_counter()
+    replica = server_lib.build_replica(server_lib.parse_args([
+        '--model', 'gemma2-9b', '--max-slots', str(r['slots']),
+        '--max-target-len', str(r['max_len']), '--port', '0',
+        '--device', 'cuda']), host='127.0.0.1')
+    torch.cuda.synchronize()
+    log(f'  init + engine + warm-up {time.perf_counter() - t0:.2f} s; '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    steps = count_decode_steps(replica.engine)
+    waves = count_flash_waves(replica.engine)
+    rng = np.random.default_rng(26)
+    singles = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(r['long'][0], r['long'][1] + 1, 2)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(r['prompt_len'][0],
+                                     r['prompt_len'][1] + 1, r['requests'])]
+    try:
+        # The served requests' own launches: counted from here (after the
+        # warm-up) and read before anything else runs on the engine.
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        steps[0] = waves[0] = 0
+        t0 = time.perf_counter()
+        served = [http_json(url, '/generate', {
+            'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})[
+                'output_tokens'] for p in singles]
+        singles_s = time.perf_counter() - t0
+        before = http_json(url, '/metrics')
+        _, dt = concurrent_generate(url, [
+            {'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+            for p in prompts], cfg.vocab_size)
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        n_waves, n_steps = waves[0], steps[0]
+        after = http_json(url, '/metrics')
+        check_derived_launches('gemma2-9b replica', launches, {
+            'flash_fwd': cfg.n_layers * n_waves,
+            'decode_attention': cfg.n_layers * n_steps})
+        if not n_waves or not n_steps:
+            raise AssertionError(f'{n_waves} flash waves, {n_steps} '
+                                 'decode steps')
+        for name in SERVE_KERNELS:
+            records[name].setdefault('launches_by_path', {})[
+                'gemma_serve'] = launches[name]
+        ttft_n = (metric(after, 'xsky_serve_ttft_seconds_count')
+                  - metric(before, 'xsky_serve_ttft_seconds_count'))
+        ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
+                  - metric(before, 'xsky_serve_ttft_seconds_sum'))
+        if ttft_n != r['requests']:
+            raise AssertionError(f'{ttft_n} TTFT samples for '
+                                 f'{r["requests"]} requests')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # The server adds nothing: the long prompts sent one at a time
+        # give the tokens of Orchestrator.generate on the same engine,
+        # run with the serving loop held.
+        with replica.loop._lock:
+            direct = [replica.loop.orch.generate(
+                [p], max_new_tokens=r['new_tokens'])[0] for p in singles]
+        if served != direct:
+            raise AssertionError('the server gave other tokens than '
+                                 'Orchestrator.generate')
+        out_tokens = r['requests'] * r['new_tokens']
+        log(f'  prompts of {[len(p) for p in singles]} tokens one at a time '
+            f'({singles_s:.2f} s): the served tokens equal '
+            'Orchestrator.generate on the same engine')
+        log(f'  {r["requests"]} concurrent POST /generate (prompts of '
+            f'{min(map(len, prompts))}-{max(map(len, prompts))} tokens) x '
+            f'{r["new_tokens"]} tokens in {dt:.3f} s: {out_tokens / dt:.1f} '
+            f'output tok/s, mean TTFT {ttft_s / ttft_n * 1e3:.1f} ms '
+            f'(/metrics), peak memory {peak:.2f} GiB; served launches '
+            f'{launches} = {cfg.n_layers} layers x ({n_waves} flash waves, '
+            f'{n_steps} decode steps) on {nvidia_smi_line()}')
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    del replica
+    release_card()
+
+
+def small_gemma_params(cfg, seed: int):
+    """The port's init for cfg on the CPU, every norm drawn 0.3 N(0, 1):
+    zero norms are the identity under Gemma's (1 + w) scaling and would
+    not show a misplaced one."""
+    from skypilot_tpu_torch.models import gemma
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = gemma.init(cfg, gen, device='cpu')
+    for parent in (params['layers'], params):
+        for key, value in parent.items():
+            if key.endswith('_norm'):
+                value.copy_(0.3 * torch.randn(value.shape, generator=gen))
+    return params
+
+
+def small_gemma_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import gemma
+    log('[27] small Gemma checks, card (kernels, TF32 off) vs CPU (plain '
+        'versions): fp32 gemma-tiny, gemma2-tiny (window 8) and gemma2-tiny '
+        'at head_dim 256 (4 heads x 256 over d_model 64), random norms, '
+        'bucket 1024 (so the flash kernel runs, past the window): served '
+        'greedy tokens; a chunked prefill with a prefix-cache hit against '
+        'the whole prompt in one 2048 bucket; NgramSpeculator against plain '
+        'greedy')
+    d256 = dataclasses.replace(gemma.GEMMA2_TINY_F32, head_dim=256)
+    for label, cfg in (('gemma-tiny', gemma.GEMMA_TINY_F32),
+                       ('gemma2-tiny', gemma.GEMMA2_TINY_F32),
+                       ('gemma2-tiny D256', d256)):
+        cpu_params = small_gemma_params(cfg, seed=27)
+        rng = np.random.default_rng(27)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                   for n in (1024, 700, 913, 64)]
+        copy = [int(t) for t in rng.integers(0, cfg.vocab_size, 64)] * 8
+        long = [int(t) for t in rng.integers(0, cfg.vocab_size, 1500)]
+        hit = long[:1200] + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          100)]
+
+        def engine(device, **kw):
+            return engine_lib.InferenceEngine(
+                engine_lib.EngineConfig(model=cfg, max_slots=4,
+                                        kv_dtype=torch.float32, **kw),
+                to_device(cpu_params, device), device=device)
+
+        runs, used = {}, {}
+        for device in ('cuda', 'cpu'):
+            before = {k.name: k.launches for k in kernels.REGISTRY}
+            served_engine = engine(device, max_target_len=1100,
+                                   prefill_buckets=(1024,))
+            served = orch_lib.Orchestrator(served_engine).generate(
+                prompts + [copy], max_new_tokens=12)
+            spec = orch_lib.NgramSpeculator(served_engine, gamma=SPEC_GAMMA)
+            ngram = spec.generate(prompts + [copy], max_new_tokens=12)
+            cached = engine(device, max_target_len=2100,
+                            prefill_buckets=(1024,), prefix_cache_entries=4)
+            chunked = [t for p in (long, hit) for t in orch_lib.Orchestrator(
+                cached, decode_steps=4).generate([p], max_new_tokens=8)]
+            whole = orch_lib.Orchestrator(
+                engine(device, max_target_len=2100, prefill_buckets=(2048,)),
+                decode_steps=4).generate([long, hit], max_new_tokens=8)
+            used[device] = {k.name: k.launches - before[k.name]
+                            for k in kernels.REGISTRY}
+            runs[device] = dict(served=served, ngram=ngram,
+                                stats=dict(spec.accept_stats),
+                                chunked=chunked, whole=whole,
+                                cache=cached.prefix_cache_stats)
+        card, cpu = runs['cuda'], runs['cpu']
+        log(f'  {label}: card tokens {card["served"]}; ngram '
+            f'{card["stats"]}; chunked + prefix hit {card["chunked"]} '
+            f'({card["cache"]}); card launches {used["cuda"]}')
+        if card != cpu:
+            raise AssertionError(f'{label}: the card and the CPU differ: '
+                                 f'{card} vs {cpu}')
+        for device, run in runs.items():
+            if run['ngram'] != run['served'] or not run['stats']['rounds']:
+                raise AssertionError(f'{label} on {device}: NgramSpeculator '
+                                     f'gave {run["ngram"]} ({run["stats"]}), '
+                                     f'plain greedy {run["served"]}')
+            if run['chunked'] != run['whole'] or not run['cache']['hits']:
+                raise AssertionError(
+                    f'{label} on {device}: the chunked prefill with a '
+                    f'prefix-cache hit gave {run["chunked"]}, the whole '
+                    f'prompt {run["whole"]} ({run["cache"]})')
+        for name, n in used['cuda'].items():
+            if (n > 0) != (name in SERVE_KERNELS):
+                raise AssertionError(f'{label}: {name} ran {n} times on the '
+                                     f'card: {used["cuda"]}')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the decode split walks and combine at the main paths'
-    types (bf16 queries and cache, D 128), and of the MLA tensor-core
-    walks (bf16 cache), in an nvcc -Xptxas -v log."""
+    types (bf16 queries and cache, D 128 and 256), and of the MLA
+    tensor-core walks (bf16 cache), in an nvcc -Xptxas -v log."""
     for chunk in build_log.split('Compiling entry function')[1:]:
         mangled = chunk.split("'")[1]
         found = re.search(r'(flash_[a-z_]+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
                           mangled) or re.search(
-            r'((?:paged_)?decode_kernel)I13__nv_bfloat16S\w*?_Li(128ELi\d)E',
+            r'((?:paged_)?decode_kernel)I13__nv_bfloat16S\w*?_Li'
+            r'((?:128|256)ELi\d)E',
             mangled) or re.search(
             r'(decode_combine_kernel)I13(__nv_bfloat16)E',
             mangled) or re.search(
@@ -3603,6 +3974,8 @@ def main() -> int:
     spec_qwen_replica(records, plain_qwen)
     draft_model_paths(records)
     small_speculative_end_to_end()
+    gemma2_replica(records)
+    small_gemma_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -99,6 +99,7 @@ cudaError_t dispatch_d(int d, const DenseParams& p, cudaStream_t stream) {
     case 32: return launch<TQ, TKV, 32>(p, stream);
     case 64: return launch<TQ, TKV, 64>(p, stream);
     case 128: return launch<TQ, TKV, 128>(p, stream);
+    case 256: return launch<TQ, TKV, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -31,8 +31,10 @@
 //      and one sum across the lanes a tile), and p and the rescale factor
 //      alpha go to shared memory;
 //   3. P·V: thread t owns eight head-dim columns of every head and a
-//      subset of the tile's rows; the row subsets' partial sums merge
-//      through shared memory once, at the end of the split.
+//      subset of the tile's rows (128 / (D / 8) subsets: 8 at D 128, 4 at
+//      D 256); the row subsets' partial sums merge through shared memory
+//      once, at the end of the split ([subsets][groups][D] fp32, the same
+//      bytes at every D).
 // The walk is instantiated for groups of at most 4 and of at most 8 query
 // heads: a group of 4 (Llama-3-8B) keeps half the accumulators, and the
 // registers saved buy more blocks a SM. Rows never read: those outside
@@ -55,6 +57,11 @@ constexpr int kDecodeCols = 8;          // head-dim columns a thread owns in P·
 
 static_assert(kDecodeSplitRows % kDecodeTile == 0, "a split is whole tiles");
 static_assert(kDecodeMaxGroups == 2 * kDecodeWarps, "two heads per warp");
+
+// Head dims the walk is built for: D 256 (Gemma) holds one fp32 cache row
+// in 1 KB, and the two-stage ring of K and V then takes 130 KB of a
+// block's shared memory (DecodeSmem).
+constexpr int kDecodeMaxD = 256;
 
 // Which rows of slot b are live: lengths clamp to [0, cap]; under a
 // window the first max(length - window, 0) are dead; a slot of length 0
@@ -120,6 +127,11 @@ struct DecodeSmem {
   static constexpr int kBytes =
       kRing + (kRingBytes > kRedBytes ? kRingBytes : kRedBytes);
   static_assert(kRowBytes % 16 == 0, "rows are whole 16-byte chunks");
+  static_assert(D <= kDecodeMaxD && D % kDecodeCols == 0 &&
+                    kDecodeThreads % (D / kDecodeCols) == 0,
+                "P·V splits the block into whole row subsets");
+  static_assert(kRing + kRingBytes <= 232448,
+                "past the 227 KB a block may use");
   static_assert(kRing % 16 == 0, "the ring is 16-byte aligned");
 };
 
@@ -475,8 +487,10 @@ __device__ __forceinline__ float decode_block_sum(float x, float* red_s) {
 // the splits rescaled to their common max. Each split's (m, l) is read
 // once, by one thread, and its weight waits in shared memory for the
 // accumulator pass, kCombineChunk splits at a time; thread c owns output
-// column c (D <= kDecodeThreads). One live split gives acc / l exactly.
+// columns c and c + kDecodeThreads (D <= 2 kDecodeThreads = 256). One
+// live split gives acc / l exactly.
 constexpr int kCombineChunk = 1024;
+constexpr int kCombineCols = 2;  // output columns a thread owns
 
 template <typename TQ>
 __global__ void __launch_bounds__(kDecodeThreads) decode_combine_kernel(
@@ -494,7 +508,7 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_combine_kernel(
   for (int i = c; i < n; i += kDecodeThreads)
     m = fmaxf(m, p.part_ml[((base + i) * p.h + h) * 2]);
   const float mx = decode_block_max(m, red_s);
-  float num = 0.f, den = 0.f;
+  float num[kCombineCols] = {0.f, 0.f}, den = 0.f;
   for (int i0 = 0; i0 < n; i0 += kCombineChunk) {
     const int cn = min(kCombineChunk, n - i0);
     for (int i = c; i < cn; i += kDecodeThreads) {
@@ -504,18 +518,26 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_combine_kernel(
       den = fmaf(p.part_ml[at + 1], w, den);
     }
     __syncthreads();
-    if (c < d) {
-      const float* acc = p.part_acc + ((base + i0) * p.h + h) * d + c;
+#pragma unroll
+    for (int j = 0; j < kCombineCols; ++j) {
+      const int col = c + j * kDecodeThreads;
+      if (col < d) {
+        const float* acc = p.part_acc + ((base + i0) * p.h + h) * d + col;
 #pragma unroll 4
-      for (int i = 0; i < cn; ++i)
-        num = fmaf(acc[static_cast<long>(i) * p.h * d], w_s[i], num);
+        for (int i = 0; i < cn; ++i)
+          num[j] = fmaf(acc[static_cast<long>(i) * p.h * d], w_s[i], num[j]);
+      }
     }
     __syncthreads();
   }
   den = decode_block_sum(den, red_s);
-  if (c < d)
-    static_cast<TQ*>(p.out)[(static_cast<long>(b) * p.h + h) * d + c] =
-        from_float<TQ>(den > 0.f ? num / den : 0.f);
+#pragma unroll
+  for (int j = 0; j < kCombineCols; ++j) {
+    const int col = c + j * kDecodeThreads;
+    if (col < d)
+      static_cast<TQ*>(p.out)[(static_cast<long>(b) * p.h + h) * d + col] =
+          from_float<TQ>(den > 0.f ? num[j] / den : 0.f);
+  }
 }
 
 // The walk's launch (grid: KV heads x slots x splits, so that every

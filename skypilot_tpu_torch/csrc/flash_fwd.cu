@@ -11,13 +11,19 @@
 // values per operand: ~S / 4 flops a byte (256 at S 1024, 2048 at S 8192)
 // where the card needs ~295 to leave memory behind, so the tensor cores'
 // rate is the limit.
-// What the design does about it (bf16, D = 64 and 128):
+// What the design does about it (bf16, D = 64, 128 and 256):
 //   * warp specialisation: a block owns 128 query rows of one (b, h).
 //     A producer warpgroup (registers cut to 24 by setmaxnreg) loads Q
-//     once and then streams K and V tiles of 128 keys by TMA into a
-//     three-stage ring guarded by full / empty mbarriers (225 KB of
-//     shared memory at D 128), so loads overlap the math; two consumer
-//     warpgroups (240 registers) own 64 rows each;
+//     once and then streams K and V tiles by TMA into a ring guarded by
+//     full / empty mbarriers, so loads overlap the math; two consumer
+//     warpgroups (240 registers) own 64 rows each. At D 64 and 128 a
+//     tile is 128 keys and the ring three stages deep (225 KB of shared
+//     memory at D 128); at D 256 (Gemma) a tile of 128 keys would take
+//     128 KB for K and V alone, so a tile is 64 keys and the ring two
+//     stages deep: Q 64 KB + 2 x (32 + 32) KB = 193 KB. Each consumer
+//     then holds a 64 x 256 fp32 O accumulator (128 registers a thread)
+//     beside a 64 x 64 score tile (32), and P·V is two m64n128 products,
+//     one per half of the head dim;
 //   * S = Q·Kᵀ is one wgmma chain per consumer, Q and K both read from
 //     shared memory as TMA lands them (K-major, 128-byte swizzle);
 //   * O += P·V is wgmma with P as the register A operand: the fp32 score
@@ -35,7 +41,8 @@
 //     blocks leave no long tail.
 // D = 16 and 32 (only the tiny test configs use them) keep the mma.sync
 // kernel below: a shape dispatch inside the same entry point, not a
-// fallback. fp32 (the reference checks) runs plain FMAs.
+// fallback. fp32 (the reference checks) runs plain FMAs: at D 256 their
+// shared memory is 214,016 bytes (fma_smem_bytes), under the opt-in.
 //
 // Layout: q [B, S, H, D], k/v [B, S_kv, Hkv, D] (row strides H*D and
 // Hkv*D, read in place: no transposes), segment ids [B, S] int32,
@@ -67,22 +74,23 @@ __device__ __forceinline__ int2 kv_tiles(const FlashParams& p, int q_start) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64 and 128: TMA + mbarrier ring + wgmma, warp-specialised.
+// bf16, D = 64, 128 and 256: TMA + mbarrier ring + wgmma, warp-specialised.
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int kBQ = 128;       // query rows a block: two consumers of 64
-constexpr int kBKV = 128;      // keys a tile
-constexpr int kStages = 3;     // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kConsumerWarps = 8;
 
 // Shared memory, in bytes from a 1024-byte-aligned base: Q's panels, then
 // the K and V panels of each stage, then the mbarriers (q, full_k[stage],
-// full_v[stage], empty[stage]).
+// full_v[stage], empty[stage]). The key tile and the ring's depth depend
+// on D (see the header): what fits the 227 KB a block may opt into.
 template <int D>
 struct Smem {
+  static constexpr int kBKV = D == 256 ? 64 : 128;  // keys a tile
+  static constexpr int kStages = D == 256 ? 2 : 3;  // K/V ring depth
   static constexpr int kPanels = D / hw::kPanelCols;
   static constexpr uint32_t kQPanel = kBQ * hw::kPanelRowBytes;
   static constexpr uint32_t kKVPanel = kBKV * hw::kPanelRowBytes;
@@ -92,6 +100,7 @@ struct Smem {
   static constexpr uint32_t kV = kK + kStages * kKVTile;
   static constexpr uint32_t kBar = kV + kStages * kKVTile;
   static constexpr size_t kAlloc = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kAlloc <= 232448, "past the 227 KB a block may use");
 };
 
 template <int D>
@@ -100,8 +109,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            const FlashParams p) {
-  static_assert(D == 64 || D == 128, "the wgmma forward takes D 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the wgmma forward takes D 64, 128 or 256");
   using L = Smem<D>;
+  constexpr int kBKV = L::kBKV;
+  constexpr int kStages = L::kStages;
+  // P·V in products of at most 128 output columns (two panels of V).
+  constexpr int kOCols = D < 128 ? D : 128;
+  constexpr int kOParts = D / kOCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hw::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -170,9 +185,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                           segment(p, b, row0 + 8, p.s_q)};
     const float scale_log2 = p.scale * xsky::kLog2e;
 
-    float o[D / 2];
+    float o[kOParts][kOCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+      for (int i = 0; i < kOCols / 2; ++i) o[j][i] = 0.f;
     float m[2] = {kMaskFill, kMaskFill}, l[2] = {0.f, 0.f};
 
     hw::mbar_wait(bar_q, 0);
@@ -248,7 +265,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[r] = l[r] * alpha[r] + rs[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+        for (int i = 0; i < kOCols / 2; ++i) o[j][i] *= alpha[(i >> 1) & 1];
 
       // P in bf16: n-blocks 2kk and 2kk + 1 of S are the A fragment of
       // k-step kk (keys 16kk .. 16kk + 15) of P·V.
@@ -261,17 +280,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 
-      // O += P·V, V read in place ([key][d], MN-major).
+      // O += P·V, V read in place ([key][d], MN-major); part j of O is
+      // columns kOCols j .. kOCols (j + 1) - 1, from V's panels 2j on.
       hw::mbar_wait(bar_full_v + 8 * s, phase);
-      hw::fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < kOParts; ++j) hw::fence_regs(o[j]);
       hw::fence_regs(pa);
       hw::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk)
-        hw::wgmma_rs_t(o, pa[kk], hw::mnmajor_desc(v_tile, L::kKVPanel, kk));
+      for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+        for (int kk = 0; kk < kBKV / 16; ++kk)
+          hw::wgmma_rs_t(
+              o[j], pa[kk],
+              hw::mnmajor_desc(
+                  v_tile + j * (kOCols / hw::kPanelCols) * L::kKVPanel,
+                  L::kKVPanel, kk));
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
-      hw::fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < kOParts; ++j) hw::fence_regs(o[j]);
       hw::fence_regs(pa);
       __syncwarp();
       if (lane == 0) hw::mbar_arrive(bar_empty + 8 * s);
@@ -288,9 +316,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float inv = 1.f / l_safe;
       __nv_bfloat16* orow = out + static_cast<long>(row) * p.h * D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+        for (int n = 0; n < kOCols / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + kOCols * j + 8 * n + 2 * t) =
+              pack_bf16(o[j][4 * n + 2 * r] * inv,
+                        o[j][4 * n + 2 * r + 1] * inv);
       if (t == 0)
         p.lse[static_cast<long>(bh) * p.s_q + row] =
             m[r] == kMaskFill ? kMaskFill + logf(l_safe)
@@ -304,9 +335,11 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kBQ);
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kBKV);
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D,
+                            Smem<D>::kBKV);
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kBKV);
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D,
+                            Smem<D>::kBKV);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = Smem<D>::kAlloc;
   err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
@@ -520,6 +553,8 @@ constexpr size_t fma_smem_bytes() {
              (kBQ * (D + 1) + kBKV * (D + 1) + kBKV * D + kBQ * (kBKV + 1)) +
          sizeof(int32_t) * kBKV;
 }
+static_assert(fma_smem_bytes<256>() <= 232448,
+              "the fp32 forward at D 256 past the 227 KB a block may use");
 
 template <int D>
 __global__ void __launch_bounds__(kFmaThreads)
@@ -724,6 +759,7 @@ extern "C" int xsky_flash_fwd(const void* q, const void* k, const void* v,
     case 32: err = launch<32>(p, dtype, st); break;
     case 64: err = launch<64>(p, dtype, st); break;
     case 128: err = launch<128>(p, dtype, st); break;
+    case 256: err = launch<256>(p, dtype, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

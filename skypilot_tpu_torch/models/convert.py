@@ -1,9 +1,11 @@
 """HuggingFace checkpoint → the port's param tree.
 
 Counterpart of ``skypilot_tpu/models/convert.py`` for the Llama family
-(Llama-3 and Mistral, which share ``LlamaConfig``) and Qwen-2/Qwen-3
+(Llama-3 and Mistral, which share ``LlamaConfig``), Qwen-2/Qwen-3
 (``QwenConfig``: Q/K/V biases detected from ``q_proj.bias``, QK-norm
-from ``q_norm.weight``):
+from ``q_norm.weight``) and Gemma-1/Gemma-2 (``GemmaConfig``: the head
+tied to the embedding, Gemma-2's renamed norms, softcaps, attention
+scale and window):
 
     from skypilot_tpu_torch.models import convert
     config, params = convert.from_hf('/ckpts/Llama-3.1-8B', device='cpu')
@@ -25,8 +27,8 @@ from torch's ``[out, in]``; the cast to the model type happens on the
 target device, so the tree equals the reference's bit for bit.
 
 The output is ``params.pt`` (``torch.save`` of the tree, host tensors)
-beside the reference's ``xsky_model.json`` metadata. The Gemma and
-Mixtral families are not ported yet (ROADMAP.md queue 1 item 6).
+beside the reference's ``xsky_model.json`` metadata. The Mixtral family
+is not ported yet (ROADMAP.md queue 1 item 6.3).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import Device, resolve_device
+from skypilot_tpu_torch.models import gemma
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import qwen
 
@@ -162,7 +165,6 @@ def _detect_family(hf_config: dict) -> str:
 
 # Families the reference converts and the port does not model yet.
 _NOT_PORTED = {
-    'gemma': 'ROADMAP.md queue 1 item 6.2, "Gemma"',
     'moe': 'ROADMAP.md queue 1 item 6.3, "the Mixtral family"',
 }
 
@@ -324,6 +326,68 @@ def _convert_qwen(source: _TensorSource, dtype: torch.dtype,
     return config, params
 
 
+def _convert_gemma(source: _TensorSource, dtype: torch.dtype,
+                   device: torch.device):
+    hf = source.config
+    n_layers = hf['num_hidden_layers']
+    gemma2 = hf.get('model_type') == 'gemma2'
+    if _rope_scaling_tuple(hf) is not None:
+        raise ValueError('rope_scaling is not supported for gemma '
+                         'conversion yet.')
+    attn_scale = None
+    if gemma2:
+        scalar = hf.get('query_pre_attn_scalar')
+        if scalar:
+            attn_scale = float(scalar) ** -0.5
+    config = gemma.GemmaConfig(
+        vocab_size=hf['vocab_size'],
+        d_model=hf['hidden_size'],
+        n_layers=n_layers,
+        n_heads=hf['num_attention_heads'],
+        n_kv_heads=hf.get('num_key_value_heads',
+                          hf['num_attention_heads']),
+        head_dim=hf.get('head_dim', hf['hidden_size'] //
+                        hf['num_attention_heads']),
+        d_ff=hf['intermediate_size'],
+        max_seq_len=hf.get('max_position_embeddings', 8192),
+        rope_theta=float(hf.get('rope_theta', 10_000.0)),
+        norm_eps=float(hf.get('rms_norm_eps', 1e-6)),
+        final_logit_softcap=hf.get('final_logit_softcapping'),
+        gemma2=gemma2,
+        attn_logit_softcap=(hf.get('attn_logit_softcapping')
+                            if gemma2 else None),
+        attn_scale=attn_scale,
+        sliding_window=hf.get('sliding_window') if gemma2 else None,
+        dtype=dtype,
+    )
+    cast = _caster(dtype, device)
+    # Gemma's norms share the (1 + w) convention with the port's model,
+    # so the weights map directly; the head is tied to the embedding.
+    layers = _common_layers(source, n_layers)
+    if gemma2:
+        p = 'layers.{i}.'
+        # Gemma-2 renames: input_layernorm stays the pre-attention norm;
+        # post_attention_layernorm becomes an output norm; the pre-MLP
+        # norm is pre_feedforward_layernorm.
+        layers['post_attn_norm'] = layers.pop('mlp_norm')
+        layers['mlp_norm'] = _stack(
+            source, p + 'pre_feedforward_layernorm.weight', n_layers,
+            transpose=False)
+        layers['post_ffw_norm'] = _stack(
+            source, p + 'post_feedforward_layernorm.weight', n_layers,
+            transpose=False)
+    params = {
+        'embed': cast(source.get('embed_tokens.weight')),
+        'layers': {k: cast(v) for k, v in layers.items()},
+        'final_norm': cast(source.get('norm.weight')),
+    }
+    return config, params
+
+
+_CONVERTERS = {'llama': _convert_llama, 'qwen': _convert_qwen,
+               'gemma': _convert_gemma}
+
+
 def from_hf(src, dtype: Optional[torch.dtype] = None,
             device: Device = None) -> Tuple[Any, Params]:
     """(config, params) from a local HF checkpoint directory or an
@@ -338,8 +402,7 @@ def from_hf(src, dtype: Optional[torch.dtype] = None,
         raise NotImplementedError(
             f'model_type {source.config.get("model_type")!r}: the port '
             f'has no such family yet ({_NOT_PORTED[family]}).')
-    convert = _convert_qwen if family == 'qwen' else _convert_llama
-    return convert(source, dtype, device)
+    return _CONVERTERS[family](source, dtype, device)
 
 
 def load(path: str, device: Device = None) -> Params:

@@ -31,7 +31,7 @@ import torch
 
 from skypilot_tpu_torch.ops import kernels
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUPS = 8
 # A slot of length 0 returns the mean of its first min(EMPTY_SLOT_ROWS,
 # max_len) V rows, as the JAX kernel does: its grid still runs KV block 0

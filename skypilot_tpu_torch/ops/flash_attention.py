@@ -9,6 +9,9 @@ counts. In bf16 at head dims 64 and 128 the forward, dK/dV and dQ are
 TMA + wgmma kernels built on ``csrc/hopper.cuh``, and one backward runs
 the row pre-pass they share (LSE in base 2, delta) once; the sources'
 headers say what bounds each kernel on the H100 and how it is laid out.
+The forward also takes head dim 256 (Gemma; FWD_HEAD_DIMS); the backward
+does not yet (BWD_HEAD_DIMS: ROADMAP.md queue 1, "Gemma training (K2/K3
+at D 256)"), and its wrappers refuse it.
 ``flash_attention`` is a ``torch.autograd.Function`` (the JAX
 ``custom_vjp``): its forward saves the LSE, its backward recomputes P
 from it.
@@ -27,7 +30,8 @@ import torch
 from skypilot_tpu_torch.ops import kernels
 
 _NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 _SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
                                     ctypes.c_int, ctypes.c_void_p]
@@ -183,8 +187,8 @@ def _check(q, k, v, segment_ids) -> None:
     if h % k.shape[2]:
         raise ValueError(f'{h} query heads not a multiple of '
                          f'{k.shape[2]} KV heads')
-    if d not in HEAD_DIMS:
-        raise ValueError(f'head_dim {d} not in {HEAD_DIMS}')
+    if d not in FWD_HEAD_DIMS:
+        raise ValueError(f'head_dim {d} not in {FWD_HEAD_DIMS}')
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f'q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: '
@@ -248,6 +252,11 @@ def _check_bwd(q, k, v, segment_ids, out, dout, lse) -> None:
     if not q.is_cuda:
         raise ValueError(f'the flash backward launches a CUDA kernel; got '
                          f'a {q.device} tensor')
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f'the flash backward takes head_dim in {BWD_HEAD_DIMS}; '
+            f'{q.shape[-1]} is not ported yet: ROADMAP.md queue 1, "Gemma '
+            'training (K2/K3 at D 256)"')
     _check(q, k, v, segment_ids)
     b, s_q, h, _ = q.shape
     for name, t in (('out', out), ('dout', dout)):

@@ -28,6 +28,7 @@ from skypilot_tpu_torch import Device, models, resolve_device
 from skypilot_tpu_torch.agent import flight_recorder
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.train import lora as lora_lib
 from skypilot_tpu_torch.train import optim
 
@@ -160,6 +161,14 @@ class Trainer:
                 'cannot train (full or LoRA): ROADMAP.md queue 1 item '
                 '6.4, "DeepSeek training".')
         self.device = resolve_device(device)
+        head_dim = getattr(config.model, 'head_dim', None)
+        if (self.device.type == 'cuda'
+                and head_dim not in flash_ops.BWD_HEAD_DIMS):
+            raise NotImplementedError(
+                f'head_dim {head_dim}: the flash backward kernels take '
+                f'{flash_ops.BWD_HEAD_DIMS} on the card, so this model '
+                'cannot train there yet: ROADMAP.md queue 1, "Gemma '
+                'training (K2/K3 at D 256)".')
         if self.device.type == 'cuda' and self.device.index is None:
             # What tensors report, so that devices compare equal.
             self.device = torch.device('cuda', torch.cuda.current_device())

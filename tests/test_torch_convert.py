@@ -11,8 +11,11 @@ own safetensors reader and the ``.bin`` path read what the
 biases) and Qwen-3 (QK-norm, an explicit head_dim) checkpoints, written
 here from a numpy seed, convert to the JAX converter's trees bit for
 bit, in fp32 and bf16, and its logits within 1e-5; rope_scaling is
-refused for Qwen as in the reference. The Gemma and Mixtral families
-raise, naming ROADMAP.md queue 1 item 6.
+refused for Qwen as in the reference. So do tiny Gemma-1 and Gemma-2
+checkpoints (a tied head; Gemma-2's renamed norms, softcaps,
+query_pre_attn_scalar and window, at a head_dim of 32 that hidden_size /
+heads does not give), and an in-memory transformers Gemma. The Mixtral
+family raises, naming ROADMAP.md queue 1 item 6.3.
 """
 from __future__ import annotations
 
@@ -25,9 +28,11 @@ import pytest
 import torch
 
 from skypilot_tpu.models import convert as jax_convert
+from skypilot_tpu.models import gemma as jax_gemma
 from skypilot_tpu.models import llama as jax_llama
 from skypilot_tpu.models import qwen as jax_qwen
 from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models import gemma
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import qwen
 
@@ -162,7 +167,17 @@ def test_other_families_name_their_roadmap_item(family, item):
     cfg = {'gemma': transformers.GemmaConfig,
            'mixtral': transformers.MixtralConfig}[family](**small)
     model = transformers.AutoModelForCausalLM.from_config(cfg)
-    jax_convert.from_hf(model, dtype=jnp.float32)   # the reference takes it
+    # The reference takes both.
+    jcfg, jp = jax_convert.from_hf(model, dtype=jnp.float32)
+    if family == 'gemma':
+        # Item 6.2 is done: the port converts the model as the reference.
+        tcfg, tp = convert.from_hf(model, dtype=torch.float32, device='cpu')
+        assert dataclasses.asdict(tcfg) == {
+            **dataclasses.asdict(jcfg), 'dtype': torch.float32}
+        for key, w in _flat(jp).items():
+            np.testing.assert_array_equal(_bits(_flat(tp)[key]), _bits(w),
+                                          err_msg=key)
+        return
     with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
         convert.from_hf(model, device='cpu')
 
@@ -254,6 +269,90 @@ def test_qwen_rope_scaling_is_refused_like_jax(tmp_path, scaling, match):
         jax_convert.from_hf(src, dtype=jnp.float32)
     with pytest.raises(ValueError, match=match):
         convert.from_hf(src, dtype=torch.float32, device='cpu')
+
+
+def _write_gemma(root, kind):
+    """A tiny checkpoint in HF's Gemma layout, written here: config.json
+    and one safetensors file of fp32 weights from a numpy seed, no
+    lm_head (tied). Gemma-2 adds its pre/post-feedforward norms, the
+    softcaps, query_pre_attn_scalar, a window of 8 and a head_dim (32)
+    that hidden_size / heads (16) does not give."""
+    from safetensors.numpy import save_file
+    gemma2 = kind == 'gemma2'
+    rng = np.random.default_rng(2 if gemma2 else 3)
+    d, ff, vocab, h, kvh, layers = 64, 128, 256, 4, 2, 2
+    hd = 32 if gemma2 else 16
+
+    def draw(*shape):
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    norms = ['input_layernorm', 'post_attention_layernorm'] + (
+        ['pre_feedforward_layernorm', 'post_feedforward_layernorm']
+        if gemma2 else [])
+    tensors = {'model.embed_tokens.weight': draw(vocab, d),
+               'model.norm.weight': draw(d)}
+    for i in range(layers):
+        p = f'model.layers.{i}.'
+        tensors.update({
+            p + 'self_attn.q_proj.weight': draw(h * hd, d),
+            p + 'self_attn.k_proj.weight': draw(kvh * hd, d),
+            p + 'self_attn.v_proj.weight': draw(kvh * hd, d),
+            p + 'self_attn.o_proj.weight': draw(d, h * hd),
+            p + 'mlp.gate_proj.weight': draw(ff, d),
+            p + 'mlp.up_proj.weight': draw(ff, d),
+            p + 'mlp.down_proj.weight': draw(d, ff),
+            **{p + f'{n}.weight': draw(d) for n in norms}})
+    config = {'model_type': kind, 'vocab_size': vocab, 'hidden_size': d,
+              'intermediate_size': ff, 'num_hidden_layers': layers,
+              'num_attention_heads': h, 'num_key_value_heads': kvh,
+              'head_dim': hd, 'max_position_embeddings': 128,
+              'rope_theta': 10_000.0, 'rms_norm_eps': 1e-6,
+              'tie_word_embeddings': True}
+    if gemma2:
+        config.update(query_pre_attn_scalar=24, sliding_window=8,
+                      attn_logit_softcapping=50.0,
+                      final_logit_softcapping=30.0)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / 'config.json').write_text(json.dumps(config))
+    save_file(tensors, str(root / 'model.safetensors'))
+    return str(root)
+
+
+@pytest.mark.parametrize('kind', ['gemma', 'gemma2'])
+def test_gemma_trees_equal_jax_and_logits_agree(kind, tmp_path):
+    """Both packages convert the test-written files to equal configs and
+    trees, bit for bit in fp32 and bf16; the fp32 logits of the two
+    ``forward`` functions agree within 1e-5 over 8 tokens, past
+    Gemma-2's window of 8."""
+    src = _write_gemma(tmp_path / kind, kind)
+    jcfg, jp = jax_convert.from_hf(src, dtype=jnp.float32)
+    tcfg, tp = convert.from_hf(src, dtype=torch.float32, device='cpu')
+    assert isinstance(tcfg, gemma.GemmaConfig)
+    assert dataclasses.asdict(tcfg) == {
+        **dataclasses.asdict(jcfg), 'dtype': torch.float32}
+    if kind == 'gemma2':
+        assert (tcfg.gemma2, tcfg.sliding_window, tcfg.attn_scale,
+                tcfg.attn_logit_softcap, tcfg.final_logit_softcap) == (
+            True, 8, 24 ** -0.5, 50.0, 30.0)
+        assert tcfg.n_heads * tcfg.head_dim != tcfg.d_model
+    want, got = _flat(jp), _flat(tp)
+    assert set(got) == set(want)
+    assert '/lm_head' not in got
+    for key, w in want.items():
+        assert got[key].dtype == torch.float32
+        np.testing.assert_array_equal(_bits(got[key]), _bits(w),
+                                      err_msg=key)
+    tokens = [row + row[:4] for row in TOKENS]   # 12 tokens a row
+    logits_j = jax_gemma.forward(jcfg, jp, jnp.asarray(tokens, jnp.int32))
+    logits_t = gemma.forward(tcfg, tp, torch.tensor(tokens))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=LOGITS_ATOL, rtol=0)
+    _, jp16 = jax_convert.from_hf(src)
+    _, tp16 = convert.from_hf(src, device='cpu')
+    for key, w in _flat(jp16).items():
+        got16 = _flat(tp16)[key]
+        assert got16.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(got16), _bits(w), err_msg=key)
 
 
 def test_refusals_match_jax(saved, tmp_path):

@@ -157,6 +157,48 @@ def test_flash_backward_kernels_match_plain(card, dtype, kw):
         assert_blocks_close(g, w, dtype, name)
 
 
+# Head dim 256 (every Gemma): the forward's wgmma kernel with 64-key
+# tiles in a two-stage ring (bf16) and the FMA kernel (fp32), at the tile
+# edges, GQA groups 1, 2 and 8 (Gemma-7B, Gemma2-9B, Gemma-2B) and
+# Gemma-2's options: a window, softcap 50, scale 1/16.
+_D256_KW = [dict(s=127, h=8, h_kv=8, d=256), dict(s=129, h=8, h_kv=4, d=256),
+            dict(s=1000, h=8, h_kv=1, d=256, window=100),
+            dict(s=300, h=8, h_kv=4, d=256, softcap=50.0, scale=1 / 16,
+                 window=64),
+            dict(s=200, d=256, segments=True),
+            dict(s=200, d=256, causal=False)]
+_D256_IDS = ['s127_g1', 's129_g2', 's1000_g8_window', 's300_gemma2_opts',
+             'segments', 'non_causal']
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kw', _D256_KW, ids=_D256_IDS)
+def test_flash_kernel_matches_plain_at_head_dim_256(card, dtype, kw):
+    (q, k, v), seg, opts = _flash_inputs(card, dtype, kw)
+    out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
+    ref, ref_lse = flash_attention.flash_attention_plain(
+        q, k, v, **_plain_opts(seg, opts))
+    assert_out_close(out, lse, ref, ref_lse, dtype)
+
+
+def test_flash_backward_refuses_head_dim_256_on_the_card(card):
+    """K2/K3 take head dims up to 128 (ROADMAP.md queue 1, "Gemma
+    training (K2/K3 at D 256)"): the wrappers raise before any launch,
+    and so does autograd through the forward kernel."""
+    (q, k, v, dout), seg, opts = _flash_inputs(card, torch.bfloat16,
+                                               dict(d=256), with_dout=True)
+    out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
+    before = [flash_attention.DKV_KERNEL.launches,
+              flash_attention.DQ_KERNEL.launches]
+    with pytest.raises(ValueError, match='K2/K3 at D 256'):
+        flash_attention._flash_bwd(q, k, v, seg, out, dout, lse, **opts)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match='K2/K3 at D 256'):
+        flash_attention.flash_attention(q, k, v).sum().backward()
+    assert [flash_attention.DKV_KERNEL.launches,
+            flash_attention.DQ_KERNEL.launches] == before
+
+
 def test_flash_backward_check_rejects_planted_faults(card):
     """In bf16 at S=2048, where the later rows' gradients are small, the
     kernels pass the check and two faults confined to late rows fail it:
@@ -388,6 +430,35 @@ def test_decode_kernel_length_zero_slot_is_mean_of_first_rows(card, kv,
     torch.testing.assert_close(out[2], want[2], **TOL[torch.float32])
 
 
+@pytest.mark.parametrize('kv', ['bf16', 'fp32', 'int8'])
+@pytest.mark.parametrize('h,h_kv', [(16, 16), (16, 8), (8, 1)],
+                         ids=['g1', 'g2', 'g8'])
+def test_decode_kernel_matches_plain_at_head_dim_256(card, kv, h, h_kv):
+    """K4 at D 256 (each thread of the P·V pass owns 8 of 256 columns, in
+    4 row subsets; the combine writes two columns a thread) with Gemma-2's
+    options (window 64, softcap 50, scale 1/16) over 6 slots of a 300-row
+    cache: ragged lengths, split edges and an empty slot; GQA groups 1, 2
+    and 8 (Gemma-7B, Gemma2-9B, Gemma-2B)."""
+    b, max_len, d = 6, 300, 256
+    q = _randn(card, (b, 1, h, d), torch.bfloat16)
+    k = _randn(card, (b, max_len, h_kv, d), torch.float32)
+    v = _randn(card, (b, max_len, h_kv, d), torch.float32)
+    if kv == 'int8':
+        k, v = llama.quantize_kv(k), llama.quantize_kv(v)
+    else:
+        dtype = torch.bfloat16 if kv == 'bf16' else torch.float32
+        k, v = k.to(dtype), v.to(dtype)
+    lengths = torch.tensor([0, 1, 127, 129, 257, 300], dtype=torch.int32,
+                           device='cuda')
+    for kw in (dict(), dict(window=64, logit_softcap=50.0, scale=1 / 16)):
+        out = decode_attention.decode_attention(q, k, v, lengths, **kw)
+        ref = decode_attention.decode_attention_plain(q, k, v, lengths,
+                                                      **kw)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **TOL[torch.bfloat16])
+        assert_blocks_close(out, ref, torch.bfloat16, 'decode out')
+
+
 def _paged_case(gen, dtype, b, num_pages, page, nblk, h, h_kv, d, lengths,
                 allocated=None, q_dtype=None):
     """q, arenas, lengths and a block table drawn as a random permutation
@@ -410,7 +481,8 @@ def _paged_case(gen, dtype, b, num_pages, page, nblk, h, h_kv, d, lengths,
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('page, d, h, h_kv', [(8, 16, 4, 2), (16, 128, 32, 8),
                                               (64, 64, 8, 8),
-                                              (256, 32, 8, 1)])
+                                              (256, 32, 8, 1),
+                                              (16, 256, 16, 8)])
 def test_paged_decode_kernel_matches_plain(card, dtype, page, d, h, h_kv):
     """K5 over a permuted table: ragged lengths, a length-0 slot with and
     without an allocated first block, an inactive slot (length past the

@@ -382,3 +382,66 @@ def test_derived_launch_check_and_round_counter():
     orch._decode_tick()
     orch._decode_tick()
     assert rounds == [2] and orch.ticks == 2
+
+
+def test_gemma_entry_points_raise_without_a_card(no_card):
+    """The Gemma family's init and a Gemma replica, like every entry
+    point: the card unless the caller asks for the CPU."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import gemma
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        gemma.init(gemma.GEMMA2_TINY)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        server_lib.build_replica(server_lib.parse_args(
+            ['--model', 'gemma2-tiny', '--port', '0']), host='127.0.0.1')
+    params = gemma.init(gemma.GEMMA2_TINY, device='cpu')
+    assert params['embed'].device.type == 'cpu'
+
+
+def test_chip_smoke_gemma_phases_check_their_derived_launches():
+    """Phases [26] and [27] run after [25], on the card. [26] counts its
+    flash waves and decode steps and zeroes the launch counts after the
+    replica's warm-up, then holds K1 and K4 to the counts derived from
+    them (every other kernel to 0) before the comparison run; phase [3]
+    holds K1, K4 and K5 at D 256 and puts their numbers in the kernels
+    line."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    replica = inspect.getsource(chip_smoke.gemma2_replica)
+    assert "'gemma2-9b'" in replica and "'--device', 'cuda'" in replica
+    assert replica.index('build_replica(') < replica.index(
+        'count_decode_steps(') < replica.index('count_flash_waves(') < \
+        replica.index('zero_launches()') < replica.index('/generate') < \
+        replica.index('check_derived_launches(') < replica.index(
+        '.generate(') < replica.index('replica.loop.close()')
+    assert chip_smoke.GEMMA_SERVE['max_len'] == 8192
+    assert 'SERVE_KERNELS' in inspect.getsource(
+        chip_smoke.small_gemma_end_to_end)
+    assert "'d256': gemma" in inspect.getsource(chip_smoke.check_flash)
+    assert "'d256': gemma" in inspect.getsource(chip_smoke.check_decode)
+    assert 'd256_max_abs_err' in inspect.getsource(
+        chip_smoke.check_paged_decode)
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_speculative_end_to_end()', 'gemma2_replica(records)',
+        'small_gemma_end_to_end()', "print(json.dumps({'ok': True")]
+    assert order == sorted(order)
+
+
+def test_flash_wave_counter_counts_the_flash_buckets_only():
+    """count_flash_waves counts a prefill forward only where its bucket
+    reaches the flash kernel's shortest sequence."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from skypilot_tpu_torch.ops import attention
+
+    class Engine:
+        def _prefill_batch(self, tokens, *args):
+            return tokens.shape[1]
+
+    engine = Engine()
+    waves = chip_smoke.count_flash_waves(engine)
+    for bucket in (128, attention._FLASH_MIN_SEQ, 2048):
+        engine._prefill_batch(torch.zeros((2, bucket)), None)
+    assert waves == [2]
