@@ -173,17 +173,41 @@ Phases, in order; any failure exits non-zero:
      NgramSpeculator's tokens equal plain greedy, a chunked prefill with a
      prefix-cache hit against the whole prompt in one 2048 bucket; only K1
      and K4 on the card.
+ 28. Gemma2-2B training: python -m skypilot_tpu_torch.train.launch
+     in-process, --model gemma2-2b --seq-len 8192 --global-batch-size 1
+     --optimizer adafactor (bf16, random weights from the seeded init,
+     head_dim 256, softcap 50, scale 1/16, a window of 4096 on even
+     layers, the tied fp32 head) over uint32 token shards: 7 steps (2
+     warm-up, 5 measured); 2 steps with --checkpoint-every 2, then
+     --steps 4 --resume auto, whose losses must equal the uninterrupted
+     run's within rel 1e-4; K1 = 2 x 26 layers x steps (the remat policy
+     recomputes attention), K2 = K3 = 26 x steps, nothing else; tokens/s,
+     model TFLOP/s and its share of 989, peak memory, the flight
+     recorder's phase shares, and the fp32 head's forward and backward
+     timed alone against a step;
+ 29. small Gemma training checks, card (kernels, TF32 off) vs CPU (plain
+     versions): fp32 gemma-tiny, gemma2-tiny and gemma2-tiny at head_dim
+     256, random norms, seq 1024: three Trainer steps each (adafactor,
+     accum_steps=2) and three LoRA steps on the head_dim-256 config; the
+     losses, grad norms and every parameter agree, the LoRA base stays
+     bit-identical, and only K1-K3 run on the card.
 Phase 3 also holds K1 at D 256 (Gemma's head dim: tile edges, Gemma2-9B's
 wave of 8192 tokens with and without its window, Gemma-2B's and
-Gemma-7B's heads, bf16 and fp32, timed), K4 at D 256 (8 slots x 8192,
-window 4096, softcap 50, scale 1/16: bf16, fp32 and int8 caches, GQA
-groups 1, 2 and 8, timed) and K5 at D 256; they land in the kernels line
-as the `d256` entries.
+Gemma-7B's heads, bf16 and fp32, timed), K2 and K3 at D 256 (tile edges
+at GQA groups 1, 2 and 8 with segment ids, then B1 S8192 waves on
+Gemma2-2B's and Gemma2-9B's heads with softcap 50, scale 1/16 and the
+window of 4096 or none, and Gemma-2B's and Gemma-7B's heads, in bf16 and
+fp32: checked, two runs bit-identical, timed beside the plain backward
+and SDPA's), K4 at D 256 (8 slots x 8192, window 4096, softcap 50,
+scale 1/16: bf16, fp32 and int8 caches, GQA groups 1, 2 and 8, timed)
+and K5 at D 256; they land in the kernels line as the `d256` entries.
+Phase 2 fails if a D 256 instantiation of the flash backward spills.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21) every kernel's launch count is set to 0; just after, the
 kernels of that path must each have run, and no other. Phases 23, 24
-(and its self-draft) and 26 hold each kernel to the count derived from
-the run's prefills, steps and rounds, every other kernel to 0.
+(and its self-draft), 26 and each run of 28 hold each kernel to the
+count derived from the run's prefills, steps and rounds, every other
+kernel to 0. A phase's first line says when it began.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -195,6 +219,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import functools
 import itertools
 import json
 import logging
@@ -260,7 +285,14 @@ DEEPSEEK_KERNELS = ('mla_decode',)
 PAGED_DEEPSEEK_KERNELS = ('paged_mla_decode',)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's first line (it starts with '[') also says
+    when the phase began, in seconds since the script started."""
+    if msg.startswith('['):
+        msg = f'{msg} (at {time.perf_counter() - _START:.1f} s)'
     print(msg, flush=True)
 
 
@@ -709,18 +741,7 @@ def check_flash_bwd(gen) -> dict:
     plain_b1_ms = time_ms(lambda: flash_ops.flash_attention_bwd_plain(
         *row0), iters=2, warmup=1)
     torch.cuda.empty_cache()
-    # Yardstick only: PyTorch's fused attention backward (its flash or
-    # memory-efficient backend, never the math one, which would hold the
-    # S x S matrix), for dq, dk and dv together.
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                      SDPBackend.EFFICIENT_ATTENTION,
-                      SDPBackend.CUDNN_ATTENTION]):
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
-    dout_t = dout.transpose(1, 2)
+    library, backend, _ = sdpa_backward(q, k, v, dout)
     # Kernels and the library in turn, three rounds.
     runs = {'flash_bwd_dq': [], 'flash_bwd_dkv': [], 'library': []}
     for _ in range(3):
@@ -728,23 +749,13 @@ def check_flash_bwd(gen) -> dict:
             lambda: flash_ops._flash_bwd_dq(*args), iters=5, warmup=1))
         runs['flash_bwd_dkv'].append(time_ms(
             lambda: flash_ops._flash_bwd_dkv(*args), iters=5, warmup=1))
-        runs['library'].append(time_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dout_t, retain_graph=True), iters=5,
-            warmup=1))
+        runs['library'].append(time_ms(library, iters=5, warmup=1))
     ms = {name: float(np.mean(t)) for name, t in runs.items()}
     library_ms = ms['library']
     log(f'  backward timings over three rounds (ms): {runs}')
-    del lib_out, qt, kt, vt
-    elem = q.element_size()
-    causal_pairs = s * (s + 1) / 2
-    product = 2.0 * b * h * d * causal_pairs
-    inputs = (2 * q.numel() + k.numel() + v.numel() + dout.numel()) * elem \
-        + lse.numel() * 4
-    work = {'flash_bwd_dkv': (inputs + (k.numel() + v.numel()) * elem,
-                              4 * product),
-            'flash_bwd_dq': (inputs + q.numel() * elem, 3 * product)}
+    del library
     records = {}
-    for name, (nbytes, flops) in work.items():
+    for name, (nbytes, flops) in flash_bwd_work(q, k, v, dout, lse).items():
         bound, bound_by = bound_ms(nbytes, flops, dtype)
         log(f'  {name} main-path timing: kernel {ms[name]:.4f} ms, bound '
             f'{bound:.4f} ms ({bound_by}); '
@@ -758,11 +769,143 @@ def check_flash_bwd(gen) -> dict:
             'plain_shape': 'B1 (dq, dk and dv together)',
             'bound_ms': bound, 'bound_by': bound_by,
             'library_ms': library_ms,
-            'library_call': 'backward of F.scaled_dot_product_attention('
-                            'is_causal=True, enable_gqa=True): dq, dk, dv'}
+            'library_call': f'backward of F.scaled_dot_product_attention('
+                            f'is_causal=True, enable_gqa=True) ({backend}): '
+                            'dq, dk, dv'}
     log(f'  plain backward at B1 (dq, dk, dv together) {plain_b1_ms:.4f} '
-        f'ms; SDPA backward (library, B4) {library_ms:.4f} ms')
+        f'ms; SDPA backward ({backend}, B4) {library_ms:.4f} ms')
+    gemma = flash_bwd_head_dim_256(gen)
+    for name in records:
+        records[name]['d256'] = gemma[name]
     return records
+
+
+# Gemma's head dim in the backward: K2 and K3 at B1 S8192 on each Gemma's
+# heads, softcap 50 and scale 1/16 on Gemma-2's with the even layers'
+# window of 4096 and without (Gemma-1: neither softcap nor window), in
+# bf16 and fp32; first at the tile edges (D256_EDGES: 64-key dK/dV blocks
+# and 64-row query tiles, 128-row dQ blocks and 32-key tiles; 32-row
+# tiles in fp32).
+D256_BWD_WAVES = (
+    ('Gemma2-2B H8/4, window 4096', 8, 4, 4096, 50.0),
+    ('Gemma2-2B H8/4, no window', 8, 4, None, 50.0),
+    ('Gemma2-9B H16/8, window 4096', 16, 8, 4096, 50.0),
+    ('Gemma2-9B H16/8, no window', 16, 8, None, 50.0),
+    ('Gemma-2B H8/1', 8, 1, None, None),
+    ('Gemma-7B H16/16', 16, 16, None, None))
+
+
+def flash_bwd_work(q, k, v, dout, lse, window=None) -> dict:
+    """What K2 and K3 must do at these inputs, for their bounds: each input
+    (q, k, v, out, dout, lse) read once and each output written once, and
+    four products (S, dP, dV, dK) or three (S, dP, dQ) over the pairs the
+    mask keeps → {kernel name: (bytes, operations)}."""
+    b, s, h, d = q.shape
+    elem = q.element_size()
+    inputs = (2 * q.numel() + k.numel() + v.numel() + dout.numel()) * elem \
+        + lse.numel() * 4
+    product = 2.0 * b * h * d * causal_pairs(s, window)
+    return {'flash_bwd_dkv': (inputs + (k.numel() + v.numel()) * elem,
+                              4 * product),
+            'flash_bwd_dq': (inputs + q.numel() * elem, 3 * product)}
+
+
+def sdpa_backward(q, k, v, dout):
+    """The backward of one causal SDPA call at these shapes (dq, dk and
+    dv; no softcap or window, which no one PyTorch call takes): each of
+    PyTorch's fused backends that takes them is timed and the fastest
+    kept; where none does, its math backend (which holds the S x S
+    scores: 2.1 GB a copy in fp32 at B1 H8 S8192) → (a function that runs
+    it, backend name, ms). A yardstick only: the port never calls it."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dout_t = dout.transpose(1, 2)
+    best = None
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and best is not None:
+            break
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter('ignore')   # why a backend declines
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True,
+                    scale=q.shape[-1] ** -0.5)
+            run = functools.partial(torch.autograd.grad, out, (qt, kt, vt),
+                                    dout_t, retain_graph=True)
+            ms = time_ms(run, iters=3, warmup=1)
+        except RuntimeError:   # this backend does not take these shapes
+            if backend == SDPBackend.MATH:
+                raise
+            continue
+        if best is None or ms < best[2]:
+            best = (run, backend.name, ms)
+        del out, run
+    return best
+
+
+def flash_bwd_head_dim_256(gen) -> dict:
+    """K2 and K3 at D 256 against the plain backward: the tile edges in
+    bf16 and fp32, then each wave of D256_BWD_WAVES in both, checked and
+    timed beside its bound (the pairs its mask keeps), the plain backward
+    (dq, dk and dv together) and SDPA's backward → {kernel name: one
+    record per wave}."""
+    for dtype, name in ((torch.bfloat16, 'bf16'), (torch.float32, 'fp32')):
+        for i, (s, groups) in enumerate(D256_EDGES):
+            kw = EDGE_VARIANTS[i % len(EDGE_VARIANTS)]
+            tag = ' '.join(f'{k}={v}' for k, v in kw.items()) or 'causal'
+            flash_bwd_case(gen, f'{name} edge S{s} H8/{8 // groups} D256 '
+                           f'{tag}', dtype, 2, s, 8, 8 // groups, 256, **kw)
+    out = {'flash_bwd_dkv': [], 'flash_bwd_dq': []}
+    b, s, d = 1, 8192, 256
+    for dtype, name in ((torch.bfloat16, 'bf16'), (torch.float32, 'fp32')):
+        for wave, h, h_kv, window, softcap in D256_BWD_WAVES:
+            label = f'{name} B1 S8192 D256 {wave}' + (
+                ', softcap 50' if softcap else '')
+            (q, k, v, _, o, dout, lse, kw), errs = flash_bwd_case(
+                gen, label, dtype, b, s, h, h_kv, d, window=window,
+                softcap=softcap, scale=d ** -0.5)
+            args = (q, k, v, None, o, dout, lse)
+            first = flash_ops._flash_bwd(*args, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    first, flash_ops._flash_bwd(*args, **kw))):
+                raise AssertionError(f'{label}: two backward runs differ')
+            del first
+            ms = {'flash_bwd_dkv': time_ms(lambda: flash_ops._flash_bwd_dkv(
+                      *args, **kw), iters=3, warmup=1),
+                  'flash_bwd_dq': time_ms(lambda: flash_ops._flash_bwd_dq(
+                      *args, **kw), iters=3, warmup=1)}
+            plain_ms = time_ms(lambda: flash_ops.flash_attention_bwd_plain(
+                q, k, v, o, dout, lse, window=window, logit_softcap=softcap,
+                scale=d ** -0.5), iters=1, warmup=1)
+            library = sdpa_backward(q, k, v, dout)
+            backend, library_ms = library[1:]
+            del library
+            torch.cuda.empty_cache()
+            work = flash_bwd_work(q, k, v, dout, lse, window)
+            line = []
+            for kname, (nbytes, flops) in work.items():
+                bound, bound_by = bound_ms(nbytes, flops, dtype)
+                out[kname].append({
+                    'shape': label, 'max_abs_err': errs[kname],
+                    'ms': ms[kname], 'plain_ms': plain_ms,
+                    'plain_shape': 'dq, dk and dv together',
+                    'bound_ms': bound, 'bound_by': bound_by,
+                    'library_ms': library_ms,
+                    'library': f'SDPA backward ({backend}), causal, without '
+                               'softcap and window: dq, dk, dv'})
+                line.append(f'{kname} {ms[kname]:.4f} ms (bound {bound:.4f},'
+                            f' {bound_by}; {flops / ms[kname] / 1e9:.2f} '
+                            'TFLOP/s)')
+            log(f'  {label} timing: {", ".join(line)}; plain (dq, dk, dv) '
+                f'{plain_ms:.4f} ms; SDPA backward ({backend}, causal, no '
+                f'softcap or window) {library_ms:.4f} ms; two runs '
+                'bit-identical')
+            del q, k, v, o, dout, lse, args
+            torch.cuda.empty_cache()
+    return out
 
 
 def decode_case(gen, label, q_dtype, kv_dtype, lengths, b=16, max_len=2048,
@@ -3889,15 +4032,247 @@ def small_gemma_end_to_end() -> None:
     release_card()
 
 
+# ---- phases 28-29: Gemma training ----
+
+# Phase [28]: Gemma2-2B as `train/launch.py --model gemma2-2b --seq-len 8192
+# --global-batch-size 1 --optimizer adafactor` runs it: 2 warm-up and 5
+# measured steps, then a run of 2 steps that checkpoints and one resumed
+# from it to step 4.
+GEMMA_TRAIN = dict(model='gemma2-2b', seq=8192, batch=1, warmup=2,
+                   measured=5, saved=2, resumed=4)
+
+
+def gemma_head_ms(cfg, seq: int) -> float:
+    """Device time of the tied fp32 head's forward and backward on one
+    row of seq tokens, as a training step runs it: the product against
+    the embedding in fp32 (_UpcastMatmul, FFMA), the final softcap, the
+    cross-entropy, and the gradients of the hidden states and the
+    embedding."""
+    from skypilot_tpu_torch.models import gemma
+    from skypilot_tpu_torch.models import llama
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(28)
+    x = torch.randn((1, seq, cfg.d_model), generator=gen, device='cuda').to(
+        cfg.dtype).requires_grad_()
+    embed = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                         device='cuda') * cfg.d_model ** -0.5).to(
+        cfg.dtype).requires_grad_()
+    targets = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                            device='cuda')
+
+    def head():
+        nll = llama._token_nll(gemma.lm_logits(cfg, {'embed': embed}, x),
+                               targets)
+        torch.autograd.grad(nll.mean(), (x, embed))
+
+    # CUDA events without time_ms's hold: the host queues a run in ~0.1 s
+    # (its 8.4 GB tensors wait on the allocator), far less than the run's
+    # device time, so nothing of the host's shows between the events.
+    head()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        head()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    del x, embed, targets
+    release_card()
+    return ms
+
+
+def gemma_train_path(records: dict) -> None:
+    import tempfile
+    from skypilot_tpu_torch.models import gemma
+    cfg = gemma.GEMMA2_2B
+    r = GEMMA_TRAIN
+    steps = r['warmup'] + r['measured']
+    # Each step runs K2 and K3 once a layer, and K1 twice: the remat
+    # policy ('dots') saves the weight products only, so the backward
+    # recomputes each layer's attention forward.
+    k1_factor = 2 if cfg.remat else 1
+
+    def derived(n):
+        return {'flash_fwd': k1_factor * cfg.n_layers * n,
+                'flash_bwd_dkv': cfg.n_layers * n,
+                'flash_bwd_dq': cfg.n_layers * n}
+
+    log(f'[28] Gemma2-2B training on one card through train/launch.py: '
+        f'bf16 ({cfg.n_layers} layers, d_model {cfg.d_model}, '
+        f'{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff '
+        f'{cfg.d_ff}, vocab {cfg.vocab_size}, tied fp32 head, softcaps '
+        f'{cfg.attn_logit_softcap:g}/{cfg.final_logit_softcap:g}, window '
+        f'{cfg.sliding_window} on even layers, remat {cfg.remat_policy}; '
+        f'{cfg.num_params() / 1e9:.2f} B parameters), seeded random '
+        f'weights; --model {r["model"]} --seq-len {r["seq"]} '
+        f'--global-batch-size {r["batch"]} --optimizer adafactor (the '
+        f'learning-rate warm-up cut to 1 step) over uint32 token shards: '
+        f'{steps} steps '
+        f'({r["warmup"]} warm-up + {r["measured"]} measured); {r["saved"]} '
+        f'steps with --checkpoint-every {r["saved"]}, then --steps '
+        f'{r["resumed"]} --resume auto')
+    with tempfile.TemporaryDirectory(prefix='xsky-gemma-train-') as tmp:
+        data = write_token_shards(os.path.join(tmp, 'tokens'),
+                                  steps * r['batch'] * r['seq'] + 1,
+                                  cfg.vocab_size, seed=28)
+        common = ['--model', r['model'], '--global-batch-size',
+                  str(r['batch']), '--seq-len', str(r['seq']),
+                  '--optimizer', 'adafactor', '--device', 'cuda',
+                  '--log-every', '1', '--data', data, '--data-loader',
+                  'python']
+        ckpt = os.path.join(tmp, 'ckpt')
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        runs = {}
+        with short_warmup(1):
+            torch.cuda.reset_peak_memory_stats()
+            runs['solid'] = launch_run(
+                common + ['--steps', str(steps), '--metrics-file', metrics],
+                'Gemma2-2B launch', kernels_wanted=None)
+            peak = torch.cuda.max_memory_allocated()
+            del runs['solid']['state'], runs['solid']['trainer']
+            release_card()
+            runs['saved'] = launch_run(
+                common + ['--steps', str(r['saved']), '--checkpoint-every',
+                          str(r['saved']), '--checkpoint-dir', ckpt],
+                'Gemma2-2B launch (checkpoint)', kernels_wanted=None)
+            del runs['saved']['state'], runs['saved']['trainer']
+            release_card()
+            runs['resumed'] = launch_run(
+                common + ['--steps', str(r['resumed']), '--resume', 'auto',
+                          '--checkpoint-dir', ckpt],
+                'Gemma2-2B launch (resumed)', kernels_wanted=None)
+            del runs['resumed']['state'], runs['resumed']['trainer']
+            release_card()
+        rows = [json.loads(line) for line in open(metrics, encoding='utf-8')]
+    solid, resumed = runs['solid'], runs['resumed']
+    for label, n in (('solid', steps), ('saved', r['saved']),
+                     ('resumed', r['resumed'] - r['saved'])):
+        check_derived_launches(f'Gemma2-2B launch ({label})',
+                               runs[label]['launches'], derived(n))
+    want = f'Resumed from checkpoint step {r["saved"]}.'
+    if want not in resumed['log']:
+        raise AssertionError(f'no resume line in {resumed["log"]}')
+    later = range(r['saved'] + 1, r['resumed'] + 1)
+    if sorted(resumed['losses']) != list(later):
+        raise AssertionError(f'resumed run logged {resumed["losses"]}')
+    errs = {k: abs(resumed['losses'][k] - solid['losses'][k]) /
+            abs(solid['losses'][k]) for k in later}
+    losses = [solid['losses'][k] for k in sorted(solid['losses'])]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f'Gemma2-2B losses {losses}')
+    log(f'  uninterrupted losses {losses}; resumed from step {r["saved"]} '
+        f'({resumed["restore"]["tier"]} tier in '
+        f'{resumed["restore"]["seconds"]:.3f} s): {resumed["losses"]}, '
+        f'relative differences {errs} (tolerance {RESUME_RTOL:g}), '
+        f'bit-identical: {all(e == 0 for e in errs.values())}')
+    if max(errs.values()) > RESUME_RTOL:
+        raise AssertionError('resumed losses differ from the uninterrupted '
+                             'run')
+    measured = rows[r['warmup']:]
+    tps = float(np.mean([row['tokens_per_sec'] for row in measured]))
+    tflops = float(np.mean([row['model_tflops_per_chip'] for row in measured]))
+    step_ms = r['batch'] * r['seq'] / tps * 1e3
+    head = gemma_head_ms(cfg, r['seq'])
+    shares = phase_shares(solid['records'][r['warmup']:])
+    totals = {name: sum(runs[label]['launches'][name] for label in runs)
+              for name in TRAIN_KERNELS}
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['gemma_train'] = (
+            totals[name])
+    log(f'  measured steps {r["warmup"] + 1}-{steps}: {tps:.1f} tokens/s, '
+        f'step {step_ms:.1f} ms, model {tflops:.2f} TFLOP/s = '
+        f'{tflops / (PEAK_FLOPS[torch.bfloat16] / 1e12):.4f} of the bf16 '
+        f'peak (6N + 12LdS); peak memory {peak / 2**30:.2f} GiB; the fp32 '
+        f'tied head (forward + backward, timed alone at one 8192-token row) '
+        f'{head:.2f} ms = {head / step_ms:.4f} of a step')
+    log("  flight recorder shares of the measured steps' wall: " + ', '.join(
+        f'{k} {v:.4f}' for k, v in shares.items()))
+    log(f'  launches per run {[runs[label]["launches"] for label in runs]} '
+        f'= {cfg.n_layers} layers x steps (K1 x {k1_factor}); decode '
+        f'kernels 0; on {nvidia_smi_line()}')
+
+
+def small_gemma_train_checks() -> None:
+    from skypilot_tpu_torch.models import gemma
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    log('[29] small Gemma training checks, card (kernels, TF32 off) vs CPU '
+        '(plain versions): fp32 gemma-tiny, gemma2-tiny (window 8) and '
+        'gemma2-tiny at head_dim 256 (4 heads x 256 over d_model 64), '
+        'random norms, seq 1024 (so the flash kernels run), adafactor, '
+        'accum_steps=2: 3 Trainer steps each; then 3 LoRA steps (rank 4, '
+        'wq,wk,wv,wo) on the head_dim-256 config')
+    d256 = dataclasses.replace(gemma.GEMMA2_TINY_F32, head_dim=256)
+    rng = np.random.default_rng(29)
+    tokens = rng.integers(0, 256, (2, 1024))
+    batch = {'tokens': torch.from_numpy(tokens),
+             'targets': torch.from_numpy(np.roll(tokens, -1, axis=1))}
+    for label, cfg, rank in (('gemma-tiny', gemma.GEMMA_TINY_F32, 0),
+                             ('gemma2-tiny', gemma.GEMMA2_TINY_F32, 0),
+                             ('gemma2-tiny D256', d256, 0),
+                             ('gemma2-tiny D256 LoRA', d256, 4)):
+        tcfg = trainer_lib.TrainConfig(
+            model=cfg, global_batch_size=2, seq_len=1024,
+            optimizer='adafactor', accum_steps=2, learning_rate=1e-3,
+            warmup_steps=2, lora_rank=rank)
+        runs = {}
+        for device in ('cuda', 'cpu'):
+            before = {k.name: k.launches for k in kernels.REGISTRY}
+            tr = trainer_lib.Trainer(tcfg, device=device)
+            state = tr.init_state(to_device(small_gemma_params(cfg, 29),
+                                            device))
+            on_device = {k: v.to(device) for k, v in batch.items()}
+            metrics = []
+            for _ in range(3):
+                state, m = tr.step(state, on_device)
+                metrics.append((float(m['loss']), float(m['grad_norm'])))
+            used = {k.name: k.launches - before[k.name]
+                    for k in kernels.REGISTRY}
+            runs[device] = (metrics, trainer_lib.param_leaves(
+                state['params']), state.get('base'), used)
+        (card, card_params, card_base, used), (cpu, cpu_params, _, _) = (
+            runs['cuda'], runs['cpu'])
+        err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(card_params, cpu_params))
+        log(f'  {label}: card (loss, grad_norm) {card}; CPU {cpu}; '
+            f'parameters max_abs_err {err:.3e} (tolerances: losses atol '
+            f'{TRAIN_LOSS_ATOL:g}, grad norms rtol {TRAIN_NORM_RTOL:g}, '
+            f'parameters atol {TRAIN_PARAM_ATOL:g}); card launches {used}')
+        for (lc, nc), (lp, npl) in zip(card, cpu):
+            if abs(lc - lp) > TRAIN_LOSS_ATOL or abs(nc - npl) > (
+                    TRAIN_NORM_RTOL * abs(npl)):
+                raise AssertionError(f'{label}: loss or grad norm differs '
+                                     'between the card and the CPU')
+        if err > TRAIN_PARAM_ATOL:
+            raise AssertionError(f'{label}: parameters differ between the '
+                                 'card and the CPU after three steps')
+        for name, n in used.items():
+            if (n > 0) != (name in TRAIN_KERNELS):
+                raise AssertionError(f'{label}: {name} ran {n} times on the '
+                                     f'card: {used}')
+        if card_base is not None:
+            init = small_gemma_params(cfg, 29)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(
+                    trainer_lib.param_leaves(card_base),
+                    trainer_lib.param_leaves(init))):
+                raise AssertionError(f'{label}: the frozen base changed')
+            log('    LoRA: the base on the card is bit-identical to its '
+                'init')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
-    pre-pass, of the decode split walks and combine at the main paths'
-    types (bf16 queries and cache, D 128 and 256), and of the MLA
-    tensor-core walks (bf16 cache), in an nvcc -Xptxas -v log."""
+    pre-pass, of the fp32 flash backward at D 256, of the decode split
+    walks and combine at the main paths' types (bf16 queries and cache,
+    D 128 and 256), and of the MLA tensor-core walks (bf16 cache), in an
+    nvcc -Xptxas -v log."""
     for chunk in build_log.split('Compiling entry function')[1:]:
         mangled = chunk.split("'")[1]
         found = re.search(r'(flash_[a-z_]+_(?:wgmma|rowstats)_kernel)ILi(\d+)',
                           mangled) or re.search(
+            r'(flash_bwd_[a-z]+_fma_kernel)ILi(256)E', mangled) or re.search(
             r'((?:paged_)?decode_kernel)I13__nv_bfloat16S\w*?_Li'
             r'((?:128|256)ELi\d)E',
             mangled) or re.search(
@@ -3944,8 +4319,10 @@ def main() -> int:
                     f'{chunk.split(chr(39))[1]}')
         for name, regs, spill in hopper_kernels(build_log):
             note = (' at entry (setmaxnreg then splits them)'
-                    if 'flash' in name else '')
+                    if 'wgmma' in name or 'rowstats' in name else '')
             log(f'    {name}: {regs} registers{note}, {spill} bytes spilled')
+            if name.startswith('flash_bwd') and '<256>' in name and spill:
+                raise AssertionError(f'{name} spills {spill} bytes')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     records = {'flash_fwd': check_flash(gen), **check_flash_bwd(gen),
@@ -3976,6 +4353,8 @@ def main() -> int:
     small_speculative_end_to_end()
     gemma2_replica(records)
     small_gemma_end_to_end()
+    gemma_train_path(records)
+    small_gemma_train_checks()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

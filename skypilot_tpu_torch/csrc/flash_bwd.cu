@@ -9,36 +9,51 @@
 //   dS    = P ⊙ (dP - delta) · scale   (· (1 - tanh²) under a softcap)
 //   dV    = Pᵀ · dO,  dK = dSᵀ · Q,  dQ = dS · K.
 //
-// What bounds them on the H100: operations. At the training shape (B4
-// S8192 H16/Hkv8 D128, causal) dK/dV does four products and dQ three of
-// 2·D·S(S+1)/2 each per (batch, head), against S·D bytes per operand.
-// What the design does about it (bf16, D = 64 and 128: the training path):
+// What bounds them on the H100: operations. At the training shapes (B4
+// S8192 H16/Hkv8 D128 Llama, B1 S8192 H8/Hkv4 D256 Gemma-2, causal)
+// dK/dV does four products and dQ three of 2·D·S(S+1)/2 each per (batch,
+// head), against S·D bytes per operand.
+// What the design does about it (bf16, D = 64, 128 and 256: the training
+// paths):
 //   * a row pre-pass computes each query row's LSE in base 2 and
 //     delta = Σ dO⊙O once into wrapper scratch (flash_bwd_rowstats_kernel),
 //     not once per visit of a row; either entry point launches it when
 //     asked (fill_stats), so one backward runs it once and hands the same
 //     scratch to both kernels; the softmax runs in base 2 (exp2f);
-//   * dK/dV: warp-specialised wgmma. A block owns 128 keys of one KV head;
-//     a producer warpgroup (24 registers, setmaxnreg) loads K and V once
-//     by TMA and then streams the (query head, query tile) pairs of Q and
-//     dO, 64 rows each, with the tile's LSE and delta, through a two-stage
-//     mbarrier ring; two consumer warpgroups (240 registers) own 64 keys
-//     each and their dK, dV accumulators (fp32, 128 registers a thread at
-//     D 128). Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma from shared memory (K
-//     and V resident as A, Q and dO K-major as B); dV += Pᵀ·dO and
-//     dK += dSᵀ·Q take Pᵀ and dSᵀ as register A operands (rounded to bf16,
-//     as the Pallas kernel's astype does) and read dO and Q in place
-//     through the descriptor's transpose flag: no transposed copy;
+//   * dK/dV: warp-specialised wgmma. A producer warpgroup (24 registers,
+//     setmaxnreg) loads the block's K and V once by TMA and then streams
+//     the (query head, query tile) pairs of Q and dO, 64 rows each, with
+//     the tile's LSE and delta, through a two-stage mbarrier ring; two
+//     consumer warpgroups (240 registers) hold dK and dV (fp32, 128
+//     registers a thread). Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma from
+//     shared memory (K and V resident as A, Q and dO K-major as B);
+//     dV += Pᵀ·dO and dK += dSᵀ·Q take Pᵀ and dSᵀ as register A operands
+//     (rounded to bf16, as the Pallas kernel's astype does) and read dO
+//     and Q in place through the descriptor's transpose flag: no
+//     transposed copy. At D 64 and 128 a block owns 128 keys and each
+//     consumer 64 of them over the whole head dim. At D 256 (Gemma) that
+//     layout fits neither shared memory (K + V 128 KB and the ring 128 KB:
+//     256 KB, past the 227 KB opt-in) nor registers (dK and dV at 64 x 256
+//     fp32: 256 a thread, past setmaxnreg's 240). There a block owns 64
+//     keys (K + V 64 KB, the ring 128 KB: 194 KB) and the two consumers
+//     split the head dim: each computes the same Sᵀ and dPᵀ in full and
+//     holds dK and dV for its 128 columns, which are m64n128 products over
+//     a pair of Q's and dO's panels. Six products where four would do, but
+//     no trade of P and dS between the consumers (no shared tile, no
+//     barrier), and each consumer's registers are D 128's: 64 + 64 for dK
+//     and dV beside 32 + 32 for Sᵀ and dPᵀ;
 //   * dQ: the same shape turned around. A block owns 128 query rows of
 //     one head; the producer loads Q and dO once by TMA and streams the
-//     live (K, V) tiles of 64 keys through a two-stage ring; two consumer
-//     warpgroups own 64 rows each and their dQ accumulator (fp32, 64
-//     registers a thread at D 128). S = Q·Kᵀ and dP = dO·Vᵀ are wgmma from
-//     shared memory, every operand K-major; dS is formed in registers,
-//     rounded to bf16 and becomes the register A operand of dQ += dS·K,
-//     with K read in place (MN-major, transpose flag) as the forward reads
-//     V: no transposed copy of K. A 64-key tile keeps S, dP, dQ and the A
-//     fragments inside the consumers' 240 registers;
+//     live (K, V) tiles through a two-stage ring; two consumer warpgroups
+//     own 64 rows each and their dQ accumulator (fp32, 64 registers a
+//     thread at D 128, 128 at D 256). S = Q·Kᵀ and dP = dO·Vᵀ are wgmma
+//     from shared memory, every operand K-major; dS is formed in
+//     registers, rounded to bf16 and becomes the register A operand of
+//     dQ += dS·K, with K read in place (MN-major, transpose flag) as the
+//     forward reads V: no transposed copy of K. A (K, V) tile is 64 keys;
+//     at D 256, where Q and dO alone take 128 KB, it is 32 keys (the ring
+//     2 x 32 KB: 192 KB in all), S and dP are m64n32 (16 registers each)
+//     and dS·K is two m64n128 products, one per half of the head dim;
 //   * masks only where a tile needs one (the causal diagonal, a window's
 //     edge, the ragged last tile, segment ids); tiles fully masked for a
 //     warpgroup are skipped;
@@ -56,7 +71,9 @@
 //     live query tile, so the group sum happens in its fp32 registers and
 //     dK/dV are written once, at Hkv width; the dQ block owns one query
 //     tile of one head and walks the live KV tiles;
-//   * fp32 (the reference checks) runs plain FMAs from shared memory.
+//   * fp32 (the reference checks) runs plain FMAs from shared memory, on
+//     tiles of 64 rows, or of 32 at D 256 (140 KB for dK/dV, 136 KB for
+//     dQ: 64-row tiles would take 297 and 280 KB).
 //
 // Layout as the forward: q/out/dout/dq [B, S, H, D]; k/v/dk/dv
 // [B, S_kv, Hkv, D]; lse [B, H, S] fp32; segment ids [B, S] int32. A
@@ -114,12 +131,11 @@ __device__ __forceinline__ void row_delta(const T* do_s, int stride,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV, bf16, D = 64 and 128: TMA + mbarrier ring + wgmma.
+// dK/dV, bf16, D = 64, 128 and 256: TMA + mbarrier ring + wgmma.
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int kBKV = 128;      // keys a block: two consumers of 64
 constexpr int kBQ = 64;        // query rows a tile
 constexpr int kStages = 2;     // (Q, dO, LSE, delta) ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
@@ -134,7 +150,9 @@ constexpr int pad_rows(int s) {
 // bf16 dK/dV and dQ run the wgmma kernels at these head dims (D 16 and 32
 // run the mma.sync ones); the one definition, for both dispatches and the
 // scratch.
-constexpr bool takes(int d) { return d == 64 || d == 128; }
+__host__ __device__ constexpr bool takes(int d) {
+  return d == 64 || d == 128 || d == 256;
+}
 
 // fp32 floats of the pre-pass's scratch: LSE and delta per padded row.
 constexpr long scratch_floats(int b, int h, int s_q) {
@@ -187,14 +205,20 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Shared memory, in bytes from a 1024-byte-aligned base: the resident K
-// and V panels, the Q and dO panels of each stage, each stage's LSE and
-// delta (kBQ floats each), then the mbarriers (kv, full[stage],
-// empty[stage]).
+// The block's shape, then its shared memory, in bytes from a
+// 1024-byte-aligned base: the resident K and V panels, the Q and dO
+// panels of each stage, each stage's LSE and delta (kBQ floats each),
+// then the mbarriers (kv, full[stage], empty[stage]). At D 64 and 128 a
+// block owns 128 keys and each consumer 64 of them over the whole head
+// dim; at D 256 a block owns 64 keys and the two consumers split the
+// head dim, each holding dK and dV for its 128 columns (see the header).
 template <int D>
 struct DkvSmem {
+  static constexpr bool kSplitD = D == 256;
+  static constexpr int kKeys = kSplitD ? 64 : 128;   // keys a block
+  static constexpr int kCols = kSplitD ? D / 2 : D;  // columns a consumer
   static constexpr int kPanels = D / hw::kPanelCols;
-  static constexpr uint32_t kKVPanel = kBKV * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVPanel = kKeys * hw::kPanelRowBytes;
   static constexpr uint32_t kQPanel = kBQ * hw::kPanelRowBytes;
   static constexpr uint32_t kQTile = kPanels * kQPanel;
   static constexpr uint32_t kK = 0;
@@ -205,6 +229,7 @@ struct DkvSmem {
   static constexpr uint32_t kStatsBytes = 2 * kBQ * sizeof(float);
   static constexpr uint32_t kBar = kStats + kStages * kStatsBytes;
   static constexpr size_t kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kAlloc <= 232448, "past the 227 KB a block may use");
 };
 
 template <int D>
@@ -215,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const __grid_constant__ CUtensorMap map_do,
                                const FlashParams p, const float* stats,
                                int s_pad) {
-  static_assert(D == 64 || D == 128, "the wgmma dK/dV takes D 64 or 128");
+  static_assert(takes(D), "the wgmma dK/dV takes D 64, 128 or 256");
   using L = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hw::smem_addr(smem_raw);
@@ -228,8 +253,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.x / p.h_kv;
   const int kvh = blockIdx.x % p.h_kv;
   const int groups = p.h / p.h_kv;
-  const int kv_start = blockIdx.y * kBKV;  // causal: heaviest first
-  const int2 tiles = xsky::q_tiles(p, kv_start, kBQ, kBKV);
+  const int kv_start = blockIdx.y * L::kKeys;  // causal: heaviest first
+  const int2 tiles = xsky::q_tiles(p, kv_start, kBQ, L::kKeys);
   const long stat_rows = static_cast<long>(p.b) * p.h * s_pad;
 
   if (tid == 0) {
@@ -281,14 +306,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    // Consumers: warpgroup c owns keys kv_start + 64c .. + 63; in it, this
-    // thread key rows krow0 and krow0 + 8 (accumulator layout, hopper.cuh)
-    // and, in Sᵀ / dPᵀ, query columns 8n + 2t + {0, 1}.
+    // Consumers: warpgroup c owns keys kv_start + key0 .. + 63 and dK/dV
+    // columns col0 .. col0 + kCols - 1; in it, this thread key rows krow0
+    // and krow0 + 8 (accumulator layout, hopper.cuh) and, in Sᵀ / dPᵀ,
+    // query columns 8n + 2t + {0, 1}.
     hw::reg_alloc<240>();
     const int c = tid / 128 - 1;
     const int w = (tid / 32) % 4, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
-    const int wg_kv = kv_start + 64 * c;
+    const int key0 = L::kSplitD ? 0 : 64 * c;
+    const int col0 = L::kSplitD ? L::kCols * c : 0;
+    const int wg_kv = kv_start + key0;
     const int krow0 = wg_kv + 16 * w + g;
     const int seg_kv[2] = {segment(p, b, krow0, p.s_kv),
                            segment(p, b, krow0 + 8, p.s_kv)};
@@ -296,9 +324,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* stats_s = reinterpret_cast<const float*>(
         smem_raw + (base - raw) + L::kStats);
 
-    float dk[D / 2], dv[D / 2];
+    float dk[L::kCols / 2], dv[L::kCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < L::kCols / 2; ++i) dk[i] = dv[i] = 0.f;
 
     hw::mbar_wait(bar_kv, 0);
     int it = 0;
@@ -323,13 +351,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)
             hw::wgmma_ss(st,
-                         hw::kmajor_desc(base + L::kK, L::kKVPanel, 64 * c,
+                         hw::kmajor_desc(base + L::kK, L::kKVPanel, key0,
                                          kk),
                          hw::kmajor_desc(q_tile, L::kQPanel, 0, kk), kk);
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)
             hw::wgmma_ss(dpt,
-                         hw::kmajor_desc(base + L::kV, L::kKVPanel, 64 * c,
+                         hw::kmajor_desc(base + L::kV, L::kKVPanel, key0,
                                          kk),
                          hw::kmajor_desc(do_tile, L::kQPanel, 0, kk), kk);
           hw::wgmma_commit();
@@ -382,7 +410,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                   pack_bf16(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
             }
 
-          // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q read in place (MN-major).
+          // dV += Pᵀ·dO and dK += dSᵀ·Q over this consumer's columns, dO
+          // and Q read in place (MN-major) from their panel col0 / 64 on.
+          const uint32_t cols = (col0 / hw::kPanelCols) * L::kQPanel;
           hw::fence_regs(dv);
           hw::fence_regs(dk);
           hw::fence_regs(pa);
@@ -391,11 +421,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int kk = 0; kk < kBQ / 16; ++kk)
             hw::wgmma_rs_t(dv, pa[kk],
-                           hw::mnmajor_desc(do_tile, L::kQPanel, kk));
+                           hw::mnmajor_desc(do_tile + cols, L::kQPanel, kk));
 #pragma unroll
           for (int kk = 0; kk < kBQ / 16; ++kk)
             hw::wgmma_rs_t(dk, dsa[kk],
-                           hw::mnmajor_desc(q_tile, L::kQPanel, kk));
+                           hw::mnmajor_desc(q_tile + cols, L::kQPanel, kk));
           hw::wgmma_commit();
           hw::wgmma_wait<0>();
           hw::fence_regs(dv);
@@ -418,8 +448,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int kp = krow0 + 8 * r;
       if (kp >= p.s_kv) continue;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const long off = kp * kv_row + 8 * j + 2 * t;
+      for (int j = 0; j < L::kCols / 8; ++j) {
+        const long off = kp * kv_row + col0 + 8 * j + 2 * t;
         *reinterpret_cast<uint32_t*>(dk_base + off) =
             pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(dv_base + off) =
@@ -455,38 +485,40 @@ cudaError_t launch_dkv(const FlashParams& p, float* stats, int fill_stats,
   err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kBQ);
   if (err == cudaSuccess)
     err = hw::make_rows_map(&map_do, p.dout, p.b, p.s_q, p.h, D, kBQ);
+  constexpr int keys = DkvSmem<D>::kKeys;
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kBKV);
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, keys);
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kBKV);
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, keys);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = DkvSmem<D>::kAlloc;
   err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.b * p.h_kv, (p.s_kv + kBKV - 1) / kBKV);
+  const dim3 grid(p.b * p.h_kv, (p.s_kv + keys - 1) / keys);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, smem, st>>>(
       map_q, map_k, map_v, map_do, p, stats, pad_rows(p.s_q));
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// dQ, bf16, D = 64 and 128: TMA + mbarrier ring + wgmma.
+// dQ, bf16, D = 64, 128 and 256: TMA + mbarrier ring + wgmma.
 // ---------------------------------------------------------------------------
 
 constexpr int kDqRows = 128;   // query rows a block: two consumers of 64
-constexpr int kDqKeys = 64;    // keys a (K, V) tile
 constexpr int kDqStages = 2;   // (K, V) ring depth
 
 // Shared memory, in bytes from a 1024-byte-aligned base: the resident Q
 // and dO panels, the K and V panels of each stage, then the mbarriers
-// (q, full[stage], empty[stage]).
+// (q, full[stage], empty[stage]). A (K, V) tile is 64 keys, or 32 at
+// D 256, where Q and dO alone take 128 KB (see the header).
 template <int D>
 struct DqSmem {
+  static constexpr int kKeys = D == 256 ? 32 : 64;  // keys a (K, V) tile
   static constexpr int kPanels = D / hw::kPanelCols;
   static constexpr uint32_t kQPanel = kDqRows * hw::kPanelRowBytes;
-  static constexpr uint32_t kKVPanel = kDqKeys * hw::kPanelRowBytes;
+  static constexpr uint32_t kKVPanel = kKeys * hw::kPanelRowBytes;
   static constexpr uint32_t kKVTile = kPanels * kKVPanel;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDO = kQ + kPanels * kQPanel;
@@ -494,6 +526,7 @@ struct DqSmem {
   static constexpr uint32_t kV = kK + kDqStages * kKVTile;
   static constexpr uint32_t kBar = kV + kDqStages * kKVTile;
   static constexpr size_t kAlloc = kBar + 8 * (1 + 2 * kDqStages) + 1024;
+  static_assert(kAlloc <= 232448, "past the 227 KB a block may use");
 };
 
 template <int D>
@@ -504,8 +537,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const __grid_constant__ CUtensorMap map_do,
                               const FlashParams p, const float* stats,
                               int s_pad) {
-  static_assert(D == 64 || D == 128, "the wgmma dQ takes D 64 or 128");
+  static_assert(takes(D), "the wgmma dQ takes D 64, 128 or 256");
   using L = DqSmem<D>;
+  constexpr int kDqKeys = L::kKeys;
+  // dS·K in products of at most 128 output columns (two panels of K).
+  constexpr int kOCols = D < 128 ? D : 128;
+  constexpr int kOParts = D / kOCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hw::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -586,9 +623,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       seg_q[r] = segment(p, b, qp, p.s_q);
     }
 
-    float dq[D / 2];
+    float dq[kOParts][kOCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+      for (int i = 0; i < kOCols / 2; ++i) dq[j][i] = 0.f;
 
     hw::mbar_wait(bar_q, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -604,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.window > 0)
         skip = skip || wg_q - (kv_start + kDqKeys - 1) >= p.window;
       if (!skip) {
-        // S = Q·Kᵀ and dP = dO·Vᵀ: 64 queries x 64 keys each.
+        // S = Q·Kᵀ and dP = dO·Vᵀ: 64 queries x kDqKeys keys each.
         float sc[kDqKeys / 2], dp[kDqKeys / 2];
         hw::fence_regs(sc);
         hw::fence_regs(dp);
@@ -653,17 +692,25 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int j = 0; j < 4; ++j)
             dsa[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
 
-        // dQ += dS·K, K read in place ([key][d], MN-major).
-        hw::fence_regs(dq);
+        // dQ += dS·K, K read in place ([key][d], MN-major); part j of dQ
+        // is columns kOCols j .. kOCols (j + 1) - 1, from K's panels 2j on.
+#pragma unroll
+        for (int j = 0; j < kOParts; ++j) hw::fence_regs(dq[j]);
         hw::fence_regs(dsa);
         hw::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kDqKeys / 16; ++kk)
-          hw::wgmma_rs_t(dq, dsa[kk],
-                         hw::mnmajor_desc(k_tile, L::kKVPanel, kk));
+        for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+          for (int kk = 0; kk < kDqKeys / 16; ++kk)
+            hw::wgmma_rs_t(
+                dq[j], dsa[kk],
+                hw::mnmajor_desc(
+                    k_tile + j * (kOCols / hw::kPanelCols) * L::kKVPanel,
+                    L::kKVPanel, kk));
         hw::wgmma_commit();
         hw::wgmma_wait<0>();
-        hw::fence_regs(dq);
+#pragma unroll
+        for (int j = 0; j < kOParts; ++j) hw::fence_regs(dq[j]);
         hw::fence_regs(dsa);
       }
       __syncwarp();
@@ -679,9 +726,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (qp >= p.s_q) continue;
       bf16* qrow = dq_base + static_cast<long>(qp) * p.h * D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * t) =
-            pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+      for (int j = 0; j < kOParts; ++j)
+#pragma unroll
+        for (int n = 0; n < kOCols / 8; ++n)
+          *reinterpret_cast<uint32_t*>(qrow + kOCols * j + 8 * n + 2 * t) =
+              pack_bf16(dq[j][4 * n + 2 * r], dq[j][4 * n + 2 * r + 1]);
     }
   }
 }
@@ -699,10 +748,11 @@ cudaError_t launch_dq(const FlashParams& p, float* stats, int fill_stats,
   err = hw::make_rows_map(&map_q, p.q, p.b, p.s_q, p.h, D, kDqRows);
   if (err == cudaSuccess)
     err = hw::make_rows_map(&map_do, p.dout, p.b, p.s_q, p.h, D, kDqRows);
+  constexpr int keys = DqSmem<D>::kKeys;
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, kDqKeys);
+    err = hw::make_rows_map(&map_k, p.k, p.b, p.s_kv, p.h_kv, D, keys);
   if (err == cudaSuccess)
-    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, kDqKeys);
+    err = hw::make_rows_map(&map_v, p.v, p.b, p.s_kv, p.h_kv, D, keys);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = DqSmem<D>::kAlloc;
   err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
@@ -1049,22 +1099,27 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: plain FMAs from shared memory, 256 threads. Thread (tx, ty) =
-// (tid % 16, tid / 16) owns tile rows ty + 16 i and, in a score tile,
-// columns tx + 16 j (i, j < 4); in an output tile head-dim columns
-// tx + 16 j. Rows are padded by one float so column reads hit distinct
-// banks.
+// fp32: plain FMAs from shared memory, 256 threads, tiles of T rows (64,
+// or 32 at D 256, where four 64-row tiles alone would take 257 KB).
+// Thread (tx, ty) = (tid % 16, tid / 16) owns tile rows ty + 16 i and, in
+// a score tile, columns tx + 16 j (i, j < T / 16); in an output tile
+// head-dim columns tx + 16 j. Rows are padded by one float so column
+// reads hit distinct banks.
 // ---------------------------------------------------------------------------
 
 constexpr int kFmaThreads = 256;
-constexpr int kPP = kBT + 1;  // score-tile row stride
 
 template <int D>
+__host__ __device__ constexpr int fma_rows() {
+  return D == 256 ? 32 : 64;
+}
+
+template <int D, int T>
 __device__ __forceinline__ void load_rows_f32(const float* base,
                                               long row_stride, int start,
                                               int limit, float* dst,
                                               int tid) {
-  for (int i = tid; i < kBT * D; i += kFmaThreads) {
+  for (int i = tid; i < T * D; i += kFmaThreads) {
     const int r = i / D, c = i % D;
     const int row = start + r;
     dst[r * (D + 1) + c] = row < limit ? base[row * row_stride + c] : 0.f;
@@ -1073,26 +1128,30 @@ __device__ __forceinline__ void load_rows_f32(const float* base,
 
 template <int D>
 constexpr size_t dkv_fma_smem() {
-  return sizeof(float) * (4 * kBT * (D + 1) + 2 * kBT * kPP + 2 * kBT) +
-         sizeof(int) * 2 * kBT;
+  constexpr int T = fma_rows<D>();
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) +
+         sizeof(int) * 2 * T;
 }
+static_assert(dkv_fma_smem<256>() <= 232448,
+              "the fp32 dK/dV at D 256 past the 227 KB a block may use");
 
 template <int D>
 __global__ void __launch_bounds__(kFmaThreads)
     flash_bwd_dkv_fma_kernel(FlashParams p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DP = D + 1, DJ = D / 16;
+  constexpr int T = fma_rows<D>();
+  constexpr int DP = D + 1, DJ = D / 16, NI = T / 16, PP = T + 1;
   extern __shared__ float fsmem[];
   float* k_s = fsmem;
-  float* v_s = k_s + kBT * DP;
-  float* q_s = v_s + kBT * DP;
-  float* do_s = q_s + kBT * DP;
-  float* pt_s = do_s + kBT * DP;   // Pᵀ [key][query]
-  float* dst_s = pt_s + kBT * kPP;  // dSᵀ [key][query]
-  float* lse_s = dst_s + kBT * kPP;
-  float* delta_s = lse_s + kBT;
-  int* segq_s = reinterpret_cast<int*>(delta_s + kBT);
-  int* segkv_s = segq_s + kBT;
+  float* v_s = k_s + T * DP;
+  float* q_s = v_s + T * DP;
+  float* do_s = q_s + T * DP;
+  float* pt_s = do_s + T * DP;    // Pᵀ [key][query]
+  float* dst_s = pt_s + T * PP;   // dSᵀ [key][query]
+  float* lse_s = dst_s + T * PP;
+  float* delta_s = lse_s + T;
+  int* segq_s = reinterpret_cast<int*>(delta_s + T);
+  int* segkv_s = segq_s + T;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -1100,100 +1159,101 @@ __global__ void __launch_bounds__(kFmaThreads)
   const int b = blockIdx.y / p.h_kv;
   const int kvh = blockIdx.y % p.h_kv;
   const int groups = p.h / p.h_kv;
-  const int kv_start = blockIdx.x * kBT;
+  const int kv_start = blockIdx.x * T;
   const long q_row = static_cast<long>(p.h) * D;
   const long kv_row = static_cast<long>(p.h_kv) * D;
   const long kv_off = static_cast<long>(b) * p.s_kv * kv_row +
                       static_cast<long>(kvh) * D;
 
-  load_rows_f32<D>(static_cast<const float*>(p.k) + kv_off, kv_row,
-                   kv_start, p.s_kv, k_s, tid);
-  load_rows_f32<D>(static_cast<const float*>(p.v) + kv_off, kv_row,
-                   kv_start, p.s_kv, v_s, tid);
-  if (tid < kBT) segkv_s[tid] = segment(p, b, kv_start + tid, p.s_kv);
+  load_rows_f32<D, T>(static_cast<const float*>(p.k) + kv_off, kv_row,
+                      kv_start, p.s_kv, k_s, tid);
+  load_rows_f32<D, T>(static_cast<const float*>(p.v) + kv_off, kv_row,
+                      kv_start, p.s_kv, v_s, tid);
+  if (tid < T) segkv_s[tid] = segment(p, b, kv_start + tid, p.s_kv);
 
-  float dk[4][DJ], dv[4][DJ];
+  float dk[NI][DJ], dv[NI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int2 tiles = xsky::q_tiles(p, kv_start, kBT, kBT);
+  const int2 tiles = xsky::q_tiles(p, kv_start, T, T);
   for (int gi = 0; gi < groups; ++gi) {
     const int h = kvh * groups + gi;
     const long bh = static_cast<long>(b) * p.h + h;
     const long q_off = static_cast<long>(b) * p.s_q * q_row +
                        static_cast<long>(h) * D;
     for (int tile = tiles.x; tile < tiles.y; ++tile) {
-      const int q_start = tile * kBT;
+      const int q_start = tile * T;
       __syncthreads();  // previous tile fully consumed
-      load_rows_f32<D>(static_cast<const float*>(p.q) + q_off, q_row,
-                       q_start, p.s_q, q_s, tid);
-      load_rows_f32<D>(static_cast<const float*>(p.dout) + q_off, q_row,
-                       q_start, p.s_q, do_s, tid);
-      if (tid < kBT) {
+      load_rows_f32<D, T>(static_cast<const float*>(p.q) + q_off, q_row,
+                          q_start, p.s_q, q_s, tid);
+      load_rows_f32<D, T>(static_cast<const float*>(p.dout) + q_off, q_row,
+                          q_start, p.s_q, do_s, tid);
+      if (tid < T) {
         const int qp = q_start + tid;
         lse_s[tid] = qp < p.s_q ? p.lse[bh * p.s_q + qp] : INFINITY;
         segq_s[tid] = segment(p, b, qp, p.s_q);
       }
       __syncthreads();
       row_delta<D>(do_s, DP, static_cast<const float*>(p.out) + q_off,
-                   q_row, q_start, p.s_q, delta_s, warp * 8, 8, lane);
+                   q_row, q_start, p.s_q, delta_s, warp * (T / 8), T / 8,
+                   lane);
       __syncthreads();
 
       // Sᵀ and dPᵀ: keys ty + 16 i, queries tx + 16 j.
-      float s[4][4], dp[4][4];
+      float s[NI][NI], dp[NI][NI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < NI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
+        float kv[NI], vv[NI], qv[NI], dov[NI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < NI; ++i) {
           kv[i] = k_s[(ty + 16 * i) * DP + d];
           vv[i] = v_s[(ty + 16 * i) * DP + d];
           qv[i] = q_s[(tx + 16 * i) * DP + d];
           dov[i] = do_s[(tx + 16 * i) * DP + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < NI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < NI; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NI; ++j) {
           const int kr = ty + 16 * i, qc = tx + 16 * j;
           float pr;
-          dst_s[kr * kPP + qc] =
+          dst_s[kr * PP + qc] =
               grad_score(p, s[i][j], dp[i][j], q_start + qc, kv_start + kr,
                          segq_s[qc], segkv_s[kr], lse_s[qc], delta_s[qc],
                          &pr);
-          pt_s[kr * kPP + qc] = pr;
+          pt_s[kr * PP + qc] = pr;
         }
       __syncthreads();
 
       // dV += Pᵀ · dO, dK += dSᵀ · Q: keys ty + 16 i, dims tx + 16 j.
 #pragma unroll 4
-      for (int qq = 0; qq < kBT; ++qq) {
-        float pv[4], sv[4];
+      for (int qq = 0; qq < T; ++qq) {
+        float pv[NI], sv[NI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = pt_s[(ty + 16 * i) * kPP + qq];
-          sv[i] = dst_s[(ty + 16 * i) * kPP + qq];
+        for (int i = 0; i < NI; ++i) {
+          pv[i] = pt_s[(ty + 16 * i) * PP + qq];
+          sv[i] = dst_s[(ty + 16 * i) * PP + qq];
         }
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           const float dov = do_s[qq * DP + tx + 16 * j];
           const float qv = q_s[qq * DP + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < NI; ++i) {
             dv[i][j] = fmaf(pv[i], dov, dv[i][j]);
             dk[i][j] = fmaf(sv[i], qv, dk[i][j]);
           }
@@ -1205,7 +1265,7 @@ __global__ void __launch_bounds__(kFmaThreads)
   float* dk_base = static_cast<float*>(p.dk) + kv_off;
   float* dv_base = static_cast<float*>(p.dv) + kv_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const int kp = kv_start + ty + 16 * i;
     if (kp >= p.s_kv) continue;
 #pragma unroll
@@ -1218,25 +1278,29 @@ __global__ void __launch_bounds__(kFmaThreads)
 
 template <int D>
 constexpr size_t dq_fma_smem() {
-  return sizeof(float) * (4 * kBT * (D + 1) + kBT * kPP + 2 * kBT) +
-         sizeof(int) * 2 * kBT;
+  constexpr int T = fma_rows<D>();
+  return sizeof(float) * (4 * T * (D + 1) + T * (T + 1) + 2 * T) +
+         sizeof(int) * 2 * T;
 }
+static_assert(dq_fma_smem<256>() <= 232448,
+              "the fp32 dQ at D 256 past the 227 KB a block may use");
 
 template <int D>
 __global__ void __launch_bounds__(kFmaThreads)
     flash_bwd_dq_fma_kernel(FlashParams p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DP = D + 1, DJ = D / 16;
+  constexpr int T = fma_rows<D>();
+  constexpr int DP = D + 1, DJ = D / 16, NI = T / 16, PP = T + 1;
   extern __shared__ float fsmem[];
   float* q_s = fsmem;
-  float* do_s = q_s + kBT * DP;
-  float* k_s = do_s + kBT * DP;
-  float* v_s = k_s + kBT * DP;
-  float* ds_s = v_s + kBT * DP;  // dS [query][key]
-  float* lse_s = ds_s + kBT * kPP;
-  float* delta_s = lse_s + kBT;
-  int* segq_s = reinterpret_cast<int*>(delta_s + kBT);
-  int* segkv_s = segq_s + kBT;
+  float* do_s = q_s + T * DP;
+  float* k_s = do_s + T * DP;
+  float* v_s = k_s + T * DP;
+  float* ds_s = v_s + T * DP;  // dS [query][key]
+  float* lse_s = ds_s + T * PP;
+  float* delta_s = lse_s + T;
+  int* segq_s = reinterpret_cast<int*>(delta_s + T);
+  int* segkv_s = segq_s + T;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -1245,7 +1309,7 @@ __global__ void __launch_bounds__(kFmaThreads)
   const int b = bh / p.h;
   const int h = bh % p.h;
   const int kvh = h / (p.h / p.h_kv);
-  const int q_start = blockIdx.x * kBT;
+  const int q_start = blockIdx.x * T;
   const long q_row = static_cast<long>(p.h) * D;
   const long kv_row = static_cast<long>(p.h_kv) * D;
   const long q_off = static_cast<long>(b) * p.s_q * q_row +
@@ -1253,11 +1317,11 @@ __global__ void __launch_bounds__(kFmaThreads)
   const long kv_off = static_cast<long>(b) * p.s_kv * kv_row +
                       static_cast<long>(kvh) * D;
 
-  load_rows_f32<D>(static_cast<const float*>(p.q) + q_off, q_row, q_start,
-                   p.s_q, q_s, tid);
-  load_rows_f32<D>(static_cast<const float*>(p.dout) + q_off, q_row,
-                   q_start, p.s_q, do_s, tid);
-  if (tid < kBT) {
+  load_rows_f32<D, T>(static_cast<const float*>(p.q) + q_off, q_row,
+                      q_start, p.s_q, q_s, tid);
+  load_rows_f32<D, T>(static_cast<const float*>(p.dout) + q_off, q_row,
+                      q_start, p.s_q, do_s, tid);
+  if (tid < T) {
     const int qp = q_start + tid;
     lse_s[tid] = qp < p.s_q ? p.lse[static_cast<long>(bh) * p.s_q + qp]
                             : INFINITY;
@@ -1265,56 +1329,56 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
   __syncthreads();
   row_delta<D>(do_s, DP, static_cast<const float*>(p.out) + q_off, q_row,
-               q_start, p.s_q, delta_s, warp * 8, 8, lane);
+               q_start, p.s_q, delta_s, warp * (T / 8), T / 8, lane);
 
-  float dq[4][DJ];
+  float dq[NI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
 
-  const int2 tiles = xsky::kv_tiles(p, q_start, kBT, kBT);
+  const int2 tiles = xsky::kv_tiles(p, q_start, T, T);
   for (int tile = tiles.x; tile < tiles.y; ++tile) {
-    const int kv_start = tile * kBT;
+    const int kv_start = tile * T;
     __syncthreads();  // previous tile fully consumed; delta_s written
-    load_rows_f32<D>(static_cast<const float*>(p.k) + kv_off, kv_row,
-                     kv_start, p.s_kv, k_s, tid);
-    load_rows_f32<D>(static_cast<const float*>(p.v) + kv_off, kv_row,
-                     kv_start, p.s_kv, v_s, tid);
-    if (tid < kBT) segkv_s[tid] = segment(p, b, kv_start + tid, p.s_kv);
+    load_rows_f32<D, T>(static_cast<const float*>(p.k) + kv_off, kv_row,
+                        kv_start, p.s_kv, k_s, tid);
+    load_rows_f32<D, T>(static_cast<const float*>(p.v) + kv_off, kv_row,
+                        kv_start, p.s_kv, v_s, tid);
+    if (tid < T) segkv_s[tid] = segment(p, b, kv_start + tid, p.s_kv);
     __syncthreads();
 
     // S and dP: queries ty + 16 i, keys tx + 16 j.
-    float s[4][4], dp[4][4];
+    float s[NI][NI], dp[NI][NI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < NI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[NI], dov[NI], kv[NI], vv[NI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NI; ++i) {
         qv[i] = q_s[(ty + 16 * i) * DP + d];
         dov[i] = do_s[(ty + 16 * i) * DP + d];
         kv[i] = k_s[(tx + 16 * i) * DP + d];
         vv[i] = v_s[(tx + 16 * i) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NI; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NI; ++j) {
         const int qr = ty + 16 * i, kc = tx + 16 * j;
         float pr;
-        ds_s[qr * kPP + kc] =
+        ds_s[qr * PP + kc] =
             grad_score(p, s[i][j], dp[i][j], q_start + qr, kv_start + kc,
                        segq_s[qr], segkv_s[kc], lse_s[qr], delta_s[qr], &pr);
       }
@@ -1322,22 +1386,22 @@ __global__ void __launch_bounds__(kFmaThreads)
 
     // dQ += dS · K: queries ty + 16 i, dims tx + 16 j.
 #pragma unroll 4
-    for (int kk = 0; kk < kBT; ++kk) {
-      float sv[4];
+    for (int kk = 0; kk < T; ++kk) {
+      float sv[NI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = ds_s[(ty + 16 * i) * kPP + kk];
+      for (int i = 0; i < NI; ++i) sv[i] = ds_s[(ty + 16 * i) * PP + kk];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float kv = k_s[kk * DP + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(sv[i], kv, dq[i][j]);
+        for (int i = 0; i < NI; ++i) dq[i][j] = fmaf(sv[i], kv, dq[i][j]);
       }
     }
   }
 
   float* dq_base = static_cast<float*>(p.dq) + q_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const int qp = q_start + ty + 16 * i;
     if (qp >= p.s_q) continue;
 #pragma unroll
@@ -1356,33 +1420,42 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// Blocks of `rows` rows over `s` rows, for each of `heads` (b, head).
+dim3 row_grid(int s, int rows, int heads) {
+  return dim3((s + rows - 1) / rows, heads);
+}
+
 template <int D>
 cudaError_t launch_dkv(const FlashParams& p, int dtype, float* stats,
                        int fill_stats, cudaStream_t st) {
-  const dim3 grid((p.s_kv + kBT - 1) / kBT, p.b * p.h_kv);
+  const int heads = p.b * p.h_kv;
   if (dtype == xsky::kBFloat16) {
     if constexpr (wg::takes(D))
       return wg::launch_dkv<D>(p, stats, fill_stats, st);
     else
-      return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
+      return launch(flash_bwd_dkv_mma_kernel<D>,
+                    row_grid(p.s_kv, kBT, heads), kMmaThreads,
                     dkv_mma_smem<D>(), p, st);
   }
-  return launch(flash_bwd_dkv_fma_kernel<D>, grid, kFmaThreads,
+  return launch(flash_bwd_dkv_fma_kernel<D>,
+                row_grid(p.s_kv, fma_rows<D>(), heads), kFmaThreads,
                 dkv_fma_smem<D>(), p, st);
 }
 
 template <int D>
 cudaError_t launch_dq(const FlashParams& p, int dtype, float* stats,
                       int fill_stats, cudaStream_t st) {
-  const dim3 grid((p.s_q + kBT - 1) / kBT, p.b * p.h);
+  const int heads = p.b * p.h;
   if (dtype == xsky::kBFloat16) {
     if constexpr (wg::takes(D))
       return wg::launch_dq<D>(p, stats, fill_stats, st);
     else
-      return launch(flash_bwd_dq_mma_kernel<D>, grid, kMmaThreads,
+      return launch(flash_bwd_dq_mma_kernel<D>,
+                    row_grid(p.s_q, kBT, heads), kMmaThreads,
                     dq_mma_smem<D>(), p, st);
   }
-  return launch(flash_bwd_dq_fma_kernel<D>, grid, kFmaThreads,
+  return launch(flash_bwd_dq_fma_kernel<D>,
+                row_grid(p.s_q, fma_rows<D>(), heads), kFmaThreads,
                 dq_fma_smem<D>(), p, st);
 }
 
@@ -1455,6 +1528,7 @@ extern "C" int xsky_flash_bwd_dkv(const void* q, const void* k,
     case 32: err = launch_dkv<32>(p, dtype, stats, fill_stats, st); break;
     case 64: err = launch_dkv<64>(p, dtype, stats, fill_stats, st); break;
     case 128: err = launch_dkv<128>(p, dtype, stats, fill_stats, st); break;
+    case 256: err = launch_dkv<256>(p, dtype, stats, fill_stats, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -1480,6 +1554,7 @@ extern "C" int xsky_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 32: err = launch_dq<32>(p, dtype, stats, fill_stats, st); break;
     case 64: err = launch_dq<64>(p, dtype, stats, fill_stats, st); break;
     case 128: err = launch_dq<128>(p, dtype, stats, fill_stats, st); break;
+    case 256: err = launch_dq<256>(p, dtype, stats, fill_stats, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

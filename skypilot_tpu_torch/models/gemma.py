@@ -22,11 +22,11 @@ crosses one to one (``params_from_numpy``). The reference scans Gemma-2's
 layers in (windowed, global) pairs so that the window stays a static
 kernel parameter; here a plain layer loop hands even layers
 ``sliding_window`` and odd layers none. Every Gemma config has head_dim
-256, which the flash forward (K1) and the decode kernels (K4, K5) take;
-the flash backward does not yet, so ``Trainer`` refuses Gemma on the card
-(ROADMAP.md queue 1, "Gemma training (K2/K3 at D 256)"). The reference
-has no paged hook for Gemma, nor has the port; the pipelined loss waits
-for ROADMAP.md queue 1 item 8.
+256, which every flash kernel (K1-K3) and the decode kernels (K4, K5)
+take, so Gemma serves and trains on the card. Training takes the whole
+fp32 logits at once, as the reference's loss does. The reference has no
+paged hook for Gemma, nor has the port; the pipelined loss waits for
+ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 

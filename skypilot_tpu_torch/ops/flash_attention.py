@@ -5,13 +5,12 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``: the forward
 (``_fwd_kernel`` / ``_flash_fwd``) is ``csrc/flash_fwd.cu``; the backward
 pair (``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` / ``_bwd_flash``) is
 ``csrc/flash_bwd.cu``, one library with two entry points and two launch
-counts. In bf16 at head dims 64 and 128 the forward, dK/dV and dQ are
-TMA + wgmma kernels built on ``csrc/hopper.cuh``, and one backward runs
-the row pre-pass they share (LSE in base 2, delta) once; the sources'
-headers say what bounds each kernel on the H100 and how it is laid out.
-The forward also takes head dim 256 (Gemma; FWD_HEAD_DIMS); the backward
-does not yet (BWD_HEAD_DIMS: ROADMAP.md queue 1, "Gemma training (K2/K3
-at D 256)"), and its wrappers refuse it.
+counts. In bf16 at head dims 64, 128 and 256 (Gemma) the forward, dK/dV
+and dQ are TMA + wgmma kernels built on ``csrc/hopper.cuh``, and one
+backward runs the row pre-pass they share (LSE in base 2, delta) once;
+the sources' headers say what bounds each kernel on the H100 and how it
+is laid out at each head dim. Both directions take the head dims of
+FWD_HEAD_DIMS and BWD_HEAD_DIMS (16 to 256) and refuse any other.
 ``flash_attention`` is a ``torch.autograd.Function`` (the JAX
 ``custom_vjp``): its forward saves the LSE, its backward recomputes P
 from it.
@@ -31,7 +30,7 @@ from skypilot_tpu_torch.ops import kernels
 
 _NEG_INF = -1e30
 FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
                                     ctypes.c_int, ctypes.c_void_p]
@@ -253,10 +252,8 @@ def _check_bwd(q, k, v, segment_ids, out, dout, lse) -> None:
         raise ValueError(f'the flash backward launches a CUDA kernel; got '
                          f'a {q.device} tensor')
     if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(
-            f'the flash backward takes head_dim in {BWD_HEAD_DIMS}; '
-            f'{q.shape[-1]} is not ported yet: ROADMAP.md queue 1, "Gemma '
-            'training (K2/K3 at D 256)"')
+        raise ValueError(f'the flash backward takes head_dim in '
+                         f'{BWD_HEAD_DIMS}, not {q.shape[-1]}')
     _check(q, k, v, segment_ids)
     b, s_q, h, _ = q.shape
     for name, t in (('out', out), ('dout', dout)):

@@ -167,8 +167,7 @@ class Trainer:
             raise NotImplementedError(
                 f'head_dim {head_dim}: the flash backward kernels take '
                 f'{flash_ops.BWD_HEAD_DIMS} on the card, so this model '
-                'cannot train there yet: ROADMAP.md queue 1, "Gemma '
-                'training (K2/K3 at D 256)".')
+                'cannot train there.')
         if self.device.type == 'cuda' and self.device.index is None:
             # What tensors report, so that devices compare equal.
             self.device = torch.device('cuda', torch.cuda.current_device())

@@ -410,40 +410,81 @@ def test_paged_cache_is_refused_as_in_the_reference(name):
         engine_lib.InferenceEngine(cfg, params, device='cpu')
 
 
-# ---- the trainer's refusal on the card ----
+# ---- training on the card ----
 
-def test_trainer_refuses_gemma_on_the_card_and_trains_it_on_the_cpu(
-        monkeypatch):
-    """On a CUDA device a config whose head_dim the flash backward does
-    not take (every Gemma: 256) is refused, naming the ROADMAP item; on
-    the CPU the same config builds (the plain backward takes any
-    width). The device check is monkeypatched: there is no card here."""
-    cfg = trainer.TrainConfig(model=gemma.GEMMA2_2B, global_batch_size=1,
+@pytest.mark.parametrize('name', ('gemma-2b', 'gemma-7b', 'gemma2-2b',
+                                  'gemma2-9b'))
+def test_trainer_builds_gemma_on_the_card_and_on_the_cpu(monkeypatch, name):
+    """Every Gemma config has head_dim 256, which the flash backward
+    kernels take: the Trainer builds on a CUDA device and on the CPU. A
+    head dim outside BWD_HEAD_DIMS is still refused on the card, naming
+    the set. The device check is monkeypatched: there is no card here."""
+    cfg = trainer.TrainConfig(model=gemma.CONFIGS[name], global_batch_size=1,
                               seq_len=16)
+    assert cfg.model.head_dim == 256 in flash_ops.BWD_HEAD_DIMS
     monkeypatch.setattr(trainer, 'resolve_device',
                         lambda device: torch.device('cuda', 0))
     monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    assert trainer.Trainer(cfg).device == torch.device('cuda', 0)
+    odd = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, head_dim=96))
     with pytest.raises(NotImplementedError,
-                       match=r'Gemma training \(K2/K3 at D 256\)'):
-        trainer.Trainer(cfg)
+                       match=r'head_dim 96: the flash backward kernels take '
+                             r'\(16, 32, 64, 128, 256\) on the card'):
+        trainer.Trainer(odd)
     monkeypatch.undo()
     assert trainer.Trainer(cfg, device='cpu').device.type == 'cpu'
 
 
-def test_flash_backward_wrappers_refuse_head_dim_256():
-    """The forward takes D 256, the backward does not yet: its wrappers
-    raise before any launch, naming the ROADMAP item (a stand-in with a
-    CUDA tensor's shape and flag: there is no card here, and the check
-    reads nothing else)."""
-    assert 256 in flash_ops.FWD_HEAD_DIMS
-    assert 256 not in flash_ops.BWD_HEAD_DIMS
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card: enough for the flash
+    wrappers' checks and arguments, with their launches stubbed."""
 
-    class _Cuda:
-        is_cuda = True
-        shape = torch.Size((1, 8, 2, 256))
+    @property
+    def is_cuda(self):
+        return True
 
+
+@pytest.mark.parametrize('d', [256, 96, 512])
+def test_flash_backward_wrappers_take_head_dim_256_and_refuse_others(
+        monkeypatch, d):
+    """At D 256 one bf16 backward hands the dQ launch, then the dK/dV
+    launch, head_dim 256 and one scratch for the row pre-pass, filled by
+    the first only; a width outside BWD_HEAD_DIMS raises in every
+    wrapper, naming the width and the set, before any launch. There is no
+    card here: the tensors are CPU tensors flagged as on the card, the
+    launches are stubbed, and so is the scratch size, which the kernels'
+    library gives (LSE and delta per row, S padded to 64 rows)."""
+    calls = []
+    for kern in (flash_ops.DQ_KERNEL, flash_ops.DKV_KERNEL):
+        monkeypatch.setattr(kern, 'launch',
+                            lambda *args, _name=kern.name:
+                            calls.append((_name, args)))
+    b, s, h, h_kv = 1, 8, 4, 2
+    monkeypatch.setattr(flash_ops.DQ_KERNEL, 'query',
+                        lambda symbol, *args: 2 * b * h * 64)
+    monkeypatch.setattr(flash_ops.kernels, 'stream_ptr', lambda device: 0)
+    q, out, dout = (torch.zeros(b, s, h, d, dtype=torch.bfloat16).as_subclass(
+        _OnCard) for _ in range(3))
+    k, v = (torch.zeros(b, s, h_kv, d, dtype=torch.bfloat16).as_subclass(
+        _OnCard) for _ in range(2))
+    lse = torch.zeros(b, h, s).as_subclass(_OnCard)
+    args = (q, k, v, None, out, dout, lse)
+    if d in flash_ops.BWD_HEAD_DIMS:
+        dq, dk, dv = flash_ops._flash_bwd(*args)
+        assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+        assert [name for name, _ in calls] == ['flash_bwd_dq',
+                                               'flash_bwd_dkv']
+        # After the pointers: fill_stats, then (b, s_q, s_kv, h, h_kv, d).
+        (_, dq_args), (_, dkv_args) = calls
+        assert dq_args[9:16] == (1, b, s, s, h, h_kv, d)
+        assert dkv_args[10:17] == (0, b, s, s, h, h_kv, d)
+        assert dq_args[8] == dkv_args[9] is not None   # one scratch
+        return
     for launch in (flash_ops._flash_bwd, flash_ops._flash_bwd_dq,
                    flash_ops._flash_bwd_dkv):
         with pytest.raises(ValueError,
-                           match=r'Gemma training \(K2/K3 at D 256\)'):
-            launch(_Cuda(), None, None, None, None, None, None)
+                           match=rf'takes head_dim in \(16, 32, 64, 128, '
+                                 rf'256\), not {d}'):
+            launch(*args)
+    assert not calls

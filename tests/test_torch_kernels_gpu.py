@@ -181,22 +181,60 @@ def test_flash_kernel_matches_plain_at_head_dim_256(card, dtype, kw):
     assert_out_close(out, lse, ref, ref_lse, dtype)
 
 
-def test_flash_backward_refuses_head_dim_256_on_the_card(card):
-    """K2/K3 take head dims up to 128 (ROADMAP.md queue 1, "Gemma
-    training (K2/K3 at D 256)"): the wrappers raise before any launch,
-    and so does autograd through the forward kernel."""
-    (q, k, v, dout), seg, opts = _flash_inputs(card, torch.bfloat16,
-                                               dict(d=256), with_dout=True)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kw', _D256_KW, ids=_D256_IDS)
+def test_flash_backward_kernels_match_plain_at_head_dim_256(card, dtype, kw):
+    """K2 and K3 at D 256: bf16 on the wgmma kernels (dK/dV: 64-key
+    blocks whose two consumers split the head dim; dQ: 32-key tiles),
+    fp32 on the FMA kernels' 32-row tiles, at the cases above."""
+    (q, k, v, dout), seg, opts = _flash_inputs(card, dtype, kw,
+                                               with_dout=True)
     out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
-    before = [flash_attention.DKV_KERNEL.launches,
-              flash_attention.DQ_KERNEL.launches]
-    with pytest.raises(ValueError, match='K2/K3 at D 256'):
-        flash_attention._flash_bwd(q, k, v, seg, out, dout, lse, **opts)
-    q.requires_grad_(True)
-    with pytest.raises(ValueError, match='K2/K3 at D 256'):
-        flash_attention.flash_attention(q, k, v).sum().backward()
+    got = flash_attention._flash_bwd(q, k, v, seg, out, dout, lse, **opts)
+    want = flash_attention.flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, **_plain_opts(seg, opts))
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert_blocks_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_backward_repeats_bit_for_bit_at_head_dim_256(card, dtype):
+    """No atomics at D 256 either: two backward runs at Gemma2-2B's heads
+    (8 over 4) give the same bits."""
+    (q, k, v, dout), seg, opts = _flash_inputs(
+        card, dtype, dict(s=1000, h=8, h_kv=4, d=256, window=300,
+                          softcap=50.0, scale=1 / 16), with_dout=True)
+    out, lse = flash_attention._flash_fwd(q, k, v, seg, **opts)
+    args = (q, k, v, seg, out, dout, lse)
+    first = flash_attention._flash_bwd(*args, **opts)
+    again = flash_attention._flash_bwd(*args, **opts)
+    for name, a, b_ in zip(('dq', 'dk', 'dv'), first, again):
+        assert torch.equal(a, b_), name
+
+
+def test_flash_attention_autograd_at_head_dim_256(card):
+    """The autograd Function at D 256 with Gemma-2's options, on CUDA
+    tensors (all three kernels) and on the CPU (plain versions), fp32."""
+    b, s, h, h_kv, d = 1, 200, 4, 2, 256
+    tensors = [torch.randn(shape, generator=card, device='cuda')
+               for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d),
+                             (b, s, h, d))]
+    opts = dict(window=64, logit_softcap=50.0, scale=1 / 16)
+    launches = [flash_attention.DKV_KERNEL.launches,
+                flash_attention.DQ_KERNEL.launches]
+    grads = {}
+    for device in ('cuda', 'cpu'):
+        q, k, v = (t.detach().to(device).requires_grad_()
+                   for t in tensors[:3])
+        out = flash_attention.flash_attention(q, k, v, **opts)
+        out.backward(tensors[3].to(device))
+        grads[device] = [out.detach(), q.grad, k.grad, v.grad]
     assert [flash_attention.DKV_KERNEL.launches,
-            flash_attention.DQ_KERNEL.launches] == before
+            flash_attention.DQ_KERNEL.launches] == [n + 1 for n in launches]
+    for name, got, want in zip(('out', 'dq', 'dk', 'dv'), grads['cuda'],
+                               grads['cpu']):
+        assert_blocks_close(got.cpu(), want, torch.float32, name)
 
 
 def test_flash_backward_check_rejects_planted_faults(card):
@@ -327,10 +365,12 @@ def test_flash_kernels_at_the_training_length(card):
 
 
 @pytest.mark.parametrize('dtype, d, want', [
+    (torch.bfloat16, 256, 2 * 3 * 4 * 256),
     (torch.bfloat16, 128, 2 * 3 * 4 * 256),
     (torch.bfloat16, 64, 2 * 3 * 4 * 256),
     (torch.bfloat16, 32, None),
-    (torch.float32, 128, None)])
+    (torch.float32, 128, None),
+    (torch.float32, 256, None)])
 def test_dkv_scratch_only_where_the_wgmma_kernel_runs(card, dtype, d, want):
     """The backward pre-pass's scratch (shared by dK/dV and dQ), sized by
     the kernels' library: LSE and delta per query row, S padded to the

@@ -445,3 +445,57 @@ def test_flash_wave_counter_counts_the_flash_buckets_only():
     for bucket in (128, attention._FLASH_MIN_SEQ, 2048):
         engine._prefill_batch(torch.zeros((2, bucket)), None)
     assert waves == [2]
+
+
+def test_chip_smoke_gemma_training_phases_check_their_derived_launches():
+    """Phases [28] and [29] run after [27], on the card. [28] runs
+    train/launch.py with Gemma2-2B's flags through launch_run (the launch
+    counts zeroed just before each run and read just after) and holds
+    K1-K3 of each run to the counts derived from its steps; [29] wants
+    K1-K3 and nothing else on the card; phase [3] puts K2 and K3 at D 256
+    in the kernels line."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    r = chip_smoke.GEMMA_TRAIN
+    assert (r['model'], r['seq'], r['batch']) == ('gemma2-2b', 8192, 1)
+    body = inspect.getsource(chip_smoke.gemma_train_path)
+    for flag in ("'--device', 'cuda'", "'--optimizer', 'adafactor'",
+                 "'--resume', 'auto'", "'--checkpoint-dir'"):
+        assert flag in body
+    assert body.index('launch_run(') < body.index('check_derived_launches(')
+    assert 'TRAIN_KERNELS' in inspect.getsource(
+        chip_smoke.small_gemma_train_checks)
+    assert "records[name]['d256'] = gemma[name]" in inspect.getsource(
+        chip_smoke.check_flash_bwd)
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_gemma_end_to_end()', 'gemma_train_path(records)',
+        'small_gemma_train_checks()', "print(json.dumps({'ok': True")]
+    assert order == sorted(order)
+
+
+def test_build_report_names_the_head_dim_256_backward():
+    """Phase [2] reports registers and spills of the flash backward's
+    D 256 instantiations, the wgmma and the fp32 FMA ones alike, and only
+    the FMA kernels at D 256."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    prefix = '_ZN45_GLOBAL__N__0_12_flash_bwd_cu_0'
+
+    def entry(name, regs, spill):
+        return (f"ptxas info    : Compiling entry function '{prefix}{name}"
+                f"EEEvN4xsky11FlashParamsE' for 'sm_90a'\n"
+                f'    0 bytes stack frame, {spill} bytes spill stores, '
+                f'{spill} bytes spill loads\n'
+                f'ptxas info    : Used {regs} registers\n')
+
+    log = ''.join(entry(*e) for e in (
+        ('2wg26flash_bwd_dkv_wgmma_kernelILi256', 168, 0),
+        ('23flash_bwd_dq_fma_kernelILi256', 113, 0),
+        ('24flash_bwd_dkv_fma_kernelILi256', 128, 8),
+        ('24flash_bwd_dkv_fma_kernelILi128', 167, 0)))
+    assert list(chip_smoke.hopper_kernels(log)) == [
+        ('flash_bwd_dkv_wgmma_kernel<256>', 168, 0),
+        ('flash_bwd_dq_fma_kernel<256>', 113, 0),
+        ('flash_bwd_dkv_fma_kernel<256>', 128, 8)]
