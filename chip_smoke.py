@@ -70,15 +70,16 @@ Phases, in order; any failure exits non-zero:
      the greedy tokens must be identical;
  13. int8 replica: bench.py serve's first rung through the port's HTTP
      server (infer/server.py on 127.0.0.1): Llama-3-8B, int8 weights
-     quantized on the card from the seeded bf16 init, int8 KV, 16 slots,
-     max_target_len 2048, decode_steps 16; four prompts one at a time must
-     give Orchestrator.generate's tokens on the same engine, then 32
-     concurrent POST /generate of 512-token prompts, 128 new tokens each:
-     every request whole, K4 only, /metrics counters equal to what
-     was sent; tok/s, mean TTFT (/metrics), peak memory, weight bytes (K4
-     only: 512-token prompts take the plain prefill attention, below the
-     flash kernel's 1024, as in the reference);
- 14. int4 replica: the same with int4 weights (bench.py's second rung);
+     quantized on the card as the seeded init draws them, int8 KV, 16
+     slots, max_target_len 2048, decode_steps 16; a prompt sent alone
+     must give Orchestrator.generate's tokens on the same engine,
+     then 32 concurrent POST /generate of 512-token prompts, 128 new
+     tokens each: every request whole, K4 only, /metrics counters equal
+     to what was sent; tok/s, mean TTFT (/metrics), peak memory, weight
+     bytes (K4 only: 512-token prompts take the plain prefill attention,
+     below the flash kernel's 1024, as in the reference);
+ 14. int4 replica: the same with int4 weights (bench.py's second rung)
+     and 16 concurrent requests;
  15. small quantized models: fp32 LLAMA_TINY and DEEPSEEK_TINY widths with
      int8 and int4 weights (Llama int8 also over an int8 KV cache),
      quantized on the card and on the CPU to the same bytes, greedy tokens
@@ -191,6 +192,27 @@ Phases, in order; any failure exits non-zero:
      accum_steps=2) and three LoRA steps on the head_dim-256 config; the
      losses, grad norms and every parameter agree, the LoRA base stays
      bit-identical, and only K1-K3 run on the card.
+ 30. Mixtral-8x7B replica: infer/server.py --model mixtral-8x7b
+     --weight-dtype int8 --max-slots 16 --max-target-len 4096 (the slots
+     and cache of examples/tpu/serve_mixtral.yaml, whose --mesh expert=8
+     is refused) on 127.0.0.1, random weights quantized on the card as
+     the seeded init draws them (the bf16 tree, 93.4 GB, is larger than
+     the card): the build's time, weight bytes and peak memory (it must
+     stay under half a bf16 expert stack above the finished tree); a
+     3500-token prompt alone (prefilled in 1024-token chunks), then 16
+     concurrent prompts of 256-1536 tokens, 64 new tokens each: K1 = 32
+     layers x prefill waves in the 1024 bucket, K4 = 32 x decode steps,
+     no other kernel; /metrics counters equal what was sent; the prompt
+     sent alone gives Orchestrator.generate's tokens on the same engine;
+     tok/s, mean TTFT (/metrics), peak memory; then the largest wave (16
+     x 1024 tokens) alone, its time and peak memory, and one decode
+     step's device time (the profiler's kernel sum);
+ 31. small Mixtral checks, card vs CPU: fp32 moe-tiny with random norms,
+     bucket 1024: greedy tokens of a 3-prompt wave padded to 4 rows at
+     capacity factor 0.25 (experts drop real tokens: counted), a chunked
+     prefill with a prefix-cache hit equal to the whole prompt in one
+     2048 bucket, and int8 weights (the same bytes on both); only K1 and
+     K4 on the card.
 Phase 3 also holds K1 at D 256 (Gemma's head dim: tile edges, Gemma2-9B's
 wave of 8192 tokens with and without its window, Gemma-2B's and
 Gemma-7B's heads, bf16 and fp32, timed), K2 and K3 at D 256 (tile edges
@@ -205,7 +227,7 @@ Phase 2 fails if a D 256 instantiation of the flash backward spills.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21) every kernel's launch count is set to 0; just after, the
 kernels of that path must each have run, and no other. Phases 23, 24
-(and its self-draft), 26 and each run of 28 hold each kernel to the
+(and its self-draft), 26, each run of 28, and 30 hold each kernel to the
 count derived from the run's prefills, steps and rounds, every other
 kernel to 0. A phase's first line says when it began.
 
@@ -303,13 +325,20 @@ def nvidia_smi_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+# Attempts of time_ms, each with twice the last one's hold.
+TIMING_ATTEMPTS = 3
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of fn() over iters runs, by CUDA events. The
     device is first held busy (torch.cuda._sleep) for three times as long
-    as the host takes to queue the runs, so the events bracket device
-    work only, not the host's enqueue rate: a decode kernel takes less
-    device time than its Python wrapper takes host time. Raises if the
-    host did not finish queueing before the hold ran out."""
+    as the host takes to queue the runs (at least 10 ms), so the events
+    bracket device work only, not the host's enqueue rate: a decode
+    kernel takes less device time than its Python wrapper takes host
+    time. A host that did not finish queueing before the hold ran out
+    (a pause of its own: a call of 0.1 ms once took 1.6 ms) voids the
+    attempt, and the next one holds twice as long; raises after
+    TIMING_ATTEMPTS voided attempts."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -319,22 +348,48 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    hold_ms = 1.0 + 3 * iters * call_ms
-    # Cycles at 2 GHz, above the card's clock: the hold lasts at least
-    # hold_ms.
-    torch.cuda._sleep(int(hold_ms * 2e6))
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    queued_ms = (time.perf_counter() - t0) * 1e3
+    hold_ms = max(10.0, 1.0 + 3 * iters * call_ms)
+    for _ in range(TIMING_ATTEMPTS):
+        # Cycles at 2 GHz, above the card's clock: the hold lasts at
+        # least hold_ms.
+        torch.cuda._sleep(int(hold_ms * 2e6))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms <= hold_ms:
+            return start.elapsed_time(end) / iters
+        log(f'  timing: the host took {queued_ms:.2f} ms to queue {iters} '
+            f'runs, past the {hold_ms:.2f} ms hold; timing again')
+        hold_ms *= 2
+    raise AssertionError(f'timing: the host took {queued_ms:.2f} ms to '
+                         f'queue {iters} runs, past the {hold_ms / 2:.2f} '
+                         'ms hold, so the events would include host time')
+
+
+def busy_ms(fn) -> tuple:
+    """(device ms, wall ms) of one fn() call after a warm one: the device
+    time is the sum of its kernels' times in a torch.profiler trace (one
+    stream, so they do not overlap). For a call that launches more
+    kernels than the launch queue holds, where time_ms's hold cannot
+    cover the host's queueing."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    if queued_ms > hold_ms:
-        raise AssertionError(f'timing: the host took {queued_ms:.2f} ms to '
-                             f'queue {iters} runs, past the {hold_ms:.2f} ms '
-                             'hold, so the events would include host time')
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(evt.device_time_total for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if not device:
+        raise AssertionError('the profiler saw no device time')
+    return device, wall
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -2225,6 +2280,11 @@ def small_deepseek_end_to_end() -> None:
 QUANT_SERVE_KERNELS = ('decode_attention',)
 RUNG = dict(slots=16, max_len=2048, requests=32, prompt_len=512,
             new_tokens=128, decode_steps=16)
+# (prompts sent one at a time, concurrent requests) of each replica: [13]
+# sends the rung's 32 concurrent requests, [14] 16; each sends one prompt
+# alone (four took 69-109 s of [13] and 105 s of [14] in whole runs of
+# 882-1000 s), with every check.
+REPLICA_REQUESTS = {'int8': (1, 32), 'int4': (1, 16)}
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 600.0):
@@ -2280,9 +2340,10 @@ def quantized_replica(records: dict, bits: str) -> None:
     phase = {'int8': 13, 'int4': 14}[bits]
     cfg = llama.LLAMA3_8B
     r = RUNG
+    n_singles, n_requests = REPLICA_REQUESTS[bits]
     log(f'[{phase}] {bits} replica: Llama-3-8B ({cfg.n_layers} layers, '
-        f'public widths) with {bits} weights quantized on the card from the '
-        f'seeded bf16 init, int8 KV; {r["slots"]} slots, max_target_len '
+        f'public widths) with {bits} weights quantized on the card as the '
+        f'seeded init draws them, int8 KV; {r["slots"]} slots, max_target_len '
         f'{r["max_len"]}, decode_steps {r["decode_steps"]}; the port\'s '
         'infer/server.py on 127.0.0.1')
     t0 = time.perf_counter()
@@ -2303,13 +2364,13 @@ def quantized_replica(records: dict, bits: str) -> None:
             raise AssertionError('/health did not answer healthy')
         vocab = cfg.vocab_size
         prompts = [[(i * 7 + j) % vocab for j in range(r['prompt_len'])]
-                   for i in range(r['requests'])]
-        # The server adds nothing: the first four prompts, one at a time
-        # (a wave of one, then decode), give the tokens of
+                   for i in range(n_requests)]
+        # The server adds nothing: the first prompts, one at a time (a
+        # wave of one, then decode), give the tokens of
         # Orchestrator.generate on the same engine, run with the serving
         # loop held.
         t0 = time.perf_counter()
-        for i, p in enumerate(prompts[:4]):
+        for i, p in enumerate(prompts[:n_singles]):
             served = http_json(url, '/generate', {
                 'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})
             with replica.loop._lock:
@@ -2318,9 +2379,10 @@ def quantized_replica(records: dict, bits: str) -> None:
             if served['output_tokens'] != direct:
                 raise AssertionError(f'request {i}: the server gave other '
                                      'tokens than Orchestrator.generate')
-        log(f'  four requests one at a time ({time.perf_counter() - t0:.2f} '
-            's with their direct runs): the server\'s tokens equal '
-            'Orchestrator.generate on the same engine')
+        log(f'  {n_singles} request(s) one at a time '
+            f'({time.perf_counter() - t0:.2f} s with their direct runs): '
+            'the server\'s tokens equal Orchestrator.generate on the same '
+            'engine')
         before = http_json(url, '/metrics')
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -2334,7 +2396,7 @@ def quantized_replica(records: dict, bits: str) -> None:
         for name in QUANT_SERVE_KERNELS:
             records[name].setdefault('launches_by_path', {})[
                 f'serve_{bits}'] = launches[name]
-        n_req = 4 + r['requests']
+        n_req = n_singles + n_requests
         want = {'xsky_serve_requests_total{endpoint="/generate",'
                 'outcome="ok"}': n_req,
                 'xsky_serve_prompt_tokens_total': n_req * r['prompt_len'],
@@ -2347,11 +2409,11 @@ def quantized_replica(records: dict, bits: str) -> None:
                   - metric(before, 'xsky_serve_ttft_seconds_count'))
         ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
                   - metric(before, 'xsky_serve_ttft_seconds_sum'))
-        if ttft_n != r['requests']:
+        if ttft_n != n_requests:
             raise AssertionError(f'{ttft_n} TTFT samples for '
-                                 f'{r["requests"]} requests')
-        out_tokens = r['requests'] * r['new_tokens']
-        log(f'  {r["requests"]} concurrent POST /generate x '
+                                 f'{n_requests} requests')
+        out_tokens = n_requests * r['new_tokens']
+        log(f'  {n_requests} concurrent POST /generate x '
             f'{r["new_tokens"]} tokens in {dt:.3f} s: '
             f'{out_tokens / dt:.1f} output tok/s, mean TTFT '
             f'{ttft_s / ttft_n * 1e3:.1f} ms (/metrics), peak memory '
@@ -4262,6 +4324,297 @@ def small_gemma_train_checks() -> None:
     release_card()
 
 
+# ---- phases 30-31: Mixtral serving ----
+
+# Phase [30]: Mixtral-8x7B as examples/tpu/serve_mixtral.yaml sizes its
+# replica (16 slots over a 4096-row cache) on one card, with int8 weights
+# (its bf16 tree, 93.4 GB, is larger than the card; the recipe's --mesh
+# expert=8 needs queue 1 item 8): a prompt of the recipe's length (3500
+# tokens, chunked) alone, then 16 concurrent prompts of 256-1536 tokens;
+# the largest wave (16 rows of 1024) is then prefilled once on its own.
+MIXTRAL_SERVE = dict(slots=16, max_len=4096, singles=(3500,),
+                     prompt_len=(256, 1536), requests=16, new_tokens=64,
+                     wave=1024)
+
+
+def mixtral_replica(records: dict) -> None:
+    import threading
+    from skypilot_tpu_torch.infer import sampling
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.ops import quantization as qops
+    cfg = moe.MIXTRAL_8X7B
+    r = MIXTRAL_SERVE
+    kv_gb = (2 * cfg.n_layers * r['slots'] * r['max_len'] * cfg.n_kv_heads
+             * cfg.head_dim * 2 / 1e9)
+    # One layer of one expert stack in bf16, and the whole stack.
+    layer_bytes = cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    stack_bytes = cfg.n_layers * layer_bytes
+    log(f'[30] Mixtral-8x7B replica on one card: int8 weights ('
+        f'{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/'
+        f'{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts '
+        f'of d_ff {cfg.d_ff}, top-{cfg.experts_per_token}, vocab '
+        f'{cfg.vocab_size}; {cfg.num_params() / 1e9:.2f} B parameters, '
+        f'{cfg.num_params() * 2 / 1e9:.1f} GB in bf16), quantized on the '
+        'card as the seeded init draws them; infer/server.py --model '
+        f'mixtral-8x7b --weight-dtype int8 --max-slots {r["slots"]} '
+        f'--max-target-len {r["max_len"]} on 127.0.0.1 (bf16 KV cache '
+        f'{kv_gb:.2f} GB)')
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    built = {}
+    init = moe.init
+
+    def measured_init(*args, **kwargs):
+        t0 = time.perf_counter()
+        params = init(*args, **kwargs)
+        torch.cuda.synchronize()
+        built.update(s=time.perf_counter() - t0,
+                     peak=torch.cuda.max_memory_allocated() - base,
+                     tree=torch.cuda.memory_allocated() - base)
+        return params
+
+    moe.init = measured_init
+    t0 = time.perf_counter()
+    try:
+        replica = server_lib.build_replica(server_lib.parse_args([
+            '--model', 'mixtral-8x7b', '--weight-dtype', 'int8',
+            '--max-slots', str(r['slots']),
+            '--max-target-len', str(r['max_len']), '--port', '0',
+            '--device', 'cuda']), host='127.0.0.1')
+    finally:
+        moe.init = init
+    torch.cuda.synchronize()
+    nbytes = qops.params_nbytes(replica.engine.params)
+    scratch = built['peak'] - built['tree']
+    log(f'  init {built["s"]:.2f} s: weights {nbytes} bytes '
+        f'({nbytes / 1e9:.3f} GB, params_nbytes); the build\'s peak '
+        f'{built["peak"] / 2**30:.2f} GiB, {scratch / 2**30:.2f} GiB above '
+        f'the finished tree (one bf16 expert layer {layer_bytes / 2**30:.2f}'
+        f' GiB, a whole bf16 stack {stack_bytes / 2**30:.2f} GiB); init + '
+        f'engine + warm-up {time.perf_counter() - t0:.2f} s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    # A stack quantized whole would hold its bf16 copy (and fp32 ones):
+    # at least stack_bytes above the tree. Layer by layer the scratch is a
+    # few copies of one layer (bf16, its fp32 draw, the quantizer's fp32
+    # quotient and rounding).
+    if abs(built['tree'] - nbytes) > 2**26 or scratch >= stack_bytes / 2:
+        raise AssertionError(
+            f'the build held {scratch} bytes above its tree of '
+            f'{built["tree"]} ({nbytes} in params): half a full-precision '
+            'stack or more')
+    threading.Thread(target=replica.httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{replica.httpd.server_address[1]}'
+    engine = replica.engine
+    steps = count_decode_steps(engine)
+    waves = count_flash_waves(engine)
+    rng = np.random.default_rng(30)
+    singles = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in r['singles']]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(r['prompt_len'][0],
+                                     r['prompt_len'][1] + 1, r['requests'])]
+    try:
+        if json.loads(http_json(url, '/health'))['status'] != 'healthy':
+            raise AssertionError('/health did not answer healthy')
+        # The served requests' own launches: counted from here (after the
+        # warm-up) and read before anything else runs on the engine.
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        steps[0] = waves[0] = 0
+        t0 = time.perf_counter()
+        served = [http_json(url, '/generate', {
+            'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})[
+                'output_tokens'] for p in singles]
+        singles_s = time.perf_counter() - t0
+        before = http_json(url, '/metrics')
+        _, dt = concurrent_generate(url, [
+            {'prompt_tokens': p, 'max_new_tokens': r['new_tokens']}
+            for p in prompts], cfg.vocab_size)
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        n_waves, n_steps = waves[0], steps[0]
+        after = http_json(url, '/metrics')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_derived_launches('mixtral-8x7b replica', launches, {
+            'flash_fwd': cfg.n_layers * n_waves,
+            'decode_attention': cfg.n_layers * n_steps})
+        if not n_waves or not n_steps:
+            raise AssertionError(f'{n_waves} flash waves, {n_steps} '
+                                 'decode steps')
+        for name in SERVE_KERNELS:
+            records[name].setdefault('launches_by_path', {})[
+                'mixtral_serve'] = launches[name]
+        sent = singles + prompts
+        want = {'xsky_serve_requests_total{endpoint="/generate",'
+                'outcome="ok"}': len(sent),
+                'xsky_serve_prompt_tokens_total': sum(map(len, sent)),
+                'xsky_serve_generated_tokens_total':
+                    len(sent) * r['new_tokens']}
+        got = {name: metric(after, name) for name in want}
+        if got != want:
+            raise AssertionError(f'/metrics counters {got}, sent {want}')
+        ttft_n = (metric(after, 'xsky_serve_ttft_seconds_count')
+                  - metric(before, 'xsky_serve_ttft_seconds_count'))
+        ttft_s = (metric(after, 'xsky_serve_ttft_seconds_sum')
+                  - metric(before, 'xsky_serve_ttft_seconds_sum'))
+        if ttft_n != r['requests']:
+            raise AssertionError(f'{ttft_n} TTFT samples for '
+                                 f'{r["requests"]} requests')
+        # The server adds nothing: the prompts sent one at a time give
+        # the tokens of Orchestrator.generate on the same engine, run
+        # with the serving loop held. (A concurrent request's tokens also
+        # depend on the others in its prefill wave: they share the
+        # experts' capacity.)
+        with replica.loop._lock:
+            direct = [replica.loop.orch.generate(
+                [p], max_new_tokens=r['new_tokens'])[0] for p in singles]
+        if served != direct:
+            raise AssertionError('the server gave other tokens than '
+                                 'Orchestrator.generate')
+        out_tokens = r['requests'] * r['new_tokens']
+        log(f'  prompts of {[len(p) for p in singles]} tokens one at a time '
+            f'({singles_s:.2f} s): the served tokens equal '
+            'Orchestrator.generate on the same engine')
+        log(f'  {r["requests"]} concurrent POST /generate (prompts of '
+            f'{min(map(len, prompts))}-{max(map(len, prompts))} tokens) x '
+            f'{r["new_tokens"]} tokens in {dt:.3f} s: {out_tokens / dt:.1f} '
+            f'output tok/s, mean TTFT {ttft_s / ttft_n * 1e3:.1f} ms '
+            f'(/metrics), peak memory {peak:.2f} GiB; /metrics counters '
+            f'equal what was sent; served launches {launches} = '
+            f'{cfg.n_layers} layers x ({n_waves} flash waves, {n_steps} '
+            'decode steps)')
+        # The largest wave the replica admits (max_slots rows of the
+        # largest bucket), prefilled on its own into the idle slots,
+        # then one decode step of all 16 slots, timed on the device.
+        with replica.loop._lock:
+            torch.cuda.reset_peak_memory_stats()
+            wave = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                   r['wave'])]
+                    for _ in range(r['slots'])]
+            t0 = time.perf_counter()
+            state, _ = engine.prefill_insert_batch(
+                replica.loop.orch.state,
+                [(p, sampling.SamplingParams()) for p in wave],
+                list(range(r['slots'])))
+            torch.cuda.synchronize()
+            wave_ms = (time.perf_counter() - t0) * 1e3
+            wave_peak = torch.cuda.max_memory_allocated() / 2**30
+            step_ms, step_wall = busy_ms(lambda: engine.decode_step(state))
+        log(f'  the largest wave, {r["slots"]} x {r["wave"]} tokens: '
+            f'{wave_ms:.1f} ms, peak memory {wave_peak:.2f} GiB of '
+            f'{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}'
+            f'; one decode step of {r["slots"]} slots at length '
+            f'{r["wave"]}: {step_ms:.2f} ms of device time (the profiler\'s '
+            f'kernel sum) in {step_wall:.2f} ms of wall; on '
+            f'{nvidia_smi_line()}')
+    finally:
+        replica.httpd.shutdown()
+        replica.httpd.server_close()
+        replica.loop.close()
+    del replica, engine
+    release_card()
+
+
+def small_mixtral_end_to_end() -> None:
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.ops import quantization as qops
+    log('[31] small Mixtral checks, card (kernels, TF32 off) vs CPU (plain '
+        'versions): fp32 moe-tiny (4 experts, top-2), random norms, bucket '
+        '1024: a 3-prompt wave padded to 4 rows at capacity factor 0.25, '
+        'where experts drop real tokens; a chunked prefill with a '
+        'prefix-cache hit against the whole prompt in one 2048 bucket (at '
+        'a capacity factor that drops nothing); int8 weights')
+    gen = torch.Generator()
+    gen.manual_seed(31)
+    cpu_params = moe.init(moe.MOE_TINY_F32, gen, device='cpu')
+    for key in ('attn_norm', 'mlp_norm'):
+        norm = cpu_params['layers'][key]
+        norm.copy_(1 + 0.2 * torch.randn(norm.shape, generator=gen))
+    rng = np.random.default_rng(31)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in (1024, 700, 913)]
+    long = [int(t) for t in rng.integers(0, 256, 1500)]
+    hit = long[:1200] + [int(t) for t in rng.integers(0, 256, 100)]
+    drop_cfg = dataclasses.replace(moe.MOE_TINY_F32, capacity_factor=0.25)
+    keep_cfg = dataclasses.replace(
+        moe.MOE_TINY_F32, capacity_factor=float(moe.MOE_TINY_F32.n_experts))
+    route = moe.route
+
+    def engine(cfg, device, **kw):
+        return engine_lib.InferenceEngine(
+            engine_lib.EngineConfig(model=cfg, max_slots=4,
+                                    kv_dtype=torch.float32, **kw),
+            to_device(cpu_params, device), device=device)
+
+    runs, used = {}, {}
+    for device in ('cuda', 'cpu'):
+        dropped = []
+
+        def spy(config, router_w, x, token_mask=None, capacity=None):
+            out = route(config, router_w, x, token_mask, capacity)
+            if capacity is None:       # a prefill wave, not a decode step
+                real = (token_mask != 0)[:, None]
+                dropped.append(int((real & ~out.keep).sum()))
+            return out
+
+        before = {k.name: k.launches for k in kernels.REGISTRY}
+        moe.route = spy
+        try:
+            wave = orch_lib.Orchestrator(engine(
+                drop_cfg, device, max_target_len=1100,
+                prefill_buckets=(1024,))).generate(prompts,
+                                                   max_new_tokens=12)
+        finally:
+            moe.route = route
+        cached = engine(keep_cfg, device, max_target_len=2100,
+                        prefill_buckets=(1024,), prefix_cache_entries=4)
+        chunked = [t for p in (long, hit) for t in orch_lib.Orchestrator(
+            cached, decode_steps=4).generate([p], max_new_tokens=8)]
+        whole = orch_lib.Orchestrator(
+            engine(keep_cfg, device, max_target_len=2100,
+                   prefill_buckets=(2048,)),
+            decode_steps=4).generate([long, hit], max_new_tokens=8)
+        int8_engine = engine(keep_cfg, device, max_target_len=1100,
+                             prefill_buckets=(1024,),
+                             weight_dtype=torch.int8)
+        int8 = orch_lib.Orchestrator(int8_engine).generate(
+            prompts, max_new_tokens=12)
+        used[device] = {k.name: k.launches - before[k.name]
+                        for k in kernels.REGISTRY}
+        runs[device] = dict(wave=wave, dropped=dropped, chunked=chunked,
+                            whole=whole, cache=cached.prefix_cache_stats,
+                            int8=int8, int8_tree=[
+                                t.cpu() for t in tensors(int8_engine.params)])
+    card, cpu = runs['cuda'], runs['cpu']
+    log(f'  wave tokens {card["wave"]} (real (token, choice) pairs '
+        f'dropped, per layer of each wave: {card["dropped"]}); chunked + '
+        f'prefix hit {card["chunked"]} ({card["cache"]}); int8 '
+        f'{card["int8"]}; card launches '
+        f'{used["cuda"]}')
+    same_bytes = all(torch.equal(a, b) for a, b in zip(
+        card.pop('int8_tree'), cpu.pop('int8_tree'), strict=True))
+    if card != cpu or not same_bytes:
+        raise AssertionError(f'the card and the CPU differ: {card} vs {cpu} '
+                             f'(int8 bytes equal: {same_bytes})')
+    if not any(card['dropped']):
+        raise AssertionError('no real token was dropped in the waves: '
+                             f'{card["dropped"]}')
+    if card['chunked'] != card['whole'] or not card['cache']['hits']:
+        raise AssertionError(
+            f'the chunked prefill with a prefix-cache hit gave '
+            f'{card["chunked"]}, the whole prompt {card["whole"]} '
+            f'({card["cache"]})')
+    if not qops.is_quantized(int8_engine.params['layers']['w_gate']):
+        raise AssertionError('the int8 engine did not quantize the experts')
+    for name, n in used['cuda'].items():
+        if (n > 0) != (name in SERVE_KERNELS):
+            raise AssertionError(f'{name} ran {n} times on the card: '
+                                 f'{used["cuda"]}')
+    release_card()
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the fp32 flash backward at D 256, of the decode split
@@ -4355,6 +4708,8 @@ def main() -> int:
     small_gemma_end_to_end()
     gemma_train_path(records)
     small_gemma_train_checks()
+    mixtral_replica(records)
+    small_mixtral_end_to_end()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -674,24 +674,25 @@ def build_replica(args: argparse.Namespace,
             else 'cpu')
     logger.info('Initializing %s on %s', args.hf_checkpoint or args.model,
                 name)
+    # The reference inits (or converts) and quantizes on the host, so that
+    # the bf16 tree never reaches the chip. Here the quantized tree is
+    # built on the card without it: a converted tree is quantized leaf by
+    # leaf as it moves, and the seeded init quantizes each weight as it
+    # draws it; a stacked weight goes one layer at a time both ways, so
+    # no more than one layer of a bf16 stack is ever on the card
+    # (Mixtral-8x7B's bf16 tree, 93.4 GB, is larger than the card).
+    # Quantization is one fp32 division and round-half-even per value,
+    # and each scale sees one layer, so the bytes are those of
+    # quantize_params(init(...)); the engine's own quantize pass then
+    # leaves the tree as it is. (A bf16 weight_dtype quantizes nothing.)
     if hf_params is not None:
-        params = {k: ({kk: vv.to(device) for kk, vv in v.items()}
-                      if isinstance(v, dict) else v.to(device))
-                  for k, v in hf_params.items()}
+        params = qops.quantize_params_to(hf_params, weight_dtype, device)
         del hf_params
     else:
-        params = model_lib.init(model, device=device)
-    if args.weight_dtype in ('int8', 'int4'):
-        # The reference inits and quantizes on the host because its chip
-        # cannot hold the bf16 tree (16.06 GB for Llama-3-8B). One H100
-        # holds it, so the tree is drawn on the card and quantized there,
-        # leaf by leaf, each bf16 leaf freed as its quantized form lands.
-        # Quantization is fp32 division and round-half-even, so the
-        # bytes are those a host-side quantization gives. The engine's
-        # own quantize pass then leaves the tree as it is.
-        qops.quantize_params_in_place(params, weight_dtype)
-        if device.type == 'cuda':
-            torch.cuda.empty_cache()
+        params = model_lib.init(model, device=device,
+                                weight_dtype=weight_dtype)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()   # the one-layer scratch of the build
     engine = engine_lib.InferenceEngine(config, params, device=device)
     orch = _orchestrator(args, engine)
     warm_up(orch)

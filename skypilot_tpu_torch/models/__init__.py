@@ -1,12 +1,15 @@
 """Model families of the port: the Llama family (MISTRAL shares
-``LlamaConfig``), Qwen-2/Qwen-3 (``QwenConfig``), Gemma-1/Gemma-2
+``LlamaConfig``), the Mixtral family (``MoEConfig``, a ``LlamaConfig``
+with routed experts), Qwen-2/Qwen-3 (``QwenConfig``), Gemma-1/Gemma-2
 (``GemmaConfig``) and DeepSeek (MLA + DeepSeekMoE). Each family module
 exposes the serving surface the engine dispatches on: ``init``,
-``prefill_hidden``, ``decode_forward`` and ``lm_logits``; the Llama, Qwen
-and Gemma families also have the trainer's ``loss_fn`` and
-``verify_forward`` (the engine's chunked prefill and prefix cache); Llama
-and DeepSeek have ``paged_decode_forward`` (Qwen and Gemma have no paged
-hook, as in the reference), and DeepSeek declares its
+``prefill_hidden``, ``decode_forward`` and ``lm_logits``; the Llama,
+Mixtral, Qwen and Gemma families also have ``verify_forward`` (the
+engine's chunked prefill and prefix cache), and the Llama, Qwen and
+Gemma families the trainer's ``loss_fn`` (Mixtral's raises, naming
+ROADMAP.md queue 1 item 6.4); Llama and DeepSeek have
+``paged_decode_forward`` (Mixtral, Qwen and Gemma have no paged hook, as
+in the reference), and DeepSeek declares its
 compressed cache layout (``kv_cache_shapes``,
 ``paged_kv_cache_shapes``)."""
 from __future__ import annotations
@@ -18,15 +21,19 @@ def _families():
     from skypilot_tpu_torch.models import deepseek
     from skypilot_tpu_torch.models import gemma
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import moe
     from skypilot_tpu_torch.models import qwen
-    return llama, qwen, gemma, deepseek
+    return llama, moe, qwen, gemma, deepseek
 
 
 def module_for(config: Any):
     """Return the model module owning ``config``."""
-    llama, qwen, gemma, deepseek = _families()
+    llama, moe, qwen, gemma, deepseek = _families()
     if isinstance(config, deepseek.DeepSeekConfig):
         return deepseek
+    # MoEConfig subclasses LlamaConfig: it is checked first.
+    if isinstance(config, moe.MoEConfig):
+        return moe
     if isinstance(config, llama.LlamaConfig):
         return llama
     if isinstance(config, qwen.QwenConfig):
@@ -34,8 +41,8 @@ def module_for(config: Any):
     if isinstance(config, gemma.GemmaConfig):
         return gemma
     raise TypeError(f'Unknown model config type: {type(config)!r} (the '
-                    'port has the Llama, Qwen, Gemma and DeepSeek '
-                    'families so far)')
+                    'port has the Llama, Mixtral, Qwen, Gemma and '
+                    'DeepSeek families)')
 
 
 def get_config(name: str):

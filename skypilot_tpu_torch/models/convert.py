@@ -5,7 +5,9 @@ Counterpart of ``skypilot_tpu/models/convert.py`` for the Llama family
 (``QwenConfig``: Q/K/V biases detected from ``q_proj.bias``, QK-norm
 from ``q_norm.weight``) and Gemma-1/Gemma-2 (``GemmaConfig``: the head
 tied to the embedding, Gemma-2's renamed norms, softcaps, attention
-scale and window):
+scale and window) and Mixtral (``MoEConfig``: per-expert ``w1``/``w3``/
+``w2`` stacked into ``w_gate``/``w_up``/``w_down`` ``[L, E, in, out]``,
+the router kept in fp32):
 
     from skypilot_tpu_torch.models import convert
     config, params = convert.from_hf('/ckpts/Llama-3.1-8B', device='cpu')
@@ -27,8 +29,7 @@ from torch's ``[out, in]``; the cast to the model type happens on the
 target device, so the tree equals the reference's bit for bit.
 
 The output is ``params.pt`` (``torch.save`` of the tree, host tensors)
-beside the reference's ``xsky_model.json`` metadata. The Mixtral family
-is not ported yet (ROADMAP.md queue 1 item 6.3).
+beside the reference's ``xsky_model.json`` metadata.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import torch
 from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch.models import gemma
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.models import qwen
 
 Params = Dict[str, Any]
@@ -163,15 +165,13 @@ def _detect_family(hf_config: dict) -> str:
                      'llama, mistral, qwen2, qwen3, gemma, mixtral)')
 
 
-# Families the reference converts and the port does not model yet.
-_NOT_PORTED = {
-    'moe': 'ROADMAP.md queue 1 item 6.3, "the Mixtral family"',
-}
-
-
-def _common_layers(source: _TensorSource, n_layers: int) -> Params:
+def _common_layers(source: _TensorSource, n_layers: int,
+                   mlp: Optional[Params] = None) -> Params:
+    """The attention projections, the MLP and the two norms of every
+    layer, stacked, in the model's order: the dense SwiGLU weights, or
+    ``mlp`` (name → stacked array) in their place."""
     p = 'layers.{i}.'
-    return {
+    layers = {
         'wq': _stack(source, p + 'self_attn.q_proj.weight', n_layers,
                      transpose=True),
         'wk': _stack(source, p + 'self_attn.k_proj.weight', n_layers,
@@ -180,18 +180,19 @@ def _common_layers(source: _TensorSource, n_layers: int) -> Params:
                      transpose=True),
         'wo': _stack(source, p + 'self_attn.o_proj.weight', n_layers,
                      transpose=True),
-        'w_gate': _stack(source, p + 'mlp.gate_proj.weight', n_layers,
-                         transpose=True),
-        'w_up': _stack(source, p + 'mlp.up_proj.weight', n_layers,
-                       transpose=True),
-        'w_down': _stack(source, p + 'mlp.down_proj.weight', n_layers,
-                         transpose=True),
-        'attn_norm': _stack(source, p + 'input_layernorm.weight',
-                            n_layers, transpose=False),
-        'mlp_norm': _stack(source,
-                           p + 'post_attention_layernorm.weight',
-                           n_layers, transpose=False),
     }
+    if mlp is None:
+        mlp = {ours: _stack(source, p + f'mlp.{theirs}.weight', n_layers,
+                            transpose=True)
+               for ours, theirs in (('w_gate', 'gate_proj'),
+                                    ('w_up', 'up_proj'),
+                                    ('w_down', 'down_proj'))}
+    layers.update(mlp)
+    layers['attn_norm'] = _stack(source, p + 'input_layernorm.weight',
+                                 n_layers, transpose=False)
+    layers['mlp_norm'] = _stack(source, p + 'post_attention_layernorm.weight',
+                                n_layers, transpose=False)
+    return layers
 
 
 def _lm_head(source: _TensorSource, hf: dict) -> np.ndarray:
@@ -384,8 +385,65 @@ def _convert_gemma(source: _TensorSource, dtype: torch.dtype,
     return config, params
 
 
+def _convert_mixtral(source: _TensorSource, dtype: torch.dtype,
+                     device: torch.device):
+    hf = source.config
+    n_layers = hf['num_hidden_layers']
+    n_experts = hf['num_local_experts']
+    _check_head_dim(hf)
+    config = moe.MoEConfig(
+        vocab_size=hf['vocab_size'],
+        d_model=hf['hidden_size'],
+        n_layers=n_layers,
+        n_heads=hf['num_attention_heads'],
+        n_kv_heads=hf.get('num_key_value_heads',
+                          hf['num_attention_heads']),
+        d_ff=hf['intermediate_size'],
+        max_seq_len=hf.get('max_position_embeddings', 8192),
+        rope_theta=float(hf.get('rope_theta', 1e6)),
+        norm_eps=float(hf.get('rms_norm_eps', 1e-5)),
+        # Carried as the reference carries it; the model's attention
+        # takes no window, as the reference's does not.
+        sliding_window=hf.get('sliding_window'),
+        rope_scaling=_rope_scaling_tuple(hf),
+        n_experts=n_experts,
+        experts_per_token=hf.get('num_experts_per_tok', 2),
+        dtype=dtype,
+    )
+    cast = _caster(dtype, device)
+    p = 'layers.{i}.'
+
+    def expert_stack(name: str) -> np.ndarray:
+        # [L, E, in, out]: each expert's [out, in] matrix transposed;
+        # w1 = gate (the silu input), w3 = up, w2 = down.
+        return np.stack([
+            np.stack([source.get(
+                p.format(i=i) +
+                f'block_sparse_moe.experts.{e}.{name}.weight').T
+                for e in range(n_experts)])
+            for i in range(n_layers)])
+
+    layers = _common_layers(source, n_layers, mlp={
+        'router': _stack(source, p + 'block_sparse_moe.gate.weight',
+                         n_layers, transpose=True),
+        'w_gate': expert_stack('w1'),
+        'w_up': expert_stack('w3'),
+        'w_down': expert_stack('w2')})
+    # The router stays fp32, as the model's init draws it.
+    fp32 = _caster(torch.float32, device)
+    layers = {k: (fp32 if k == 'router' else cast)(v)
+              for k, v in layers.items()}
+    params = {
+        'embed': cast(source.get('embed_tokens.weight')),
+        'layers': layers,
+        'final_norm': cast(source.get('norm.weight')),
+        'lm_head': cast(_lm_head(source, hf)),
+    }
+    return config, params
+
+
 _CONVERTERS = {'llama': _convert_llama, 'qwen': _convert_qwen,
-               'gemma': _convert_gemma}
+               'gemma': _convert_gemma, 'moe': _convert_mixtral}
 
 
 def from_hf(src, dtype: Optional[torch.dtype] = None,
@@ -397,12 +455,7 @@ def from_hf(src, dtype: Optional[torch.dtype] = None,
     device = resolve_device(device)
     dtype = dtype or torch.bfloat16
     source = _TensorSource(src)
-    family = _detect_family(source.config)
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f'model_type {source.config.get("model_type")!r}: the port '
-            f'has no such family yet ({_NOT_PORTED[family]}).')
-    return _CONVERTERS[family](source, dtype, device)
+    return _CONVERTERS[_detect_family(source.config)](source, dtype, device)
 
 
 def load(path: str, device: Device = None) -> Params:

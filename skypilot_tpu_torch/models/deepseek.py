@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from skypilot_tpu_torch import Device, resolve_device
+from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops import attention as attention_ops
@@ -188,67 +188,55 @@ def _attn_shapes(c: DeepSeekConfig) -> Dict[str, Tuple[Tuple[int, ...],
 
 
 def init(config: DeepSeekConfig, generator: Optional[torch.Generator] = None,
-         device: Device = None) -> Params:
+         device: Device = None, weight_dtype=None) -> Params:
     """Initialize parameters (truncated-normal fan-in scaling).
 
     Same names, shapes and distribution as the JAX ``init``; the draws
     come from ``generator`` (seeded 0 if omitted), which must live on
-    ``device``. Stacked weights are drawn one layer at a time, so the fp32
-    scratch never exceeds one layer's weight. The router stays fp32.
-    ``device='meta'`` gives the shapes and types alone.
+    ``device`` (``llama.Draws``: stacked weights one layer at a time,
+    quantized as drawn for an int8 or int4 ``weight_dtype``). The router
+    stays fp32. ``device='meta'`` gives the shapes and types alone.
     """
     c = config
-    device = resolve_device(device)
-    if generator is None and device.type != 'meta':
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
+    draw = llama.Draws(c, generator, device, weight_dtype)
     d = c.d_model
 
-    def fill(out, fan_in):
-        tmp = torch.empty(out.shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(tmp, a=-2.0, b=2.0, generator=generator)
-        out.copy_(tmp.mul_(fan_in ** -0.5))
-        return out
-
-    def stack(n, shape, fan_in, dtype=c.dtype):
-        out = torch.empty((n,) + shape, dtype=dtype, device=device)
+    def stack(name, n, shape, fan_in):
         if fan_in is None:
-            return out.fill_(1.0)
-        for layer in range(n):
-            fill(out[layer], fan_in)
-        return out
+            return draw.full((n,) + shape, 1.0)
+        return draw.stack(name, shape, fan_in, n=n)
 
     def attn_group(n):
-        return {name: stack(n, shape, fan_in)
+        return {name: stack(name, n, shape, fan_in)
                 for name, (shape, fan_in) in _attn_shapes(c).items()}
 
     params: Params = {
-        'embed': fill(torch.empty((c.vocab_size, d), dtype=c.dtype,
-                                  device=device), d),
-        'final_norm': torch.ones((d,), dtype=c.dtype, device=device),
-        'lm_head': fill(torch.empty((d, c.vocab_size), dtype=c.dtype,
-                                    device=device), d),
+        'embed': draw.dense('embed', (c.vocab_size, d), d),
+        'final_norm': draw.full((d,), 1.0),
+        'lm_head': draw.dense('lm_head', (d, c.vocab_size), d),
     }
     if c.first_k_dense:
         n = c.first_k_dense
         group = attn_group(n)
         group.update({
-            'w_gate': stack(n, (d, c.d_ff), d),
-            'w_up': stack(n, (d, c.d_ff), d),
-            'w_down': stack(n, (c.d_ff, d), c.d_ff),
+            'w_gate': stack('w_gate', n, (d, c.d_ff), d),
+            'w_up': stack('w_up', n, (d, c.d_ff), d),
+            'w_down': stack('w_down', n, (c.d_ff, d), c.d_ff),
         })
         params['dense_layers'] = group
     n = c.n_moe_layers
     group = attn_group(n)
     sf = c.moe_d_ff * c.n_shared_experts
     group.update({
-        'router': stack(n, (d, c.n_experts), d, dtype=torch.float32),
-        'w_gate': stack(n, (c.n_experts, d, c.moe_d_ff), d),
-        'w_up': stack(n, (c.n_experts, d, c.moe_d_ff), d),
-        'w_down': stack(n, (c.n_experts, c.moe_d_ff, d), c.moe_d_ff),
-        'ws_gate': stack(n, (d, sf), d),
-        'ws_up': stack(n, (d, sf), d),
-        'ws_down': stack(n, (sf, d), sf),
+        'router': draw.stack('router', (d, c.n_experts), d, n=n,
+                             dtype=torch.float32),
+        'w_gate': stack('w_gate', n, (c.n_experts, d, c.moe_d_ff), d),
+        'w_up': stack('w_up', n, (c.n_experts, d, c.moe_d_ff), d),
+        'w_down': stack('w_down', n, (c.n_experts, c.moe_d_ff, d),
+                        c.moe_d_ff),
+        'ws_gate': stack('ws_gate', n, (d, sf), d),
+        'ws_up': stack('ws_up', n, (d, sf), d),
+        'ws_down': stack('ws_down', n, (sf, d), sf),
     })
     params['moe_layers'] = group
     return params

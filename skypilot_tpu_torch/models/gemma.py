@@ -36,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils import checkpoint as ckpt
 
-from skypilot_tpu_torch import Device, resolve_device
+from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import quantization as qops
@@ -133,51 +133,31 @@ CONFIGS = {
 
 
 def init(config: GemmaConfig, generator: Optional[torch.Generator] = None,
-         device: Device = None) -> Params:
-    """Initialize parameters as ``llama.init`` does (truncated-normal
-    fan-in scaling, drawn from ``generator``, seeded 0 if omitted, one
-    layer at a time; ``device='meta'`` for shapes alone), with the
+         device: Device = None, weight_dtype=None) -> Params:
+    """Initialize parameters as ``llama.init`` does (``llama.Draws``:
+    truncated-normal fan-in scaling, drawn from ``generator``, seeded 0
+    if omitted, one layer at a time, quantized as drawn for an int8 or
+    int4 ``weight_dtype``; ``device='meta'`` for shapes alone), with the
     reference's Gemma leaves: zero norms (the (1 + w) scaling makes them
     the identity), Gemma-2's two output norms, and no LM head (tied)."""
     c = config
-    device = resolve_device(device)
-    if generator is None and device.type != 'meta':
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
+    draw = llama.Draws(c, generator, device, weight_dtype)
     hd = c.head_dim
-
-    def fill(out, fan_in):
-        tmp = torch.empty(out.shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(tmp, a=-2.0, b=2.0, generator=generator)
-        out.copy_(tmp.mul_(fan_in ** -0.5))
-        return out
-
-    def stack(shape, fan_in):
-        out = torch.empty((c.n_layers,) + shape, dtype=c.dtype,
-                          device=device)
-        for layer in range(c.n_layers):
-            fill(out[layer], fan_in)
-        return out
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=c.dtype, device=device)
-
     norms = ('attn_norm', 'mlp_norm') + (
         ('post_attn_norm', 'post_ffw_norm') if c.gemma2 else ())
     layers: Params = {
-        'wq': stack((c.d_model, c.n_heads * hd), c.d_model),
-        'wk': stack((c.d_model, c.n_kv_heads * hd), c.d_model),
-        'wv': stack((c.d_model, c.n_kv_heads * hd), c.d_model),
-        'wo': stack((c.n_heads * hd, c.d_model), c.n_heads * hd),
-        'w_gate': stack((c.d_model, c.d_ff), c.d_model),
-        'w_up': stack((c.d_model, c.d_ff), c.d_model),
-        'w_down': stack((c.d_ff, c.d_model), c.d_ff),
-        **{name: zeros(c.n_layers, c.d_model) for name in norms},
+        'wq': draw.stack('wq', (c.d_model, c.n_heads * hd), c.d_model),
+        'wk': draw.stack('wk', (c.d_model, c.n_kv_heads * hd), c.d_model),
+        'wv': draw.stack('wv', (c.d_model, c.n_kv_heads * hd), c.d_model),
+        'wo': draw.stack('wo', (c.n_heads * hd, c.d_model), c.n_heads * hd),
+        'w_gate': draw.stack('w_gate', (c.d_model, c.d_ff), c.d_model),
+        'w_up': draw.stack('w_up', (c.d_model, c.d_ff), c.d_model),
+        'w_down': draw.stack('w_down', (c.d_ff, c.d_model), c.d_ff),
+        **{name: draw.full((c.n_layers, c.d_model), 0.0) for name in norms},
     }
-    embed = fill(torch.empty((c.vocab_size, c.d_model), dtype=c.dtype,
-                             device=device), c.d_model)
+    embed = draw.dense('embed', (c.vocab_size, c.d_model), c.d_model)
     return {'embed': embed, 'layers': layers,
-            'final_norm': zeros(c.d_model)}
+            'final_norm': draw.full((c.d_model,), 0.0)}
 
 
 # The JAX tree crosses by name, the Gemma-2 output norms included.

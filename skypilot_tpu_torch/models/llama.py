@@ -113,55 +113,103 @@ CONFIGS = {
     'tiny': LLAMA_TINY,
 }
 
+
+class Draws:
+    """The weight draws every family's ``init`` shares: truncated-normal
+    fan-in scaling (the JAX ``init``'s distribution) in ``dtype`` (the
+    model's unless given), from ``generator`` (seeded 0 if None), which
+    must live on ``device``; ``device='meta'`` gives shapes and types
+    alone. A stacked weight is drawn one layer at a time, so the fp32
+    scratch never exceeds one layer.
+
+    With ``weight_dtype`` int8 or ``'int4'``, each weight that
+    ``quantize_params`` quantizes is quantized as it is drawn, a stack
+    layer by layer (``qops.quantized_stack``): no full-precision copy of
+    more than one layer of a stack is ever held, and the bytes are those
+    of ``quantize_params(init(...))`` (the same draws in the same order,
+    and per-output-channel scales that see one layer each)."""
+
+    def __init__(self, config, generator: Optional[torch.Generator],
+                 device: Device, weight_dtype=None) -> None:
+        self.device = resolve_device(device)
+        if generator is None and self.device.type != 'meta':
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self.generator = generator
+        self.dtype = config.dtype
+        self.n_layers = config.n_layers
+        self._quantize = qops.leaf_quantizer(weight_dtype)
+
+    def _fill(self, out: torch.Tensor, fan_in: int) -> torch.Tensor:
+        tmp = torch.empty(out.shape, dtype=torch.float32, device=self.device)
+        torch.nn.init.trunc_normal_(tmp, a=-2.0, b=2.0,
+                                    generator=self.generator)
+        out.copy_(tmp.mul_(fan_in ** -0.5))
+        return out
+
+    def _drawn(self, shape, fan_in, dtype):
+        return self._fill(torch.empty(shape, dtype=dtype or self.dtype,
+                                      device=self.device), fan_in)
+
+    def _quantized(self, name: str, shape) -> bool:
+        return self._quantize is not None and qops.quantizes(name, shape)
+
+    def dense(self, name: str, shape, fan_in: int, dtype=None):
+        """One unstacked weight (the embedding, the LM head)."""
+        w = self._drawn(shape, fan_in, dtype)
+        return self._quantize(name, w) if self._quantized(name, shape) else w
+
+    def stack(self, name: str, shape, fan_in: int, n: Optional[int] = None,
+              dtype=None):
+        """``n`` (the model's layers unless given) layers of ``shape``,
+        stacked on a leading axis."""
+        n = self.n_layers if n is None else n
+        if self._quantized(name, shape):
+            return qops.quantized_stack(
+                name, n, lambda _: self._drawn(shape, fan_in, dtype),
+                self._quantize)
+        out = torch.empty((n,) + tuple(shape), dtype=dtype or self.dtype,
+                          device=self.device)
+        for layer in range(n):
+            self._fill(out[layer], fan_in)
+        return out
+
+    def full(self, shape, value: float, dtype=None) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype or self.dtype,
+                          device=self.device)
+
+
 def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
-         device: Device = None) -> Params:
+         device: Device = None, weight_dtype=None) -> Params:
     """Initialize parameters (truncated-normal fan-in scaling).
 
     Same names, shapes and distribution as the JAX ``init``; the draws
     come from ``generator`` (seeded 0 if omitted), which must live on
-    ``device``. Stacked layer weights are drawn one layer at a time, so
-    the fp32 scratch never exceeds one layer's weight. ``device='meta'``
-    gives the shapes and types alone (the JAX ``eval_shape`` of init).
+    ``device``. ``weight_dtype`` int8 or ``'int4'`` gives the weights
+    quantized as they are drawn (see ``Draws``).
     """
     c = config
-    device = resolve_device(device)
-    if generator is None and device.type != 'meta':
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
+    draw = Draws(c, generator, device, weight_dtype)
     hd = c.head_dim
-
-    def fill(out, fan_in):
-        tmp = torch.empty(out.shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(tmp, a=-2.0, b=2.0, generator=generator)
-        out.copy_(tmp.mul_(fan_in ** -0.5))
-        return out
-
-    def dense(shape, fan_in):
-        return fill(torch.empty(shape, dtype=c.dtype, device=device), fan_in)
-
-    def stack(shape, fan_in):
-        out = torch.empty((c.n_layers,) + shape, dtype=c.dtype,
-                          device=device)
-        for layer in range(c.n_layers):
-            fill(out[layer], fan_in)
-        return out
-
-    ones = dict(dtype=c.dtype, device=device)
     return {
-        'embed': dense((c.vocab_size, c.d_model), c.d_model),
+        'embed': draw.dense('embed', (c.vocab_size, c.d_model), c.d_model),
         'layers': {
-            'wq': stack((c.d_model, c.n_heads * hd), c.d_model),
-            'wk': stack((c.d_model, c.n_kv_heads * hd), c.d_model),
-            'wv': stack((c.d_model, c.n_kv_heads * hd), c.d_model),
-            'wo': stack((c.n_heads * hd, c.d_model), c.n_heads * hd),
-            'w_gate': stack((c.d_model, c.d_ff), c.d_model),
-            'w_up': stack((c.d_model, c.d_ff), c.d_model),
-            'w_down': stack((c.d_ff, c.d_model), c.d_ff),
-            'attn_norm': torch.ones((c.n_layers, c.d_model), **ones),
-            'mlp_norm': torch.ones((c.n_layers, c.d_model), **ones),
+            'wq': draw.stack('wq', (c.d_model, c.n_heads * hd), c.d_model),
+            'wk': draw.stack('wk', (c.d_model, c.n_kv_heads * hd),
+                             c.d_model),
+            'wv': draw.stack('wv', (c.d_model, c.n_kv_heads * hd),
+                             c.d_model),
+            'wo': draw.stack('wo', (c.n_heads * hd, c.d_model),
+                             c.n_heads * hd),
+            'w_gate': draw.stack('w_gate', (c.d_model, c.d_ff), c.d_model),
+            'w_up': draw.stack('w_up', (c.d_model, c.d_ff), c.d_model),
+            'w_down': draw.stack('w_down', (c.d_ff, c.d_model), c.d_ff),
+            'attn_norm': draw.full((c.n_layers, c.d_model), 1.0),
+            'mlp_norm': draw.full((c.n_layers, c.d_model), 1.0),
         },
-        'final_norm': torch.ones((c.d_model,), **ones),
-        'lm_head': dense((c.d_model, c.vocab_size), c.d_model),
+        'final_norm': draw.full((c.d_model,), 1.0),
+        'lm_head': draw.dense('lm_head', (c.d_model, c.vocab_size),
+                              c.d_model),
     }
 
 

@@ -1,10 +1,24 @@
-"""Routed expert MLP (GShard-style capacity routing) in PyTorch.
+"""Mixtral-family sparse-MoE decoder in PyTorch, and the routed expert MLP
+(GShard-style capacity routing) that the DeepSeek family shares.
 
-Counterpart of the routing half of ``skypilot_tpu/models/moe.py``:
-``expert_capacity``, ``route`` and ``_moe_mlp``, which the DeepSeek family
-uses. The Mixtral family itself (``MoEConfig``, its ``init``, ``forward``
-and decode) and the router's load-balance loss (a training term) come in
-later slices.
+Counterpart of ``skypilot_tpu/models/moe.py``: the same ``MoEConfig``
+fields and named configs, the same parameter names and stacked layout
+(expert weights ``[L, E, in, out]``, the router ``[L, D, E]`` in fp32),
+so a JAX ``init`` tree converts one to one. A Mixtral block is Llama's
+attention (GQA, RoPE, RMSNorm; the Llama module's helpers) with the MLP
+replaced by the routed expert block. For serving: ``forward`` (logits),
+``prefill_hidden`` (pad positions masked out of routing),
+``decode_forward`` and ``verify_forward`` (capacity = batch x tokens, so
+no decode or verify token is ever dropped; inactive slots are routed
+too, as in the reference) over the dense slot cache, whose single-token
+step goes to the decode kernel; the prefill waves go to the flash
+kernel. As in the reference, attention takes no window: a
+``sliding_window`` that a converted checkpoint carries is ignored. The
+reference has no paged hook for this family, nor has the port.
+
+Training waits for ROADMAP.md queue 1 item 6.4, "DeepSeek and Mixtral
+training": the router's load-balance loss (``forward(return_aux=True)``,
+``loss_fn``) comes with DeepSeek's, which needs the same term.
 
 The reference expresses dispatch and combine as one-hot [T, E, C] einsums.
 At DeepSeek-V2-Lite's prefill wave (32 rows of 1024 tokens, C = 3840) each
@@ -19,12 +33,118 @@ type before the combine product.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from skypilot_tpu_torch import Device
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import quantization as qops
+
+Params = Dict[str, Any]
+
+_TRAINING = ('Mixtral training (the router\'s load-balance loss) is not '
+             'ported yet: ROADMAP.md queue 1 item 6.4, "DeepSeek and '
+             'Mixtral training".')
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(llama.LlamaConfig):
+    """Llama-style trunk with a routed expert MLP (Mixtral)."""
+    n_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+
+    def num_params(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        per_layer = (self._attn_params() + 3 * d * f * self.n_experts +
+                     d * self.n_experts + 2 * d)
+        return v * d * 2 + self.n_layers * per_layer + d
+
+    def active_params(self) -> int:
+        """Parameters one token touches (what sets a step's FLOPs)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        per_layer = (self._attn_params() + 3 * d * f * self.experts_per_token
+                     + d * self.n_experts + 2 * d)
+        return v * d * 2 + self.n_layers * per_layer + d
+
+    def train_flops_per_token(self) -> float:
+        attn_flops = 12 * self.n_layers * self.d_model * self.max_seq_len
+        return 6 * self.active_params() + attn_flops
+
+
+# Mixtral-8x7B dimensions (public config).
+MIXTRAL_8X7B = MoEConfig(vocab_size=32_000, d_model=4096, n_layers=32,
+                         n_heads=32, n_kv_heads=8, d_ff=14_336,
+                         max_seq_len=32_768, rope_theta=1e6,
+                         n_experts=8, experts_per_token=2)
+# DeepSeek-R1-scale config (fine-grained experts; trunk dims approximate,
+# as in the reference).
+DEEPSEEK_MOE = MoEConfig(vocab_size=129_280, d_model=7168, n_layers=61,
+                         n_heads=128, n_kv_heads=128, d_ff=2048,
+                         n_experts=256, experts_per_token=8)
+MOE_TINY = MoEConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                     n_kv_heads=2, d_ff=128, max_seq_len=128, remat=False,
+                     n_experts=4, experts_per_token=2)
+# fp32 twin of the tiny config: the parity checks against the reference
+# and between the card and the CPU run at it.
+MOE_TINY_F32 = dataclasses.replace(MOE_TINY, dtype=torch.float32)
+
+CONFIGS = {
+    'mixtral-8x7b': MIXTRAL_8X7B,
+    'deepseek-moe': DEEPSEEK_MOE,
+    'moe-tiny': MOE_TINY,
+}
+
+
+def init(config: MoEConfig, generator: Optional[torch.Generator] = None,
+         device: Device = None, weight_dtype=None) -> Params:
+    """Initialize parameters as ``llama.init`` does (``llama.Draws``:
+    truncated-normal fan-in scaling, drawn from ``generator``, seeded 0
+    if omitted, one layer at a time; ``device='meta'`` for shapes alone),
+    with the reference's Mixtral leaves: an fp32 router and expert stacks
+    ``[L, E, in, out]``. ``weight_dtype`` int8 or ``'int4'`` quantizes
+    each layer of a stack as it is drawn, so Mixtral-8x7B (93.4 GB in
+    bf16) is built on one card without its bf16 tree."""
+    c = config
+    draw = llama.Draws(c, generator, device, weight_dtype)
+    hd, d, e = c.head_dim, c.d_model, c.n_experts
+    return {
+        'embed': draw.dense('embed', (c.vocab_size, d), d),
+        'layers': {
+            'wq': draw.stack('wq', (d, c.n_heads * hd), d),
+            'wk': draw.stack('wk', (d, c.n_kv_heads * hd), d),
+            'wv': draw.stack('wv', (d, c.n_kv_heads * hd), d),
+            'wo': draw.stack('wo', (c.n_heads * hd, d), c.n_heads * hd),
+            # Router in fp32: routing decisions are precision-sensitive.
+            'router': draw.stack('router', (d, e), d, dtype=torch.float32),
+            'w_gate': draw.stack('w_gate', (e, d, c.d_ff), d),
+            'w_up': draw.stack('w_up', (e, d, c.d_ff), d),
+            'w_down': draw.stack('w_down', (e, c.d_ff, d), c.d_ff),
+            'attn_norm': draw.full((c.n_layers, d), 1.0),
+            'mlp_norm': draw.full((c.n_layers, d), 1.0),
+        },
+        'final_norm': draw.full((d,), 1.0),
+        'lm_head': draw.dense('lm_head', (d, c.vocab_size), d),
+    }
+
+
+def params_from_numpy(tree: Params, device: Device,
+                      dtype: Optional[torch.dtype] = None) -> Params:
+    """``llama.params_from_numpy`` for this family: ``dtype`` recasts
+    every floating array except the router, which stays fp32."""
+    params = llama.params_from_numpy(tree, device, dtype)
+    params['layers']['router'] = llama.params_from_numpy(
+        tree['layers']['router'], device, torch.float32)
+    return params
 
 
 class Routing(NamedTuple):
@@ -123,3 +243,164 @@ def _moe_mlp(config, h: torch.Tensor, lp,
     weight = torch.where(r.keep, r.gate, 0.0).to(c.dtype)
     out = torch.bmm(weight[:, None, :], picked)[:, 0]
     return out.reshape(b, s, d)
+
+
+# ---- the Mixtral model ----
+
+def _layer(config: MoEConfig, x: torch.Tensor, lp: Params, rope,
+           token_mask: Optional[torch.Tensor] = None, kv_cache=None,
+           cache_positions=None, return_kv: bool = False,
+           segment_ids: Optional[torch.Tensor] = None):
+    """One Mixtral block: Llama attention (no window, as in the reference)
+    + the routed expert MLP; ``rope`` = llama._rope_tables(positions, ...).
+    With ``kv_cache`` a step writing each slot's K/V at its own
+    ``cache_positions`` (llama.slot_cache_attend), routed with capacity
+    b * s and no mask; otherwise prefill or forward, routed with the
+    capacity of its b * s tokens, ``token_mask`` keeping pads out.
+    Returns (x, new_kv_cache)."""
+    c = config
+    hd = c.head_dim
+    b, s, _ = x.shape
+    h = llama._rms_norm(x, lp['attn_norm'], c.norm_eps)
+    q = qops.matmul(h, lp['wq']).reshape(b, s, c.n_heads, hd)
+    k = qops.matmul(h, lp['wk']).reshape(b, s, c.n_kv_heads, hd)
+    v = qops.matmul(h, lp['wv']).reshape(b, s, c.n_kv_heads, hd)
+    q = llama._apply_rope(q, rope)
+    k = llama._apply_rope(k, rope)
+    if kv_cache is not None:
+        attn, new_cache = llama.slot_cache_attend(
+            q, k, v, kv_cache, cache_positions=cache_positions)
+    else:
+        new_cache = (k, v) if return_kv else None
+        attn = attention_ops.dot_product_attention(
+            q, k, v, causal=True, implementation=c.attention_impl,
+            segment_ids=segment_ids)
+    attn = attn.reshape(b, s, c.n_heads * hd)
+    x = x + qops.matmul(attn, lp['wo'])
+    h = llama._rms_norm(x, lp['mlp_norm'], c.norm_eps)
+    capacity = b * s if kv_cache is not None else None
+    x = x + _moe_mlp(c, h, lp, token_mask=token_mask, capacity=capacity)
+    return x, new_cache
+
+
+def _trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
+           positions: torch.Tensor, token_mask: Optional[torch.Tensor],
+           return_kv: bool, segment_ids: Optional[torch.Tensor] = None):
+    """Embed → layers → final RMSNorm. Returns (x [B,S,D], kv or None);
+    kv is {'k','v': [L, B, S, KVH, HD]}, filled layer by layer."""
+    c = config
+    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    kv = None
+    if return_kv:
+        shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,
+                                                       c.head_dim)
+        kv = {'k': torch.empty(shape, dtype=c.dtype, device=x.device),
+              'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
+    rope = llama._rope_tables(positions, c.head_dim, c.rope_theta,
+                              c.rope_scaling)
+    for layer in range(c.n_layers):
+        x, layer_kv = _layer(c, x, llama._layer_params(params, layer), rope,
+                             token_mask=token_mask, return_kv=return_kv,
+                             segment_ids=segment_ids)
+        if return_kv:
+            kv['k'][layer] = layer_kv[0]
+            kv['v'][layer] = layer_kv[1]
+    return llama._rms_norm(x, params['final_norm'], c.norm_eps), kv
+
+
+def _cached_trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor, cache_positions: torch.Tensor,
+                  kv: Dict[str, Any]) -> torch.Tensor:
+    """tokens [B, S] at positions [B, S] through every layer against the
+    slot cache (written in place at ``cache_positions``: [B] for one
+    decode step, which goes to the decode kernel, or [B, S]) → the
+    final-normed hidden [B, S, D]."""
+    c = config
+    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    rope = llama._rope_tables(positions, c.head_dim, c.rope_theta,
+                              c.rope_scaling)
+    for layer in range(c.n_layers):
+        cache = (llama._cache_layer(kv['k'], layer),
+                 llama._cache_layer(kv['v'], layer))
+        x, _ = _layer(c, x, llama._layer_params(params, layer), rope,
+                      kv_cache=cache, cache_positions=cache_positions)
+    return llama._rms_norm(x, params['final_norm'], c.norm_eps)
+
+
+def forward(config: MoEConfig, params: Params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            return_aux: bool = False,
+            token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward pass → fp32 logits [B, S, vocab]. token_mask [B, S] keeps
+    pad positions out of expert routing. ``return_aux`` (the router's
+    load-balance loss) raises: it comes with training (item 6.4)."""
+    if return_aux:
+        raise NotImplementedError(_TRAINING)
+    c = config
+    segment_ids = None
+    if positions is None:
+        segment_ids, positions = llama.positions_and_segments(
+            c, tokens, serving=False)
+    x, _ = _trunk(c, params, tokens, positions, token_mask,
+                  return_kv=False, segment_ids=segment_ids)
+    return lm_logits(c, params, x)
+
+
+def loss_fn(config: MoEConfig, params: Params, tokens: torch.Tensor,
+            targets: torch.Tensor, loss_mask=None, token_mask=None):
+    """Cross-entropy plus the router's load-balance loss: not ported yet
+    (ROADMAP.md queue 1 item 6.4)."""
+    del config, params, tokens, targets, loss_mask, token_mask
+    raise NotImplementedError(_TRAINING)
+
+
+def lm_logits(config: MoEConfig, params: Params,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """Untied LM head (Llama's); hidden [..., D] -> fp32 logits [..., V]."""
+    return llama.lm_logits(config, params, hidden)
+
+
+def prefill_hidden(config: MoEConfig, params: Params, tokens: torch.Tensor,
+                   true_len) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill trunk → (last_hidden [B, D], per-layer KV): the engine
+    contract of llama.prefill_hidden. Positions at or past a row's
+    true_len (a scalar or [B]) are masked out of expert routing, so pads
+    take no capacity; the capacity itself comes from the padded B x S."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    lens = torch.as_tensor(true_len, device=tokens.device).reshape(-1, 1)
+    token_mask = (positions < lens).float()
+    x, kv = _trunk(config, params, tokens, positions, token_mask,
+                   return_kv=True)
+    return llama.last_token_hidden(x, true_len), kv
+
+
+def decode_forward(config: MoEConfig, params: Params,
+                   last_tokens: torch.Tensor, positions: torch.Tensor,
+                   kv: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step for a batch of slots (llama.decode_forward's
+    contract): last_tokens [B], positions [B] (at or past the cache
+    length writes nothing), kv updated in place → (fp32 logits [B, V],
+    kv). Expert capacity is the slot count, so no token is dropped."""
+    x = _cached_trunk(config, params, last_tokens[:, None],
+                      positions[:, None], positions, kv)
+    return lm_logits(config, params, x)[:, 0], kv
+
+
+def verify_hidden(config: MoEConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor, kv: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The trunk of verify_forward → (final-normed hidden [B, S, D], kv),
+    for callers that project only some rows (llama.verify_hidden)."""
+    return _cached_trunk(config, params, tokens, positions, positions,
+                         kv), kv
+
+
+def verify_forward(config: MoEConfig, params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, kv: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Multi-token decode into the dense cache (chunked prefill and
+    speculative verification): tokens and positions [B, S] → (fp32
+    logits [B, S, V], kv). Capacity B x S: no verified token is dropped."""
+    x, kv = verify_hidden(config, params, tokens, positions, kv)
+    return lm_logits(config, params, x), kv

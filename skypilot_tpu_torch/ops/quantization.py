@@ -431,11 +431,15 @@ _QUANT_AXES = {
 }
 
 
+def quantizes(name: str, shape) -> bool:
+    """Whether quantize_params quantizes a full-precision leaf ``name`` of
+    this shape: a weight named in _QUANT_AXES, with two or more axes."""
+    return name in _QUANT_AXES and len(shape) >= 2
+
+
 def _to_quantize(key: str, value: Any) -> bool:
-    """A weight leaf named in _QUANT_AXES, with two or more axes, not
-    quantized yet."""
-    return (key in _QUANT_AXES and not is_quantized(value)
-            and value.ndim >= 2)
+    """quantizes(key, value.shape), and value is not quantized yet."""
+    return not is_quantized(value) and quantizes(key, value.shape)
 
 
 def _walk(params: Params, leaf_fn: Callable[[str, Any], Any]) -> Params:
@@ -484,25 +488,69 @@ def quantize_params_int4(params: Params, group: int = 128) -> Params:
     return _walk(params, lambda key, value: _int4_leaf(key, value, group))
 
 
-def quantize_params_in_place(params: Params, weight_dtype) -> None:
-    """quantize_params (``torch.int8``) or quantize_params_int4
-    (``'int4'``) leaf by leaf into ``params`` itself: each full-precision
-    leaf is dropped as its quantized form lands, so the peak is the tree
-    plus one leaf's scratch. The bytes are quantize_params'."""
+def leaf_quantizer(weight_dtype) -> Optional[Callable[[str, Any], Any]]:
+    """The leaf function of quantize_params (``torch.int8``) or of
+    quantize_params_int4 (``'int4'``): (name, full-precision leaf) → its
+    quantized form. None for None or a full-precision ``weight_dtype``."""
+    if weight_dtype is None:
+        return None
     if weight_dtype == torch.int8:
-        leaf_fn = _int8_leaf
-    elif weight_dtype == 'int4':
-        leaf_fn = _int4_leaf
-    else:
-        raise ValueError(f'weight_dtype {weight_dtype!r}: need torch.int8 '
-                         "or 'int4'")
-    for key in list(params):
-        value = params[key]
+        return _int8_leaf
+    if weight_dtype == 'int4':
+        return _int4_leaf
+    if (isinstance(weight_dtype, torch.dtype)
+            and weight_dtype.is_floating_point):
+        return None
+    raise ValueError(f'weight_dtype {weight_dtype!r}: need a float type, '
+                     "torch.int8 or 'int4'")
+
+
+def quantized_stack(name: str, n: int, layer: Callable[[int], torch.Tensor],
+                    leaf_fn: Callable[[str, Any], Any]):
+    """A stacked ``[n, ...]`` weight quantized one layer at a time:
+    ``layer(i)`` gives layer i's full-precision slice, ``leaf_fn`` (see
+    leaf_quantizer) quantizes it, and its values and scales land in the
+    stack's own tensors. The contraction axis is counted from the end, so
+    each layer's scales come from that layer alone: the bytes are those
+    of ``leaf_fn(name, whole stack)``, while no more than one layer is
+    ever held in full precision."""
+    out = None
+    for i in range(n):
+        part = leaf_fn(name, layer(i))
+        fields = {f.name: getattr(part, f.name)
+                  for f in dataclasses.fields(part)
+                  if torch.is_tensor(getattr(part, f.name))}
+        if out is None:
+            out = {key: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                    device=t.device)
+                   for key, t in fields.items()}
+        for key, t in fields.items():
+            out[key][i] = t
+    return dataclasses.replace(part, **out)
+
+
+def quantize_params_to(params: Params, weight_dtype, device) -> Params:
+    """quantize_params (``torch.int8``) or quantize_params_int4
+    (``'int4'``) of ``params`` (a converted tree on the host, say), its
+    result on ``device``: each leaf moves there before it is quantized,
+    a stacked ``[L, ...]`` weight one layer at a time (quantized_stack),
+    so the device never holds more than one layer of a full-precision
+    stack. Leaves that stay full precision move as they are."""
+    leaf_fn = leaf_quantizer(weight_dtype)
+    out = {}
+    for key, value in params.items():
         if isinstance(value, dict):
-            quantize_params_in_place(value, weight_dtype)
-        elif _to_quantize(key, value):
-            del value
-            params[key] = leaf_fn(key, params.pop(key))
+            out[key] = quantize_params_to(value, weight_dtype, device)
+        elif leaf_fn is not None and _to_quantize(key, value):
+            if value.ndim >= 3:
+                out[key] = quantized_stack(
+                    key, value.shape[0],
+                    lambda i, value=value: value[i].to(device), leaf_fn)
+            else:
+                out[key] = leaf_fn(key, value.to(device))
+        else:
+            out[key] = value.to(device)
+    return out
 
 
 def _random_bytes(shape, generator: torch.Generator) -> torch.Tensor:
@@ -529,7 +577,7 @@ def _synthetic(shapes: Params, generator: torch.Generator,
     for name, value in sorted(shapes.items()):
         if isinstance(value, dict):
             out[name] = _synthetic(value, generator, leaf_fn)
-        elif name in _QUANT_AXES and len(value.shape) >= 2:
+        elif quantizes(name, value.shape):
             out[name] = leaf_fn(name, tuple(value.shape))
         else:
             out[name] = torch.ones(tuple(value.shape), dtype=value.dtype,

@@ -159,7 +159,7 @@ class Trainer:
             raise NotImplementedError(
                 f'{self._model_lib.__name__} has no loss_fn yet, so it '
                 'cannot train (full or LoRA): ROADMAP.md queue 1 item '
-                '6.4, "DeepSeek training".')
+                '6.4, "DeepSeek and Mixtral training".')
         self.device = resolve_device(device)
         head_dim = getattr(config.model, 'head_dim', None)
         if (self.device.type == 'cuda'

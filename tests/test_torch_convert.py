@@ -14,8 +14,9 @@ bit, in fp32 and bf16, and its logits within 1e-5; rope_scaling is
 refused for Qwen as in the reference. So do tiny Gemma-1 and Gemma-2
 checkpoints (a tied head; Gemma-2's renamed norms, softcaps,
 query_pre_attn_scalar and window, at a head_dim of 32 that hidden_size /
-heads does not give), and an in-memory transformers Gemma. The Mixtral
-family raises, naming ROADMAP.md queue 1 item 6.3.
+heads does not give), and in-memory transformers Gemma and Mixtral
+models (Mixtral also in HF's directory layout, its window carried as the
+reference carries it, in test_torch_moe_serve.py).
 """
 from __future__ import annotations
 
@@ -167,19 +168,26 @@ def test_other_families_name_their_roadmap_item(family, item):
     cfg = {'gemma': transformers.GemmaConfig,
            'mixtral': transformers.MixtralConfig}[family](**small)
     model = transformers.AutoModelForCausalLM.from_config(cfg)
-    # The reference takes both.
+    # Items 6.2 and 6.3 are done: the port converts both models as the
+    # reference does (Mixtral's experts stacked [L, E, in, out], its
+    # router fp32), bit for bit.
+    del item
     jcfg, jp = jax_convert.from_hf(model, dtype=jnp.float32)
-    if family == 'gemma':
-        # Item 6.2 is done: the port converts the model as the reference.
-        tcfg, tp = convert.from_hf(model, dtype=torch.float32, device='cpu')
-        assert dataclasses.asdict(tcfg) == {
-            **dataclasses.asdict(jcfg), 'dtype': torch.float32}
-        for key, w in _flat(jp).items():
-            np.testing.assert_array_equal(_bits(_flat(tp)[key]), _bits(w),
-                                          err_msg=key)
-        return
-    with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
-        convert.from_hf(model, device='cpu')
+    tcfg, tp = convert.from_hf(model, dtype=torch.float32, device='cpu')
+    assert dataclasses.asdict(tcfg) == {
+        **dataclasses.asdict(jcfg), 'dtype': torch.float32}
+    assert set(_flat(tp)) == set(_flat(jp))
+    for key, w in _flat(jp).items():
+        np.testing.assert_array_equal(_bits(_flat(tp)[key]), _bits(w),
+                                      err_msg=key)
+    if family == 'mixtral':
+        layers = tp['layers']
+        assert tuple(layers['w_gate'].shape) == (1, cfg.num_local_experts,
+                                                 64, 128)
+        assert layers['router'].dtype == torch.float32
+        bf16 = convert.from_hf(model, device='cpu')[1]['layers']
+        assert bf16['router'].dtype == torch.float32
+        assert bf16['w_gate'].dtype == torch.bfloat16
 
 
 def _write_qwen(root, kind, **overrides):

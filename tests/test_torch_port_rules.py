@@ -499,3 +499,66 @@ def test_build_report_names_the_head_dim_256_backward():
         ('flash_bwd_dkv_wgmma_kernel<256>', 168, 0),
         ('flash_bwd_dq_fma_kernel<256>', 113, 0),
         ('flash_bwd_dkv_fma_kernel<256>', 128, 8)]
+
+
+def test_mixtral_entry_points_raise_without_a_card(no_card):
+    """The Mixtral family's init, its converter and a Mixtral replica,
+    like every entry point: the card unless the caller asks for the
+    CPU."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import moe
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        moe.init(moe.MOE_TINY)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        moe.init(moe.MOE_TINY, weight_dtype=torch.int8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        server_lib.build_replica(server_lib.parse_args(
+            ['--model', 'moe-tiny', '--weight-dtype', 'int8', '--port',
+             '0']), host='127.0.0.1')
+    params = moe.init(moe.MOE_TINY, device='cpu', weight_dtype=torch.int8)
+    assert params['layers']['w_gate'].device.type == 'cpu'
+    engine = engine_lib.InferenceEngine(engine_lib.EngineConfig(
+        model=moe.MOE_TINY, max_slots=2, max_target_len=32,
+        prefill_buckets=(16,), weight_dtype=torch.int8), params,
+        device='cpu')
+    assert engine.device.type == 'cpu'
+
+
+def test_chip_smoke_mixtral_phases_check_their_derived_launches():
+    """Phases [30] and [31] run after [29], on the card. [30] builds
+    Mixtral-8x7B's int8 replica as serve_mixtral.yaml sizes it (the
+    build's peak memory measured around the init), counts its flash waves
+    and decode steps, zeroes the launch counts after the warm-up, holds K1
+    and K4 to the counts derived from them (every other kernel to 0)
+    before the comparison run, and records the path as mixtral_serve;
+    [31] wants K1 and K4 and nothing else on the card. [13] and [14] send
+    one prompt alone, [14] fewer concurrent requests than [13], with
+    every check."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    r = chip_smoke.MIXTRAL_SERVE
+    assert (r['slots'], r['max_len'], r['requests']) == (16, 4096, 16)
+    assert max(r['singles']) >= 3500 and r['prompt_len'] == (256, 1536)
+    replica = inspect.getsource(chip_smoke.mixtral_replica)
+    for flag in ("'mixtral-8x7b'", "'--weight-dtype', 'int8'",
+                 "'--device', 'cuda'"):
+        assert flag in replica
+    assert replica.index('measured_init') < replica.index(
+        'build_replica(') < replica.index('count_decode_steps(') < \
+        replica.index('count_flash_waves(') < replica.index(
+        'zero_launches()') < replica.index('/generate') < replica.index(
+        'check_derived_launches(') < replica.index(
+        "'mixtral_serve'") < replica.index('.generate(') < replica.index(
+        'replica.loop.close()')
+    assert 'SERVE_KERNELS' in inspect.getsource(
+        chip_smoke.small_mixtral_end_to_end)
+    assert chip_smoke.REPLICA_REQUESTS == {'int8': (1, 32), 'int4': (1, 16)}
+    quantized = inspect.getsource(chip_smoke.quantized_replica)
+    assert 'prompts[:n_singles]' in quantized and \
+        'n_singles + n_requests' in quantized
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_gemma_train_checks()', 'mixtral_replica(records)',
+        'small_mixtral_end_to_end()', "print(json.dumps({'ok': True")]
+    assert order == sorted(order)

@@ -286,7 +286,8 @@ def _assert_same_tree(got, want):
 def test_quantize_params_match_jax_and_cross_unchanged(trees, family, bits):
     """The port quantizes the carried tree to JAX's bytes; the JAX
     quantized tree, carried by params_from_numpy, holds the same bytes;
-    both transforms are idempotent; the in-place form (the server's)
+    both transforms are idempotent; the form that quantizes a tree on
+    its way to a device, a stack one layer at a time (the server's),
     gives the same tree; params_nbytes agrees."""
     jp, tp = trees[family]
     jfn = jq.quantize_params if bits == 8 else jq.quantize_params_int4
@@ -299,11 +300,9 @@ def test_quantize_params_match_jax_and_cross_unchanged(trees, family, bits):
     _assert_same_tree(carried, want)
     again = tfn(got)
     _assert_same_tree(again, want)
-    in_place = {k: (dict(v) if isinstance(v, dict) else v)
-                for k, v in tp.items()}
-    qops.quantize_params_in_place(in_place, torch.int8 if bits == 8
-                                  else 'int4')
-    _assert_same_tree(in_place, want)
+    moved = qops.quantize_params_to(tp, torch.int8 if bits == 8
+                                    else 'int4', 'cpu')
+    _assert_same_tree(moved, want)
     assert qops.params_nbytes(got) == jq.params_nbytes(want)
     # DeepSeek's MLA projections and shared experts stay plain.
     if family == 'deepseek':

@@ -24,11 +24,16 @@ prefill, also traces one 1024-token prompt chunk. ``--model
 deepseek-v2-lite`` serves DeepSeek-V2-Lite (``chip_smoke.py`` [10] and
 [11]) in place of the default ``llama3-8b``; ``--model qwen3-8b`` and
 ``--model qwen2-7b`` serve Qwen3-8B and Qwen2-7B (GQA groups 4 and 7;
-dense cache only: the Qwen family has no paged hook).
-``--weight-dtype int8|int4`` quantizes the weights on the card after the
-seeded init (as the port's server does) and also reports the device
-time of the dequantized weight copies the quantized products make
-(``ops/quantization._weight_operand``, timed under a profiler range);
+dense cache only: the Qwen family has no paged hook); ``--model
+mixtral-8x7b --weight-dtype int8`` serves Mixtral-8x7B (``chip_smoke.py``
+[30]; dense only, and only quantized: its bf16 tree is larger than the
+card). ``--weight-dtype int8|int4`` quantizes the weights on the card as
+the seeded init draws them (as the port's server does) and also reports
+the device time of the dequantized weight copies the quantized products
+make (``ops/quantization._weight_operand``, timed under a profiler
+range). The routed experts' batched products are timed under a range of
+their own (``expert_products_ms``), so a Mixtral tick splits into
+dequantized copies, expert products and the port's attention kernels.
 ``--kv-dtype int8`` takes the int8 KV cache.
 
 Needs a CUDA card; imports nothing of JAX.
@@ -56,8 +61,13 @@ from skypilot_tpu_torch.infer import orchestrator as orch_lib  # noqa: E402
 from skypilot_tpu_torch.infer import sampling  # noqa: E402
 from skypilot_tpu_torch.ops import quantization as qops  # noqa: E402
 
-MODELS = ('llama3-8b', 'deepseek-v2-lite', 'qwen3-8b', 'qwen2-7b')
+MODELS = ('llama3-8b', 'deepseek-v2-lite', 'qwen3-8b', 'qwen2-7b',
+          'mixtral-8x7b')
 DEQUANT_RANGE = 'xsky.dequant_weight'
+# The routed experts' batched products alone (their weights' dequantized
+# copies are in DEQUANT_RANGE).
+EXPERT_RANGE = 'xsky.expert_product'
+RANGES = (DEQUANT_RANGE, EXPERT_RANGE)
 # Device kernels by kind, matched on the kernel's name (first match wins).
 CATEGORIES = (
     ('port kernels', ('mla_decode', 'mla_combine', 'decode_kernel',
@@ -79,12 +89,12 @@ def _category(name: str) -> str:
 
 def _kernel_events(prof):
     """(name, device µs) of every kernel the trace saw on the card. The
-    dequant range's own device-side span (a user annotation, not a
-    kernel) is left out: its kernels are counted already."""
+    ranges' own device-side spans (user annotations, not kernels) are
+    left out: their kernels are counted already."""
     out = []
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and evt.name != DEQUANT_RANGE):
+                and evt.name not in RANGES):
             out.append((evt.name, evt.device_time_total))
     return out
 
@@ -99,10 +109,12 @@ def traced(label: str, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us in kernels) / 1e3
-    dequant_ms = sum(evt.device_time_total for evt in prof.events()
-                     if evt.name == DEQUANT_RANGE
-                     and evt.device_type == torch.autograd.DeviceType.CPU
-                     ) / 1e3
+    range_ms = {name: sum(
+        evt.device_time_total for evt in prof.events()
+        if evt.name == name
+        and evt.device_type == torch.autograd.DeviceType.CPU) / 1e3
+        for name in RANGES}
+    dequant_ms = range_ms[DEQUANT_RANGE]
     by_name = collections.Counter()
     counts = collections.Counter()
     for name, us in kernels:
@@ -117,12 +129,14 @@ def traced(label: str, fn) -> dict:
                'idle_share': max(0.0, 1 - busy_ms / wall_ms),
                'kernel_launches': len(kernels), 'top_kernels': top,
                'dequant_copies_ms': dequant_ms,
+               'expert_products_ms': range_ms[EXPERT_RANGE],
                'ms_by_category': dict(by_category),
                'ms_by_kernel': dict(by_name)}
     print(f'{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms '
           f'(idle share {summary["idle_share"]:.3f}), '
           f'{len(kernels)} kernel launches, dequantized weight copies '
-          f'{dequant_ms:.3f} ms; by kind '
+          f'{dequant_ms:.3f} ms, expert products '
+          f'{range_ms[EXPERT_RANGE]:.3f} ms; by kind '
           f'{ {k: round(v, 3) for k, v in by_category.most_common()} }',
           flush=True)
     for row in top:
@@ -170,11 +184,11 @@ def main() -> int:
                                        prefill_buckets=(1024,),
                                        kv_dtype=kv_dtype)
         n_prompts = 16
-    params = models.module_for(cfg).init(cfg, gen)
-    if args.weight_dtype != 'bf16':
-        qops.quantize_params_in_place(
-            params, torch.int8 if args.weight_dtype == 'int8' else 'int4')
-        torch.cuda.empty_cache()
+    weight_dtype = {'bf16': None, 'int8': torch.int8,
+                    'int4': 'int4'}[args.weight_dtype]
+    params = models.module_for(cfg).init(cfg, gen, weight_dtype=weight_dtype)
+    torch.cuda.empty_cache()
+    if weight_dtype is not None:
         operand = qops._weight_operand
 
         def timed_operand(w, dtype):
@@ -182,6 +196,13 @@ def main() -> int:
                 return operand(w, dtype)
 
         qops._weight_operand = timed_operand
+    product = qops._plain_expert_matmul
+
+    def timed_product(x, w, preferred_element_type):
+        with torch.profiler.record_function(EXPERT_RANGE):
+            return product(x, w, preferred_element_type)
+
+    qops._plain_expert_matmul = timed_product
     engine = engine_lib.InferenceEngine(ecfg, params)
     del params
     print(f'weights {qops.params_nbytes(engine.params)} bytes', flush=True)
