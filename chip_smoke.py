@@ -101,7 +101,7 @@ Phases, in order; any failure exits non-zero:
      recorder's phase shares;
  17. LoRA: examples/tpu/lora_finetune_llama3.yaml on one card (Llama-3-8B
      bf16, rank 16, alpha 32, wq,wk,wv,wo, adamw, lr 1e-3, seq 8192,
-     global batch 4 in 4 accumulated rows) for 4 steps on a repeated
+     global batch 4 in 4 accumulated rows) for 3 steps on a repeated
      batch: loss finite and falling, the base bit-identical to its seeded
      init, the optimizer state adapter-sized only; tokens/s, model
      TFLOP/s, peak memory;
@@ -213,6 +213,30 @@ Phases, in order; any failure exits non-zero:
      prefill with a prefix-cache hit equal to the whole prompt in one
      2048 bucket, and int8 weights (the same bytes on both); only K1 and
      K4 on the card.
+ 32. Mixtral-8x7B training: its public widths cut to 2 of 32 layers by
+     the card's memory (AdamW's 8 bytes a parameter), bf16, remat, seeded
+     random weights, Trainer with adamw (warm-up 1) at seq 4096, global
+     batch 2, 4 steps (1 warm-up, 3 measured) over seeded token batches:
+     each step's loss and load-balance term apart (finite, the term
+     positive), tokens/s, model TFLOP/s, peak memory; K1 = 2 x 2 layers x
+     steps (remat), K2 = K3 = 2 x steps, nothing else;
+ 33. DeepSeek-V2-Lite training: (a) cut to 4 layers (1 dense + 3
+     routed), full-parameter, the same optimizer, seq 4096, batch 1, 4
+     steps, logged as [32]; (b) all 27 layers with LoRA through
+     train/launch.py (--lora-rank 16 --lora-targets wq,w_ukv,wo --seq-len
+     4096 --global-batch-size 1, in-process, over uint32 token shards, 4
+     steps): the frozen base's bytes, the adapters' count, losses,
+     tokens/s, peak memory; no kernel runs in either (plain attention);
+ 34. small Mixtral and DeepSeek training checks, card vs CPU: fp32
+     moe-tiny at capacity factor 0.5 (K1-K3 at seq 1024),
+     deepseek-tiny and deepseek-tiny-moe-only, with a token mask and a
+     loss mask: the loss, its load-balance term and every gradient (two
+     card runs bit-identical), two Trainer steps; train/launch.py --model
+     moe-tiny resumed from a checkpoint within rel 1e-4.
+Phase 3 also holds K2 and K3 at Mixtral's training heads (bf16 B2 S4096
+H32/8 D128, causal: checked blockwise, two runs bit-identical, timed
+beside the plain backward and SDPA's): the `mixtral` entries of K2's and
+K3's records.
 Phase 3 also holds K1 at D 256 (Gemma's head dim: tile edges, Gemma2-9B's
 wave of 8192 tokens with and without its window, Gemma-2B's and
 Gemma-7B's heads, bf16 and fp32, timed), K2 and K3 at D 256 (tile edges
@@ -225,11 +249,12 @@ scale 1/16: bf16, fp32 and int8 caches, GQA groups 1, 2 and 8, timed)
 and K5 at D 256; they land in the kernels line as the `d256` entries.
 Phase 2 fails if a D 256 instantiation of the flash backward spills.
 Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
-18, 20, 21) every kernel's launch count is set to 0; just after, the
-kernels of that path must each have run, and no other. Phases 23, 24
-(and its self-draft), 26, each run of 28, and 30 hold each kernel to the
-count derived from the run's prefills, steps and rounds, every other
-kernel to 0. A phase's first line says when it began.
+18, 20, 21, each launcher run of 34) every kernel's launch count is set
+to 0; just after, the kernels of that path must each have run, and no
+other. Phases 23, 24 (and its self-draft), 26, each run of 28, 30, 32
+and both runs of 33 hold each kernel to the count derived from the run's
+prefills, steps and rounds, every other kernel to 0. A phase's first
+line says when it began.
 
 The second-to-last lines are the kernels' JSON record and the
 `nvidia-smi` name/power-limit line; the last line is
@@ -832,7 +857,68 @@ def check_flash_bwd(gen) -> dict:
     gemma = flash_bwd_head_dim_256(gen)
     for name in records:
         records[name]['d256'] = gemma[name]
+    mixtral = flash_bwd_mixtral(gen)
+    for name in records:
+        records[name]['mixtral'] = mixtral[name]
     return records
+
+
+# Mixtral's training heads ([32]): B2 S4096, 32 query heads over 8 KV
+# heads (group 4) of 128, causal, bf16.
+MIXTRAL_BWD = dict(b=2, s=4096, h=32, h_kv=8, d=128)
+
+
+def flash_bwd_mixtral(gen) -> dict:
+    """K2 and K3 at Mixtral-8x7B's training shape against the plain
+    backward (blockwise), two runs bit-identical, then timed beside their
+    bounds, the plain backward (dq, dk and dv together) and SDPA's
+    backward (the three in turn over three rounds) → {kernel name: one
+    record}."""
+    m = MIXTRAL_BWD
+    dtype = torch.bfloat16
+    label = (f'bf16 Mixtral-8x7B training B{m["b"]} S{m["s"]} '
+             f'H{m["h"]}/{m["h_kv"]} D{m["d"]} causal')
+    (q, k, v, _, o, dout, lse, _), errs = flash_bwd_case(
+        gen, label, dtype, m['b'], m['s'], m['h'], m['h_kv'], m['d'])
+    args = (q, k, v, None, o, dout, lse)
+    first = flash_ops._flash_bwd(*args)
+    if not all(torch.equal(x, y) for x, y in zip(
+            first, flash_ops._flash_bwd(*args))):
+        raise AssertionError(f'{label}: two backward runs differ')
+    del first
+    library, backend, _ = sdpa_backward(q, k, v, dout)
+    runs = {'flash_bwd_dkv': [], 'flash_bwd_dq': [], 'plain': [],
+            'library': []}
+    for _ in range(3):
+        runs['flash_bwd_dkv'].append(time_ms(
+            lambda: flash_ops._flash_bwd_dkv(*args), iters=5, warmup=1))
+        runs['flash_bwd_dq'].append(time_ms(
+            lambda: flash_ops._flash_bwd_dq(*args), iters=5, warmup=1))
+        runs['plain'].append(time_ms(
+            lambda: flash_ops.flash_attention_bwd_plain(q, k, v, o, dout,
+                                                        lse),
+            iters=1, warmup=1))
+        runs['library'].append(time_ms(library, iters=5, warmup=1))
+    del library
+    ms = {name: float(np.mean(t)) for name, t in runs.items()}
+    out, line = {}, []
+    for name, (nbytes, flops) in flash_bwd_work(q, k, v, dout, lse).items():
+        bound, bound_by = bound_ms(nbytes, flops, dtype)
+        out[name] = {
+            'shape': label, 'max_abs_err': errs[name], 'ms': ms[name],
+            'ms_rounds': runs[name], 'plain_ms': ms['plain'],
+            'plain_shape': 'dq, dk and dv together',
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': ms['library'],
+            'library': f'SDPA backward ({backend}), causal: dq, dk, dv'}
+        line.append(f'{name} {ms[name]:.4f} ms (bound {bound:.4f}, '
+                    f'{bound_by}; {flops / ms[name] / 1e9:.2f} TFLOP/s)')
+    log(f'  {label} timing over three rounds: {", ".join(line)}; plain '
+        f'(dq, dk, dv) {ms["plain"]:.4f} ms; SDPA backward ({backend}) '
+        f'{ms["library"]:.4f} ms; two runs bit-identical; rounds {runs}')
+    del q, k, v, o, dout, lse, args
+    release_card()
+    return out
 
 
 # Gemma's head dim in the backward: K2 and K3 at B1 S8192 on each Gemma's
@@ -2828,7 +2914,7 @@ def lora_main_path(records: dict) -> None:
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import trainer as trainer_lib
     cfg = llama.LLAMA3_8B
-    gb, seq, steps = 4, 8192, 4
+    gb, seq, steps = 4, 8192, 3
     # remat 'dots' keeps ~86 KB a token and layer (every product): one
     # 8192-token row is ~23 GB for 32 layers beside the 16 GB base, so
     # the batch of 4 runs as 4 accumulated microbatches of one row.
@@ -3543,9 +3629,11 @@ def serve_speculative(label: str, records: dict, path: str, url: str, orch,
         rounds0 = orch.accept_stats['rounds']
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
+    t0 = time.perf_counter()
     served = [http_json(url, '/generate', {
         'prompt_tokens': p, 'max_new_tokens': 64})['output_tokens']
         for p in singles]
+    singles_s = time.perf_counter() - t0
     before = http_json(url, '/metrics')
     streams, dt = concurrent_generate(url, bodies, cfg.vocab_size)
     with loop._lock:
@@ -3574,8 +3662,13 @@ def serve_speculative(label: str, records: dict, path: str, url: str, orch,
     if ttft_n != len(bodies):
         raise AssertionError(f'{ttft_n} TTFT samples for {len(bodies)} '
                              'requests')
+    t0 = time.perf_counter()
     with loop._lock:
-        direct = [orch.generate([p], max_new_tokens=64)[0] for p in singles]
+        # Both prompts in one run: a round verifies (or drafts for) every
+        # slot at the same shapes, and each slot's rows are its own, so a
+        # greedy stream does not depend on the other prompt.
+        direct = orch.generate(list(singles), max_new_tokens=64)
+    direct_s = time.perf_counter() - t0
     if served != direct:
         raise AssertionError(f'{label}: the server gave other tokens than '
                              'the speculator\'s own generate')
@@ -3584,8 +3677,9 @@ def serve_speculative(label: str, records: dict, path: str, url: str, orch,
                'peak_gib': peak, 'spec': spec,
                'acceptance': spec['accepted'] / max(spec['proposed'], 1),
                'plain_rounds': n_plain, 'spec_rounds': n_spec}
-    log(f'  prompts of {[len(p) for p in singles]} tokens one at a time: the '
-        'served tokens equal the speculator\'s own generate')
+    log(f'  prompts of {[len(p) for p in singles]} tokens one at a time '
+        f'({singles_s:.1f} s): the served tokens equal the speculator\'s own '
+        f'generate ({direct_s:.1f} s)')
     log(f'  {len(bodies)} concurrent POST /generate ({out_tokens} tokens) in '
         f'{dt:.3f} s: {numbers["tok_s"]:.1f} output tok/s, mean TTFT '
         f'{numbers["ttft_ms"]:.1f} ms (/metrics), peak memory {peak:.2f} '
@@ -3653,9 +3747,14 @@ def spec_qwen_replica(records: dict, plain: dict) -> None:
         replica.loop.close()
     orch.state = None      # the plain run below needs the room
     release_card()
+    t0 = time.perf_counter()
     expected = plain_streams(engine, greedy, r['new_tokens'])
+    plain_s = time.perf_counter() - t0
     partings = check_ties('[23]', engine, greedy,
                           streams[:len(greedy)], expected)
+    log(f'  [23] plain greedy re-run of the {len(greedy)} greedy prompts '
+        f'{plain_s:.1f} s, tie checks {time.perf_counter() - t0 - plain_s:.1f}'
+        ' s')
     log(f'  [23] beside [20] (same model, slots, cache and 32 prompts; [23] '
         f'adds 4 copy-heavy and 1 sampled request): output tok/s '
         f'{numbers["tok_s"]:.1f} vs {plain["tok_s"]:.1f}, mean TTFT '
@@ -4552,8 +4651,8 @@ def small_mixtral_end_to_end() -> None:
     for device in ('cuda', 'cpu'):
         dropped = []
 
-        def spy(config, router_w, x, token_mask=None, capacity=None):
-            out = route(config, router_w, x, token_mask, capacity)
+        def spy(config, router_w, x, token_mask=None, capacity=None, **kw):
+            out = route(config, router_w, x, token_mask, capacity, **kw)
             if capacity is None:       # a prefill wave, not a decode step
                 real = (token_mask != 0)[:, None]
                 dropped.append(int((real & ~out.keep).sum()))
@@ -4612,6 +4711,399 @@ def small_mixtral_end_to_end() -> None:
         if (n > 0) != (name in SERVE_KERNELS):
             raise AssertionError(f'{name} ran {n} times on the card: '
                                  f'{used["cuda"]}')
+    release_card()
+
+
+# ---- phases 32-34: Mixtral and DeepSeek training ----
+
+# Phase [32]: Mixtral-8x7B at its public widths, cut to 2 layers by the
+# card's memory (AdamW keeps 8 bytes a parameter: 25.3 GB of state at 2
+# layers, 374 GB at 32), trained by Trainer at seq 4096, global batch 2.
+MIXTRAL_TRAIN = dict(layers=2, seq=4096, batch=2, warmup=1, measured=3)
+# Phase [33]: DeepSeek-V2-Lite full-parameter at 4 layers (1 dense + 3
+# routed; 18.0 GB of state), seq 4096, batch 1; then all 27 layers with
+# LoRA on the MLA weights through train/launch.py.
+DEEPSEEK_TRAIN = dict(layers=4, seq=4096, batch=1, warmup=1, measured=3)
+DEEPSEEK_LORA = dict(rank=16, targets='wq,w_ukv,wo', seq=4096, batch=1,
+                     steps=4)
+# Phase [34]: card (kernels, TF32 off) vs CPU (plain versions) at fp32:
+# losses and load-balance terms, every gradient (as [22]'s 1e-4).
+ROUTED_GRAD_ATOL = 1e-4
+ROUTED_AUX_ATOL = 1e-5
+
+
+class capture_aux:
+    """Keep the load-balance term of every loss a routed family computes,
+    read from what its loss_fn calls (``moe.forward`` returns (logits,
+    aux); ``deepseek._trunk`` (x, kv, aux)), so that a step's term is
+    logged beside its loss without another forward."""
+
+    def __init__(self, module, fn_name: str):
+        self.module, self.fn_name, self.values = module, fn_name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.fn_name)
+
+        def wrapped(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            if isinstance(out, tuple) and torch.is_tensor(out[-1]):
+                self.values.append(out[-1].detach())
+            return out
+
+        setattr(self.module, self.fn_name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.fn_name, self.real)
+        return False
+
+
+def train_routed(label: str, cfg, r: dict, module, fn_name: str,
+                 seed: int) -> dict:
+    """Trainer steps on the card (adamw as make_optimizer builds it, the
+    learning-rate warm-up cut to 1 step) over seeded token batches, the
+    launch counts zeroed just before the steps and read just after; each
+    step's loss and load-balance term logged apart → the run's numbers."""
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    release_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    tr = trainer_lib.Trainer(trainer_lib.TrainConfig(
+        model=cfg, global_batch_size=r['batch'], seq_len=r['seq'],
+        optimizer='adamw', warmup_steps=1), device='cuda')
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer_lib.param_leaves(
+        state['params']))
+    state_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    rng = np.random.default_rng(seed)
+    steps = r['warmup'] + r['measured']
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (steps, r['batch'], r['seq'] + 1))).cuda()
+    coef = cfg.router_aux_coef
+    rows = []
+    zero_launches()
+    with capture_aux(module, fn_name) as aux:
+        for i in range(steps):
+            batch = {'tokens': tokens[i, :, :-1].contiguous(),
+                     'targets': tokens[i, :, 1:].contiguous()}
+            t0 = time.perf_counter()
+            state, metrics = tr.step(state, batch)
+            loss = float(metrics['loss'])          # waits for the step
+            dt = time.perf_counter() - t0
+            term = float(aux.values[-1])
+            rows.append((loss, term, dt))
+            log(f'  step {i + 1}: loss {loss:.6f} = cross-entropy '
+                f'{loss - coef * term:.6f} + {coef:g} x load-balance term '
+                f'{term:.6f}; grad norm {float(metrics["grad_norm"]):.4f}; '
+                f'{dt * 1e3:.1f} ms')
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(aux.values) != steps:
+        raise AssertionError(f'{label}: {len(aux.values)} load-balance '
+                             f'terms for {steps} steps')
+    losses, terms = [row[0] for row in rows], [row[1] for row in rows]
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(terms))
+            and min(terms) > 0):
+        raise AssertionError(f'{label}: losses {losses}, load-balance '
+                             f'terms {terms}: want finite, terms > 0')
+    step_s = float(np.mean([row[2] for row in rows[r['warmup']:]]))
+    tps = r['batch'] * r['seq'] / step_s
+    flops = dataclasses.replace(
+        cfg, max_seq_len=r['seq']).train_flops_per_token()
+    tflops = tps * flops / 1e12
+    log(f'  {label}: {n_params / 1e9:.4f} B parameters ({state_gb:.2f} GB '
+        f'of parameters and optimizer state), init {init_s:.2f} s; '
+        f'measured steps {r["warmup"] + 1}-{steps}: step {step_s * 1e3:.1f}'
+        f' ms, {tps:.1f} tokens/s, model {tflops:.2f} TFLOP/s = '
+        f'{tflops / (PEAK_FLOPS[torch.bfloat16] / 1e12):.4f} of the bf16 '
+        f'peak; peak memory {peak:.2f} GiB; launches {launches} on '
+        f'{nvidia_smi_line()}')
+    del state, tr, tokens
+    release_card()
+    return {'launches': launches, 'losses': losses, 'terms': terms,
+            'step_ms': step_s * 1e3, 'tokens_s': tps, 'tflops': tflops,
+            'peak_gib': peak}
+
+
+def mixtral_train_path(records: dict) -> None:
+    from skypilot_tpu_torch.models import moe
+    r = MIXTRAL_TRAIN
+    cfg = dataclasses.replace(moe.MIXTRAL_8X7B, n_layers=r['layers'])
+    steps = r['warmup'] + r['measured']
+    log(f'[32] Mixtral-8x7B training on one card: public widths (d_model '
+        f'{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of '
+        f'{cfg.head_dim}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-'
+        f'{cfg.experts_per_token}, vocab {cfg.vocab_size}) cut to '
+        f'{cfg.n_layers} of 32 layers by the card\'s memory, bf16, remat '
+        f'(the 2-D weights\' products kept), seeded random weights; '
+        f'Trainer with adamw, seq {r["seq"]}, global batch {r["batch"]} '
+        f'(capacity {moe.expert_capacity(cfg, r["batch"] * r["seq"])} a '
+        f'expert), {steps} steps ({r["warmup"]} warm-up + {r["measured"]} '
+        'measured) on seeded token batches')
+    out = train_routed('Mixtral-8x7B, 2 layers', cfg, r, moe, 'forward',
+                       seed=32)
+    # Each step runs K2 and K3 once a layer and K1 twice: the backward
+    # recomputes each layer's forward (remat).
+    k1_factor = 2 if cfg.remat else 1
+    derived = {'flash_fwd': k1_factor * cfg.n_layers * steps,
+               'flash_bwd_dkv': cfg.n_layers * steps,
+               'flash_bwd_dq': cfg.n_layers * steps}
+    check_derived_launches('mixtral_train', out['launches'], derived)
+    for name in records:
+        records[name].setdefault('launches_by_path', {})['mixtral_train'] = (
+            out['launches'][name])
+    log(f'  launches {out["launches"]} = {cfg.n_layers} layers x {steps} '
+        f'steps (K1 x {k1_factor}), every other kernel 0')
+
+
+def deepseek_train_path(records: dict) -> None:
+    import tempfile
+    from skypilot_tpu_torch.models import deepseek
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    r = DEEPSEEK_TRAIN
+    cfg = dataclasses.replace(deepseek.DEEPSEEK_V2_LITE, n_layers=r['layers'])
+    steps = r['warmup'] + r['measured']
+    log(f'[33] DeepSeek-V2-Lite training on one card: (a) public widths '
+        f'cut to {cfg.n_layers} of 27 layers ({cfg.first_k_dense} dense + '
+        f'{cfg.n_moe_layers} routed: {cfg.n_experts} experts top-'
+        f'{cfg.experts_per_token} + {cfg.n_shared_experts} shared), '
+        f'full-parameter, bf16, remat {cfg.remat_policy}, plain attention '
+        f'(qk head dim {cfg.qk_head_dim}, v {cfg.v_head_dim}), seeded '
+        f'random weights; Trainer with adamw, seq {r["seq"]}, batch '
+        f'{r["batch"]}, {steps} steps; (b) all 27 layers with LoRA through '
+        'train/launch.py')
+    out = train_routed('DeepSeek-V2-Lite, 4 layers', cfg, r, deepseek,
+                       '_trunk', seed=33)
+    check_derived_launches('deepseek_train (4 layers)', out['launches'], {})
+    totals = dict(out['launches'])
+    lo = DEEPSEEK_LORA
+    full = deepseek.DEEPSEEK_V2_LITE
+    argv = ['--model', 'deepseek-v2-lite', '--lora-rank', str(lo['rank']),
+            '--lora-targets', lo['targets'], '--seq-len', str(lo['seq']),
+            '--global-batch-size', str(lo['batch']), '--steps',
+            str(lo['steps']), '--log-every', '1']
+    log(f'  (b) python -m skypilot_tpu_torch.train.launch {" ".join(argv)}'
+        ' (in-process; the learning-rate warm-up cut to 1 step) over uint32 '
+        f'token shards: {full.n_layers} layers, {full.num_params() / 1e9:.2f}'
+        ' B parameters frozen')
+    with tempfile.TemporaryDirectory(prefix='xsky-deepseek-lora-') as tmp:
+        data = write_token_shards(os.path.join(tmp, 'tokens'),
+                                  lo['steps'] * lo['batch'] * lo['seq'] + 1,
+                                  full.vocab_size, seed=33)
+        release_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with short_warmup(1):
+            run = launch_run(argv + ['--data', data, '--data-loader',
+                                     'python', '--device', 'cuda'],
+                             'DeepSeek-V2-Lite LoRA', kernels_wanted=None)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    check_derived_launches('deepseek_train (LoRA launch)', run['launches'],
+                           {})
+    state = run['state']
+    base = trainer_lib.param_leaves(state['base'])
+    base_bytes = sum(t.numel() * t.element_size() for t in base)
+    n_adapter = sum(a.numel() for a in trainer_lib.param_leaves(
+        state['params']))
+    losses = [run['losses'][k] for k in sorted(run['losses'])]
+    if len(losses) != lo['steps'] or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'DeepSeek LoRA losses {losses}')
+    tps = [float(line.split(' tok/s')[0].split()[-1].replace(',', ''))
+           for line in run['log'] if ' tok/s ' in line][1:]
+    del run['state'], run['trainer'], state, base
+    release_card()
+    for name in records:
+        totals[name] += run['launches'][name]
+        records[name].setdefault('launches_by_path', {})['deepseek_train'] = (
+            totals[name])
+    log(f'  (b) losses {losses} (finite); base {base_bytes} bytes (frozen, '
+        f'bf16), {n_adapter} adapter parameters; steps 2-{lo["steps"]}: '
+        f'{np.mean(tps):.1f} tokens/s; peak memory {peak:.2f} GiB; {dt:.1f}'
+        f' s with init; launches {run["launches"]}')
+    log(f'  deepseek_train launches no kernel (plain attention, no decode): '
+        f'K1-K7 {totals}, as derived; on {nvidia_smi_line()}')
+
+
+def small_routed_params(cfg, seed: int):
+    """The family's seeded fp32 init on the CPU, every norm scale redrawn
+    (1 + 0.2 N(0, 1)), so a misplaced norm shows."""
+    from skypilot_tpu_torch import models
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = models.module_for(cfg).init(cfg, gen, device='cpu')
+    groups = [params[k] for k in ('layers', 'dense_layers', 'moe_layers')
+              if k in params]
+    for group in groups:
+        for key, value in group.items():
+            if key.endswith('norm'):
+                value.copy_(1 + 0.2 * torch.randn(value.shape,
+                                                  generator=gen))
+    return params
+
+
+def copy_to(tree, device):
+    """A copy of a parameter tree on ``device`` whose leaves are new
+    leaves (no autograd history, the CPU originals untouched)."""
+    if isinstance(tree, dict):
+        return {k: copy_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def flat_tree(tree, prefix=''):
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(flat_tree(value, f'{prefix}/{key}'))
+        return out
+    return {prefix: tree}
+
+
+def small_routed_train_checks() -> None:
+    import tempfile
+    from skypilot_tpu_torch import models
+    from skypilot_tpu_torch.models import deepseek
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    log('[34] small Mixtral and DeepSeek training checks, card (kernels, '
+        'TF32 off) vs CPU (plain versions): fp32 moe-tiny at capacity '
+        'factor 0.5 (real tokens dropped), deepseek-tiny and '
+        'deepseek-tiny-moe-only, random norms, seq 1024 (so K1-K3 run for '
+        'moe-tiny), a token mask and a loss mask: the loss, its load-balance'
+        ' term and every gradient (two card runs bit-identical), then 2 '
+        'Trainer steps; then train/launch.py --model moe-tiny resumed from '
+        'a checkpoint')
+    cases = (
+        ('moe-tiny', dataclasses.replace(moe.MOE_TINY_F32,
+                                         capacity_factor=0.5),
+         moe, 'forward', TRAIN_KERNELS),
+        ('deepseek-tiny', dataclasses.replace(deepseek.DEEPSEEK_TINY,
+                                              dtype=torch.float32),
+         deepseek, '_trunk', ()),
+        ('deepseek-tiny-moe-only', dataclasses.replace(
+            deepseek.DEEPSEEK_TINY_MOE_ONLY, dtype=torch.float32),
+         deepseek, '_trunk', ()))
+    rng = np.random.default_rng(34)
+    b, s = 2, 1024
+    seqs = rng.integers(0, 256, (b, s + 1))
+    token_mask = np.ones((b, s), np.float32)
+    token_mask[0, s - 37:] = 0.0
+    token_mask[1, s - 300:] = 0.0
+    cpu_batch = {
+        'tokens': torch.from_numpy(seqs[:, :-1].copy()),
+        'targets': torch.from_numpy(seqs[:, 1:].copy()),
+        'mask': torch.from_numpy((rng.random((b, s)) < 0.7).astype(
+            np.float32)),
+        'token_mask': torch.from_numpy(token_mask)}
+    for label, cfg, module, fn_name, wanted in cases:
+        lib = models.module_for(cfg)
+        cpu_params = small_routed_params(cfg, 34)
+        runs, used = {}, {}
+        for device in ('cuda', 'cpu'):
+            batch = {k: v.to(device) for k, v in cpu_batch.items()}
+            before = {k.name: k.launches for k in kernels.REGISTRY}
+            outs = []
+            for _ in range(2 if device == 'cuda' else 1):
+                params = copy_to(cpu_params, device)
+                leaves = flat_tree(params)
+                for p in leaves.values():
+                    p.requires_grad_(True)
+                with capture_aux(module, fn_name) as aux:
+                    loss = lib.loss_fn(cfg, params, batch['tokens'],
+                                       batch['targets'],
+                                       loss_mask=batch['mask'],
+                                       token_mask=batch['token_mask'])
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                outs.append((float(loss), float(aux.values[-1]),
+                             dict(zip(leaves, (g.detach().cpu()
+                                               for g in grads)))))
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                same = outs[0][0] == outs[1][0] and all(
+                    torch.equal(outs[0][2][k], outs[1][2][k])
+                    for k in outs[0][2])
+                if not same:
+                    raise AssertionError(f'{label}: two card runs of the '
+                                         'loss and its gradients differ')
+            used[device] = {k.name: k.launches - before[k.name]
+                            for k in kernels.REGISTRY}
+            runs[device] = outs[0]
+        (lc, ac, gc_), (lp, ap, gp) = runs['cuda'], runs['cpu']
+        errs = {k: float((gc_[k] - gp[k]).abs().max()) for k in gp}
+        worst = max(errs, key=errs.get)
+        log(f'  {label}: loss card {lc:.7f} / CPU {lp:.7f}; load-balance '
+            f'term {ac:.7f} / {ap:.7f}; {len(errs)} gradient leaves, largest'
+            f' max_abs_err {errs[worst]:.3e} ({worst}; router '
+            f'{max(e for k, e in errs.items() if "router" in k):.3e}); two '
+            f'card runs bit-identical (tolerances: loss '
+            f'{TRAIN_LOSS_ATOL:g}, term {ROUTED_AUX_ATOL:g}, gradients '
+            f'{ROUTED_GRAD_ATOL:g}); card launches {used["cuda"]}')
+        if (abs(lc - lp) > TRAIN_LOSS_ATOL or abs(ac - ap) > ROUTED_AUX_ATOL
+                or errs[worst] > ROUTED_GRAD_ATOL or not ac > 0):
+            raise AssertionError(f'{label}: the card and the CPU differ')
+        for name, n in used['cuda'].items():
+            if (n > 0) != (name in wanted):
+                raise AssertionError(f'{label}: {name} ran {n} times on '
+                                     f'the card: {used["cuda"]}')
+        tcfg = trainer_lib.TrainConfig(
+            model=cfg, global_batch_size=b, seq_len=s, learning_rate=1e-3,
+            warmup_steps=1)
+        steps = {}
+        for device in ('cuda', 'cpu'):
+            tr = trainer_lib.Trainer(tcfg, device=device)
+            state = tr.init_state(copy_to(cpu_params, device))
+            batch = {k: v.to(device) for k, v in cpu_batch.items()}
+            metrics = []
+            for _ in range(2):
+                state, m = tr.step(state, batch)
+                metrics.append((float(m['loss']), float(m['grad_norm'])))
+            steps[device] = (metrics, {k: v.detach().cpu() for k, v in
+                                       flat_tree(state['params']).items()})
+        (card, card_p), (cpu, cpu_p) = steps['cuda'], steps['cpu']
+        err = max(float((card_p[k] - cpu_p[k]).abs().max()) for k in cpu_p)
+        log(f'    2 Trainer steps (adamw): card (loss, grad_norm) {card}; '
+            f'CPU {cpu}; parameters max_abs_err {err:.3e}')
+        for (l1, n1), (l2, n2) in zip(card, cpu):
+            if abs(l1 - l2) > TRAIN_LOSS_ATOL or abs(n1 - n2) > (
+                    TRAIN_NORM_RTOL * abs(n2)):
+                raise AssertionError(f'{label}: Trainer steps differ')
+        if err > TRAIN_PARAM_ATOL:
+            raise AssertionError(f'{label}: parameters differ after two '
+                                 'Trainer steps')
+        release_card()
+    with tempfile.TemporaryDirectory(prefix='xsky-moe-launch-') as tmp:
+        ckpt = os.path.join(tmp, 'ckpt')
+        common = ['--model', 'moe-tiny', '--global-batch-size', '2',
+                  '--seq-len', '1024', '--log-every', '1', '--device',
+                  'cuda']
+        with short_warmup(1):
+            solid = launch_run(common + ['--steps', '4'], 'moe-tiny launch',
+                               n_layers=moe.MOE_TINY.n_layers)
+            launch_run(common + ['--steps', '2', '--checkpoint-every', '2',
+                                 '--checkpoint-dir', ckpt],
+                       'moe-tiny launch (checkpoint)',
+                       n_layers=moe.MOE_TINY.n_layers)
+            resumed = launch_run(common + ['--steps', '4', '--resume', 'auto',
+                                           '--checkpoint-dir', ckpt],
+                                 'moe-tiny launch (resumed)',
+                                 n_layers=moe.MOE_TINY.n_layers)
+    if 'Resumed from checkpoint step 2.' not in resumed['log']:
+        raise AssertionError(f'no resume line in {resumed["log"]}')
+    if sorted(resumed['losses']) != [3, 4]:
+        raise AssertionError(f'resumed run logged {resumed["losses"]}')
+    errs = {k: abs(resumed['losses'][k] - solid['losses'][k]) /
+            abs(solid['losses'][k]) for k in (3, 4)}
+    log(f'  moe-tiny through train/launch.py (bf16, seq 1024): losses '
+        f'{solid["losses"]}; resumed from step 2: {resumed["losses"]}, '
+        f'relative differences {errs} (tolerance {RESUME_RTOL:g}), '
+        f'bit-identical: {all(e == 0 for e in errs.values())}')
+    if max(errs.values()) > RESUME_RTOL:
+        raise AssertionError('resumed moe-tiny losses differ from the '
+                             'uninterrupted run')
+    del solid, resumed
     release_card()
 
 
@@ -4710,6 +5202,9 @@ def main() -> int:
     small_gemma_train_checks()
     mixtral_replica(records)
     small_mixtral_end_to_end()
+    mixtral_train_path(records)
+    deepseek_train_path(records)
+    small_routed_train_checks()
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -5,9 +5,9 @@ with routed experts), Qwen-2/Qwen-3 (``QwenConfig``), Gemma-1/Gemma-2
 exposes the serving surface the engine dispatches on: ``init``,
 ``prefill_hidden``, ``decode_forward`` and ``lm_logits``; the Llama,
 Mixtral, Qwen and Gemma families also have ``verify_forward`` (the
-engine's chunked prefill and prefix cache), and the Llama, Qwen and
-Gemma families the trainer's ``loss_fn`` (Mixtral's raises, naming
-ROADMAP.md queue 1 item 6.4); Llama and DeepSeek have
+engine's chunked prefill and prefix cache), and every family the
+trainer's ``loss_fn`` (Mixtral's and DeepSeek's with the router's
+load-balance term); Llama and DeepSeek have
 ``paged_decode_forward`` (Mixtral, Qwen and Gemma have no paged hook, as
 in the reference), and DeepSeek declares its
 compressed cache layout (``kv_cache_shapes``,

@@ -20,8 +20,11 @@ for the rest), so a JAX ``init`` tree converts one to one.
     to the slot count, so no decode token is dropped.
 
 Layers run in a Python loop in place of ``lax.scan``; caches are written
-in place. Training (``loss_fn``, the pipelined loss) comes in a later
-slice.
+in place. Training: ``loss_fn`` (the chunked cross-entropy plus
+``router_aux_coef`` x the routed layers' mean load-balance term), with
+``remat`` as ``llama``'s per-layer checkpoint under the config's policy;
+attention takes the plain path there too. The pipelined loss waits for
+ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
@@ -42,8 +46,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class DeepSeekConfig:
-    """The reference's serving fields, one to one; its training fields
-    come with DeepSeek training."""
+    """The reference's fields, one to one."""
     vocab_size: int = 102_400
     d_model: int = 2048
     n_layers: int = 27
@@ -62,11 +65,17 @@ class DeepSeekConfig:
     experts_per_token: int = 6
     moe_d_ff: int = 1408
     capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    max_seq_len: int = 4096
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
-    # qk dim (192) != v dim (128): the plain attention takes prefill.
+    remat: bool = True
+    remat_policy: str = 'dots'
+    # qk dim (192) != v dim (128): the plain attention takes prefill and
+    # training.
     attention_impl: str = 'xla'
+    ce_chunk: int = 2048
 
     @property
     def qk_head_dim(self) -> int:
@@ -100,6 +109,24 @@ class DeepSeekConfig:
         return (v * d * 2 + c.first_k_dense * dense_layer +
                 c.n_moe_layers * moe_layer + d)
 
+    def active_params(self) -> int:
+        """Parameters one token touches (what sets a step's FLOPs)."""
+        c = self
+        d, v = c.d_model, c.vocab_size
+        dense_layer = self._attn_params() + 3 * d * c.d_ff + 2 * d
+        shared = 3 * d * (c.moe_d_ff * c.n_shared_experts)
+        routed = (3 * d * c.moe_d_ff * c.experts_per_token +
+                  d * c.n_experts)
+        moe_layer = self._attn_params() + shared + routed + 2 * d
+        return (v * d * 2 + c.first_k_dense * dense_layer +
+                c.n_moe_layers * moe_layer + d)
+
+    def train_flops_per_token(self) -> float:
+        attn_flops = (6 * self.n_layers * self.n_heads *
+                      (self.qk_head_dim + self.v_head_dim) *
+                      self.max_seq_len)
+        return 6 * self.active_params() + attn_flops
+
 
 # DeepSeek-V2-Lite dimensions (public config: 15.7B total, 2.4B active).
 DEEPSEEK_V2_LITE = DeepSeekConfig()
@@ -113,7 +140,8 @@ DEEPSEEK_TINY = DeepSeekConfig(
     vocab_size=256, d_model=64, n_layers=3, n_heads=4, q_lora_rank=32,
     kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
     v_head_dim=16, d_ff=128, first_k_dense=1, n_experts=4,
-    n_shared_experts=1, experts_per_token=2, moe_d_ff=32)
+    n_shared_experts=1, experts_per_token=2, moe_d_ff=32,
+    max_seq_len=128, remat=False)
 # A variant exercising the no-dense, full-rank-q corner.
 DEEPSEEK_TINY_MOE_ONLY = dataclasses.replace(
     DEEPSEEK_TINY, first_k_dense=0, q_lora_rank=0, n_layers=2)
@@ -356,9 +384,12 @@ def _dense_mlp(c: DeepSeekConfig, h: torch.Tensor, lp: Params,
 def _layer(c: DeepSeekConfig, x: torch.Tensor, lp: Params, rope,
            is_moe: bool, token_mask: Optional[torch.Tensor] = None,
            kv_cache=None, cache_positions=None, return_kv: bool = False,
-           block_tables: Optional[torch.Tensor] = None, paged_route=None):
-    """One block → (x, new_kv). A decode step (kv_cache set) routes with
-    capacity equal to its token count, so no decode token is dropped."""
+           block_tables: Optional[torch.Tensor] = None, paged_route=None,
+           with_aux: bool = False):
+    """One block → (x, aux, new_kv); aux is the routed layer's
+    load-balance term with ``with_aux`` (None for a dense layer or
+    without it). A decode step (kv_cache set) routes with capacity equal
+    to its token count, so no decode token is dropped."""
     attn, new_kv = _mla_attention(c, x, lp, rope, kv_cache=kv_cache,
                                   cache_positions=cache_positions,
                                   return_kv=return_kv,
@@ -367,20 +398,48 @@ def _layer(c: DeepSeekConfig, x: torch.Tensor, lp: Params, rope,
     x = x + attn
     h = llama._rms_norm(x, lp['mlp_norm'], c.norm_eps)
     if not is_moe:
-        return x + _dense_mlp(c, h, lp), new_kv
+        return x + _dense_mlp(c, h, lp), None, new_kv
     shared = _dense_mlp(c, h, lp, 'ws_gate', 'ws_up', 'ws_down')
     capacity = x.shape[0] * x.shape[1] if kv_cache is not None else None
-    routed = moe._moe_mlp(c, h, lp, token_mask=token_mask,
-                          capacity=capacity)
-    return x + (shared + routed), new_kv
+    routed, aux = moe._moe_mlp(c, h, lp, token_mask=token_mask,
+                               capacity=capacity, with_aux=with_aux)
+    return x + (shared + routed), aux, new_kv
+
+
+def _layer_output(c, x, lp, rope, is_moe, token_mask, with_aux):
+    return _layer(c, x, lp, rope, is_moe, token_mask=token_mask,
+                  with_aux=with_aux)[:2]
+
+
+# The reference's checkpoint names in this family's layers
+# (skypilot_tpu/models/deepseek.py): the output projection and the dense
+# (or shared-expert) MLP's gate and up products.
+_NAMED_PRODUCTS = {'attn_o': ('wo',), 'mlp_gate': ('w_gate', 'ws_gate'),
+                   'mlp_up': ('w_up', 'ws_up')}
+
+
+def _remat_weights(c: DeepSeekConfig, lp: Params) -> list:
+    """The weights whose products the layer's checkpoint keeps under
+    ``llama._remat_policy``'s mapping: 'dots' every 2-D weight (the
+    routed experts' batched products are recomputed), 'none' none, a
+    named policy the products this family tags with its names."""
+    if c.remat_policy == 'dots':
+        return llama.matrices(lp)
+    llama._saved_weights(c)      # raises for an unknown policy
+    names = llama._REMAT_SAVE_NAMES.get(c.remat_policy, ())
+    return [lp[w] for n in names for w in _NAMED_PRODUCTS.get(n, ())
+            if w in lp and lp[w].ndim == 2]
 
 
 def _trunk(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
            positions: Optional[torch.Tensor],
            token_mask: Optional[torch.Tensor] = None,
-           return_kv: bool = False):
-    """Embed → layers → final RMSNorm → (x [B,S,D], kv or None); kv is
-    {'k': c_kv [L,B,S,1,r], 'v': k_rope [L,B,S,1,dr]}."""
+           return_kv: bool = False, with_aux: bool = False):
+    """Embed → layers → final RMSNorm → (x [B,S,D], kv or None, the
+    routed layers' mean load-balance term or None); kv is {'k': c_kv
+    [L,B,S,1,r], 'v': k_rope [L,B,S,1,dr]}. With ``remat`` (and a
+    gradient to take) each layer is checkpointed under the config's
+    policy."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None, :].expand(tokens.shape)
@@ -393,23 +452,68 @@ def _trunk(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
                                dtype=c.dtype, device=x.device),
               'v': torch.empty((c.n_layers, b, s, 1, c.qk_rope_head_dim),
                                dtype=c.dtype, device=x.device)}
+    remat = c.remat and not return_kv and torch.is_grad_enabled()
+    aux_sum = None
     for group, is_moe, first in _groups(c, params):
         for i in range(group['attn_norm'].shape[0]):
             lp = {name: w[i] for name, w in group.items()}
-            x, layer_kv = _layer(c, x, lp, rope, is_moe,
-                                 token_mask=token_mask, return_kv=return_kv)
-            if return_kv:
-                kv['k'][first + i] = layer_kv[0]
-                kv['v'][first + i] = layer_kv[1]
-    return llama._rms_norm(x, params['final_norm'], c.norm_eps), kv
+            if remat:
+                x, aux = ckpt.checkpoint(
+                    _layer_output, c, x, lp, rope, is_moe, token_mask,
+                    with_aux, use_reentrant=False,
+                    context_fn=llama.save_products(_remat_weights(c, lp)))
+            else:
+                x, aux, layer_kv = _layer(c, x, lp, rope, is_moe,
+                                          token_mask=token_mask,
+                                          return_kv=return_kv,
+                                          with_aux=with_aux)
+                if return_kv:
+                    kv['k'][first + i] = layer_kv[0]
+                    kv['v'][first + i] = layer_kv[1]
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+    mean_aux = None
+    if with_aux:
+        mean_aux = (aux_sum if aux_sum is not None else
+                    torch.zeros((), device=x.device)) / max(c.n_moe_layers, 1)
+    return (llama._rms_norm(x, params['final_norm'], c.norm_eps), kv,
+            mean_aux)
 
 
 def forward(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
+            return_aux: bool = False,
+            token_mask: Optional[torch.Tensor] = None):
+    """Full forward → fp32 logits [B, S, vocab], and with ``return_aux``
+    the routed layers' mean load-balance term."""
+    x, _, aux = _trunk(c, params, tokens, positions, token_mask=token_mask,
+                       with_aux=return_aux)
+    logits = lm_logits(c, params, x)
+    return (logits, aux) if return_aux else logits
+
+
+def loss_fn(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
+            targets: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None,
             token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full forward → fp32 logits [B, S, vocab]."""
-    x, _ = _trunk(c, params, tokens, positions, token_mask=token_mask)
-    return lm_logits(c, params, x)
+    """Chunked next-token cross-entropy (``ce_chunk`` positions of fp32
+    logits at a time) + ``router_aux_coef`` x the load-balance term.
+    token_mask [B, S] reaches routing only."""
+    x, _, aux = _trunk(c, params, tokens, None, token_mask=token_mask,
+                       with_aux=True)
+    ce = llama._chunked_ce(x, params['lm_head'], targets, loss_mask,
+                           c.ce_chunk)
+    return ce + c.router_aux_coef * aux
+
+
+def pipelined_loss_fn(c: DeepSeekConfig, params: Params, tokens, targets,
+                      mesh=None, n_microbatches: int = 1, loss_mask=None,
+                      token_mask=None):
+    """loss_fn pipelined over a mesh's stages: not ported yet (ROADMAP.md
+    queue 1 item 8)."""
+    del c, params, tokens, targets, mesh, n_microbatches, loss_mask
+    del token_mask
+    raise NotImplementedError(moe._PIPELINE)
 
 
 def prefill_hidden(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
@@ -421,8 +525,8 @@ def prefill_hidden(c: DeepSeekConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     true = torch.as_tensor(true_len, device=tokens.device).reshape(-1, 1)
     token_mask = (positions < true).float()
-    x, kv = _trunk(c, params, tokens, positions, token_mask=token_mask,
-                   return_kv=True)
+    x, kv, _ = _trunk(c, params, tokens, positions,
+                      token_mask=token_mask, return_kv=True)
     return llama.last_token_hidden(x, true_len), kv
 
 
@@ -439,10 +543,11 @@ def _decode(c: DeepSeekConfig, params: Params, last_tokens: torch.Tensor,
     for group, is_moe, first in _groups(c, params):
         for i in range(group['attn_norm'].shape[0]):
             lp = {name: w[i] for name, w in group.items()}
-            x, _ = _layer(c, x, lp, rope, is_moe,
-                          kv_cache=(kv['k'][first + i], kv['v'][first + i]),
-                          cache_positions=positions,
-                          block_tables=block_tables, paged_route=route)
+            x, _, _ = _layer(c, x, lp, rope, is_moe,
+                             kv_cache=(kv['k'][first + i],
+                                       kv['v'][first + i]),
+                             cache_positions=positions,
+                             block_tables=block_tables, paged_route=route)
     x = llama._rms_norm(x, params['final_norm'], c.norm_eps)
     return lm_logits(c, params, x)[:, 0], kv
 

@@ -278,14 +278,19 @@ def _saved_weights(config: LlamaConfig) -> Tuple[str, ...]:
 
 
 def _remat_context(config: LlamaConfig, layer_params: Params):
-    """``context_fn`` for one layer's checkpoint: a selective policy that
-    saves the output of every ``mm`` whose right operand is one of the
-    policy's weights (matched by storage, so the order of the products
-    does not matter) and recomputes everything else."""
-    names = _saved_weights(config)
-    if not names:
+    """``context_fn`` for one layer's checkpoint under the config's remat
+    policy (``save_products`` of the policy's weights)."""
+    return save_products([layer_params[n] for n in _saved_weights(config)])
+
+
+def save_products(weights) -> Any:
+    """``context_fn`` for a checkpoint: a selective policy that saves the
+    output of every ``mm`` whose right operand is one of ``weights``
+    (matched by storage, so the order of the products does not matter)
+    and recomputes everything else."""
+    if not weights:
         return ckpt.noop_context_fn
-    saved = {layer_params[n].data_ptr() for n in names}
+    saved = {w.data_ptr() for w in weights}
     mm = torch.ops.aten.mm.default
 
     def policy(ctx, op, *args, **kwargs):
@@ -296,6 +301,13 @@ def _remat_context(config: LlamaConfig, layer_params: Params):
 
     return functools.partial(ckpt.create_selective_checkpoint_contexts,
                              policy)
+
+
+def matrices(layer_params: Params) -> list:
+    """The layer's 2-D weights: the products that JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps (a batched product, such as
+    an expert stack's, is recomputed)."""
+    return [w for w in layer_params.values() if w.ndim == 2]
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -16,9 +16,13 @@ kernel. As in the reference, attention takes no window: a
 ``sliding_window`` that a converted checkpoint carries is ignored. The
 reference has no paged hook for this family, nor has the port.
 
-Training waits for ROADMAP.md queue 1 item 6.4, "DeepSeek and Mixtral
-training": the router's load-balance loss (``forward(return_aux=True)``,
-``loss_fn``) comes with DeepSeek's, which needs the same term.
+Training: ``forward(return_aux=True)`` and ``loss_fn`` add the router's
+Switch-Transformer load-balance term (``route(..., with_aux=True)``), the
+term DeepSeek's loss shares; with ``remat`` each layer is a
+``torch.utils.checkpoint`` that keeps the products of the layer's 2-D
+weights and recomputes the rest (the JAX
+``dots_with_no_batch_dims_saveable``). The pipelined loss waits for
+ROADMAP.md queue 1 item 8.
 
 The reference expresses dispatch and combine as one-hot [T, E, C] einsums.
 At DeepSeek-V2-Lite's prefill wave (32 rows of 1024 tokens, C = 3840) each
@@ -27,9 +31,11 @@ with index operations: the same k-major cumulative count gives each
 (token, choice) its place in its expert's buffer, a gather fills the
 [E, C, D] buffers (each place holds at most one token: an exact copy), the
 expert products run batched over experts, and a gather-and-weight brings
-the outputs back. The roundings are the reference's: gate values
-renormalised over the top k in fp32, combine weights cast to the model
-type before the combine product.
+the outputs back. The gathers' gradients are gathers too (``_Dispatch``,
+``_Combine``), summed over a token's k places in a fixed order. The
+roundings are the reference's: gate values renormalised over the top k
+in fp32, combine weights cast to the model type before the combine
+product.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
@@ -46,9 +53,8 @@ from skypilot_tpu_torch.ops import quantization as qops
 
 Params = Dict[str, Any]
 
-_TRAINING = ('Mixtral training (the router\'s load-balance loss) is not '
-             'ported yet: ROADMAP.md queue 1 item 6.4, "DeepSeek and '
-             'Mixtral training".')
+_PIPELINE = ('The pipelined loss is not ported yet: ROADMAP.md queue 1 '
+             'item 8, "more than one card".')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,12 +157,14 @@ class Routing(NamedTuple):
     """Where each (token, choice) goes: expert [T, k], place in that
     expert's buffer [T, k], renormalised fp32 gate value [T, k], and
     whether it is kept [T, k] (a real token whose place is inside the
-    capacity). ``capacity`` is the buffer length C."""
+    capacity). ``capacity`` is the buffer length C; ``aux`` the
+    load-balance term (a 0-dim fp32 tensor) when asked for, else None."""
     expert: torch.Tensor
     place: torch.Tensor
     gate: torch.Tensor
     keep: torch.Tensor
     capacity: int
+    aux: Optional[torch.Tensor] = None
 
 
 def expert_capacity(config, num_tokens: int) -> int:
@@ -169,7 +177,8 @@ def expert_capacity(config, num_tokens: int) -> int:
 
 def route(config, router_w: torch.Tensor, x: torch.Tensor,
           token_mask: Optional[torch.Tensor] = None,
-          capacity: Optional[int] = None) -> Routing:
+          capacity: Optional[int] = None,
+          with_aux: bool = False) -> Routing:
     """Top-k routing of x [T, D] through the fp32 router [D, E].
 
     A (token, choice)'s place is the number of earlier assignments to the
@@ -177,6 +186,13 @@ def route(config, router_w: torch.Tensor, x: torch.Tensor,
     any second choice), so first choices win buffer places; places at or
     past the capacity are dropped. token_mask [T] (1 real / 0 pad):
     masked tokens are not routed and take no place.
+
+    ``with_aux``: also the Switch-Transformer load-balance term
+    E · Σₑ fₑ·pₑ / k (1 at perfect balance), as the reference computes
+    it: fₑ counts the (token, choice) pairs of real tokens sent to expert
+    e, kept or dropped, and pₑ is the mean router probability, both over
+    the real tokens (max(Σ mask, 1); T without a mask). Only pₑ carries a
+    gradient.
     """
     c = config
     t = x.shape[0]
@@ -195,7 +211,18 @@ def route(config, router_w: torch.Tensor, x: torch.Tensor,
     place = (earlier * flat).sum(dim=0).reshape(
         c.experts_per_token, t).transpose(0, 1)                 # [T, k]
     keep = (place < cap) & (onehot.sum(dim=-1) > 0)
-    return Routing(expert, place, gate, keep, cap)
+    aux = None
+    if with_aux:
+        if token_mask is None:
+            n_real = float(t)
+            mean_probs = probs.mean(dim=0)
+        else:
+            m = token_mask.float()
+            n_real = m.sum().clamp(min=1.0)
+            mean_probs = (probs * m[:, None]).sum(dim=0) / n_real
+        frac = flat.sum(dim=1).float() / n_real                  # [E]
+        aux = c.n_experts * (frac * mean_probs).sum() / c.experts_per_token
+    return Routing(expert, place, gate, keep, cap, aux)
 
 
 def _expert_mlp(expert_in: torch.Tensor, lp, dtype) -> torch.Tensor:
@@ -209,10 +236,57 @@ def _expert_mlp(expert_in: torch.Tensor, lp, dtype) -> torch.Tensor:
     return qops.expert_matmul((gate * up).to(dtype), lp['w_down'])
 
 
+class _Dispatch(torch.autograd.Function):
+    """The experts' buffers: the row of x [T, D] of the (token, choice)
+    that fills each place, ``choice`` [E*C] (T*k: none, a zero row).
+    The gradient is the transpose as a gather, not autograd's scatter-add
+    of the indexing: each token's row sums the buffer rows at its k places
+    ``dest`` [T*k] (E*C: dropped, the zero row) in choice order, in fp32
+    as the reference's einsum accumulates, then cast. A scatter-add
+    piles every unfilled place onto the zero row, and on an H100 that one
+    row serialised: 0.40 of a DeepSeek-V2-Lite LoRA step's device time."""
+
+    @staticmethod
+    def forward(ctx, x, choice, dest, k: int):
+        ctx.save_for_backward(dest)
+        ctx.k = k
+        x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        return x_pad[torch.div(choice, k, rounding_mode='floor')]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        g_pad = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        rows = g_pad[dest].reshape(-1, ctx.k, grad.shape[1])
+        return rows.float().sum(dim=1).to(grad.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each (token, choice)'s expert output: rows of y [E*C, D] at
+    ``dest`` [T*k] (E*C: dropped, a zero row). Kept places are distinct,
+    so the transpose is a gather too: each place takes the gradient of the
+    (token, choice) that filled it, ``choice`` [E*C] (T*k: none, zero)."""
+
+    @staticmethod
+    def forward(ctx, y, dest, choice):
+        ctx.save_for_backward(choice)
+        y_pad = torch.cat([y, y.new_zeros((1, y.shape[1]))])
+        return y_pad[dest]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (choice,) = ctx.saved_tensors
+        g_pad = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        return g_pad[choice], None, None
+
+
 def _moe_mlp(config, h: torch.Tensor, lp,
              token_mask: Optional[torch.Tensor] = None,
-             capacity: Optional[int] = None) -> torch.Tensor:
-    """Routed expert MLP: h [B, S, D] → [B, S, D] in h's type.
+             capacity: Optional[int] = None,
+             with_aux: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Routed expert MLP: h [B, S, D] → (out [B, S, D] in h's type, the
+    load-balance term with ``with_aux``, else None).
 
     ``lp`` holds the layer's ``router`` [D, E] (fp32) and the stacked
     expert weights ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D].
@@ -222,27 +296,26 @@ def _moe_mlp(config, h: torch.Tensor, lp,
     x = h.reshape(b * s, d)
     t, e = x.shape[0], c.n_experts
     flat_mask = token_mask.reshape(b * s) if token_mask is not None else None
-    r = route(c, lp['router'], x, token_mask=flat_mask, capacity=capacity)
-    cap = r.capacity
+    r = route(c, lp['router'], x, token_mask=flat_mask, capacity=capacity,
+              with_aux=with_aux)
+    cap, k = r.capacity, c.experts_per_token
     # Buffer place of every kept (token, choice); dropped ones point at the
     # spare place e * cap, which is thrown away.
     dest = torch.where(r.keep, r.expert * cap + r.place,
                        e * cap).reshape(-1).long()
-    tokens = torch.arange(t, device=x.device).repeat_interleave(
-        c.experts_per_token)
-    # Which token fills each place (t: none, the zero row below). Kept
-    # places are distinct, so only the spare place sees repeated writes.
-    src = torch.full((e * cap + 1,), t, dtype=torch.long, device=x.device)
-    src[dest] = tokens
-    x_pad = torch.cat([x, x.new_zeros((1, d))])
-    expert_in = x_pad[src[:e * cap]].reshape(e, cap, d)
+    # Which (token, choice) fills each place (t * k: none). Kept places
+    # are distinct, so only the spare place sees repeated writes.
+    choice = torch.full((e * cap + 1,), t * k, dtype=torch.long,
+                        device=x.device)
+    choice[dest] = torch.arange(t * k, device=x.device)
+    choice = choice[:e * cap]
+    expert_in = _Dispatch.apply(x, choice, dest, k).reshape(e, cap, d)
     expert_out = _expert_mlp(expert_in, lp, c.dtype)
-    out_pad = torch.cat([expert_out.reshape(e * cap, d),
-                         expert_out.new_zeros((1, d))])
-    picked = out_pad[dest].reshape(t, c.experts_per_token, d)   # [T, k, D]
+    picked = _Combine.apply(expert_out.reshape(e * cap, d), dest,
+                            choice).reshape(t, k, d)            # [T, k, D]
     weight = torch.where(r.keep, r.gate, 0.0).to(c.dtype)
     out = torch.bmm(weight[:, None, :], picked)[:, 0]
-    return out.reshape(b, s, d)
+    return out.reshape(b, s, d), r.aux
 
 
 # ---- the Mixtral model ----
@@ -250,14 +323,16 @@ def _moe_mlp(config, h: torch.Tensor, lp,
 def _layer(config: MoEConfig, x: torch.Tensor, lp: Params, rope,
            token_mask: Optional[torch.Tensor] = None, kv_cache=None,
            cache_positions=None, return_kv: bool = False,
-           segment_ids: Optional[torch.Tensor] = None):
+           segment_ids: Optional[torch.Tensor] = None,
+           with_aux: bool = False):
     """One Mixtral block: Llama attention (no window, as in the reference)
     + the routed expert MLP; ``rope`` = llama._rope_tables(positions, ...).
     With ``kv_cache`` a step writing each slot's K/V at its own
     ``cache_positions`` (llama.slot_cache_attend), routed with capacity
     b * s and no mask; otherwise prefill or forward, routed with the
     capacity of its b * s tokens, ``token_mask`` keeping pads out.
-    Returns (x, new_kv_cache)."""
+    Returns (x, aux, new_kv_cache); aux is the layer's load-balance term
+    with ``with_aux``, else None."""
     c = config
     hd = c.head_dim
     b, s, _ = x.shape
@@ -279,15 +354,27 @@ def _layer(config: MoEConfig, x: torch.Tensor, lp: Params, rope,
     x = x + qops.matmul(attn, lp['wo'])
     h = llama._rms_norm(x, lp['mlp_norm'], c.norm_eps)
     capacity = b * s if kv_cache is not None else None
-    x = x + _moe_mlp(c, h, lp, token_mask=token_mask, capacity=capacity)
-    return x, new_cache
+    out, aux = _moe_mlp(c, h, lp, token_mask=token_mask, capacity=capacity,
+                        with_aux=with_aux)
+    return x + out, aux, new_cache
+
+
+def _layer_output(config, x, lp, rope, token_mask, segment_ids, with_aux):
+    return _layer(config, x, lp, rope, token_mask=token_mask,
+                  segment_ids=segment_ids, with_aux=with_aux)[:2]
 
 
 def _trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
            positions: torch.Tensor, token_mask: Optional[torch.Tensor],
-           return_kv: bool, segment_ids: Optional[torch.Tensor] = None):
-    """Embed → layers → final RMSNorm. Returns (x [B,S,D], kv or None);
-    kv is {'k','v': [L, B, S, KVH, HD]}, filled layer by layer."""
+           return_kv: bool, segment_ids: Optional[torch.Tensor] = None,
+           with_aux: bool = False):
+    """Embed → layers → final RMSNorm. Returns (x [B,S,D], kv or None,
+    the mean of the layers' load-balance terms or None); kv is {'k','v':
+    [L, B, S, KVH, HD]}, filled layer by layer. With ``remat`` (and a
+    gradient to take) each layer is checkpointed, keeping the products of
+    its 2-D weights (wq, wk, wv, wo, the router), as the reference's
+    ``dots_with_no_batch_dims_saveable`` does whatever ``remat_policy``
+    says, and recomputing the rest."""
     c = config
     x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
     kv = None
@@ -298,14 +385,26 @@ def _trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
               'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
     rope = llama._rope_tables(positions, c.head_dim, c.rope_theta,
                               c.rope_scaling)
+    remat = c.remat and not return_kv and torch.is_grad_enabled()
+    auxes = []
     for layer in range(c.n_layers):
-        x, layer_kv = _layer(c, x, llama._layer_params(params, layer), rope,
-                             token_mask=token_mask, return_kv=return_kv,
-                             segment_ids=segment_ids)
-        if return_kv:
-            kv['k'][layer] = layer_kv[0]
-            kv['v'][layer] = layer_kv[1]
-    return llama._rms_norm(x, params['final_norm'], c.norm_eps), kv
+        lp = llama._layer_params(params, layer)
+        if remat:
+            x, aux = ckpt.checkpoint(
+                _layer_output, c, x, lp, rope, token_mask, segment_ids,
+                with_aux, use_reentrant=False,
+                context_fn=llama.save_products(llama.matrices(lp)))
+        else:
+            x, aux, layer_kv = _layer(c, x, lp, rope, token_mask=token_mask,
+                                      return_kv=return_kv,
+                                      segment_ids=segment_ids,
+                                      with_aux=with_aux)
+            if return_kv:
+                kv['k'][layer] = layer_kv[0]
+                kv['v'][layer] = layer_kv[1]
+        auxes.append(aux)
+    aux = torch.stack(auxes).mean() if with_aux else None
+    return llama._rms_norm(x, params['final_norm'], c.norm_eps), kv, aux
 
 
 def _cached_trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
@@ -322,36 +421,58 @@ def _cached_trunk(config: MoEConfig, params: Params, tokens: torch.Tensor,
     for layer in range(c.n_layers):
         cache = (llama._cache_layer(kv['k'], layer),
                  llama._cache_layer(kv['v'], layer))
-        x, _ = _layer(c, x, llama._layer_params(params, layer), rope,
-                      kv_cache=cache, cache_positions=cache_positions)
+        x, _, _ = _layer(c, x, llama._layer_params(params, layer), rope,
+                         kv_cache=cache, cache_positions=cache_positions)
     return llama._rms_norm(x, params['final_norm'], c.norm_eps)
 
 
 def forward(config: MoEConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             return_aux: bool = False,
-            token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward pass → fp32 logits [B, S, vocab]. token_mask [B, S] keeps
-    pad positions out of expert routing. ``return_aux`` (the router's
-    load-balance loss) raises: it comes with training (item 6.4)."""
-    if return_aux:
-        raise NotImplementedError(_TRAINING)
+            token_mask: Optional[torch.Tensor] = None):
+    """Forward pass → fp32 logits [B, S, vocab], and with ``return_aux``
+    also the router's load-balance term averaged over the layers.
+    token_mask [B, S] keeps pad positions out of expert routing and of
+    the load-balance statistics."""
     c = config
     segment_ids = None
     if positions is None:
         segment_ids, positions = llama.positions_and_segments(
             c, tokens, serving=False)
-    x, _ = _trunk(c, params, tokens, positions, token_mask,
-                  return_kv=False, segment_ids=segment_ids)
-    return lm_logits(c, params, x)
+    x, _, aux = _trunk(c, params, tokens, positions, token_mask,
+                       return_kv=False, segment_ids=segment_ids,
+                       with_aux=return_aux)
+    logits = lm_logits(c, params, x)
+    return (logits, aux) if return_aux else logits
 
 
 def loss_fn(config: MoEConfig, params: Params, tokens: torch.Tensor,
-            targets: torch.Tensor, loss_mask=None, token_mask=None):
-    """Cross-entropy plus the router's load-balance loss: not ported yet
-    (ROADMAP.md queue 1 item 6.4)."""
-    del config, params, tokens, targets, loss_mask, token_mask
-    raise NotImplementedError(_TRAINING)
+            targets: torch.Tensor, loss_mask=None, token_mask=None
+            ) -> torch.Tensor:
+    """Next-token cross-entropy over the full vocabulary plus
+    ``router_aux_coef`` x the load-balance term. loss_mask [B, S] selects
+    the targets that count; token_mask [B, S] marks the real input
+    positions and reaches routing only (a prompt token counts for no loss
+    but still goes through its experts)."""
+    logits, aux = forward(config, params, tokens, return_aux=True,
+                          token_mask=token_mask)
+    nll = llama._token_nll(logits, targets)
+    if loss_mask is not None:
+        mask = loss_mask.float()
+        ce = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    else:
+        ce = nll.mean()
+    return ce + config.router_aux_coef * aux
+
+
+def pipelined_loss_fn(config: MoEConfig, params: Params, tokens, targets,
+                      mesh=None, n_microbatches: int = 1, loss_mask=None,
+                      token_mask=None):
+    """loss_fn with the layer stack pipelined over a mesh's stages: not
+    ported yet (ROADMAP.md queue 1 item 8)."""
+    del config, params, tokens, targets, mesh, n_microbatches
+    del loss_mask, token_mask
+    raise NotImplementedError(_PIPELINE)
 
 
 def lm_logits(config: MoEConfig, params: Params,
@@ -370,8 +491,8 @@ def prefill_hidden(config: MoEConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     lens = torch.as_tensor(true_len, device=tokens.device).reshape(-1, 1)
     token_mask = (positions < lens).float()
-    x, kv = _trunk(config, params, tokens, positions, token_mask,
-                   return_kv=True)
+    x, kv, _ = _trunk(config, params, tokens, positions, token_mask,
+                      return_kv=True)
     return llama.last_token_hidden(x, true_len), kv
 
 

@@ -348,6 +348,31 @@ def matmul(x: torch.Tensor, w,
     return _plain_matmul(x, w, preferred_element_type)
 
 
+class _UpcastBmm(torch.autograd.Function):
+    """fp32 per-expert products from lower-precision operands on the
+    card: cuBLAS's ``out_dtype`` forward, which torch 2.11 cannot
+    differentiate, with the gradient the CPU's fp32 copies give: the fp32
+    cotangent against fp32 copies of the operands, cast back to their
+    types (JAX casts a cotangent to its primal's type)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype):
+        ctx.save_for_backward(x, w)
+        return torch.bmm(x, w, out_dtype=dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(dout, w.to(dout.dtype).transpose(1, 2)).to(
+                x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x.to(dout.dtype).transpose(1, 2), dout).to(
+                w.dtype)
+        return dx, dw, None
+
+
 def _plain_expert_matmul(x: torch.Tensor, w: torch.Tensor,
                          preferred_element_type: Optional[torch.dtype]
                          ) -> torch.Tensor:
@@ -355,7 +380,7 @@ def _plain_expert_matmul(x: torch.Tensor, w: torch.Tensor,
             x.dtype == w.dtype == preferred_element_type):
         return torch.bmm(x, w)
     if x.is_cuda:
-        return torch.bmm(x, w, out_dtype=preferred_element_type)
+        return _UpcastBmm.apply(x, w, preferred_element_type)
     return torch.bmm(x.to(preferred_element_type),
                      w.to(preferred_element_type))
 
@@ -369,8 +394,9 @@ def expert_matmul(x: torch.Tensor, w,
     preferred_element_type as in ``matmul``. On a card the fp32 output
     comes from cuBLAS (``out_dtype``: lower-precision operands, fp32 sums
     returned unrounded); the CPU has no such product, so there it is taken
-    from fp32 copies, the same function. No gradient: serving only. A
-    quantized weight's [E, out] scale broadcasts as [E, 1, out].
+    from fp32 copies, the same function, and so is the card's gradient
+    (``_UpcastBmm``). Quantized weights are for serving only (no
+    gradient); their [E, out] scale broadcasts as [E, 1, out].
     """
     if isinstance(w, QuantizedTensor):
         _check_axis(w, -2, 'expert_matmul')

@@ -27,7 +27,9 @@ import torch
 from skypilot_tpu_torch import Device, models, resolve_device
 from skypilot_tpu_torch.agent import flight_recorder
 from skypilot_tpu_torch.agent import telemetry
+from skypilot_tpu_torch.models import deepseek
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.train import lora as lora_lib
 from skypilot_tpu_torch.train import optim
@@ -155,14 +157,13 @@ class Trainer:
                 f'divisible by accum_steps {config.accum_steps}')
         _check_mesh(config.mesh_plan)
         self._model_lib = models.module_for(config.model)
-        if not hasattr(self._model_lib, 'loss_fn'):
-            raise NotImplementedError(
-                f'{self._model_lib.__name__} has no loss_fn yet, so it '
-                'cannot train (full or LoRA): ROADMAP.md queue 1 item '
-                '6.4, "DeepSeek and Mixtral training".')
         self.device = resolve_device(device)
+        # Only a model whose attention goes to the flash kernels needs
+        # their head dims; 'xla' (DeepSeek's, whose qk and v head dims
+        # differ) trains on the plain attention, as in the reference.
         head_dim = getattr(config.model, 'head_dim', None)
         if (self.device.type == 'cuda'
+                and config.model.attention_impl != 'xla'
                 and head_dim not in flash_ops.BWD_HEAD_DIMS):
             raise NotImplementedError(
                 f'head_dim {head_dim}: the flash backward kernels take '
@@ -260,9 +261,15 @@ class Trainer:
         if self._lora:
             params = lora_lib.merge(state['base'], params, c.lora_alpha,
                                     c.lora_rank)
+        kwargs = {}
+        if self._model_lib in (moe, deepseek):
+            # Routed families: pads stay out of routing (the loss mask,
+            # which targets count, is a separate matter).
+            kwargs['token_mask'] = batch.get('token_mask')
         return self._model_lib.loss_fn(c.model, params,
                                        batch['tokens'], batch['targets'],
-                                       loss_mask=batch.get('mask'))
+                                       loss_mask=batch.get('mask'),
+                                       **kwargs)
 
     def _loss_and_grads(self, state, batch: Batch
                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:

@@ -115,13 +115,24 @@ def test_unknown_targets_raise_as_in_jax():
 
 
 def test_deepseek_lora_targets_wait_for_deepseek_training():
-    """MLA targets (w_uq, w_ukv, wo) need DeepSeek's loss_fn, which the
-    port does not have yet."""
-    with pytest.raises(NotImplementedError, match='queue 1 item 6.4'):
-        trainer.Trainer(trainer.TrainConfig(
-            model=deepseek.DEEPSEEK_TINY, global_batch_size=2, seq_len=8,
-            lora_rank=4, lora_targets=('w_uq', 'w_ukv', 'wo')),
-            device='cpu')
+    """MLA targets (w_uq, w_ukv, wo) needed DeepSeek's loss_fn, which the
+    port now has (item 6.4): the Trainer takes them, trains only the
+    adapters and leaves the base as it was (the values against the JAX
+    LoRA are in test_torch_deepseek_train.py)."""
+    tr = trainer.Trainer(trainer.TrainConfig(
+        model=dataclasses.replace(deepseek.DEEPSEEK_TINY,
+                                  dtype=torch.float32),
+        global_batch_size=2, seq_len=8, lora_rank=4,
+        lora_targets=('w_uq', 'w_ukv', 'wo')), device='cpu')
+    state = tr.init_state()
+    base = [t.clone() for t in trainer.param_leaves(state['base'])]
+    assert {k for group in state['params'].values() for k in group} == {
+        'w_uq', 'w_ukv', 'wo'}
+    tokens = torch.arange(16).reshape(2, 8)
+    state, metrics = tr.step(state, {'tokens': tokens, 'targets': tokens})
+    assert torch.isfinite(metrics['loss'])
+    assert all(torch.equal(a, b) for a, b in zip(
+        trainer.param_leaves(state['base']), base))
 
 
 def test_merge_matches_jax(trees):

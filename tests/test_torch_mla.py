@@ -219,8 +219,9 @@ def test_route_and_moe_mlp_match_jax(moe_layer, case):
     assert not (~real & r.keep.numpy()).any(), 'a masked token was routed'
     jout, _ = jax_moe._moe_mlp(view, None, jnp.asarray(h), jlp,
                                token_mask=jmask, capacity=kw['capacity'])
-    tout = moe._moe_mlp(TCFG, torch.from_numpy(h), tlp, token_mask=tmask,
-                        capacity=kw['capacity'])
+    tout, aux = moe._moe_mlp(TCFG, torch.from_numpy(h), tlp,
+                             token_mask=tmask, capacity=kw['capacity'])
+    assert aux is None
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5,
                                rtol=0)
 
@@ -247,7 +248,7 @@ def test_moe_mlp_bf16_matches_jax_roundings(capacity):
     jout, _ = jax_moe._moe_mlp(jax_deepseek._RouterView(jcfg), None, jh, jlp,
                                capacity=capacity)
     want = np.array(jout.astype(jnp.float32))
-    got = moe._moe_mlp(tcfg, th, tlp, capacity=capacity)
+    got, _ = moe._moe_mlp(tcfg, th, tlp, capacity=capacity)
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     assert np.abs(want).max() < 2.0

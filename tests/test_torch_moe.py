@@ -411,22 +411,22 @@ def test_configs_and_dispatch_match_jax():
 
 
 def test_training_and_the_paged_cache_are_refused():
-    """The load-balance loss waits for item 6.4 (forward's return_aux,
-    loss_fn, so the Trainer's step); the reference has no paged hook for
-    this family, and the engine refuses the paged cache as for any
-    family without one."""
+    """Training is no longer refused (item 6.4 is done): forward's
+    return_aux, loss_fn and so the Trainer's step run (their values
+    against the reference are in test_torch_moe_train.py); the reference
+    has no paged hook for this family, and the engine still refuses the
+    paged cache as for any family without one."""
     cfg = moe.MOE_TINY_F32
     weights = moe.init(cfg, device='cpu')
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match='queue 1 item 6.4'):
-        moe.forward(cfg, weights, tokens, return_aux=True)
-    with pytest.raises(NotImplementedError, match='queue 1 item 6.4'):
-        moe.loss_fn(cfg, weights, tokens, tokens)
+    logits, aux = moe.forward(cfg, weights, tokens, return_aux=True)
+    assert logits.shape == (1, 8, cfg.vocab_size) and aux.ndim == 0
+    assert torch.isfinite(moe.loss_fn(cfg, weights, tokens, tokens))
     tr = trainer.Trainer(trainer.TrainConfig(model=cfg, global_batch_size=1,
                                              seq_len=8), device='cpu')
-    with pytest.raises(NotImplementedError, match='queue 1 item 6.4'):
-        tr.step(tr.init_state(weights), {'tokens': tokens,
-                                         'targets': tokens})
+    _, metrics = tr.step(tr.init_state(weights), {'tokens': tokens,
+                                                  'targets': tokens})
+    assert metrics['step'] == 1 and torch.isfinite(metrics['loss'])
     with pytest.raises(NotImplementedError,
                        match='moe has no paged_decode_forward hook'):
         engine_lib.InferenceEngine(engine_lib.EngineConfig(

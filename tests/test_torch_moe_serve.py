@@ -159,8 +159,8 @@ def test_engine_greedy_tokens_match_jax(tree, monkeypatch, case):
     waves = []
     real_route = moe.route
 
-    def spy(config, router_w, x, token_mask=None, capacity=None):
-        r = real_route(config, router_w, x, token_mask, capacity)
+    def spy(config, router_w, x, token_mask=None, capacity=None, **kw):
+        r = real_route(config, router_w, x, token_mask, capacity, **kw)
         if capacity is None:          # a prefill wave, not a decode step
             real = (token_mask != 0)[:, None]
             waves.append((x.shape[0], bool((real & ~r.keep).any())))

@@ -524,6 +524,27 @@ def test_mixtral_entry_points_raise_without_a_card(no_card):
     assert engine.device.type == 'cpu'
 
 
+@pytest.mark.parametrize('name', ['moe-tiny', 'deepseek-tiny'])
+def test_routed_trainers_raise_without_a_card(no_card, name):
+    """Mixtral and DeepSeek training, like every entry point: the
+    Trainer, measure_throughput and the launcher run on the card unless
+    the caller asks for the CPU."""
+    from skypilot_tpu_torch import models
+    from skypilot_tpu_torch.train import launch
+    cfg = trainer.TrainConfig(model=models.get_config(name),
+                              global_batch_size=2, seq_len=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        trainer.Trainer(cfg)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        trainer.measure_throughput(trainer.Trainer(cfg), num_steps=1)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        launch.main(['--model', name, '--steps', '1'])
+    tr = trainer.Trainer(cfg, device='cpu')
+    assert tr.device.type == 'cpu'
+    _, metrics = tr.step(tr.init_state(), tr.synthetic_batch())
+    assert torch.isfinite(metrics['loss'])
+
+
 def test_chip_smoke_mixtral_phases_check_their_derived_launches():
     """Phases [30] and [31] run after [29], on the card. [30] builds
     Mixtral-8x7B's int8 replica as serve_mixtral.yaml sizes it (the
@@ -562,3 +583,64 @@ def test_chip_smoke_mixtral_phases_check_their_derived_launches():
         'small_gemma_train_checks()', 'mixtral_replica(records)',
         'small_mixtral_end_to_end()', "print(json.dumps({'ok': True")]
     assert order == sorted(order)
+
+
+def test_chip_smoke_routed_training_phases_check_their_derived_launches():
+    """Phases [32]-[34] run after [31], on the card. [32] trains
+    Mixtral-8x7B's widths at 2 layers through the Trainer (launch counts
+    zeroed just before the steps) and holds K1-K3 to the counts derived
+    from layers x steps and the remat factor; [33] trains DeepSeek-V2-Lite
+    at 4 layers and through the launcher with LoRA, and holds every
+    kernel to 0; [34] wants K1-K3 and nothing else for moe-tiny and no
+    kernel for DeepSeek; phase [3] puts K2 and K3 at Mixtral's heads in
+    the kernels line."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    assert chip_smoke.MIXTRAL_TRAIN == dict(layers=2, seq=4096, batch=2,
+                                            warmup=1, measured=3)
+    assert chip_smoke.DEEPSEEK_TRAIN == dict(layers=4, seq=4096, batch=1,
+                                             warmup=1, measured=3)
+    assert chip_smoke.MIXTRAL_BWD == dict(b=2, s=4096, h=32, h_kv=8, d=128)
+    steps = inspect.getsource(chip_smoke.train_routed)
+    assert steps.index('zero_launches()') < steps.index('tr.step(') < \
+        steps.index('kernels.REGISTRY')
+    mixtral = inspect.getsource(chip_smoke.mixtral_train_path)
+    assert mixtral.index('train_routed(') < mixtral.index(
+        'check_derived_launches(') < mixtral.index("'mixtral_train'")
+    ds = inspect.getsource(chip_smoke.deepseek_train_path)
+    for flag in ("'deepseek-v2-lite'", "'--lora-rank'", "'--device', 'cuda'"):
+        assert flag in ds
+    assert ds.index('train_routed(') < ds.index('launch_run(') < ds.index(
+        "check_derived_launches('deepseek_train (LoRA launch)'") < \
+        ds.index("'deepseek_train'")
+    assert 'TRAIN_KERNELS' in inspect.getsource(
+        chip_smoke.small_routed_train_checks)
+    assert "records[name]['mixtral'] = mixtral[name]" in inspect.getsource(
+        chip_smoke.check_flash_bwd)
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'small_mixtral_end_to_end()', 'mixtral_train_path(records)',
+        'deepseek_train_path(records)', 'small_routed_train_checks()',
+        "print(json.dumps({'ok': True")]
+    assert order == sorted(order)
+
+
+def test_capture_aux_reads_each_loss_term_and_restores_the_function():
+    """chip_smoke's capture_aux keeps the load-balance term each routed
+    loss computes, with no other forward, and puts the function back."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from skypilot_tpu_torch.models import moe
+    cfg = moe.MOE_TINY_F32
+    params = moe.init(cfg, device='cpu')
+    tokens = torch.arange(16).reshape(2, 8)
+    real = moe.forward
+    with chip_smoke.capture_aux(moe, 'forward') as aux:
+        loss = moe.loss_fn(cfg, params, tokens, tokens)
+        moe.forward(cfg, params, tokens)          # no term: not kept
+    assert moe.forward is real and len(aux.values) == 1
+    _, want = moe.forward(cfg, params, tokens, return_aux=True)
+    assert torch.equal(aux.values[0], want)
+    ce = loss - cfg.router_aux_coef * want
+    assert torch.isfinite(ce) and float(want) > 0

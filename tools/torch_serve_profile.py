@@ -94,12 +94,15 @@ def _kernel_events(prof):
     out = []
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and evt.name not in RANGES):
+                and evt.name not in RANGES
+                and not evt.name.startswith('xsky.')):
             out.append((evt.name, evt.device_time_total))
     return out
 
 
-def traced(label: str, fn) -> dict:
+def traced(label: str, fn, attribute=None) -> dict:
+    """One traced call of fn → its device summary; ``attribute(prof)``,
+    when given, adds its own keys from the trace."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -132,6 +135,8 @@ def traced(label: str, fn) -> dict:
                'expert_products_ms': range_ms[EXPERT_RANGE],
                'ms_by_category': dict(by_category),
                'ms_by_kernel': dict(by_name)}
+    if attribute is not None:
+        summary.update(attribute(prof))
     print(f'{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms '
           f'(idle share {summary["idle_share"]:.3f}), '
           f'{len(kernels)} kernel launches, dequantized weight copies '
