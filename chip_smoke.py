@@ -233,6 +233,32 @@ Phases, in order; any failure exits non-zero:
      loss mask: the loss, its load-balance term and every gradient (two
      card runs bit-identical), two Trainer steps; train/launch.py --model
      moe-tiny resumed from a checkpoint within rel 1e-4.
+ 35. the classifier: python -m skypilot_tpu_torch.train.classify with
+     examples/tpu/finetune_classifier.yaml's flags (--model 1b
+     --batch-size 32 --seq-len 256 --lr 1e-4) and 60 steps in place of
+     its 500, in-process (Llama-3-1B bf16, random weights, the synthetic
+     set): the reference's JSON keys, a finite loss, K1 = 16 layers x
+     (steps + 4 held-out batches), K2 = K3 = 16 x steps, nothing else;
+     tokens/s of the step loop, peak memory, eval accuracy; then
+     --head-only for 5 steps: K1 only, every trunk leaf bit-identical;
+     then the reference test's small check (fp32 LLAMA_TINY, seq 32, B8,
+     lr 1e-3, 60 steps, the flash kernels at D16): eval accuracy >= 0.8
+     and every loss on the card equal to the CPU's within 1e-4;
+ 36. the workload hooks: a Llama-3-1B engine (8 slots x 2048, bucket
+     1024) serves 8 prompts of 960-1024 tokens, 32 new, with the
+     profiler sampling every 2nd tick onto a telemetry spool, by the fast
+     tick and by the legacy tick (XSKY_DECODE_FAST_TICK=0) at
+     decode_steps 1 and 4: equal greedy streams, K1 = 16 x flash waves and
+     K4 = 16 x decode steps on each, and a spool profile with sampled
+     steps, device time, a dispatch-gap ratio in (0, 1), HBM in use below
+     the card's total and no compile after warm-up; then a chaos plan
+     (infer.decode_stall on 2 ticks at 0.2 s, profiler.dispatch_stall at
+     0.5 s): the fires counted, the two ticks >= 0.2 s longer, the sampled
+     gap >= 0.5 s; 4 Llama-3-1B Trainer steps (seq 2048) sampled every
+     2nd: the sampled flight-recorder records synced with device time;
+     python -m skypilot_tpu_torch.agent.profiler capture as a subprocess:
+     the reference's keys, the card's name, positive times, a parseable
+     Chrome trace.
 Phase 3 also holds K2 and K3 at Mixtral's training heads (bf16 B2 S4096
 H32/8 D128, causal: checked blockwise, two runs bit-identical, timed
 beside the plain backward and SDPA's): the `mixtral` entries of K2's and
@@ -252,8 +278,9 @@ Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21, each launcher run of 34) every kernel's launch count is set
 to 0; just after, the kernels of that path must each have run, and no
 other. Phases 23, 24 (and its self-draft), 26, each run of 28, 30, 32
-and both runs of 33 hold each kernel to the count derived from the run's
-prefills, steps and rounds, every other kernel to 0. A phase's first
+and both runs of 33, both runs of 35 and each served run of 36 hold each
+kernel to the count derived from the run's prefills, steps and rounds,
+every other kernel to 0. A phase's first
 line says when it began.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -275,6 +302,7 @@ import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -5107,6 +5135,430 @@ def small_routed_train_checks() -> None:
     release_card()
 
 
+# ---- phases 35 and 36: the classifier, and the workload hooks ----
+
+# finetune_classifier.yaml's flags, with 60 steps in place of its 500.
+CLASSIFY = dict(model='1b', batch=32, seq=256, lr='1e-4', steps=60,
+                head_only_steps=5)
+CLASSIFY_ARGS = ['--model', CLASSIFY['model'], '--batch-size',
+                 str(CLASSIFY['batch']), '--seq-len', str(CLASSIFY['seq']),
+                 '--lr', CLASSIFY['lr']]
+# train()'s default held-out batches: one K1 launch per layer each.
+CLASSIFY_EVAL_BATCHES = 4
+# The reference test's settings (tests/unit_tests/test_classify.py).
+CLASSIFY_SMALL = dict(seq=32, batch=8, lr=1e-3, steps=60, min_accuracy=0.8)
+
+
+class classify_steps:
+    """Wraps ``classify.make_train_step`` while a phase runs
+    ``classify.main`` in-process for ``steps`` steps: the ends of the
+    first and the last step after a wait for the card (the loop's
+    tokens/s; no other step waits), a copy of the trunk as the first step
+    found it, and the parameters after the last step."""
+
+    def __init__(self, steps: int):
+        from skypilot_tpu_torch.train import classify
+        self.module, self.steps, self.calls = classify, steps, 0
+        self.ends, self.before, self.params = [], None, None
+
+    def __enter__(self):
+        self.real = self.module.make_train_step
+
+        def make(config, tx):
+            step = self.real(config, tx)
+
+            def timed(params, opt_state, batch):
+                if self.before is None:
+                    self.before = {k: v.detach().clone() for k, v in
+                                   flat_tree(params['trunk']).items()}
+                out = step(params, opt_state, batch)
+                self.calls += 1
+                if self.calls in (1, self.steps):
+                    torch.cuda.synchronize()
+                    self.ends.append(time.perf_counter())
+                self.params = out[0]
+                return out
+            return timed
+
+        self.module.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_train_step = self.real
+        return False
+
+
+def run_classify(steps: int, extra, label: str, want: dict) -> tuple:
+    """classify.main in-process with the yaml's flags, ``--steps steps``
+    and ``extra``; launch counts zeroed just before and read just after;
+    every kernel held to ``want`` (absent: 0) → (the JSON line, the step
+    capture, launches)."""
+    from skypilot_tpu_torch.train import classify
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with classify_steps(steps) as cap, contextlib.redirect_stdout(out):
+        classify.main(CLASSIFY_ARGS + ['--steps', str(steps)] + extra)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f'    {line}')
+    line = json.loads(lines[-1])
+    log(f'  {label}: {lines[-1]}; launches {launches}')
+    if set(line) != {'metric', 'value', 'loss', 'model', 'steps'} or not (
+            np.isfinite(line['loss']) and 0.0 <= line['value'] <= 1.0):
+        raise AssertionError(f'{label}: last line {line}')
+    check_derived_launches(label, launches, want)
+    return line, cap, launches
+
+
+def classifier_path(records: dict) -> None:
+    from skypilot_tpu_torch.models import llama
+    cfg, c = llama.LLAMA3_1B, CLASSIFY
+    log(f'[35] the classifier: python -m skypilot_tpu_torch.train.classify '
+        f'{" ".join(CLASSIFY_ARGS)} --steps {c["steps"]} (the '
+        f'finetune_classifier.yaml flags, {c["steps"]} steps in place of '
+        f'its 500) in-process: Llama-3-1B bf16 ({cfg.n_layers} layers), '
+        f'random weights, the synthetic set, the flash kernels at seq '
+        f'{c["seq"]}; then --head-only for {c["head_only_steps"]} steps; '
+        'then the reference test\'s small check, card vs CPU')
+    layers, steps = cfg.n_layers, c['steps']
+    want = {'flash_fwd': layers * (steps + CLASSIFY_EVAL_BATCHES),
+            'flash_bwd_dkv': layers * steps, 'flash_bwd_dq': layers * steps}
+    line, cap, launches = run_classify(steps, [], 'full', want)
+    loop_s = cap.ends[-1] - cap.ends[0]
+    tok_s = (steps - 1) * c['batch'] * c['seq'] / loop_s
+    log(f'  full: steps 2-{steps} in {loop_s:.3f} s: {tok_s:.1f} tokens/s, '
+        f'{loop_s / (steps - 1) * 1e3:.2f} ms a step; eval accuracy '
+        f'{line["value"]}, loss {line["loss"]}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on '
+        f'{nvidia_smi_line()}')
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['classify'] = (
+            launches[name])
+    del cap
+    release_card()
+    steps = c['head_only_steps']
+    want = {'flash_fwd': layers * (steps + CLASSIFY_EVAL_BATCHES)}
+    line, cap, launches = run_classify(steps, ['--head-only'], 'head-only',
+                                       want)
+    after = flat_tree(cap.params['trunk'])
+    changed = [k for k, v in cap.before.items() if not torch.equal(
+        v, after[k])]
+    head_moved = float(cap.params['head']['w'].detach().abs().sum())
+    log(f'  head-only: trunk leaves bit-identical after {steps} steps: '
+        f'{not changed} ({len(after)} leaves); |head w| {head_moved:.4f}')
+    if changed:
+        raise AssertionError(f'head-only changed the trunk: {changed}')
+    records['flash_fwd'].setdefault('launches_by_path', {})[
+        'classify_head_only'] = launches['flash_fwd']
+    del cap
+    release_card()
+    small_classifier_check()
+
+
+def small_classifier_check() -> None:
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import classify
+    from skypilot_tpu_torch.train import optim
+    c = CLASSIFY_SMALL
+    model = dataclasses.replace(llama.LLAMA_TINY, max_seq_len=c['seq'],
+                                dtype=torch.float32, attention_impl='flash')
+    cfg = classify.ClassifyConfig(model=model, num_classes=2,
+                                  seq_len=c['seq'], batch_size=c['batch'],
+                                  learning_rate=c['lr'])
+    gen = torch.Generator()
+    gen.manual_seed(35)
+    cpu_params = classify.init(cfg, gen, 'cpu')
+    gen.manual_seed(36)
+    stream = classify.synthetic_batches(cfg, gen)
+    cpu_batches = [next(stream) for _ in range(c['steps'] + 4)]
+    runs, used = {}, {}
+    for device in ('cuda', 'cpu'):
+        params = to_device(cpu_params, device)
+        batches = [{k: v.to(device) for k, v in bt.items()}
+                   for bt in cpu_batches]
+        tx = optim.adamw(lambda count: c['lr'], weight_decay=0.01)
+        opt_state = classify.init_opt_state(cfg, tx, params)
+        step = classify.make_train_step(cfg, tx)
+        before = {k.name: k.launches for k in kernels.REGISTRY}
+        losses = []
+        for bt in batches[:c['steps']]:
+            params, opt_state, loss = step(params, opt_state, bt)
+            losses.append(loss)
+        acc = np.mean([float(classify.eval_accuracy(cfg, params, bt))
+                       for bt in batches[c['steps']:]])
+        runs[device] = (np.array([float(x) for x in losses]), acc)
+        used[device] = {k.name: k.launches - before[k.name]
+                        for k in kernels.REGISTRY}
+    (card, card_acc), (cpu, cpu_acc) = runs['cuda'], runs['cpu']
+    err = float(np.abs(card - cpu).max())
+    log(f'  small check (fp32 LLAMA_TINY, seq {c["seq"]}, B{c["batch"]}, lr '
+        f'{c["lr"]}, {c["steps"]} steps, TF32 off, flash at D16): eval '
+        f'accuracy card {card_acc:.4f} / CPU {cpu_acc:.4f} (want >= '
+        f'{c["min_accuracy"]}); losses {card[0]:.6f} -> {card[-1]:.6f}, '
+        f'card vs CPU max_abs_err {err:.3e} (tolerance {TRAIN_LOSS_ATOL:g}); '
+        f'card launches {used["cuda"]}')
+    if card_acc < c['min_accuracy'] or cpu_acc < c['min_accuracy']:
+        raise AssertionError('the small classifier did not learn')
+    if err > TRAIN_LOSS_ATOL:
+        raise AssertionError('classifier losses differ between the card '
+                             'and the CPU')
+    for name, n in used['cuda'].items():
+        if (n > 0) != (name in TRAIN_KERNELS):
+            raise AssertionError(f'small classifier: {name} ran {n} times '
+                                 f'on the card: {used["cuda"]}')
+
+
+# The reference's capture keys (skypilot_tpu/agent/profiler.py run_capture).
+CAPTURE_KEYS = {'ts', 'duration_s', 'out_dir', 'fake', 'device_kind',
+                'num_devices', 'probe_compile_s', 'dispatch_probes',
+                'dispatch_rtt_ms', 'device_matmul_ms', 'bytes_in_use',
+                'bytes_limit', 'trace_files'}
+HOOKS_SERVE = dict(slots=8, max_len=2048, prompts=8, prompt_len=(960, 1024),
+                   new_tokens=32, sample_every=2)
+HOOKS_CHAOS = dict(stall_s=0.2, stalled_ticks=2, gap_s=0.5)
+HOOKS_TRAIN = dict(seq=2048, batch=1, steps=4, sample_every=2)
+
+
+def spool_profile(spool: str) -> dict:
+    with open(os.path.join(spool, 'rank-0.json')) as f:
+        return json.load(f)['profile']
+
+
+def check_profile(label: str, prof: dict) -> None:
+    """What a sampled run's profile must show on the card: a probe that
+    measured nothing fails here."""
+    limit = torch.cuda.mem_get_info()[1]
+    ok = (prof['steps_sampled'] >= 1 and prof['device_ema_s'] > 0
+          and 0 < prof['dispatch_gap_ratio'] < 1
+          and 0 < prof['hbm_bytes_in_use'] < prof['hbm_bytes_limit']
+          and prof['hbm_bytes_limit'] == limit
+          and prof['compiles_after_warmup'] == 0)
+    log(f'    {label} profile: {json.dumps(prof)}')
+    if not ok:
+        raise AssertionError(f'{label}: the profile measured nothing or '
+                             f'too little (card total {limit} bytes)')
+
+
+def hooked_serving(records: dict, spool: str) -> None:
+    from skypilot_tpu_torch.agent import profiler
+    from skypilot_tpu_torch.agent import telemetry
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.utils import chaos
+    cfg, c = llama.LLAMA3_1B, HOOKS_SERVE
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(36)
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, max_slots=c['slots'],
+                                max_target_len=c['max_len'],
+                                prefill_buckets=(1024,)),
+        llama.init(cfg, gen))
+    steps = count_decode_steps(engine)
+    waves = count_flash_waves(engine)
+    rng = np.random.default_rng(36)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(*c['prompt_len'], c['prompts'])]
+
+    def timed(fn, walls):
+        def call():
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return call
+
+    def serve(label, fast, decode_steps, path):
+        profiler.reset_for_test()
+        telemetry.reset_for_test()
+        with mock.patch.dict(os.environ, {
+                'XSKY_DECODE_FAST_TICK': '1' if fast else '0'}):
+            orch = orch_lib.Orchestrator(engine, decode_steps=decode_steps)
+        # Each tick's wall, and the wall of its decode work alone (the
+        # tick less its chaos point): their difference is the stall.
+        ticks, work = [], []
+        for name, walls in (('_decode_tick', ticks),
+                            ('_decode_tick_fast' if fast
+                             else '_decode_tick_legacy', work)):
+            setattr(orch, name, timed(getattr(orch, name), walls))
+        steps[0] = waves[0] = 0
+        zero_launches()
+        t0 = time.perf_counter()
+        out = orch.generate(prompts, max_new_tokens=c['new_tokens'])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.REGISTRY}
+        check_derived_launches(label, launches, {
+            'flash_fwd': cfg.n_layers * waves[0],
+            'decode_attention': cfg.n_layers * steps[0]})
+        for name in ('flash_fwd', 'decode_attention'):
+            records[name].setdefault('launches_by_path', {})[path] = (
+                launches[name])
+        log(f'  {label}: {len(out)} x {c["new_tokens"]} tokens in {dt:.3f} '
+            f's, {len(ticks)} ticks, {steps[0]} decode steps, {waves[0]} '
+            f'flash waves; wasted rows {orch.wasted_decode_steps}; launches '
+            f'{launches}')
+        return out, [t - w for t, w in zip(ticks, work)], spool_profile(
+            spool)
+
+    streams = {}
+    for label, fast, n, path in (('fast tick (decode_steps 4)', True, 4,
+                                  'hooks_fast'),
+                                 ('legacy tick, decode_steps 1', False, 1,
+                                  'hooks_legacy_1'),
+                                 ('legacy tick, decode_steps 4', False, 4,
+                                  'hooks_legacy_4')):
+        streams[label], _, prof = serve(label, fast, n, path)
+        check_profile(label, prof)
+    first = next(iter(streams.values()))
+    same = all(s == first for s in streams.values())
+    log(f'  greedy streams of the three ticks equal: {same}')
+    if not same:
+        raise AssertionError('the legacy and fast ticks give different '
+                             'greedy streams')
+    h = HOOKS_CHAOS
+    chaos.load_plan({'points': {
+        'infer.decode_stall': {'first_n': h['stalled_ticks'],
+                               'latency_s': h['stall_s']},
+        'profiler.dispatch_stall': {'gap_s': h['gap_s']}}})
+    try:
+        out, stalls, prof = serve('fast tick under a chaos plan', True, 4,
+                                  'hooks_chaos')
+        fired = chaos.fired()
+    finally:
+        chaos.clear()
+    n = h['stalled_ticks']
+    log(f'  chaos: fired {fired}; each tick longer than its decode work by '
+        f'{[round(x, 4) for x in stalls]} s (want >= {h["stall_s"]} on the '
+        f'first {n}, ~0 after); sampled gap EMA '
+        f'{prof["dispatch_gap_ema_s"]:.4f} s (want >= {h["gap_s"]})')
+    if (len(stalls) <= n
+            or fired.get('infer.decode_stall') != n
+            or fired.get('profiler.dispatch_stall') != prof['steps_sampled']
+            or min(stalls[:n]) < h['stall_s']
+            or max(stalls[n:]) >= h['stall_s']
+            or prof['dispatch_gap_ema_s'] < h['gap_s']):
+        raise AssertionError('the chaos points did not act as planned')
+    if out != first:
+        raise AssertionError('the stalled run changed the greedy streams')
+    del engine
+    release_card()
+
+
+def hooked_training(records: dict) -> None:
+    from skypilot_tpu_torch.agent import flight_recorder
+    from skypilot_tpu_torch.agent import profiler
+    from skypilot_tpu_torch.agent import telemetry
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    t = HOOKS_TRAIN
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True,
+                              remat_policy='qkvo_gup')
+    tcfg = trainer_lib.TrainConfig(model=cfg, global_batch_size=t['batch'],
+                                   seq_len=t['seq'], optimizer='adafactor',
+                                   warmup_steps=1)
+    profiler.reset_for_test()
+    telemetry.reset_for_test()
+    flight_recorder.reset_for_test()
+    trainer = trainer_lib.Trainer(tcfg)
+    state = trainer.init_state()
+    rng = np.random.default_rng(36)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (t['batch'], t['seq'] + 1)))
+    batch = {'tokens': seq[:, :-1].cuda(), 'targets': seq[:, 1:].cuda()}
+    torch.cuda.synchronize()
+    zero_launches()
+    with mock.patch.dict(os.environ, {
+            'XSKY_PROFILE_SAMPLE_EVERY': str(t['sample_every'])}):
+        for step in range(t['steps']):
+            flight_recorder.begin_step(step)
+            state, metrics = trainer.step(state, batch)
+            flight_recorder.record_step(step)
+    loss = float(metrics['loss'])
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_launches('hooked training', launches, TRAIN_KERNELS, cfg.n_layers)
+    for name in TRAIN_KERNELS:
+        records[name].setdefault('launches_by_path', {})['hooks_train'] = (
+            launches[name])
+    synced = [r['synced'] for r in
+              flight_recorder.get_recorder().records()[::-1]]
+    want = [(i + 1) % t['sample_every'] == 0 for i in range(t['steps'])]
+    prof = profiler.snapshot()
+    device = [r['phases']['device_compute'] for r in
+              flight_recorder.get_recorder().records()[::-1]]
+    log(f'  Trainer: Llama-3-1B, seq {t["seq"]}, B{t["batch"]}, '
+        f'{t["steps"]} steps sampled every {t["sample_every"]}: loss '
+        f'{loss:.4f}; records synced {synced}, device_compute {device}; '
+        f'profile device EMA {prof["device_ema_s"]}, gap EMA '
+        f'{prof["dispatch_gap_ema_s"]}; launches {launches}')
+    if synced != want or not prof['device_ema_s'] or not all(
+            device[i] > 0 for i, s in enumerate(want) if s):
+        raise AssertionError('the sampled training steps were not synced '
+                             'or measured no device time')
+    del trainer, state
+    release_card()
+
+
+def profiler_capture() -> None:
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='xsky-capture-') as out:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'skypilot_tpu_torch.agent.profiler',
+             'capture', '--out', out, '--duration', '0.5'],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=180)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            raise AssertionError(f'capture failed ({proc.returncode}): '
+                                 f'{proc.stderr[-2000:]}')
+        summary = json.loads(lines[-1])
+        with open(os.path.join(out, 'trace.json')) as f:
+            events = json.load(f)['traceEvents']
+    kernels_seen = sum(1 for e in events if e.get('cat') == 'kernel')
+    log(f'  capture: {lines[-1]}; trace.json {len(events)} events, '
+        f'{kernels_seen} of them device kernels')
+    if (set(summary) != CAPTURE_KEYS or 'error' in summary
+            or summary['device_kind'] != torch.cuda.get_device_name(0)
+            or not summary['dispatch_rtt_ms'] > 0
+            or not summary['device_matmul_ms'] > 0
+            or not summary['probe_compile_s'] > 0):
+        raise AssertionError(f'capture summary {summary}')
+
+
+def hooks_path(records: dict) -> None:
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch.agent import telemetry
+    c = HOOKS_SERVE
+    log(f'[36] the workload hooks: Llama-3-1B bf16 served '
+        f'({c["slots"]} slots x {c["max_len"]}, {c["prompts"]} prompts of '
+        f'{c["prompt_len"][0]}-{c["prompt_len"][1]} tokens, '
+        f'{c["new_tokens"]} new) by the fast tick and by the legacy tick '
+        f'(XSKY_DECODE_FAST_TICK=0) at decode_steps 1 and 4, sampled every '
+        f'{c["sample_every"]} ticks onto a telemetry spool; a chaos plan '
+        '(infer.decode_stall, profiler.dispatch_stall); Trainer steps '
+        'sampled every 2; the profiler\'s capture as a subprocess')
+    spool = tempfile.mkdtemp(prefix='xsky-spool-')
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.dict(os.environ, {
+                'XSKY_TELEMETRY_DIR': spool, 'XSKY_TELEMETRY_INTERVAL_S': '0',
+                'XSKY_PROFILE_SAMPLE_EVERY': str(c['sample_every'])}):
+            hooked_serving(records, spool)
+        t1 = time.perf_counter()
+        hooked_training(records)
+    finally:
+        telemetry.reset_for_test()
+        shutil.rmtree(spool, ignore_errors=True)
+    t2 = time.perf_counter()
+    profiler_capture()
+    log(f'  [36] seconds: serving {t1 - t0:.1f}, Trainer {t2 - t1:.1f}, '
+        f'capture {time.perf_counter() - t2:.1f}')
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the fp32 flash backward at D 256, of the decode split
@@ -5205,6 +5657,8 @@ def main() -> int:
     mixtral_train_path(records)
     deepseek_train_path(records)
     small_routed_train_checks()
+    classifier_path(records)
+    hooks_path(records)
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -34,10 +34,13 @@ a preempted job starts from zero:
     ``train/launch.py``) → cold start, under a ``jobs.ckpt_restore``
     span. The workload then emits ``resume_step``.
 
-Not carried over: the chaos points ``ckpt.write``, ``ckpt.replicate``
-and ``ckpt.restore`` (ROADMAP.md queue 1 item 7, the hooks), and the
-control-plane side (``derive_mttf`` and the recovery journal in the
-state DB). The reference's ``xsky_ckpt_{writes,restores,bytes}_total``
+The reference's chaos points are carried: ``ckpt.write`` (an ``error``
+rule drops that snapshot, ``latency_s`` models a slow disk),
+``ckpt.replicate`` (a fault costs that peer's replica) and
+``ckpt.restore`` (traversed by every fast-tier candidate read and by the
+storage tier: a fault sends the walk on to the next copy or tier). Not
+carried over: the control-plane side (``derive_mttf`` and the recovery
+journal in the state DB). The reference's ``xsky_ckpt_{writes,restores,bytes}_total``
 counters are kept in-process (:func:`counters`); the ``ckpt_step`` /
 ``ckpt_ts`` freshness fields ride the rank's telemetry sample as in the
 reference.
@@ -319,6 +322,10 @@ class Checkpointer:
                     self._cv.notify_all()
 
     def _write_snapshot(self, step: int, payload: Any) -> None:
+        from skypilot_tpu_torch.utils import chaos
+        # Chaos: an `error` rule drops this snapshot (the write arm of
+        # the failure drills); `latency_s` models a slow disk.
+        chaos.inject('ckpt.write', rank=self.rank, step=step)
         blob = self._serializer(payload)
         digest = hashlib.sha256(blob).hexdigest()
         rank_dir = self._rank_dir()
@@ -362,16 +369,19 @@ class Checkpointer:
                    manifest: Dict[str, Any]) -> None:
         """Copy the newest shard + manifest (the in-memory blob — no
         re-read of the file just written) to the K peer roots, one
-        thread per peer. Peer failures (unreachable DCN path, full
-        disk) cost that replica only."""
+        thread per peer. Peer failures (chaos, unreachable DCN path,
+        full disk) cost that replica only."""
         if not self.peer_dirs:
             return
         from concurrent import futures
+        from skypilot_tpu_torch.utils import chaos
         from skypilot_tpu_torch.utils import tracing
         step = manifest['step']
 
         def _copy(peer_dir: str) -> bool:
             try:
+                chaos.inject('ckpt.replicate', rank=self.rank,
+                             step=step, peer=peer_dir)
                 target = os.path.join(os.path.expanduser(peer_dir),
                                       f'peer-rank-{self.rank}')
                 os.makedirs(target, exist_ok=True)
@@ -436,7 +446,10 @@ class Checkpointer:
         """Freshest-first across local → peer (torn/corrupt manifests
         discarded) → storage → cold. ``storage_step_fn`` (cheap
         latest-step probe) lets a fresher storage tier outrank stale
-        fast-tier copies."""
+        fast-tier copies. Each candidate read traverses the
+        ``ckpt.restore`` chaos point so fault plans can force every
+        arm."""
+        from skypilot_tpu_torch.utils import chaos
         t0 = time.monotonic()
         candidates = (self._scan_tier((self.base_dir,), TIER_LOCAL) +
                       self._scan_tier(self.peer_dirs, TIER_PEER))
@@ -474,12 +487,14 @@ class Checkpointer:
                 if snap is not None:
                     return snap
             try:
+                chaos.inject('ckpt.restore', tier=cand['tier'],
+                             step=manifest['step'], rank=self.rank)
                 blob = _read_verified(cand['dir'], manifest)
                 if blob is None:
                     continue
                 payload = self._deserializer(blob)
             except Exception:  # pylint: disable=broad-except
-                continue   # corrupt shard: next
+                continue   # corrupt shard / injected fault: next
                 #            candidate (older copy, then next tier)
             snap = Snapshot(manifest['step'], payload, cand['tier'],
                             time.monotonic() - t0, manifest)
@@ -495,7 +510,10 @@ class Checkpointer:
 
     def _try_storage(self, storage_fn, t0: float,
                      best_seen: int) -> Optional[Snapshot]:
+        from skypilot_tpu_torch.utils import chaos
         try:
+            chaos.inject('ckpt.restore', tier=TIER_STORAGE,
+                         rank=self.rank)
             result = storage_fn()
             if result is None:
                 return None

@@ -15,15 +15,19 @@ dump JSON, so the tools that read a rank's dump read the port's:
 
   * **black-box dumps**: the sealed ring is written to
     ``$XSKY_FLIGHTREC_DIR/rank-<N>-<reason>-*.json`` on a fatal
-    exception and on SIGTERM/preemption (:func:`install_crash_dumps`);
+    exception and on SIGTERM/preemption (:func:`install_crash_dumps`),
+    and once per stall episode (:func:`note_stall`);
 
   * a **spool ride-along**: the newest K records ride the rank's
     telemetry sample as its ``flightrec`` key (``agent/telemetry.py``).
 
-Not carried over: the chaos points ``train.straggler_rank`` and
-``train.data_stall`` (ROADMAP.md queue 1 item 7, the hooks), the
-telemetry heartbeat's stall seal, and the control-plane half
-(``gang_waterfall``, ``record_train_anatomy``).
+The reference's workload hooks are carried: the chaos points
+``train.straggler_rank`` (inside :meth:`FlightRecorder.mark_compute`: the
+rank really sleeps ``extra_s`` and the time lands in
+``device_compute``) and ``train.data_stall`` (inside the ``data_wait``
+bracket, ``stall_s``), and :func:`note_stall`, the black-box dump that
+the telemetry heartbeat seals once per stall episode. Not carried over:
+the control-plane half (``gang_waterfall``, ``record_train_anatomy``).
 
 Stdlib-only and never-raise throughout: the recorder instruments the
 very step loop whose throughput it measures — a full disk or a torn
@@ -58,6 +62,10 @@ _DEFAULT_PUSH_INTERVAL_S = 2.0
 
 _DUMP_REASON_EXCEPTION = 'exception'
 _DUMP_REASON_SIGTERM = 'sigterm'
+_DUMP_REASON_STALL = 'stall_verdict'
+
+CHAOS_DATA_STALL = 'train.data_stall'
+CHAOS_STRAGGLER = 'train.straggler_rank'
 
 
 def _env_int(name: str, default: int) -> int:
@@ -101,6 +109,7 @@ class FlightRecorder:
         self._pending_t0: Optional[float] = None
         self._pending_synced = False
         self._last_push = 0.0
+        self._stall_latched = False
 
     # ---- per-step accumulation (workload hot path) -------------------------
 
@@ -125,6 +134,19 @@ class FlightRecorder:
         synced the device passes its own ``(gap, device)`` pair; the
         recorder never syncs the device itself. Unsynced steps pass the
         cheap dispatch wall only; device time lands in ``other``."""
+        try:
+            from skypilot_tpu_torch.utils import chaos
+            rule = chaos.inject(CHAOS_STRAGGLER, rank=self.rank,
+                                step=self._pending_step)
+            if rule is not None:
+                # A straggler is slow FOR REAL: sleep inside the step so
+                # the sealed wall stays honest, then attribute it to
+                # device compute.
+                extra = float(rule.get('extra_s', 0.25))
+                time.sleep(extra)
+                device_s = (device_s or 0.0) + extra
+        except Exception:  # pylint: disable=broad-except
+            pass
         with self._lock:
             self._pending['dispatch'] = \
                 self._pending.get('dispatch', 0.0) + float(dispatch_s)
@@ -170,6 +192,7 @@ class FlightRecorder:
             self._pending_step = None
             self._pending_t0 = None
             self._pending_synced = False
+            self._stall_latched = False
             return dict(record)
 
     # ---- read side ---------------------------------------------------------
@@ -299,7 +322,9 @@ def begin_step(step: int) -> None:
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
     """Bracket one phase of the pending step (``with
-    flight_recorder.phase('data_wait'): ...``)."""
+    flight_recorder.phase('data_wait'): ...``). The ``train.data_stall``
+    chaos point fires INSIDE the ``data_wait`` bracket, so an injected
+    stall is measured, and attributed, as real data wait."""
     try:
         rec = _current()
     except Exception:  # pylint: disable=broad-except
@@ -309,6 +334,14 @@ def phase(name: str) -> Iterator[None]:
         return
     t0 = time.perf_counter()
     try:
+        if name == 'data_wait':
+            try:
+                from skypilot_tpu_torch.utils import chaos
+                rule = chaos.inject(CHAOS_DATA_STALL, rank=rec.rank)
+                if rule is not None:
+                    time.sleep(float(rule.get('stall_s', 0.25)))
+            except Exception:  # pylint: disable=broad-except
+                pass
         yield
     finally:
         try:
@@ -376,7 +409,7 @@ def seal_dump(reason: str,
               detail: Optional[Dict[str, Any]] = None) -> Optional[str]:
     """Dump the ring as a black-box file; returns the path (None when
     disabled / no dir / nothing to write). NEVER raises — it runs from
-    excepthooks and signal handlers."""
+    excepthooks, signal handlers and the heartbeat thread."""
     try:
         rec = _current()
         if rec is None:
@@ -384,6 +417,21 @@ def seal_dump(reason: str,
         return rec.dump(reason, detail=detail)
     except Exception:  # pylint: disable=broad-except
         return None
+
+
+def note_stall(progress_age_s: float) -> None:
+    """Telemetry's heartbeat thread calls this when the rank's own
+    progress goes stale: dump the black box ONCE per stall episode (the
+    latch re-arms on the next sealed step). NEVER raises."""
+    try:
+        rec = _current()
+        if rec is None or rec._stall_latched:
+            return
+        rec._stall_latched = True
+        seal_dump(_DUMP_REASON_STALL,
+                  detail={'progress_age_s': round(progress_age_s, 3)})
+    except Exception:  # pylint: disable=broad-except
+        pass
 
 
 _hooks_installed = False

@@ -13,9 +13,16 @@ control plane reads the spool with the reference's ``parse_sample`` and
 tells a hung replica from a dead one; the line format is the
 reference's.
 
-Not carried over: the control-plane side (reading, verdicts), the
-``telemetry.stall`` chaos point and the flight recorder's stall seal
-(hooks come in a later slice).
+The reference's workload hooks are carried: the ``telemetry.stall``
+chaos point inside :func:`emit` (a fired rule freezes this rank's
+progress while the heartbeat goes on: the hung-rank drill), and the
+heartbeat thread's stall seal (once the rank's own progress is older
+than ``XSKY_TELEMETRY_PROGRESS_STALE_S``, it seals the flight recorder's
+black box, ``flight_recorder.note_stall``). The profiler's summary rides
+the sample as its ``profile`` key (``agent/profiler.py``).
+
+Not carried over: the control-plane side (reading the spool, verdicts),
+which reads the port's samples with its own functions.
 
 Never-raise discipline: telemetry instruments the loop whose throughput
 it measures, so a full disk or a torn spool costs the sample, never the
@@ -44,6 +51,8 @@ PHASE_IDLE = 'idle'
 
 # Spool write + heartbeat cadence.
 _DEFAULT_INTERVAL_S = 2.0
+# Progress older than this (the rank's own clock) is a stall.
+_DEFAULT_PROGRESS_STALE_S = 300.0
 
 EMA_ALPHA = 0.2
 
@@ -57,6 +66,10 @@ def _env_float(name: str, default: float) -> float:
 
 def interval_s() -> float:
     return _env_float(ENV_INTERVAL, _DEFAULT_INTERVAL_S)
+
+
+def progress_stale_s() -> float:
+    return _env_float(ENV_PROGRESS_STALE, _DEFAULT_PROGRESS_STALE_S)
 
 
 def ema(prev: Optional[float], value: float,
@@ -176,6 +189,15 @@ class _Emitter:
                 with self._lock:
                     self.sample['hb_ts'] = time.time()
                     self._write_locked(time.time())
+                    progress_ts = self.sample.get('last_progress_ts')
+                # The heartbeat thread is the thread still alive when the
+                # workload wedges: once this rank's OWN progress goes
+                # stale, seal the flight recorder's black box (latched
+                # once per episode).
+                age = time.time() - (progress_ts or 0)
+                if progress_ts and age > progress_stale_s():
+                    from skypilot_tpu_torch.agent import flight_recorder
+                    flight_recorder.note_stall(age)
             except Exception:  # pylint: disable=broad-except
                 pass
 
@@ -234,7 +256,31 @@ def emit(phase: Optional[str] = None, step: Optional[int] = None,
         emitter = _current_emitter()
         if emitter is None:
             return
+        try:
+            from skypilot_tpu_torch.utils import chaos
+            # A fired rule freezes this rank's PROGRESS (the heartbeat
+            # thread keeps beating): the hung-rank drill. The elastic
+            # generation rides the context as in the reference.
+            if chaos.inject('telemetry.stall', rank=emitter.rank,
+                            generation=os.environ.get(
+                                'XSKY_ELASTIC_GENERATION', '0')
+                            ) is not None:
+                return
+        except Exception:  # pylint: disable=broad-except
+            # Even a rule configured with `error` must only freeze the
+            # emit, never take down the step loop it instruments.
+            return
         emitter.update(phase, step, step_time_s, tokens_per_sec, tokens,
                        extra)
     except Exception:  # pylint: disable=broad-except
         pass
+
+
+def reset_for_test() -> None:
+    """Stop and drop the process's emitter (tests switch spools)."""
+    global _emitter, _emitter_key
+    with _emitter_lock:
+        if _emitter is not None:
+            _emitter.stop()
+        _emitter = None
+        _emitter_key = None

@@ -20,6 +20,10 @@ Counterpart of ``skypilot_tpu/infer/engine.py``:
     compressed latent and shared RoPE key).
   * Decode advances ALL slots one token per step. Inactive slots write
     nothing (their cache write is masked) and their tokens are ignored.
+    ``decode_steps_masked`` runs n steps with the EOS/budget finish rules
+    on the device (the orchestrator's fast tick); ``decode_steps`` runs n
+    steps without them (the legacy tick, whose host drops the tokens of
+    a slot that finished mid-batch).
 
   * A prompt longer than the largest bucket, or one whose prefix is in
     the prefix cache, is prefilled in bucket-sized chunks against a
@@ -47,6 +51,7 @@ import torch
 
 from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch import models
+from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.infer import paged_kv
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
@@ -209,6 +214,8 @@ class InferenceEngine:
     def __init__(self, config: EngineConfig, params: llama.Params,
                  device: Device = None) -> None:
         self.device = resolve_device(device)
+        # Kernel builds count in the process's profile from here on.
+        profiler.ensure_compile_listener()
         self._model_lib = models.module_for(config.model)
         if config.kv_dtype not in (torch.bfloat16, torch.float32,
                                    torch.int8):
@@ -778,16 +785,10 @@ class InferenceEngine:
             remaining, logprobs_k, penalties)
         return state, remaining, tokens, valid, lp
 
-    def decode_step(self, state, temperatures=None, top_k=None,
-                    top_p=None, logprobs_k: int = 0, penalties=None):
-        """Advance every slot one token. Returns (state, tokens [slots])
-        — or (state, tokens, lp) when logprobs_k > 0.
-
-        Per-slot host arrays [max_slots]: temperatures (0 = greedy),
-        top_k (0 = off), top_p (1 = off), penalties = (presence,
-        frequency) (0 = off); None means disabled for all slots. The
-        engine's generator draws any sampling noise.
-        """
+    def _decode_args(self, temperatures, top_k, top_p, generator,
+                     penalties):
+        """Per-slot host arrays → the device tensors ``_decode_step_impl``
+        takes (see ``decode_step``)."""
         slots = self.config.max_slots
         if temperatures is None and top_k is None and top_p is None:
             # All greedy: nothing goes to the device and no noise is
@@ -798,14 +799,60 @@ class InferenceEngine:
                 np.zeros(slots) if temperatures is None else temperatures,
                 np.zeros(slots) if top_k is None else top_k,
                 np.ones(slots) if top_p is None else top_p)
+            if gen is not None and generator is not None:
+                gen = generator
         if penalties is not None:
             penalties = tuple(torch.as_tensor(np.asarray(a, np.float32),
                                               device=self.device)
                               for a in penalties)
+        return temps, top_k, top_p, gen, penalties
+
+    def decode_step(self, state, temperatures=None, top_k=None,
+                    top_p=None, logprobs_k: int = 0, penalties=None,
+                    generator: Optional[torch.Generator] = None):
+        """Advance every slot one token. Returns (state, tokens [slots])
+        — or (state, tokens, lp) when logprobs_k > 0.
+
+        Per-slot host arrays [max_slots]: temperatures (0 = greedy),
+        top_k (0 = off), top_p (1 = off), penalties = (presence,
+        frequency) (0 = off); None means disabled for all slots. Any
+        sampling noise is drawn from ``generator`` (the JAX engine's
+        ``key``), else from the engine's own generator.
+        """
+        temps, top_k, top_p, gen, penalties = self._decode_args(
+            temperatures, top_k, top_p, generator, penalties)
         state, (tokens, lp) = self._decode_step_impl(
             state, temps, top_k, top_p, gen, logprobs_k, penalties)
         if logprobs_k > 0:
             return state, tokens, lp
+        return state, tokens
+
+    def decode_steps(self, state, n: int, temperatures=None, top_k=None,
+                     top_p=None, logprobs_k: int = 0, penalties=None,
+                     generator: Optional[torch.Generator] = None):
+        """Advance every slot n tokens in one call, with no finish
+        masking: the legacy tick's fused decode.
+
+        Returns (state, tokens [n, slots]) — or (state, tokens, lp) with
+        lp = (chosen [n, slots], top_vals [n, slots, k], top_ids) when
+        logprobs_k > 0. Arguments as ``decode_step``. A slot that hits
+        EOS or its budget mid-batch decodes on for the rest of the n
+        steps (at most n-1 wasted steps; its writes stay in its own
+        rows, which are released before anything reads them); the host
+        drops those tokens. Nothing here waits for the device.
+        """
+        temps, top_k, top_p, gen, penalties = self._decode_args(
+            temperatures, top_k, top_p, generator, penalties)
+        tokens, lps = [], []
+        for _ in range(n):
+            state, (next_tokens, lp) = self._decode_step_impl(
+                state, temps, top_k, top_p, gen, logprobs_k, penalties)
+            tokens.append(next_tokens)
+            lps.append(lp)
+        tokens = torch.stack(tokens)
+        if logprobs_k > 0:
+            return state, tokens, tuple(torch.stack(parts)
+                                        for parts in zip(*lps))
         return state, tokens
 
     # ---- speculative verification ----

@@ -16,7 +16,14 @@ proposes γ tokens per slot) and ``NgramSpeculator`` (prompt lookup)
 verify the proposals in one target pass (``engine.verify_step``), with
 greedy acceptance, so the output equals plain greedy decoding.
 
-The profiler and chaos hooks and the legacy tick come in later slices.
+Hooks, as in the reference: each decode tick traverses the
+``infer.decode_stall`` chaos point (``utils/chaos.py``) and brackets
+sampled ticks with the profiler's step probe (``agent/profiler.py``:
+dispatch gap until the engine call returns, device time until the
+tick's host copy is done). ``XSKY_DECODE_FAST_TICK=0`` pins the legacy
+host-per-row tick (``bench.py``'s baseline arm): unmasked fused steps
+(``engine.decode_steps``) whose finish rules the host applies row by
+row.
 """
 from __future__ import annotations
 
@@ -31,8 +38,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import sampling as sampling_lib
+from skypilot_tpu_torch.utils import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -122,6 +131,11 @@ class Orchestrator:
         # KV free-page fraction observed at the last successful admit
         # (paged engines).
         self.last_admit_kv_headroom: Optional[float] = None
+        # Fused decode with device-side finish masking (the serving fast
+        # path); '0' falls back to the legacy host-per-row tick (the
+        # paired-difference bench's baseline arm).
+        self._fast_tick = (
+            os.environ.get('XSKY_DECODE_FAST_TICK', '1') != '0')
         self._params_dirty = True
         self._d_temps = None
         self._d_topk = None
@@ -135,8 +149,8 @@ class Orchestrator:
         # deadline could not cover the estimated prefill+decode budget.
         self.deadline_rejects = 0
         # Fused decode rows burned after a slot finished: the masked tick
-        # burns none, so this stays 0 (the reference counts them on its
-        # legacy tick; /metrics exports it).
+        # burns none, the legacy tick up to decode_steps - 1 per finish
+        # (/metrics exports it).
         self.wasted_decode_steps = 0
         # Per-request anatomy: when on, ticks amortize one timestamp pair
         # over the resident requests (infer/anatomy.py seals them);
@@ -446,8 +460,8 @@ class Orchestrator:
         self._params_dirty = True
 
     def _maybe_finish(self, slot: int, token: int) -> None:
-        """Finish check for a prefill's first token (decode rows are
-        finished on the device)."""
+        """Finish check for a prefill's first token and the legacy
+        tick's rows (the fast tick's rows are finished on the device)."""
         request = self._slot_req[slot]
         hit_eos = (request.eos_token_id is not None and
                    token == request.eos_token_id)
@@ -471,8 +485,15 @@ class Orchestrator:
     def _decode_tick(self) -> None:
         """The decode half of a tick: the speculators' plain rounds call
         it directly, so admission and the partials budget run once per
-        tick."""
-        self._decode_tick_fast()
+        tick. The fused masked fast tick unless XSKY_DECODE_FAST_TICK=0
+        pins the legacy host-per-row tick."""
+        # Chaos drill: a latency rule on `infer.decode_stall` slows one
+        # decode tick (a slow DECODE, not queueing).
+        chaos.inject('infer.decode_stall')
+        if self._fast_tick:
+            self._decode_tick_fast()
+        else:
+            self._decode_tick_legacy()
 
     def _attribute_tick(self, residents: List[Request], decode_share: float,
                         commit_share: float, tokens: int) -> None:
@@ -550,15 +571,20 @@ class Orchestrator:
         if self._params_dirty:
             self._rebuild_device_params()
         n = self.decode_steps
+        probe = profiler.step_probe()
         out = self.engine.decode_steps_masked(
             self.state, n, self._d_temps, self._d_topk, self._d_topp,
             self._d_eos, self._d_remaining, self._next_keys(),
             logprobs_k=self._lp_k, penalties=self._d_pen)
+        if probe is not None:
+            probe.dispatched()
         self.state, self._d_remaining, tokens, valid, lp = out
         tokens_np = tokens.cpu().numpy()
         valid_np = valid.cpu().numpy()
         lp_np = (tuple(a.cpu().numpy() for a in lp) if self._lp_k
                  else None)
+        if probe is not None:
+            probe.done()
         now = time.perf_counter()
         committed = 0
         for slot in list(self._slot_req):
@@ -583,6 +609,83 @@ class Orchestrator:
         if anatomy:
             self._attribute_tick(residents, max(0.0, now - t_tick),
                                  max(0.0, time.perf_counter() - now),
+                                 committed)
+
+    # ---- legacy tick: host-side finish scan (bench baseline arm) ----
+
+    def _decode_tick_legacy(self) -> None:
+        """Unmasked fused decode: per-slot sampling arrays rebuilt on the
+        host every tick, ``decode_steps`` tokens for every slot, and the
+        host applies EOS, budget and cancel row by row; a slot that
+        finishes mid-batch burns its remaining rows
+        (``wasted_decode_steps``)."""
+        if not self._slot_req:
+            return
+        anatomy = self._anatomy
+        t_tick = time.perf_counter() if anatomy else 0.0
+        residents = list(self._slot_req.values()) if anatomy else None
+        slots = self.engine.config.max_slots
+        temps = np.zeros((slots,), np.float32)
+        top_k = np.zeros((slots,), np.int32)
+        top_p = np.ones((slots,), np.float32)
+        pres = np.zeros((slots,), np.float32)
+        freq = np.zeros((slots,), np.float32)
+        for slot, request in self._slot_req.items():
+            temps[slot] = request.temperature
+            top_k[slot] = request.top_k
+            top_p[slot] = request.top_p
+            pres[slot] = request.presence_penalty
+            freq[slot] = request.frequency_penalty
+        k = (LOGPROBS_K if any(r.logprobs
+                               for r in self._slot_req.values()) else 0)
+        penalties = ((pres, freq) if (pres.any() or freq.any())
+                     else None)
+        # Step-anatomy probe (sampled): the engine call returning marks
+        # the end of the host dispatch gap; the host copy below is the
+        # device wait.
+        probe = profiler.step_probe()
+        if self.decode_steps == 1:
+            out = self.engine.decode_step(
+                self.state, temperatures=temps, top_k=top_k, top_p=top_p,
+                logprobs_k=k, penalties=penalties,
+                generator=self._generator)
+            if probe is not None:
+                probe.dispatched()
+            self.state, tokens = out[0], out[1]
+            batches = tokens.cpu().numpy()[None, :]
+            lp = tuple(a.cpu().numpy()[None] for a in out[2]) if k else None
+        else:
+            out = self.engine.decode_steps(
+                self.state, self.decode_steps, temperatures=temps,
+                top_k=top_k, top_p=top_p, logprobs_k=k,
+                penalties=penalties, generator=self._generator)
+            if probe is not None:
+                probe.dispatched()
+            self.state, tokens = out[0], out[1]
+            batches = tokens.cpu().numpy()                 # [n, slots]
+            lp = tuple(a.cpu().numpy() for a in out[2]) if k else None
+        if probe is not None:
+            probe.done()
+        t_commit = time.perf_counter() if anatomy else 0.0
+        committed = 0
+        for i, row in enumerate(batches):
+            for slot in list(self._slot_req):
+                request = self._slot_req[slot]
+                request.output_tokens.append(int(row[slot]))
+                committed += 1
+                if request.logprobs and lp is not None:
+                    self._record_logprobs(
+                        request, (lp[0][i], lp[1][i], lp[2][i]), slot)
+                self._maybe_finish(slot, int(row[slot]))
+                if slot not in self._slot_req:
+                    # The fused call already sampled rows i+1..n-1 for
+                    # this slot; the fast tick's device mask makes these
+                    # structurally zero.
+                    self.wasted_decode_steps += len(batches) - 1 - i
+        if anatomy:
+            self._attribute_tick(residents,
+                                 max(0.0, t_commit - t_tick),
+                                 max(0.0, time.perf_counter() - t_commit),
                                  committed)
 
     def _verify_round(self, active_before: Dict[int, Request],

@@ -8,7 +8,10 @@ source is still compiled once. Libraries land in ``csrc/build/`` (listed
 in ``.gitignore``) under a name that hashes the sources and the flags, so
 an edited kernel is rebuilt and an unchanged one is reused. Building
 happens at first use; ``build_all`` compiles every registered source at
-once, one ``nvcc`` process per source, all started together.
+once, one ``nvcc`` process per source, all started together. Each build
+that runs is reported to the profiler's compile count
+(``agent/profiler.py`` ``note_kernel_build``); a library reused from
+``csrc/build/`` is no build.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on machines that have no ``nvcc`` and no card.
@@ -163,6 +166,7 @@ def build_all(kernels: Optional[Sequence[Kernel]] = None
                 f.write(log)
             os.replace(f'{tmp}.log', f'{out}.log')
             os.replace(tmp, out)
+            _report_build(seconds[source])
         if failures:
             raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
         for k in todo:
@@ -172,6 +176,16 @@ def build_all(kernels: Optional[Sequence[Kernel]] = None
                     k.build_log = f.read()
             k._load(path)
         return seconds
+
+
+def _report_build(seconds: float) -> None:
+    """One nvcc build to the profiler's compile count. Never raises: a
+    profiling fault must not fail a build."""
+    try:
+        from skypilot_tpu_torch.agent import profiler
+        profiler.note_kernel_build(seconds)
+    except Exception:  # pylint: disable=broad-except
+        pass
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -49,6 +49,7 @@ import torch
 from skypilot_tpu_torch import models, resolve_device
 from skypilot_tpu_torch.agent import checkpointd
 from skypilot_tpu_torch.agent import flight_recorder
+from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.train import trainer as trainer_lib
@@ -289,6 +290,9 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                    gang_size=int(os.environ.get('XSKY_NUM_HOSTS', '1')
                                  or 1),
                    elastic_generation=elastic_generation())
+    # Compile listener BEFORE any kernel build: the first step's builds
+    # are the biggest a run does, and must land in the profile's count.
+    profiler.ensure_compile_listener()
     distributed.initialize()
     if args.attention in ('ring', 'ulysses'):
         raise SystemExit(f'--attention {args.attention} shards the '

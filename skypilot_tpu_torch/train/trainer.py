@@ -8,12 +8,14 @@ in-place parameter update (the JAX step donates the old state instead).
 With ``lora_rank > 0`` the base weights are frozen and only the LoRA
 adapters (``train/lora.py``) train, merged into the base inside the
 loss. Every step emits the telemetry heartbeat and marks its dispatch
-time in the flight recorder, without syncing the device.
-``host_state`` and ``load_state`` carry the state to the host and back
-for checkpoints (``train/launch.py``).
+time in the flight recorder; every Nth step (``XSKY_PROFILE_SAMPLE_EVERY``)
+is sampled by the profiler's step probe (``agent/profiler.py``), which
+waits for the card once and hands its (dispatch gap, device) pair to the
+flight recorder as a synced record. Unsampled steps never wait for the
+card. ``host_state`` and ``load_state`` carry the state to the host and
+back for checkpoints (``train/launch.py``).
 
-Not ported yet (ROADMAP.md queue 1): pipeline and sharded meshes (item
-8), and the profiler's sampled step probe (item 7).
+Not ported yet (ROADMAP.md queue 1 item 8): pipeline and sharded meshes.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from skypilot_tpu_torch import Device, models, resolve_device
 from skypilot_tpu_torch.agent import flight_recorder
+from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.models import deepseek
 from skypilot_tpu_torch.models import llama
@@ -177,6 +180,10 @@ class Trainer:
         # device sync).
         self._host_step = 0
         self._last_step_t: Optional[float] = None
+        # Kernel builds count in the process's profile from here on
+        # (count and seconds, recompile-storm detection); step()
+        # brackets sampled steps with a probe.
+        profiler.ensure_compile_listener()
 
     # ---- state ----
 
@@ -282,13 +289,21 @@ class Trainer:
              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """One optimizer step → (state, metrics). The parameters in
         ``state`` are updated in place; loss and grad_norm stay 0-dim
-        tensors on the device (reading them waits for the step). The
-        flight recorder gets the step's dispatch wall (the host's
-        launch of its kernels; no device sync), and the telemetry
-        heartbeat its step."""
+        tensors on the device (reading them waits for the step). Every
+        Nth step is anatomy-sampled: the probe waits for the card once
+        and the flight recorder gets the probe's own (dispatch gap,
+        device) pair as a synced record; other steps give it the
+        dispatch wall only (the host's launch of the step's kernels; no
+        device wait). The telemetry heartbeat gets the step."""
+        probe = profiler.step_probe()
         t0 = time.perf_counter()
         out = self._step(state, batch)
-        flight_recorder.mark_compute(time.perf_counter() - t0)
+        dispatch_s = time.perf_counter() - t0
+        marks = probe.done(out) if probe is not None else None
+        if marks is not None:
+            flight_recorder.mark_compute(marks[0], marks[1], synced=True)
+        else:
+            flight_recorder.mark_compute(dispatch_s)
         self._note_step()
         return out
 

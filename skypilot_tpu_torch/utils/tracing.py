@@ -9,7 +9,9 @@ tracing.py`` (the port imports nothing of the reference):
   * :func:`request_span` opens the root span of a request-scoped trace
     under a trace id minted upstream; the server records each deadline
     rejection as one (the reference journals it in its state DB, which
-    the port does not carry).
+    the port does not carry);
+  * :func:`annotate_append` adds to a list attribute of the current
+    span: ``utils/chaos.py`` notes every fault it injects under it.
 
 Finished spans go to a bounded in-process buffer (:func:`recent_spans`),
 newest last, under the reference's row layout. Never-raise discipline:
@@ -69,6 +71,18 @@ def extract_headers(headers: Any
         return (trace_id, request_id, deadline_s)
     except Exception:  # pylint: disable=broad-except
         return out
+
+
+def annotate_append(key: str, value: Any) -> None:
+    """Append ``value`` to a list-valued attribute of the current span
+    (chaos records every fault injected under the span there). Never
+    raises."""
+    try:
+        cur = _ctx.get()
+        if isinstance(cur, Span):
+            cur.attrs.setdefault(key, []).append(value)
+    except Exception:  # pylint: disable=broad-except
+        pass
 
 
 class _NoopSpan:

@@ -40,6 +40,7 @@ from skypilot_tpu.agent import telemetry as jax_telemetry
 from skypilot_tpu_torch import models
 from skypilot_tpu_torch.agent import checkpointd
 from skypilot_tpu_torch.agent import flight_recorder
+from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.train import launch
@@ -185,16 +186,23 @@ def test_metrics_and_eval_write_the_reference_keys(shards, tmp_path):
     assert all(np.isfinite(v) for v in out['eval_losses'].values())
 
 
-def test_launcher_feeds_the_flight_recorder(shards, tmp_path):
+def test_launcher_feeds_the_flight_recorder(shards, tmp_path, monkeypatch):
+    # The profiler samples every 2nd step: that step's record carries the
+    # probe's synced (dispatch gap, device) pair; the others the dispatch
+    # wall alone.
+    monkeypatch.setenv(profiler.ENV_SAMPLE_EVERY, '2')
+    profiler.reset_for_test()
     launch.run(_args('--steps', 3, '--data', shards, '--data-loader',
                      'python', '--checkpoint-every', 3, '--checkpoint-dir',
                      tmp_path / 'ckpt'))
     records = flight_recorder.get_recorder().tail(3)
     assert [r['step'] for r in records] == [0, 1, 2]
+    assert [r['synced'] for r in records] == [False, True, False]
     for rec in records:
         assert set(rec['phases']) == set(jax_flight_recorder.PHASES)
         assert sum(rec['phases'].values()) == rec['wall_s']
-        assert rec['phases']['dispatch'] > 0 and not rec['synced']
+        assert rec['phases']['dispatch'] > 0
+        assert (rec['phases']['device_compute'] > 0) == rec['synced']
         assert rec['phases']['data_wait'] > 0 and rec['phases']['h2d'] > 0
     assert records[2]['phases']['ckpt_copy'] > 0
     assert records[1]['phases']['ckpt_copy'] == 0

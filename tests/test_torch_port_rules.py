@@ -3,7 +3,8 @@
 * No module of ``skypilot_tpu_torch`` (nor ``chip_smoke.py``, nor the
   ``tools/torch_*.py`` scripts) imports jax or anything of
   ``skypilot_tpu``.
-* Entry points (the engine, ``init``, the ``Trainer``) run on the card
+* Entry points (the engine, ``init``, the ``Trainer``, the launcher, the
+  converter, the classifier, the profiler's ``capture``) run on the card
   unless the caller asks for the CPU: without a card and without
   ``device='cpu'`` they raise.
 * Every CUDA source under ``csrc/`` is built by the kernel registry, and
@@ -100,6 +101,29 @@ def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
         ['--model', 'tiny', '--steps', '1', '--global-batch-size', '2',
          '--seq-len', '8', '--device', 'cpu']))
     assert out['trainer'].device.type == 'cpu'
+
+
+def test_classifier_and_capture_raise_without_a_card(no_card, tmp_path,
+                                                     capsys):
+    """The classifier (``train/classify.py``) and the profiler's deep
+    capture, like every entry point: the card unless asked for the CPU."""
+    from skypilot_tpu_torch.agent import profiler
+    from skypilot_tpu_torch.train import classify
+    cfg = classify.ClassifyConfig(model=llama.LLAMA_TINY, seq_len=8,
+                                  batch_size=2)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        classify.train(cfg, steps=1)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        classify.main(['--model', 'tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        profiler.main(['capture', '--out', str(tmp_path / 'card')])
+    assert classify.main(['--model', 'tiny', '--steps', '1', '--seq-len',
+                          '8', '--batch-size', '2', '--device', 'cpu']) == 0
+    assert profiler.main(['capture', '--out', str(tmp_path / 'cpu'),
+                          '--duration', '0.2', '--device', 'cpu']) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert '"classify_eval_accuracy"' in lines[-2]
+    assert '"device_kind": "cpu"' in lines[-1]
 
 
 def test_every_cuda_source_is_built():
