@@ -69,7 +69,8 @@ Phases, in order; any failure exits non-zero:
      paged engine, a wave padded to 4 rows, on the card and on the CPU;
      the greedy tokens must be identical;
  13. int8 replica: bench.py serve's first rung through the port's HTTP
-     server (infer/server.py on 127.0.0.1): Llama-3-8B, int8 weights
+     server (infer/server.py on 127.0.0.1): Llama-3-8B (16 of its 32
+     layers since phase 37 joined the script), int8 weights
      quantized on the card as the seeded init draws them, int8 KV, 16
      slots, max_target_len 2048, decode_steps 16; a prompt sent alone
      must give Orchestrator.generate's tokens on the same engine,
@@ -178,11 +179,12 @@ Phases, in order; any failure exits non-zero:
      in-process, --model gemma2-2b --seq-len 8192 --global-batch-size 1
      --optimizer adafactor (bf16, random weights from the seeded init,
      head_dim 256, softcap 50, scale 1/16, a window of 4096 on even
-     layers, the tied fp32 head) over uint32 token shards: 7 steps (2
-     warm-up, 5 measured); 2 steps with --checkpoint-every 2, then
-     --steps 4 --resume auto, whose losses must equal the uninterrupted
-     run's within rel 1e-4; K1 = 2 x 26 layers x steps (the remat policy
-     recomputes attention), K2 = K3 = 26 x steps, nothing else; tokens/s,
+     layers, the tied fp32 head; 14 of its 26 layers since phase 37
+     joined the script) over uint32 token shards: 7 steps (2 warm-up, 5
+     measured); 2 steps with --checkpoint-every 2, then --steps 4
+     --resume auto, whose losses must equal the uninterrupted run's
+     within rel 1e-4; K1 = 2 x 14 layers x steps (the remat policy
+     recomputes attention), K2 = K3 = 14 x steps, nothing else; tokens/s,
      model TFLOP/s and its share of 989, peak memory, the flight
      recorder's phase shares, and the fp32 head's forward and backward
      timed alone against a step;
@@ -258,7 +260,26 @@ Phases, in order; any failure exits non-zero:
      2nd: the sampled flight-recorder records synced with device time;
      python -m skypilot_tpu_torch.agent.profiler capture as a subprocess:
      the reference's keys, the card's name, positive times, a parseable
-     Chrome trace.
+     Chrome trace;
+ 37. data-parallel and FSDP training over torch.distributed ranks:
+     Llama-3-1B bf16 (16 layers, remat qkvo_gup, adafactor, global batch
+     4, seq 4096, synthetic batches, the warm-up cut to 1 step) through
+     python -m skypilot_tpu_torch.train.launch: (a) one rank in-process
+     at --mesh data=1, 3 steps; one gang of two launcher processes on
+     the one card as ranks 0 and 1 of a gang of two hosts (the XSKY_* env,
+     a free local port; gloo, since they share the card) runs in turn
+     (b) --mesh data=1,fsdp=2, 2 steps, checkpointing at step 2, (c)
+     --mesh data=2, 2 steps, and (f) fp32 at d_model 128 (seq 1024, so
+     K1-K3 run) at fsdp=2: (b) and (c) give one rank's losses (step 1
+     within rel 1e-3, step 2 and step 1's grad norm within rel 1e-2),
+     both ranks the same, the metrics file from rank 0 alone; (d) one
+     rank resumes (b)'s checkpoint at --mesh data=1 to step 3: within
+     rel 1e-2 of (a)'s step 3; (e) each fsdp rank's parameter bytes
+     exactly half of (a)'s, optimizer-state bytes and peak memory
+     printed beside a one-rank run's at the same per-rank batch, K1 = 2
+     x 16 x steps and K2 = K3 = 16 x steps on every rank, nothing else;
+     (f) two ranks' parameters after 3 steps within 1e-5 of one rank's
+     on the card.
 Phase 3 also holds K2 and K3 at Mixtral's training heads (bf16 B2 S4096
 H32/8 D128, causal: checked blockwise, two runs bit-identical, timed
 beside the plain backward and SDPA's): the `mixtral` entries of K2's and
@@ -278,9 +299,10 @@ Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 18, 20, 21, each launcher run of 34) every kernel's launch count is set
 to 0; just after, the kernels of that path must each have run, and no
 other. Phases 23, 24 (and its self-draft), 26, each run of 28, 30, 32
-and both runs of 33, both runs of 35 and each served run of 36 hold each
-kernel to the count derived from the run's prefills, steps and rounds,
-every other kernel to 0. A phase's first
+and both runs of 33, both runs of 35, each served run of 36 and each
+rank of each run of 37 (its own process: counted there and reported in
+its JSON) hold each kernel to the count derived from the run's
+prefills, steps and rounds, every other kernel to 0. A phase's first
 line says when it began.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -2399,6 +2421,9 @@ RUNG = dict(slots=16, max_len=2048, requests=32, prompt_len=512,
 # alone (four took 69-109 s of [13] and 105 s of [14] in whole runs of
 # 882-1000 s), with every check.
 REPLICA_REQUESTS = {'int8': (1, 32), 'int4': (1, 16)}
+# Llama-3-8B's widths at 16 of its 32 layers: the whole script's time
+# limit took the depth when phase 37 was added.
+REPLICA_LAYERS = 16
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 600.0):
@@ -2452,20 +2477,22 @@ def quantized_replica(records: dict, bits: str) -> None:
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import quantization as qops
     phase = {'int8': 13, 'int4': 14}[bits]
-    cfg = llama.LLAMA3_8B
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=REPLICA_LAYERS)
     r = RUNG
     n_singles, n_requests = REPLICA_REQUESTS[bits]
-    log(f'[{phase}] {bits} replica: Llama-3-8B ({cfg.n_layers} layers, '
-        f'public widths) with {bits} weights quantized on the card as the '
-        f'seeded init draws them, int8 KV; {r["slots"]} slots, max_target_len '
-        f'{r["max_len"]}, decode_steps {r["decode_steps"]}; the port\'s '
-        'infer/server.py on 127.0.0.1')
+    log(f'[{phase}] {bits} replica: Llama-3-8B ({cfg.n_layers} of '
+        f'{llama.LLAMA3_8B.n_layers} layers, public widths) with {bits} '
+        f'weights quantized on the card as the seeded init draws them, int8 '
+        f'KV; {r["slots"]} slots, max_target_len {r["max_len"]}, '
+        f'decode_steps {r["decode_steps"]}; the port\'s infer/server.py on '
+        '127.0.0.1')
     t0 = time.perf_counter()
-    replica = server_lib.build_replica(server_lib.parse_args([
-        '--model', 'llama3-8b', '--weight-dtype', bits, '--kv-dtype', 'int8',
-        '--max-slots', str(r['slots']), '--max-target-len', str(r['max_len']),
-        '--decode-steps', str(r['decode_steps']), '--port', '0']),
-        host='127.0.0.1')
+    with registered_config('llama3-8b-replica', cfg) as name:
+        replica = server_lib.build_replica(server_lib.parse_args([
+            '--model', name, '--weight-dtype', bits, '--kv-dtype', 'int8',
+            '--max-slots', str(r['slots']), '--max-target-len',
+            str(r['max_len']), '--decode-steps', str(r['decode_steps']),
+            '--port', '0']), host='127.0.0.1')
     torch.cuda.synchronize()
     nbytes = qops.params_nbytes(replica.engine.params)
     log(f'  init + quantize + engine + warm-up {time.perf_counter() - t0:.2f}'
@@ -2746,7 +2773,9 @@ class LaunchLog(logging.Handler):
 
 class registered_config:
     """``name`` → ``cfg`` in the port's Llama configs while a phase runs
-    the launcher (``--model name``), as bench.py builds its own rungs."""
+    the launcher (``--model name``), as bench.py builds its own rungs.
+    ``models.get_config`` looks there first, so a registered name stands
+    for another family's config of that name (a cut depth)."""
 
     def __init__(self, name, cfg):
         from skypilot_tpu_torch.models import llama
@@ -4227,8 +4256,11 @@ def small_gemma_end_to_end() -> None:
 # --global-batch-size 1 --optimizer adafactor` runs it: 2 warm-up and 5
 # measured steps, then a run of 2 steps that checkpoints and one resumed
 # from it to step 4.
+# Gemma2-2B's widths at 14 of its 26 layers (an even count: Gemma-2
+# pairs windowed and global layers): the whole script's time limit took
+# the depth when phase 37 was added.
 GEMMA_TRAIN = dict(model='gemma2-2b', seq=8192, batch=1, warmup=2,
-                   measured=5, saved=2, resumed=4)
+                   measured=5, saved=2, resumed=4, layers=14)
 
 
 def gemma_head_ms(cfg, seq: int) -> float:
@@ -4275,8 +4307,8 @@ def gemma_head_ms(cfg, seq: int) -> float:
 def gemma_train_path(records: dict) -> None:
     import tempfile
     from skypilot_tpu_torch.models import gemma
-    cfg = gemma.GEMMA2_2B
     r = GEMMA_TRAIN
+    cfg = dataclasses.replace(gemma.GEMMA2_2B, n_layers=r['layers'])
     steps = r['warmup'] + r['measured']
     # Each step runs K2 and K3 once a layer, and K1 twice: the remat
     # policy ('dots') saves the weight products only, so the backward
@@ -4289,7 +4321,8 @@ def gemma_train_path(records: dict) -> None:
                 'flash_bwd_dq': cfg.n_layers * n}
 
     log(f'[28] Gemma2-2B training on one card through train/launch.py: '
-        f'bf16 ({cfg.n_layers} layers, d_model {cfg.d_model}, '
+        f'bf16 ({cfg.n_layers} of {gemma.GEMMA2_2B.n_layers} layers, '
+        f'd_model {cfg.d_model}, '
         f'{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff '
         f'{cfg.d_ff}, vocab {cfg.vocab_size}, tied fp32 head, softcaps '
         f'{cfg.attn_logit_softcap:g}/{cfg.final_logit_softcap:g}, window '
@@ -4302,7 +4335,8 @@ def gemma_train_path(records: dict) -> None:
         f'({r["warmup"]} warm-up + {r["measured"]} measured); {r["saved"]} '
         f'steps with --checkpoint-every {r["saved"]}, then --steps '
         f'{r["resumed"]} --resume auto')
-    with tempfile.TemporaryDirectory(prefix='xsky-gemma-train-') as tmp:
+    with tempfile.TemporaryDirectory(prefix='xsky-gemma-train-') as tmp, \
+            registered_config(r['model'], cfg):
         data = write_token_shards(os.path.join(tmp, 'tokens'),
                                   steps * r['batch'] * r['seq'] + 1,
                                   cfg.vocab_size, seed=28)
@@ -5559,6 +5593,339 @@ def hooks_path(records: dict) -> None:
         f'capture {time.perf_counter() - t2:.1f}')
 
 
+# ---- phase 37: data-parallel and FSDP training over ranks ----
+
+MESH_TRAIN = dict(model='llama3-1b-qkvo_gup', batch=4, seq=4096, steps=3,
+                  fsdp_steps=2, data_steps=2)
+MESH_SMALL = dict(model='mesh-fp32-d128', batch=4, seq=1024, steps=3)
+# Two ranks against one, bf16: step 1 differs only by the order of sums
+# over ranks (the gradient's, the loss's); later steps also by the
+# updates those differences make. fp32 (f): the order of sums alone.
+MESH_FIRST_RTOL = 1e-3
+MESH_LATER_RTOL = 1e-2
+MESH_SMALL_ATOL = 1e-5
+# The line a rank process runs: chip_smoke.mesh_rank on its arguments.
+MESH_RANK_CODE = ('import sys; sys.path.insert(0, "."); import chip_smoke; '
+                  'sys.exit(chip_smoke.mesh_rank(sys.argv[1:]))')
+
+
+def mesh_models() -> dict:
+    from skypilot_tpu_torch.models import llama
+    return {
+        MESH_TRAIN['model']: dataclasses.replace(
+            llama.LLAMA3_1B, remat=True, remat_policy='qkvo_gup'),
+        # d_model 128, so adafactor factors statistics over the dim fsdp
+        # splits; head_dim 32, which the flash kernels take.
+        MESH_SMALL['model']: llama.LlamaConfig(
+            vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+            n_kv_heads=2, d_ff=256, max_seq_len=1024, dtype=torch.float32,
+            remat=True, remat_policy='qkvo_gup'),
+    }
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def mesh_numbers(out: dict, launches: dict) -> dict:
+    """What a [37] run reports: its losses and grad norms by step, where
+    it started, its kernel launches, this rank's parameter and
+    optimizer-state bytes and the peak memory its process allocated."""
+    from skypilot_tpu_torch.parallel import distributed
+    return {'losses': {int(k): v for k, v in out['losses'].items()},
+            'grad_norms': {int(k): v for k, v in out['grad_norms'].items()},
+            'start_step': out['start_step'], 'launches': launches,
+            'param_bytes': tensor_bytes(out['state']['params']),
+            'opt_bytes': tensor_bytes(out['state']['opt_state']),
+            'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+            'rank': distributed.rank(), 'world': distributed.world_size(),
+            'backend': (torch.distributed.get_backend()
+                        if torch.distributed.is_initialized() else None)}
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the [37] gang, in its own process: each run of the
+    JSON list at ``argv[0]`` ({'argv': launcher flags, 'dump': a path or
+    None}) through train/launch.py in turn, as the rank its XSKY_* env
+    names (the process group comes up in the first run and serves the
+    rest), the kernels counted from 0 before each; writes each run's
+    mesh_numbers to ``argv[1]`` (JSON) and, where a run has a 'dump',
+    its whole parameters there (rank 0)."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.train import launch
+    with open(argv[0], encoding='utf-8') as f:
+        runs = json.load(f)
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(name)s: %(message)s')
+    rows = []
+    try:
+        with contextlib.ExitStack() as stack:
+            for name, cfg in mesh_models().items():
+                stack.enter_context(registered_config(name, cfg))
+            stack.enter_context(short_warmup(1))
+            for run in runs:
+                zero_launches()
+                torch.cuda.reset_peak_memory_stats()
+                out = launch.run(launch.parse_args(run['argv']))
+                torch.cuda.synchronize()
+                rows.append(mesh_numbers(out, {k.name: k.launches
+                                               for k in kernels.REGISTRY}))
+                if run['dump']:
+                    host = out['trainer'].host_state(out['state'])
+                    if rows[-1]['rank'] == 0:
+                        torch.save(host['params'], run['dump'])
+                    del host
+                del out
+                release_card()
+    finally:
+        distributed.shutdown()
+    with open(argv[1], 'w', encoding='utf-8') as f:
+        json.dump(rows, f)
+    return 0
+
+
+def mesh_gang(runs, tmp: str, timeout: float = 400.0) -> list:
+    """Two rank processes on the card (the gang env of two hosts on a
+    free local port) making ``runs`` (see mesh_rank) in turn; per run,
+    each rank's mesh_numbers in rank order. Any rank failing, or the gang
+    outliving ``timeout``, kills both and fails the phase."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = os.path.join(tmp, 'gang-runs.json')
+    with open(spec, 'w', encoding='utf-8') as f:
+        json.dump(runs, f)
+    outs = [os.path.join(tmp, f'rank{r}.json') for r in range(2)]
+    logs = [os.path.join(tmp, f'rank{r}.log') for r in range(2)]
+    procs = []
+    try:
+        for r in range(2):
+            env = dict(os.environ, XSKY_NUM_HOSTS='2', XSKY_HOST_RANK=str(r),
+                       XSKY_COORDINATOR_ADDRESS=f'127.0.0.1:{port}')
+            with open(logs[r], 'w', encoding='utf-8') as log_file:
+                procs.append(subprocess.Popen(
+                    [sys.executable, '-c', MESH_RANK_CODE, spec, outs[r]],
+                    cwd=root, env=env, stdout=log_file,
+                    stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + timeout
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.1)
+        codes = [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(code != 0 for code in codes):
+        for r, path in enumerate(logs):
+            with open(path, encoding='utf-8') as f:
+                log(f'  rank {r} log (end):\n' + f.read()[-3000:])
+        raise AssertionError(f'[37] gang: rank exit codes {codes} (None: '
+                             f'killed after {timeout:.0f} s)')
+    ranks = []
+    for path in outs:
+        with open(path, encoding='utf-8') as f:
+            rows = json.load(f)
+        for row in rows:
+            for key in ('losses', 'grad_norms'):
+                row[key] = {int(k): v for k, v in row[key].items()}
+        ranks.append(rows)
+    return [list(per_run) for per_run in zip(*ranks)]
+
+
+def mesh_derived(steps: int) -> dict:
+    """K1 twice a layer a step (the qkvo_gup recompute runs the flash
+    forward again), K2 and K3 once."""
+    n = mesh_models()[MESH_TRAIN['model']].n_layers
+    return {'flash_fwd': 2 * n * steps, 'flash_bwd_dkv': n * steps,
+            'flash_bwd_dq': n * steps}
+
+
+def check_mesh_losses(label: str, got: dict, want: dict, steps) -> dict:
+    """Relative differences of ``got`` against ``want`` at ``steps``:
+    the first step within MESH_FIRST_RTOL, the rest MESH_LATER_RTOL."""
+    diffs = {}
+    for i, step in enumerate(steps):
+        diffs[step] = abs(got[step] - want[step]) / abs(want[step])
+        limit = MESH_FIRST_RTOL if i == 0 and step == 1 else MESH_LATER_RTOL
+        if diffs[step] > limit:
+            raise AssertionError(f'{label}: step {step} {got[step]} against '
+                                 f'{want[step]} (rel {diffs[step]:.3e}, '
+                                 f'limit {limit:g})')
+    return diffs
+
+
+def mesh_train_path(records: dict) -> None:
+    import tempfile
+    from skypilot_tpu_torch.train import launch
+    r, small = MESH_TRAIN, MESH_SMALL
+    cfg = mesh_models()[r['model']]
+    log(f'[37] data-parallel and FSDP training over torch.distributed '
+        f'ranks: Llama-3-1B bf16 ({cfg.n_layers} layers, d_model '
+        f'{cfg.d_model}, vocab {cfg.vocab_size}), remat qkvo_gup, '
+        f'adafactor, global batch {r["batch"]}, seq {r["seq"]}, synthetic '
+        'batches, warm-up cut to 1 step, through python -m '
+        'skypilot_tpu_torch.train.launch: (a) one rank; (b) fsdp=2, (c) '
+        'data=2 and (f) fp32 at d_model 128 on one gang of two rank '
+        'processes sharing the card (gloo); (d) the fsdp checkpoint resumed '
+        'at data=1')
+    release_card()
+
+    def flags(batch):
+        return ['--model', r['model'], '--global-batch-size', str(batch),
+                '--seq-len', str(r['seq']), '--optimizer', 'adafactor',
+                '--device', 'cuda', '--log-every', '1']
+
+    small_flags = ['--model', small['model'], '--global-batch-size',
+                   str(small['batch']), '--seq-len', str(small['seq']),
+                   '--optimizer', 'adafactor', '--device', 'cuda',
+                   '--log-every', '1', '--learning-rate', '1e-3',
+                   '--steps', str(small['steps'])]
+    common = flags(r['batch'])
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix='xsky-mesh-') as tmp, \
+            contextlib.ExitStack() as stack:
+        for name, model in mesh_models().items():
+            stack.enter_context(registered_config(name, model))
+        stack.enter_context(short_warmup(1))
+
+        def one_rank(argv, label, steps):
+            torch.cuda.reset_peak_memory_stats()
+            out = launch_run(argv, label)
+            check_derived_launches(label, out['launches'],
+                                   mesh_derived(steps - out['start_step']))
+            row = mesh_numbers(out, out['launches'])
+            del out
+            release_card()
+            return row
+
+        t0 = time.perf_counter()
+        one = one_rank(common + ['--steps', str(r['steps']), '--mesh',
+                                 'data=1'], '[37a] one rank', r['steps'])
+        per_rank_batch = one_rank(
+            flags(r['batch'] // 2) + ['--steps', '1', '--mesh', 'data=1'],
+            '[37e] one rank at the per-rank batch', 1)
+        out = launch.run(launch.parse_args(small_flags + ['--mesh',
+                                                          'data=1']))
+        want_small = out['trainer'].host_state(out['state'])['params']
+        del out
+        release_card()
+        seconds['one rank'] = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, 'ckpt')
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        dump = os.path.join(tmp, 'small-params.pt')
+        t0 = time.perf_counter()
+        fsdp, data, small_ranks = mesh_gang([
+            {'argv': common + ['--steps', str(r['fsdp_steps']), '--mesh',
+                               'data=1,fsdp=2', '--checkpoint-dir', ckpt,
+                               '--checkpoint-every', str(r['fsdp_steps']),
+                               '--metrics-file', metrics], 'dump': None},
+            {'argv': common + ['--steps', str(r['data_steps']), '--mesh',
+                               'data=2'], 'dump': None},
+            {'argv': small_flags + ['--mesh', 'data=1,fsdp=2'],
+             'dump': dump}], tmp)
+        seconds['gang'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = one_rank(common + ['--steps', str(r['steps']), '--mesh',
+                                     'data=1', '--checkpoint-dir', ckpt,
+                                     '--resume', 'auto'],
+                           '[37d] resumed at data=1', r['steps'])
+        seconds['resume'] = time.perf_counter() - t0
+        with open(metrics, encoding='utf-8') as f:
+            rows = [json.loads(line) for line in f]
+        got_small = torch.load(dump, weights_only=True)
+    # (b), (c): every rank the same global losses, as one rank's.
+    for label, ranks, n in (('fsdp=2', fsdp, r['fsdp_steps']),
+                            ('data=2', data, r['data_steps'])):
+        for row in ranks:
+            if row['backend'] != 'gloo' or row['world'] != 2:
+                raise AssertionError(f'{label}: rank {row["rank"]} on '
+                                     f'{row["backend"]} of {row["world"]}')
+            if row['losses'] != ranks[0]['losses'] or \
+                    row['grad_norms'] != ranks[0]['grad_norms']:
+                raise AssertionError(f'{label}: the ranks logged other '
+                                     f'losses: {[x["losses"] for x in ranks]}')
+            check_derived_launches(f'[37] {label} rank {row["rank"]}',
+                                   row['launches'], mesh_derived(n))
+        diffs = check_mesh_losses(label, ranks[0]['losses'], one['losses'],
+                                  range(1, n + 1))
+        norm_diff = abs(ranks[0]['grad_norms'][1] - one['grad_norms'][1]) / (
+            one['grad_norms'][1])
+        if norm_diff > MESH_LATER_RTOL:
+            raise AssertionError(f'{label}: step 1 grad norm '
+                                 f'{ranks[0]["grad_norms"][1]} against '
+                                 f'{one["grad_norms"][1]}')
+        log(f'  {label}: losses {ranks[0]["losses"]} against one rank\'s '
+            f'{one["losses"]}: relative differences {diffs}; step 1 grad '
+            f'norm {ranks[0]["grad_norms"][1]:.6f} against '
+            f'{one["grad_norms"][1]:.6f} (rel {norm_diff:.3e}); both ranks '
+            f'equal; backend gloo (the ranks share the card)')
+    if [set(row) for row in rows] != [METRIC_KEYS] * r['fsdp_steps']:
+        raise AssertionError(f'fsdp=2 metrics file: {len(rows)} rows {rows} '
+                             '(want one per step, from rank 0 alone)')
+    # (d): the fsdp run's last step, its checkpoint, resumed at data=1.
+    if resumed['start_step'] != r['fsdp_steps']:
+        raise AssertionError(f'the resume started at {resumed["start_step"]}')
+    later = range(r['fsdp_steps'] + 1, r['steps'] + 1)
+    diffs = check_mesh_losses('resumed at data=1', resumed['losses'],
+                              one['losses'], later)
+    log(f'  (d) the fsdp=2 step-{r["fsdp_steps"]} checkpoint resumed at '
+        f'data=1: losses {resumed["losses"]} against the uninterrupted one '
+        f'rank\'s: relative differences {diffs}')
+    # (e) memory and launches.
+    for row in fsdp:
+        if 2 * row['param_bytes'] != one['param_bytes']:
+            raise AssertionError(f'fsdp rank {row["rank"]} holds '
+                                 f'{row["param_bytes"]} parameter bytes, '
+                                 f'one rank {one["param_bytes"]}')
+    log(f'  (e) parameter bytes: one rank {one["param_bytes"]}, each fsdp '
+        f'rank {[x["param_bytes"] for x in fsdp]} (exactly half), each data '
+        f'rank {[x["param_bytes"] for x in data]}; optimizer-state bytes: '
+        f'one rank {one["opt_bytes"]}, fsdp ranks '
+        f'{[x["opt_bytes"] for x in fsdp]}, data ranks '
+        f'{[x["opt_bytes"] for x in data]}')
+    log(f'  (e) peak memory (GiB, each process its own): one rank at batch '
+        f'{r["batch"]} {one["peak_gib"]:.2f}, one rank at the per-rank batch '
+        f'{r["batch"] // 2} {per_rank_batch["peak_gib"]:.2f}; fsdp ranks '
+        f'{[round(x["peak_gib"], 2) for x in fsdp]}, data ranks '
+        f'{[round(x["peak_gib"], 2) for x in data]}')
+    paths = {'mesh_one_rank': one['launches'],
+             'mesh_resumed': resumed['launches']}
+    for label, ranks in (('mesh_fsdp', fsdp), ('mesh_data', data)):
+        paths[label] = {name: sum(row['launches'][name] for row in ranks)
+                        for name in fsdp[0]['launches']}
+    for path, launches in paths.items():
+        for name in TRAIN_KERNELS:
+            records[name].setdefault('launches_by_path', {})[path] = (
+                launches[name])
+    log(f'  (e) launches per rank: fsdp {[x["launches"] for x in fsdp]}, '
+        f'data {[x["launches"] for x in data]}: K1 = 2 x 16 x steps, K2 = '
+        f'K3 = 16 x steps on each rank, nothing else')
+    # (f): fp32, two ranks against one, both on the card.
+    for row in small_ranks:
+        if not all(row['launches'][name] for name in TRAIN_KERNELS):
+            raise AssertionError(f'(f) rank {row["rank"]} launches '
+                                 f'{row["launches"]}')
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tensors(got_small), tensors(want_small)))
+    log(f'  (f) fp32 d_model 128, 2 ranks vs 1 on the card after '
+        f'{small["steps"]} steps: max_abs_err {err:.3e} (tolerance '
+        f'{MESH_SMALL_ATOL:g}); launches per rank '
+        f'{[x["launches"] for x in small_ranks]}')
+    if err > MESH_SMALL_ATOL:
+        raise AssertionError(f'(f) parameters differ by {err:.3e}')
+    seconds = json.dumps({k: round(v, 1) for k, v in seconds.items()})
+    log(f'  [37] seconds: {seconds} on {nvidia_smi_line()}')
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the fp32 flash backward at D 256, of the decode split
@@ -5659,6 +6026,7 @@ def main() -> int:
     small_routed_train_checks()
     classifier_path(records)
     hooks_path(records)
+    mesh_train_path(records)
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

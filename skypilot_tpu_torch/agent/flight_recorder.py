@@ -260,7 +260,9 @@ class FlightRecorder:
 _recorder_lock = threading.Lock()
 _recorder: Optional[FlightRecorder] = None
 # (ENV_ENABLED, ENV_RING_SIZE, rank) raw values the cached recorder was
-# built from — the steady-state resolve on the step loop is dict
+# built from (the rank: a per-card process's global rank, set by
+# parallel.distributed.initialize, else the gang launcher's host rank)
+# — the steady-state resolve on the step loop is dict
 # lookups and a tuple compare (telemetry/profiler idiom).
 _recorder_key = None
 
@@ -269,7 +271,7 @@ def _current() -> Optional[FlightRecorder]:
     global _recorder, _recorder_key
     key = (os.environ.get(ENV_ENABLED),
            os.environ.get(ENV_RING_SIZE),
-           os.environ.get('XSKY_HOST_RANK'))
+           os.environ.get('XSKY_RANK') or os.environ.get('XSKY_HOST_RANK'))
     if key == _recorder_key:
         return _recorder
     if key[0] == '0':

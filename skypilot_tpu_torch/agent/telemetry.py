@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional
 ENV_DIR = 'XSKY_TELEMETRY_DIR'            # spool dir; unset ⇒ emit no-op
 ENV_ENABLED = 'XSKY_TELEMETRY'            # "0" disables emit entirely
 ENV_RANK = 'XSKY_HOST_RANK'               # set by the gang launcher
+ENV_GLOBAL_RANK = 'XSKY_RANK'             # set per process per card
 ENV_INTERVAL = 'XSKY_TELEMETRY_INTERVAL_S'
 ENV_HB_STALE = 'XSKY_TELEMETRY_HB_STALE_S'
 ENV_PROGRESS_STALE = 'XSKY_TELEMETRY_PROGRESS_STALE_S'
@@ -221,7 +222,11 @@ def _current_emitter() -> Optional[_Emitter]:
     directory = os.environ.get(ENV_DIR)
     if not directory:
         return None
-    rank_raw = os.environ.get(ENV_RANK, '0')
+    # A process of a gang of one process per card carries its global
+    # rank (set by parallel.distributed.initialize); one per host, the
+    # gang launcher's host rank.
+    rank_raw = os.environ.get(ENV_GLOBAL_RANK) or os.environ.get(
+        ENV_RANK, '0')
     key = (directory, rank_raw)
     if key == _emitter_key and _emitter is not None:
         return _emitter

@@ -55,7 +55,7 @@ logger = logging.getLogger(__name__)
 # Flags of the reference whose paths are not ported yet: each refuses to
 # start, naming where the work stands in ROADMAP.md.
 _NOT_PORTED = {
-    'mesh': ('--mesh', 'ROADMAP.md queue 1 item 8: more than one card'),
+    'mesh': ('--mesh', 'ROADMAP.md queue 1 item 8f: serving under a mesh'),
 }
 
 

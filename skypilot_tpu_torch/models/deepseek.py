@@ -24,7 +24,7 @@ in place. Training: ``loss_fn`` (the chunked cross-entropy plus
 ``router_aux_coef`` x the routed layers' mean load-balance term), with
 ``remat`` as ``llama``'s per-layer checkpoint under the config's policy;
 attention takes the plain path there too. The pipelined loss waits for
-ROADMAP.md queue 1 item 8.
+ROADMAP.md queue 1 item 8d.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import mla_decode as mla_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -213,6 +214,54 @@ def _attn_shapes(c: DeepSeekConfig) -> Dict[str, Tuple[Tuple[int, ...],
     else:
         shapes['wq'] = ((d, h * (dn + dr)), d)
     return shapes
+
+
+def _attn_axes(c: DeepSeekConfig) -> Params:
+    axes: Params = {
+        'w_dkv': ('layers', 'embed', None),
+        'w_kr': ('layers', 'embed', None),
+        'w_ukv': ('layers', None, 'heads'),
+        'wo': ('layers', 'heads', 'embed'),
+        'kv_norm': ('layers', None),
+        'attn_norm': ('layers', 'embed'),
+        'mlp_norm': ('layers', 'embed'),
+    }
+    if c.q_lora_rank:
+        axes.update({'w_dq': ('layers', 'embed', None),
+                     'w_uq': ('layers', None, 'heads'),
+                     'q_norm': ('layers', None)})
+    else:
+        axes['wq'] = ('layers', 'embed', 'heads')
+    return axes
+
+
+def logical_axes(config: DeepSeekConfig) -> Params:
+    """Logical sharding axes, mirroring init()'s tree (the reference's)."""
+    dense = _attn_axes(config)
+    dense.update({
+        'w_gate': ('layers', 'embed', 'mlp'),
+        'w_up': ('layers', 'embed', 'mlp'),
+        'w_down': ('layers', 'mlp', 'embed'),
+    })
+    routed = _attn_axes(config)
+    routed.update({
+        'router': ('layers', 'embed', None),
+        'w_gate': ('layers', 'expert', 'embed', 'mlp'),
+        'w_up': ('layers', 'expert', 'embed', 'mlp'),
+        'w_down': ('layers', 'expert', 'mlp', 'embed'),
+        'ws_gate': ('layers', 'embed', 'mlp'),
+        'ws_up': ('layers', 'embed', 'mlp'),
+        'ws_down': ('layers', 'mlp', 'embed'),
+    })
+    out: Params = {
+        'embed': ('vocab', 'embed'),
+        'moe_layers': routed,
+        'final_norm': ('embed',),
+        'lm_head': ('embed', 'vocab'),
+    }
+    if config.first_k_dense:
+        out['dense_layers'] = dense
+    return out
 
 
 def init(config: DeepSeekConfig, generator: Optional[torch.Generator] = None,
@@ -390,6 +439,7 @@ def _layer(c: DeepSeekConfig, x: torch.Tensor, lp: Params, rope,
     load-balance term with ``with_aux`` (None for a dense layer or
     without it). A decode step (kv_cache set) routes with capacity equal
     to its token count, so no decode token is dropped."""
+    lp = mesh_lib.gathered(lp)
     attn, new_kv = _mla_attention(c, x, lp, rope, kv_cache=kv_cache,
                                   cache_positions=cache_positions,
                                   return_kv=return_kv,
@@ -510,7 +560,7 @@ def pipelined_loss_fn(c: DeepSeekConfig, params: Params, tokens, targets,
                       mesh=None, n_microbatches: int = 1, loss_mask=None,
                       token_mask=None):
     """loss_fn pipelined over a mesh's stages: not ported yet (ROADMAP.md
-    queue 1 item 8)."""
+    queue 1 item 8d)."""
     del c, params, tokens, targets, mesh, n_microbatches, loss_mask
     del token_mask
     raise NotImplementedError(moe._PIPELINE)

@@ -26,7 +26,7 @@ kernel parameter; here a plain layer loop hands even layers
 take, so Gemma serves and trains on the card. Training takes the whole
 fp32 logits at once, as the reference's loss does. The reference has no
 paged hook for Gemma, nor has the port; the pipelined loss waits for
-ROADMAP.md queue 1 item 8.
+ROADMAP.md queue 1 item 8d.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -132,6 +133,17 @@ CONFIGS = {
 }
 
 
+def logical_axes(config: GemmaConfig) -> Params:
+    """Logical sharding axes, mirroring init()'s tree: Llama's without
+    the LM head (tied to the embedding), with Gemma-2's output norms."""
+    axes = llama.logical_axes(config)
+    del axes['lm_head']
+    if config.gemma2:
+        axes['layers'].update({'post_attn_norm': ('layers', 'embed'),
+                               'post_ffw_norm': ('layers', 'embed')})
+    return axes
+
+
 def init(config: GemmaConfig, generator: Optional[torch.Generator] = None,
          device: Device = None, weight_dtype=None) -> Params:
     """Initialize parameters as ``llama.init`` does (``llama.Draws``:
@@ -198,6 +210,7 @@ def _layer(config: GemmaConfig, x: torch.Tensor, layer_params: Params,
     Gemma-2 adds the output norms, the softcap and the scale; ``window``
     is the caller's (even layers). Returns (x, new_kv_cache)."""
     c = config
+    layer_params = mesh_lib.gathered(layer_params)
     hd = c.head_dim
     b, s, _ = x.shape
     lp = layer_params
@@ -315,10 +328,7 @@ def loss_fn(config: GemmaConfig, params: Params, tokens: torch.Tensor,
     """Mean next-token cross-entropy (fp32). The tied, soft-capped head
     takes the whole logits at once, as the reference's does."""
     nll = llama._token_nll(forward(config, params, tokens), targets)
-    if loss_mask is not None:
-        mask = loss_mask.float()
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    return nll.mean()
+    return llama.masked_mean(nll, loss_mask)
 
 
 def prefill_hidden(config: GemmaConfig, params: Params, tokens: torch.Tensor,

@@ -35,6 +35,7 @@ from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import decode_attention as decode_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -179,6 +180,28 @@ class Draws:
                           device=self.device)
 
 
+def logical_axes(config: LlamaConfig) -> Params:
+    """Logical sharding axes, mirroring init()'s tree (the reference's;
+    ``parallel/mesh.py`` maps them onto mesh axes)."""
+    del config
+    return {
+        'embed': ('vocab', 'embed'),
+        'layers': {
+            'wq': ('layers', 'embed', 'heads'),
+            'wk': ('layers', 'embed', 'kv'),
+            'wv': ('layers', 'embed', 'kv'),
+            'wo': ('layers', 'heads', 'embed'),
+            'w_gate': ('layers', 'embed', 'mlp'),
+            'w_up': ('layers', 'embed', 'mlp'),
+            'w_down': ('layers', 'mlp', 'embed'),
+            'attn_norm': ('layers', 'embed'),
+            'mlp_norm': ('layers', 'embed'),
+        },
+        'final_norm': ('embed',),
+        'lm_head': ('embed', 'vocab'),
+    }
+
+
 def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
          device: Device = None, weight_dtype=None) -> Params:
     """Initialize parameters (truncated-normal fan-in scaling).
@@ -290,12 +313,17 @@ def save_products(weights) -> Any:
     and recomputes everything else."""
     if not weights:
         return ckpt.noop_context_fn
-    saved = {w.data_ptr() for w in weights}
+    saved = {w.data_ptr() for w in weights if torch.is_tensor(w)}
+    # A sharded step's layer weights (mesh_lib.Sharded) are gathered
+    # inside the checkpoint, a new tensor in the forward and again in
+    # the recompute: matched by the tensor each last gathered.
+    sharded = [w for w in weights if isinstance(w, mesh_lib.Sharded)]
     mm = torch.ops.aten.mm.default
 
     def policy(ctx, op, *args, **kwargs):
         del ctx, kwargs
-        if op is mm and args[1].data_ptr() in saved:
+        if op is mm and (args[1].data_ptr() in saved or any(
+                args[1].data_ptr() == w.data_ptr() for w in sharded)):
             return ckpt.CheckpointPolicy.MUST_SAVE
         return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -612,8 +640,11 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            block_tables: Optional[torch.Tensor] = None, paged_route=None):
     """One transformer block; ``rope`` = _rope_tables(positions, ...).
     With ``block_tables`` the cache is the page arena (see
-    paged_cache_attend). Returns (x, new_kv_cache)."""
+    paged_cache_attend). Returns (x, new_kv_cache). A sharded step's
+    weights are gathered here (``mesh_lib.gathered``), inside the
+    layer's checkpoint."""
     c = config
+    layer_params = mesh_lib.gathered(layer_params)
     hd = c.head_dim
     b, s, _ = x.shape
     h = _rms_norm(x, layer_params['attn_norm'], c.norm_eps)
@@ -704,16 +735,13 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
     """Mean CE with the LM-head projection taken ``chunk`` positions at a
     time: each chunk's fp32 logits are checkpointed (recomputed in the
     backward), so only one chunk of [B, chunk, vocab] logits lives at a
-    time. Padding and the max(count, 1) guard follow the JAX scan."""
+    time. Padding and the max(count, 1) guard follow the JAX scan; the
+    count is the global batch's under a batch split (``masked_mean``)."""
     b, s, _ = x.shape
     if s <= chunk:
         logits = qops.matmul(x, lm_head,
                              preferred_element_type=torch.float32)
-        nll = _token_nll(logits, targets)
-        if loss_mask is not None:
-            mask = loss_mask.float()
-            return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-        return nll.mean()
+        return masked_mean(_token_nll(logits, targets), loss_mask)
     mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
             if loss_mask is None else loss_mask.float())
     pad = (-s) % chunk
@@ -730,7 +758,22 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
                                             use_reentrant=False)
         else:
             total = total + _chunk_nll_sum(*args)
-    return total / mask.sum().clamp(min=1.0)
+    return total / mesh_lib.batch_total(mask.sum()).clamp(min=1.0)
+
+
+def masked_mean(nll: torch.Tensor,
+                loss_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (mask-)weighted mean of per-token losses, max(count, 1) as
+    the guard. Under a batch split (``mesh_lib.batch_split``) the count
+    is the global batch's, so each rank's value is its share of the
+    global mean."""
+    if loss_mask is not None:
+        mask = loss_mask.float()
+        return (nll * mask).sum() / mesh_lib.batch_total(
+            mask.sum()).clamp(min=1.0)
+    if mesh_lib.current_batch_split() is None:
+        return nll.mean()
+    return nll.sum() / mesh_lib.batch_total(nll.numel())
 
 
 def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,

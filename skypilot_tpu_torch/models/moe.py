@@ -22,7 +22,7 @@ term DeepSeek's loss shares; with ``remat`` each layer is a
 ``torch.utils.checkpoint`` that keeps the products of the layer's 2-D
 weights and recomputes the rest (the JAX
 ``dots_with_no_batch_dims_saveable``). The pipelined loss waits for
-ROADMAP.md queue 1 item 8.
+ROADMAP.md queue 1 item 8d.
 
 The reference expresses dispatch and combine as one-hot [T, E, C] einsums.
 At DeepSeek-V2-Lite's prefill wave (32 rows of 1024 tokens, C = 3840) each
@@ -50,11 +50,12 @@ from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
 _PIPELINE = ('The pipelined loss is not ported yet: ROADMAP.md queue 1 '
-             'item 8, "more than one card".')
+             'item 8d, pipeline parallelism.')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +110,22 @@ CONFIGS = {
     'deepseek-moe': DEEPSEEK_MOE,
     'moe-tiny': MOE_TINY,
 }
+
+
+def logical_axes(config: MoEConfig) -> Params:
+    """Logical sharding axes, mirroring init()'s tree: Llama's attention,
+    the router and the expert stacks in place of the MLP."""
+    axes = llama.logical_axes(config)
+    layers = axes['layers']
+    for name in ('w_gate', 'w_up', 'w_down'):
+        del layers[name]
+    layers.update({
+        'router': ('layers', 'embed', None),
+        'w_gate': ('layers', 'expert', 'embed', 'mlp'),
+        'w_up': ('layers', 'expert', 'embed', 'mlp'),
+        'w_down': ('layers', 'expert', 'mlp', 'embed'),
+    })
+    return axes
 
 
 def init(config: MoEConfig, generator: Optional[torch.Generator] = None,
@@ -193,12 +210,23 @@ def route(config, router_w: torch.Tensor, x: torch.Tensor,
     e, kept or dropped, and pₑ is the mean router probability, both over
     the real tokens (max(Σ mask, 1); T without a mask). Only pₑ carries a
     gradient.
+
+    Under a batch split (``mesh_lib.batch_split``: x is this rank's rows
+    of a global batch) the routing is the global batch's, as the
+    reference's SPMD step computes it: the capacity counts every rank's
+    tokens, a place counts the assignments of the ranks before this one
+    (every rank's earlier choices first), and the term's statistics are
+    global, with this rank's probabilities only in its pₑ sum: the
+    ranks' terms sum to the global one.
     """
     c = config
     t = x.shape[0]
-    cap = capacity if capacity is not None else expert_capacity(c, t)
+    k = c.experts_per_token
+    split = mesh_lib.current_batch_split()
+    cap = capacity if capacity is not None else expert_capacity(
+        c, mesh_lib.batch_total(t))
     probs = torch.softmax(x.float() @ router_w, dim=-1)        # [T, E]
-    gate, expert = torch.topk(probs, c.experts_per_token, dim=-1)
+    gate, expert = torch.topk(probs, k, dim=-1)
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     onehot = F.one_hot(expert, c.n_experts).int()               # [T, k, E]
     if token_mask is not None:
@@ -208,20 +236,29 @@ def route(config, router_w: torch.Tensor, x: torch.Tensor,
     # took two thirds of a 16 x 1024 prefill wave.
     flat = onehot.permute(2, 1, 0).reshape(c.n_experts, -1)
     earlier = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat
-    place = (earlier * flat).sum(dim=0).reshape(
-        c.experts_per_token, t).transpose(0, 1)                 # [T, k]
-    keep = (place < cap) & (onehot.sum(dim=-1) > 0)
+    if split is not None:
+        # + earlier choices of the other ranks, + this choice on the
+        # ranks before this one.
+        mine = flat.reshape(c.n_experts, k, t).sum(dim=-1)     # [E, k]
+        before, total = mesh_lib.batch_offsets(mine)
+        others = total - mine
+        offset = before + torch.cumsum(others, dim=1) - others
+        earlier = earlier + offset.repeat_interleave(t, dim=1).to(
+            earlier.dtype)
+    place = (earlier * flat).sum(dim=0).reshape(k, t).transpose(0, 1)
+    keep = (place < cap) & (onehot.sum(dim=-1) > 0)             # [T, k]
     aux = None
     if with_aux:
         if token_mask is None:
-            n_real = float(t)
-            mean_probs = probs.mean(dim=0)
+            n_real = float(mesh_lib.batch_total(t))
+            mean_probs = (probs.mean(dim=0) if split is None
+                          else probs.sum(dim=0) / n_real)
         else:
             m = token_mask.float()
-            n_real = m.sum().clamp(min=1.0)
+            n_real = mesh_lib.batch_total(m.sum()).clamp(min=1.0)
             mean_probs = (probs * m[:, None]).sum(dim=0) / n_real
-        frac = flat.sum(dim=1).float() / n_real                  # [E]
-        aux = c.n_experts * (frac * mean_probs).sum() / c.experts_per_token
+        frac = mesh_lib.batch_total(flat.sum(dim=1)).float() / n_real
+        aux = c.n_experts * (frac * mean_probs).sum() / k
     return Routing(expert, place, gate, keep, cap, aux)
 
 
@@ -334,6 +371,7 @@ def _layer(config: MoEConfig, x: torch.Tensor, lp: Params, rope,
     Returns (x, aux, new_kv_cache); aux is the layer's load-balance term
     with ``with_aux``, else None."""
     c = config
+    lp = mesh_lib.gathered(lp)
     hd = c.head_dim
     b, s, _ = x.shape
     h = llama._rms_norm(x, lp['attn_norm'], c.norm_eps)
@@ -456,12 +494,7 @@ def loss_fn(config: MoEConfig, params: Params, tokens: torch.Tensor,
     but still goes through its experts)."""
     logits, aux = forward(config, params, tokens, return_aux=True,
                           token_mask=token_mask)
-    nll = llama._token_nll(logits, targets)
-    if loss_mask is not None:
-        mask = loss_mask.float()
-        ce = (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    else:
-        ce = nll.mean()
+    ce = llama.masked_mean(llama._token_nll(logits, targets), loss_mask)
     return ce + config.router_aux_coef * aux
 
 
@@ -469,7 +502,7 @@ def pipelined_loss_fn(config: MoEConfig, params: Params, tokens, targets,
                       mesh=None, n_microbatches: int = 1, loss_mask=None,
                       token_mask=None):
     """loss_fn with the layer stack pipelined over a mesh's stages: not
-    ported yet (ROADMAP.md queue 1 item 8)."""
+    ported yet (ROADMAP.md queue 1 item 8d)."""
     del config, params, tokens, targets, mesh, n_microbatches
     del loss_mask, token_mask
     raise NotImplementedError(_PIPELINE)

@@ -17,7 +17,7 @@ crosses one to one (``params_from_numpy``), and the same serving surface
 as the Llama family over the dense slot cache: ``prefill_hidden``,
 ``decode_forward`` and ``verify_forward`` (the engine's chunked prefill
 and prefix cache). The reference has no paged hook for Qwen, nor has the
-port; the pipelined loss waits for ROADMAP.md queue 1 item 8.
+port; the pipelined loss waits for ROADMAP.md queue 1 item 8d.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from skypilot_tpu_torch import Device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -96,6 +97,21 @@ CONFIGS = {
 }
 
 
+def logical_axes(config: QwenConfig) -> Params:
+    """Logical sharding axes, mirroring init()'s tree: Llama's, with the
+    Q/K/V biases and the per-head-dim QK-norm scales where the config
+    has them."""
+    axes = llama.logical_axes(config)
+    if config.qkv_bias:
+        axes['layers'].update({'bq': ('layers', 'heads'),
+                               'bk': ('layers', 'kv'),
+                               'bv': ('layers', 'kv')})
+    if config.qk_norm:
+        axes['layers'].update({'q_norm': ('layers', None),
+                               'k_norm': ('layers', None)})
+    return axes
+
+
 def init(config: QwenConfig, generator: Optional[torch.Generator] = None,
          device: Device = None, weight_dtype=None) -> Params:
     """Initialize parameters as ``llama.init`` does (``llama.Draws``:
@@ -150,6 +166,7 @@ def _layer(config: QwenConfig, x: torch.Tensor, layer_params: Params, rope,
     new K/V at its own ``cache_positions`` (llama.slot_cache_attend).
     Returns (x, new_kv_cache)."""
     c = config
+    layer_params = mesh_lib.gathered(layer_params)
     hd = c.head_dim
     b, s, _ = x.shape
     lp = layer_params

@@ -1,41 +1,209 @@
-"""Multi-host bring-up from the gang launcher's environment.
+"""Process groups from the gang launcher's environment, and the port's
+collectives.
 
 Counterpart of ``skypilot_tpu/parallel/distributed.py``. The gang
 launcher exports ``XSKY_HOST_RANK``, ``XSKY_NUM_HOSTS`` and
-``XSKY_COORDINATOR_ADDRESS`` on every host; the reference turns them
-into ``jax.distributed.initialize`` arguments. The port runs on one
-host: there :func:`initialize` does nothing, as the reference does. A
-gang of more than one host needs ``torch.distributed`` process groups,
-which are not ported yet (ROADMAP.md queue 1 item 8), so it raises.
+``XSKY_COORDINATOR_ADDRESS`` (``host:port``) on every host; the
+reference turns them into ``jax.distributed.initialize`` arguments and
+runs one process per host. The port runs one process per card: a host
+with ``k`` cards starts ``k`` processes, told apart by
+``XSKY_LOCAL_RANK`` (0 .. k-1) and ``XSKY_LOCAL_SIZE`` (k, default 1),
+and the process of local rank ``i`` on host ``h`` is rank ``h·k + i`` of
+a world of ``num_hosts·k``. :func:`initialize` brings up the default
+``torch.distributed`` process group over the coordinator's TCP store; a
+single process stays a no-op, as in the reference.
+
+The backend follows from the devices, and the choice is logged: gloo
+for CPU tensors; NCCL where every rank has a card of its own; gloo
+where ranks share a card (NCCL refuses two ranks on one device). The
+ranks compare their cards' UUIDs through the store before the group is
+made, so the backend is chosen once, never switched after a failure.
+
+The collectives (:func:`all_gather`, :func:`reduce_scatter`,
+:func:`all_reduce`) take a group and a tensor on the rank's device. Under gloo a CUDA tensor is staged through host
+memory explicitly (gloo's CUDA support varies by op and version); NCCL
+never stages. A failed collective raises: nothing carries on with one
+rank.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
+
+ENV_LOCAL_RANK = 'XSKY_LOCAL_RANK'
+ENV_LOCAL_SIZE = 'XSKY_LOCAL_SIZE'
+# Global rank of this process, set by initialize() for the telemetry
+# spool and the flight recorder's dump names.
+ENV_RANK = 'XSKY_RANK'
+# How long a rank waits for its peers (the store, any collective) before
+# it fails.
+TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def is_multihost() -> bool:
     return int(os.environ.get('XSKY_NUM_HOSTS', '1')) > 1
 
 
+def gang_rank(host_rank: int, num_hosts: int, local_rank: int = 0,
+              local_size: int = 1) -> Tuple[int, int]:
+    """(rank, world size) of the process of ``local_rank`` on host
+    ``host_rank``, each host running ``local_size`` processes."""
+    if not 0 <= local_rank < local_size:
+        raise ValueError(f'local rank {local_rank} outside a host of '
+                         f'{local_size} processes')
+    if not 0 <= host_rank < num_hosts:
+        raise ValueError(f'host rank {host_rank} outside a gang of '
+                         f'{num_hosts} hosts')
+    return host_rank * local_size + local_rank, num_hosts * local_size
+
+
+def local_card(local_rank: int) -> int:
+    """The card index a process drives: its local rank, wrapped when the
+    host runs more processes than it has cards (they share a card)."""
+    return local_rank % max(torch.cuda.device_count(), 1)
+
+
+def _choose_backend(store, rank: int, world: int, device_type: str) -> str:
+    """'gloo' for the CPU or for ranks that share a card; 'nccl' when
+    every rank's card is its own (card UUIDs compared through the
+    store)."""
+    if device_type != 'cuda':
+        return 'gloo'
+    uuid = str(torch.cuda.get_device_properties(
+        torch.cuda.current_device()).uuid)
+    store.set(f'xsky/card/{rank}', uuid)
+    uuids = [store.get(f'xsky/card/{r}').decode() for r in range(world)]
+    return 'nccl' if len(set(uuids)) == world else 'gloo'
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """Read the gang env (arguments win); a no-op on a single host."""
+               process_id: Optional[int] = None,
+               device_type: str = 'cpu') -> None:
+    """Read the gang env (arguments win, as in the reference) and bring
+    up the default process group; a no-op for a single process or when
+    the group is already up. ``num_processes`` and ``process_id`` count
+    hosts, as the reference's do; ``device_type`` is where this rank
+    computes ('cuda' picks the card of its local rank first)."""
     coordinator_address = coordinator_address or os.environ.get(
         'XSKY_COORDINATOR_ADDRESS')
-    num_processes = num_processes if num_processes is not None else int(
+    num_hosts = num_processes if num_processes is not None else int(
         os.environ.get('XSKY_NUM_HOSTS', '1'))
-    process_id = process_id if process_id is not None else int(
+    host_rank = process_id if process_id is not None else int(
         os.environ.get('XSKY_HOST_RANK', '0'))
-    if num_processes <= 1 or not coordinator_address:
-        logger.debug('Single-host run; no process group to bring up.')
+    local_rank = int(os.environ.get(ENV_LOCAL_RANK, '0'))
+    local_size = int(os.environ.get(ENV_LOCAL_SIZE, '1'))
+    rank, world = gang_rank(host_rank, num_hosts, local_rank, local_size)
+    if world <= 1 or not coordinator_address:
+        logger.debug('Single process; no process group to bring up.')
         return
-    raise NotImplementedError(
-        f'A gang of {num_processes} hosts (this is rank {process_id}, '
-        f'coordinator {coordinator_address}) needs torch.distributed '
-        'process groups, which are not ported yet: ROADMAP.md queue 1 '
-        'item 8, "more than one card".')
+    if dist.is_initialized():
+        return
+    if device_type == 'cuda':
+        torch.cuda.set_device(local_card(local_rank))
+    host, _, port = coordinator_address.rpartition(':')
+    store = dist.TCPStore(host, int(port), world_size=world,
+                          is_master=rank == 0, timeout=TIMEOUT)
+    backend = _choose_backend(store, rank, world, device_type)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    os.environ[ENV_RANK] = str(rank)
+    shared = ' (ranks share a card)' if (
+        device_type == 'cuda' and backend == 'gloo') else ''
+    logger.info(
+        f'torch.distributed up: rank {rank}/{world} (host {host_rank}/'
+        f'{num_hosts}, local {local_rank}/{local_size}), backend '
+        f'{backend}{shared}, coordinator {coordinator_address}.')
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def agree(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank (a decision the ranks must share,
+    such as a checkpoint due by rank 0's clock)."""
+    if not dist.is_initialized():
+        return flag
+    box = [flag]
+    dist.broadcast_object_list(box, src=0)
+    return bool(box[0])
+
+
+def shutdown() -> None:
+    """Tear the default group down (each process once, at its end)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# ---- collectives ----
+
+def _stages(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` goes through host memory: a CUDA tensor under gloo."""
+    return t.is_cuda and dist.get_backend(group) == 'gloo'
+
+
+def _wire(t: torch.Tensor, group) -> torch.Tensor:
+    """The tensor the collective sees: a contiguous host copy under gloo
+    for a CUDA tensor, else ``t`` (contiguous)."""
+    t = t.contiguous()
+    return t.detach().cpu() if _stages(t, group) else t
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, a new tensor on ``t``'s device
+    (every rank gets the same bits). Summed in fp32 for a 16-bit float."""
+    wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+    buf = _wire(wide, group)
+    if buf is wide:
+        buf = wide.clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device, t.dtype)
+
+
+def all_gather(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The shards of ``group``'s ranks, in group-rank order, concatenated
+    along ``dim``."""
+    n = dist.get_world_size(group)
+    src = _wire(t.movedim(dim, 0), group)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    if dist.get_backend(group) == 'nccl':
+        dist.all_gather_into_tensor(out, src, group=group)
+    else:
+        # gloo: the list form, bit for bit (as bytes: gloo takes no
+        # bfloat16).
+        dist.all_gather(list(out.reshape(-1).view(torch.uint8).chunk(n)),
+                        src.reshape(-1).view(torch.uint8), group=group)
+    return out.to(t.device).movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, of which this rank keeps its
+    block of ``dim`` (the inverse layout of :func:`all_gather`)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if dist.get_backend(group) == 'nccl':
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+    # gloo: the whole sum, then this rank's block.
+    return all_reduce(t, group).chunk(n, dim)[me].contiguous()

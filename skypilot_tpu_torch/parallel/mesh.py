@@ -1,0 +1,463 @@
+"""The rank mesh and logical-axis sharding rules.
+
+Counterpart of ``skypilot_tpu/parallel/mesh.py``. The reference lays its
+devices out as a ``jax.sharding.Mesh`` over ``MESH_AXES`` and lets XLA
+insert the collectives; the port lays the ``torch.distributed`` ranks out
+the same way (:func:`build_mesh`: rank r sits where device r sits in the
+reference's mesh) and makes the collectives itself:
+
+* every parameter leaf carries a :class:`Split` (from its family's
+  ``logical_axes`` through :func:`logical_to_spec`): which dim is split
+  over which mesh axes, and this rank's block. :func:`shard` takes the
+  block, :func:`gather` puts the leaf back together;
+* inside a training step a stacked layer leaf is a :class:`Sharded`
+  view: indexing it by layer gives that layer's block, and
+  :func:`gathered` (called where a family's layer starts) all-gathers it
+  with a gradient that is reduce-scattered back (:class:`_Gather`). The
+  families call it inside their per-layer checkpoint, whose recompute
+  gathers again; without one, :func:`regathering` saves the block in the
+  gathered weight's place. No gathered weight is kept for the backward;
+* :func:`batch_split` marks the rows of one global batch as split over
+  a group of ranks: the families' losses then divide by the global token
+  count (:func:`batch_total`) and the router counts its capacity and
+  load-balance statistics over the global batch (:func:`batch_offsets`),
+  as the reference's SPMD step computes them. Each rank's loss is then
+  its share of the global loss, and the shares sum to it.
+
+Only the ``data`` and ``fsdp`` axes train above 1 in this slice;
+``Trainer`` refuses the others.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import weakref
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.parallel import distributed
+
+# Canonical mesh axis order: outermost (slowest) first.
+MESH_AXES = ('data', 'stage', 'fsdp', 'sequence', 'expert', 'tensor')
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """Degree of each parallelism axis. -1 on `data` means 'absorb rest'."""
+    data: int = -1
+    stage: int = 1      # pipeline stages
+    fsdp: int = 1       # param/grad/optimizer sharding (ZeRO-3 twin)
+    sequence: int = 1   # context parallelism (ring attention axis)
+    expert: int = 1     # MoE expert parallelism
+    tensor: int = 1     # megatron-style tensor parallelism
+
+    def resolve(self, num_devices: int) -> 'MeshPlan':
+        sizes = dataclasses.asdict(self)
+        fixed = math.prod(v for v in sizes.values() if v != -1)
+        free = [k for k, v in sizes.items() if v == -1]
+        if len(free) > 1:
+            raise ValueError('At most one mesh axis may be -1.')
+        if free:
+            if num_devices % fixed:
+                raise ValueError(
+                    f'{num_devices} devices not divisible by fixed axes '
+                    f'product {fixed} ({sizes}).')
+            sizes[free[0]] = num_devices // fixed
+        elif fixed != num_devices:
+            raise ValueError(
+                f'Mesh plan {sizes} needs {fixed} devices, got '
+                f'{num_devices}.')
+        return MeshPlan(**sizes)
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        d = dataclasses.asdict(self)
+        return tuple(d[a] for a in MESH_AXES)
+
+
+class Mesh:
+    """The ranks arranged over ``MESH_AXES`` (``devices``: an int array of
+    ranks, the reference's device-id grid), and the process groups along
+    them, made on first use (every rank makes every group, in one
+    order)."""
+
+    def __init__(self, plan: MeshPlan, devices: np.ndarray,
+                 rank: int = 0) -> None:
+        self.plan = plan
+        self.devices = devices
+        self.rank = rank
+        self.size = int(devices.size)
+        self.coords = dict(zip(MESH_AXES, (
+            int(i) for i in np.argwhere(devices == rank)[0])))
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(MESH_AXES, self.devices.shape))
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def axes_index(self, axes: Sequence[str]) -> int:
+        """This rank's position along ``axes`` (the first the slowest),
+        as JAX numbers the blocks of a dim split over several axes."""
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + self.coords[a]
+        return index
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (in ``axes_index`` order); None for one rank."""
+        axes = tuple(a for a in MESH_AXES if a in axes
+                     and self.shape[a] > 1)
+        if not axes:
+            return None
+        if axes not in self._groups:
+            moved = np.moveaxis(
+                self.devices, [MESH_AXES.index(a) for a in axes],
+                range(self.devices.ndim - len(axes), self.devices.ndim))
+            rows = moved.reshape(-1, self.axes_size(axes))
+            mine = None
+            for row in rows:   # every rank makes every group, in order
+                g = torch.distributed.new_group([int(r) for r in row])
+                if self.rank in row:
+                    mine = g
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+
+def build_mesh(plan: Optional[MeshPlan] = None, num_slices: int = 1,
+               world: Optional[int] = None,
+               rank: Optional[int] = None) -> Mesh:
+    """The ranks of this world (``distributed.world_size()`` unless
+    given) laid out as ``plan`` resolves against it, in ``MESH_AXES``
+    order. With ``num_slices > 1`` the 'data' axis is laid across slices
+    first (each slice a contiguous block of ranks), as the reference's
+    layout for devices without slice topology gives."""
+    world = distributed.world_size() if world is None else world
+    rank = distributed.rank() if rank is None else rank
+    plan = (plan or MeshPlan()).resolve(world)
+    shape = plan.axis_sizes()
+    if num_slices > 1:
+        if plan.data % num_slices:
+            raise ValueError(
+                f'data axis ({plan.data}) must be a multiple of num_slices '
+                f'({num_slices}) for multislice layout.')
+        if world % num_slices:
+            raise ValueError(
+                f'{world} devices not divisible into {num_slices} slices.')
+        per_slice = world // num_slices
+        ici_shape = (plan.data // num_slices,) + shape[1:]
+        slabs = [np.arange(s * per_slice, (s + 1) * per_slice).reshape(
+            ici_shape) for s in range(num_slices)]
+        devices = np.concatenate(slabs, axis=0)
+    else:
+        devices = np.arange(world).reshape(shape)
+    return Mesh(plan, devices, rank)
+
+
+# ---- logical axis rules ---------------------------------------------------
+# Arrays are annotated with logical axis names; these rules map them onto
+# mesh axes (first matching rule wins). MaxText-style layout.
+
+LogicalRules = Tuple[Tuple[str, Any], ...]
+
+DEFAULT_RULES: LogicalRules = (
+    ('batch', ('data', 'fsdp')),          # activations: batch over dp+fsdp
+    ('activation_length', 'sequence'),    # context parallelism
+    ('activation_embed', None),
+    ('activation_heads', 'tensor'),
+    ('activation_kv', None),
+    ('activation_mlp', 'tensor'),
+    ('embed', 'fsdp'),                    # params: embed dim over fsdp
+    ('heads', 'tensor'),
+    ('kv', None),
+    ('mlp', 'tensor'),
+    ('vocab', 'tensor'),
+    ('expert', 'expert'),
+    ('layers', None),                     # stacked-layer leading axis
+    ('stage', 'stage'),
+)
+
+# Pipeline-parallel layout: the stacked layer axis is sharded over the
+# 'stage' mesh axis so each pipeline stage holds (and updates) only its
+# own block of layers. Everything else is unchanged.
+PIPELINE_RULES: LogicalRules = tuple(
+    ('layers', 'stage') if name == 'layers' else (name, target)
+    for name, target in DEFAULT_RULES)
+
+# One entry per dim: None, a mesh axis, or a tuple of mesh axes (the
+# entries of a jax PartitionSpec).
+PartitionSpec = Tuple[Any, ...]
+
+
+def logical_to_spec(logical_axes: Sequence[Optional[str]],
+                    rules: LogicalRules = DEFAULT_RULES) -> PartitionSpec:
+    rule_map = dict(rules)
+    spec: List[Any] = []
+    used: set = set()
+    for name in logical_axes:
+        target = rule_map.get(name) if name is not None else None
+        if target is None:
+            spec.append(None)
+            continue
+        targets = target if isinstance(target, tuple) else (target,)
+        # A mesh axis may shard at most one array dimension.
+        targets = tuple(t for t in targets if t not in used)
+        used.update(targets)
+        if not targets:
+            spec.append(None)
+        elif len(targets) == 1:
+            spec.append(targets[0])
+        else:
+            spec.append(targets)
+    return tuple(spec)
+
+
+# ---- splits: one leaf's block on this rank --------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How one leaf lies on this rank: dim ``dim`` of the full ``shape``
+    cut into ``parts`` equal blocks over the ranks of ``group`` (the
+    mesh ``axes``), this rank holding block ``index``."""
+    dim: int
+    parts: int
+    index: int
+    shape: Tuple[int, ...]
+    group: Any
+    axes: Tuple[str, ...] = ()
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ of ``t`` over the ranks that hold the leaf's blocks."""
+        return distributed.all_reduce(t, self.group)
+
+    def drop(self, dim: int) -> Optional['Split']:
+        """The split of a statistic that reduces the leaf over ``dim``:
+        None where that was the split dim (the statistic is then whole on
+        every rank)."""
+        if dim == self.dim:
+            return None
+        shape = self.shape[:dim] + self.shape[dim + 1:]
+        return dataclasses.replace(
+            self, dim=self.dim - (dim < self.dim), shape=shape)
+
+
+def split_for(mesh: Mesh, spec: PartitionSpec,
+              shape: Sequence[int]) -> Optional[Split]:
+    """The Split of a leaf of ``shape`` under ``spec`` on this rank, or
+    None when no dim is split over more than one rank."""
+    split = None
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        axes = tuple(a for a in axes if mesh.shape[a] > 1)
+        if not axes:
+            continue
+        if split is not None:
+            raise NotImplementedError(
+                f'spec {spec}: a leaf split along two dims needs a '
+                'tensor or expert axis, not ported yet (ROADMAP.md '
+                'queue 1 items 8b, 8e).')
+        parts = mesh.axes_size(axes)
+        if shape[dim] % parts:
+            raise ValueError(
+                f'dim {dim} of a leaf of shape {tuple(shape)} does not '
+                f'split into {parts} equal blocks (spec {spec}).')
+        split = Split(dim, parts, mesh.axes_index(axes), tuple(shape),
+                      mesh.group(axes), axes)
+    return split
+
+
+def tree_splits(mesh: Mesh, logical_tree, shape_tree,
+                rules: LogicalRules = DEFAULT_RULES):
+    """The Split (or None) of every leaf of ``shape_tree`` (tensors, meta
+    ones will do) under its logical axes in ``logical_tree``: the
+    counterpart of the reference's ``tree_shardings``."""
+    if isinstance(shape_tree, dict):
+        return {k: tree_splits(mesh, logical_tree[k], v, rules)
+                for k, v in shape_tree.items()}
+    return split_for(mesh, logical_to_spec(logical_tree, rules),
+                     shape_tree.shape)
+
+
+def shard(leaf: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    """This rank's block of ``leaf`` (a contiguous copy), or ``leaf``."""
+    if split is None:
+        return leaf
+    return leaf.chunk(split.parts, split.dim)[split.index].contiguous()
+
+
+def gather(block: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    """The whole leaf from every rank's block (a collective: each rank
+    of the split's group calls it), or ``block``."""
+    if split is None:
+        return block
+    return distributed.all_gather(block.detach(), split.dim, split.group)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of a block in the forward; the gradient is the sum over
+    the group, scattered back to the blocks."""
+
+    @staticmethod
+    def forward(ctx, block, split):
+        ctx.split = split
+        return distributed.all_gather(block, split.dim, split.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        s = ctx.split
+        return distributed.reduce_scatter(grad, s.dim, s.group), None
+
+
+class Sharded:
+    """A stacked leaf inside a sharded step: ``block`` of the full
+    ``split.shape``. ``view[i]`` is layer i's block (a Sharded of one
+    dim fewer); :meth:`gather` all-gathers it with a gradient.
+    ``shape``/``ndim`` are the full leaf's; ``data_ptr`` is the last
+    gathered tensor's, which a checkpoint's save policy matches."""
+
+    def __init__(self, block: torch.Tensor, split: Split) -> None:
+        self.block = block
+        self.split = split
+        self.shape = torch.Size(split.shape)
+        self.ndim = len(split.shape)
+        self._gathered_ptr: Optional[int] = None
+
+    def __getitem__(self, i: int) -> 'Sharded':
+        if not isinstance(i, int) or self.split.dim == 0:
+            raise TypeError('a Sharded leaf is indexed by layer only')
+        return Sharded(self.block[i], self.split.drop(0))
+
+    def gather(self) -> torch.Tensor:
+        full = _Gather.apply(self.block, self.split)
+        self._gathered_ptr = full.data_ptr()
+        if _REGATHER is not None:
+            _REGATHER[id(full)] = (weakref.ref(full), self.block, self.split)
+        return full
+
+    def data_ptr(self) -> Optional[int]:
+        return self._gathered_ptr
+
+
+def gathered(layer_params: Dict[str, Any]) -> Dict[str, Any]:
+    """A layer's weights whole: each Sharded entry all-gathered (with its
+    gradient), the rest as they are. Families call this where a layer
+    starts, inside the layer's checkpoint."""
+    if not any(isinstance(w, Sharded) for w in layer_params.values()):
+        return layer_params
+    return {k: w.gather() if isinstance(w, Sharded) else w
+            for k, w in layer_params.items()}
+
+
+# id of a gathered layer weight -> (a weak reference to it, its block,
+# its split), while ``regathering`` is active.
+_REGATHER: Optional[Dict[int, Tuple[Any, torch.Tensor, Split]]] = None
+
+
+class _Block(NamedTuple):
+    block: torch.Tensor
+    split: Split
+
+
+def _pack(t: torch.Tensor):
+    entry = _REGATHER.get(id(t)) if _REGATHER is not None else None
+    if entry is None or entry[0]() is not t:
+        return t
+    return _Block(entry[1], entry[2])
+
+
+def _unpack(saved):
+    if isinstance(saved, _Block):
+        return distributed.all_gather(saved.block.detach(),
+                                      saved.split.dim, saved.split.group)
+    return saved
+
+
+@contextlib.contextmanager
+def regathering():
+    """Within (a sharded step's forward and backward): a gathered layer
+    weight that autograd saves for the backward is saved as its block and
+    gathered again when the backward reads it, so no gathered weight
+    outlives its layer's forward. A checkpointed layer's own hooks come
+    first: there the recompute gathers again."""
+    global _REGATHER
+    prev, _REGATHER = _REGATHER, {}
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+            yield
+    finally:
+        _REGATHER = prev
+
+
+def is_stacked(logical_axes: Sequence[Optional[str]]) -> bool:
+    return bool(logical_axes) and logical_axes[0] == 'layers'
+
+
+def step_view(params, splits, logical_tree):
+    """The parameter tree a sharded step's loss reads: stacked layer
+    leaves as Sharded views (gathered a layer at a time by the layer),
+    every other split leaf gathered now (with its gradient)."""
+    if isinstance(params, dict):
+        return {k: step_view(params[k], splits[k], logical_tree[k])
+                for k in params}
+    if splits is None:
+        return params
+    if is_stacked(logical_tree):
+        return Sharded(params, splits)
+    return _Gather.apply(params, splits)
+
+
+# ---- the batch split over ranks ---------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchSplit:
+    """The rows of one global batch split in rank order over ``group``:
+    ``parts`` equal blocks, this rank holding block ``index``."""
+    parts: int
+    index: int
+    group: Any
+
+
+_BATCH: Optional[BatchSplit] = None
+
+
+@contextlib.contextmanager
+def batch_split(split: Optional[BatchSplit]):
+    """Within: the families' batch statistics are global over ``split``
+    (no-op for None). Active around a sharded step's forward and
+    backward (a checkpoint's recompute reads the statistics again)."""
+    global _BATCH
+    prev, _BATCH = _BATCH, split
+    try:
+        yield
+    finally:
+        _BATCH = prev
+
+
+def current_batch_split() -> Optional[BatchSplit]:
+    return _BATCH
+
+
+def batch_total(count):
+    """A per-rank count (tensor or number) summed over the ranks that
+    split the batch: the global count. Carries no gradient."""
+    if _BATCH is None:
+        return count
+    if not torch.is_tensor(count):
+        return count * _BATCH.parts
+    return distributed.all_reduce(count.detach(), _BATCH.group)
+
+
+def batch_offsets(counts: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For a per-rank count tensor: (the sum over the ranks before this
+    one, the sum over every rank), both shaped as ``counts``."""
+    if _BATCH is None:
+        return torch.zeros_like(counts), counts
+    rows = distributed.all_gather(counts.detach()[None], 0, _BATCH.group)
+    return rows[:_BATCH.index].sum(0), rows.sum(0)

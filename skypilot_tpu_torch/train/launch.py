@@ -1,4 +1,5 @@
-"""Training entrypoint for task ``run:`` sections, on one card.
+"""Training entrypoint for task ``run:`` sections, on one card or a gang
+of ranks (one process per card).
 
     python -m skypilot_tpu_torch.train.launch \\
         --model llama3-1b --mesh data=1,fsdp=-1 \\
@@ -7,30 +8,39 @@
 
 Counterpart of ``skypilot_tpu/train/launch.py``, with every flag of the
 reference and one more: ``--device`` (the card by default: without one
-the launcher refuses to start unless given ``--device cpu``). It reads
-the gang env, builds the ``Trainer``, feeds it token shards
-(``train/data.py``) or synthetic batches, checkpoints through
-``agent/checkpointd.py`` so that a preempted job relaunched with
+the launcher refuses to start unless given ``--device cpu``). It brings
+up the process group from the gang env (``parallel/distributed.py``),
+resolves ``--mesh`` against its ranks (``--num-slices`` lays ``data``
+across slices), builds the ``Trainer``, feeds it token shards
+(``train/data.py``: each rank reads its strided share of every epoch) or
+synthetic batches, checkpoints so that a preempted job relaunched with
 ``--resume auto`` picks up from its last step, and logs throughput in
-the reference's terms.
+the reference's terms (TFLOP/s per device). Logs and the metrics file
+come from rank 0.
 
 Checkpoints: the storage tier is ``--checkpoint-dir`` itself, one
 directory per step (``<dir>/<step>/state.pt``, ``torch.save`` of the
-trainer's host state), written under a temporary name and renamed, so a
-killed write leaves the previous step intact; the newest 3 are kept
-(the reference's orbax ``max_to_keep=3``). The fast tiers
-(``<dir>/fast-tier`` or ``$XSKY_CKPT_DIR``, and peers) hold pickled
-host copies, written off the step path by the checkpointd worker.
+trainer's host state: the whole tree, whatever the mesh), written under
+a temporary name and renamed, so a killed write leaves the previous
+step intact; the newest 3 are kept (the reference's orbax
+``max_to_keep=3``). On one process the fast tiers (``<dir>/fast-tier``
+or ``$XSKY_CKPT_DIR``, and peers) hold pickled host copies, written off
+the step path by the checkpointd worker. On a gang, as in the
+reference, only the storage tier, which every rank must see (a shared
+mount, as the reference's bucket): every rank gathers the state, rank 0
+writes it synchronously, and the ranks meet at a barrier; every rank
+restores from it onto its own mesh, so a checkpoint written at one mesh
+resumes at another (the elastic remesh). The reference writes orbax's
+distributed checkpoint there instead of one gathered file.
 
 One difference from the reference: a resumed run with ``--data``
 continues the token stream where the checkpoint left it (its loader
 skips the batches the checkpointed steps consumed); the reference
 restarts the stream at its first batch.
 
-Not ported (they need more than one card; ROADMAP.md queue 1 item 8):
-``--attention ring|ulysses``, ``--num-slices > 1`` and a ``--mesh`` that
-resolves to more than one card. These exit with a message naming that
-item.
+Not ported yet: ``--attention ring|ulysses`` and the mesh axes tensor,
+sequence, stage and expert above 1 exit naming their sub-items of
+ROADMAP.md queue 1 item 8 (8b-8e).
 """
 from __future__ import annotations
 
@@ -52,11 +62,11 @@ from skypilot_tpu_torch.agent import flight_recorder
 from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.train import trainer as trainer_lib
 
 logger = logging.getLogger(__name__)
 
-_MULTI_CARD = 'ROADMAP.md queue 1 item 8, "more than one card"'
 STATE_FILE = 'state.pt'
 MAX_TO_KEEP = 3
 
@@ -113,15 +123,22 @@ def parse_mesh(spec: str) -> trainer_lib.MeshPlan:
     return trainer_lib.MeshPlan(**kwargs)
 
 
-def resolve_one_card(plan: trainer_lib.MeshPlan) -> trainer_lib.MeshPlan:
-    """``plan`` resolved against the one card the port trains on; exits
-    naming ROADMAP.md queue 1 item 8 when it needs more."""
+def resolve_plan(plan: trainer_lib.MeshPlan,
+                 world: int) -> trainer_lib.MeshPlan:
+    """``plan`` resolved against the gang's ``world`` ranks; exits when
+    it does not fit them, or names its sub-item of ROADMAP.md queue 1
+    item 8 for an axis not ported yet."""
+    for axis in trainer_lib.UNPORTED_AXES:
+        size = getattr(plan, axis)
+        if size > 1:
+            raise SystemExit(
+                f'--mesh: {trainer_lib.unported_axis_message(axis, size)}')
     try:
-        return plan.resolve(1)
+        return plan.resolve(world)
     except ValueError as e:
         raise SystemExit(
-            f'--mesh {plan} does not fit one card ({e}); the port trains '
-            f'on one card, more are not ported yet: {_MULTI_CARD}.') from e
+            f'--mesh {plan} does not fit this gang of {world} rank(s) '
+            f'({e}); run one process per card.') from e
 
 
 class StepCheckpoints:
@@ -279,9 +296,10 @@ def _write_metrics(path: str, row: Dict[str, Any]) -> None:
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train as ``args`` say; returns what the run did: the final
-    ``state`` and ``trainer``, ``start_step``, the logged ``losses`` and
-    ``eval_losses`` ({step: loss}), ``restore`` (tier and seconds, when
-    resumed) and the ``data`` loader's class name."""
+    ``state`` and ``trainer``, ``start_step``, the logged ``losses``,
+    ``grad_norms`` and ``eval_losses`` ({step: value}, the global ones on
+    every rank), ``restore`` (tier and seconds, when resumed) and the
+    ``data`` loader's class name."""
     # Black-box dumps BEFORE anything can fail: a fatal exception or a
     # SIGTERM/preemption from here on seals the flight-recorder ring
     # to $XSKY_FLIGHTREC_DIR for post-mortem step anatomy.
@@ -293,16 +311,22 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     # Compile listener BEFORE any kernel build: the first step's builds
     # are the biggest a run does, and must land in the profile's count.
     profiler.ensure_compile_listener()
-    distributed.initialize()
     if args.attention in ('ring', 'ulysses'):
         raise SystemExit(f'--attention {args.attention} shards the '
                          'sequence over several cards, which is not '
-                         f'ported yet: {_MULTI_CARD}.')
-    if args.num_slices > 1:
-        raise SystemExit(f'--num-slices {args.num_slices} needs more '
-                         f'than one card, not ported yet: {_MULTI_CARD}.')
-    plan = resolve_one_card(parse_mesh(args.mesh))
+                         'ported yet: ROADMAP.md queue 1 item 8c.')
     device = resolve_device(args.device)
+    distributed.initialize(device_type=device.type)
+    world, rank = distributed.world_size(), distributed.rank()
+    plan = resolve_plan(parse_mesh(args.mesh), world)
+    try:
+        mesh = mesh_lib.build_mesh(plan, num_slices=args.num_slices)
+    except ValueError as e:
+        raise SystemExit(f'--num-slices {args.num_slices}: {e}') from e
+    if device.type == 'cuda':
+        device = torch.device('cuda', torch.cuda.current_device())
+    if rank:   # logs and the metrics file come from rank 0
+        logger.setLevel(logging.WARNING)
 
     model = models.get_config(args.model)
     model = dataclasses.replace(model, max_seq_len=max(
@@ -327,7 +351,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                            if t.strip()),
     )
     telemetry.emit(phase=telemetry.PHASE_INIT, step=0)
-    trainer = trainer_lib.Trainer(config, device=device)
+    trainer = trainer_lib.Trainer(config, device=device, mesh=mesh)
 
     manager = None
     start_step = 0
@@ -335,6 +359,18 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     restore = None
     ckpt = None
     storage_cadence = checkpointd.Cadence()
+
+    gang_saved = [None]   # the step of the gang's last save
+
+    def save_whole(step: int) -> None:
+        """The storage save of a gang: every rank gathers, rank 0
+        writes, all meet behind it."""
+        host = trainer.host_state(state)
+        if rank == 0:
+            manager.save(step, host)
+        distributed.barrier()
+        gang_saved[0] = step
+
     if args.checkpoint_dir:
         manager = StepCheckpoints(args.checkpoint_dir)
 
@@ -350,17 +386,18 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
         # One process holds the whole state, so the fast tiers (local
         # shard + peer replicas) carry it, as on a single-process run
-        # of the reference.
-        ckpt = checkpointd.Checkpointer.from_env(
-            fallback_dir=os.path.join(args.checkpoint_dir, 'fast-tier'),
-            storage_save=_storage_save)
-        checkpointd.install(ckpt)
+        # of the reference; a gang keeps the storage tier only.
+        if world == 1:
+            ckpt = checkpointd.Checkpointer.from_env(
+                fallback_dir=os.path.join(args.checkpoint_dir, 'fast-tier'),
+                storage_save=_storage_save)
+            checkpointd.install(ckpt)
         if args.resume == 'auto':
             t0_restore = time.perf_counter()
             snap = (checkpointd.restore(
                         storage_fn=_storage_restore,
                         storage_step_fn=manager.latest_step)
-                    if checkpointd.enabled() else None)
+                    if world == 1 and checkpointd.enabled() else None)
             tier = None
             if snap is not None and snap.step > 0 and \
                     snap.tier in (checkpointd.TIER_LOCAL,
@@ -405,14 +442,14 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     feed = None
     loader = None
     if args.data:
+        # Each rank loads only its rows of the global batch; the
+        # rank-strided epoch permutation keeps samples disjoint.
         paths = data_lib.expand_data_arg(args.data)
-        num_hosts = 1
         loader = data_lib.make_loader(
-            paths, batch=per_host_batch(args.global_batch_size,
-                                        num_hosts),
+            paths, batch=per_host_batch(args.global_batch_size, world),
             seq=args.seq_len,
             seed=args.seed, workers=args.data_workers,
-            host_rank=0, num_hosts=num_hosts, flavor=args.data_loader)
+            host_rank=rank, num_hosts=world, flavor=args.data_loader)
         logger.info(
             f'Data: {len(paths)} shard(s), {loader.n_samples} samples '
             f'of seq {args.seq_len} ({type(loader).__name__}).')
@@ -423,7 +460,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     if args.eval_data:
         # Fail at launch, not hundreds of steps in when the first eval
         # fires.
-        per_host_batch(args.global_batch_size, 1)
+        per_host_batch(args.global_batch_size, world)
 
     def to_device(host_batch):
         return {k: torch.from_numpy(v).to(trainer.device)
@@ -434,9 +471,9 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         pass: deterministic slice, no epoch drift across passes)."""
         paths = data_lib.expand_data_arg(args.eval_data)
         eval_loader = data_lib.make_loader(
-            paths, batch=per_host_batch(args.global_batch_size, 1),
+            paths, batch=per_host_batch(args.global_batch_size, world),
             seq=args.seq_len, seed=args.seed, workers=1,
-            host_rank=0, num_hosts=1, flavor=args.data_loader)
+            host_rank=rank, num_hosts=world, flavor=args.data_loader)
         try:
             eval_feed = data_lib.batches(eval_loader,
                                          vocab_size=model.vocab_size)
@@ -452,6 +489,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     flops_per_token = dataclasses.replace(
         model, max_seq_len=args.seq_len).train_flops_per_token()
     losses: Dict[int, float] = {}
+    grad_norms: Dict[int, float] = {}
+    metrics_file = args.metrics_file if rank == 0 else None
     eval_losses: Dict[int, float] = {}
     snapped = None   # the step of the last snapshot handed to checkpointd
     t0 = time.perf_counter()
@@ -476,21 +515,21 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             if (step + 1) % args.log_every == 0:
                 loss = float(metrics['loss'])  # waits for the step
                 losses[step + 1] = loss
+                grad_norms[step + 1] = float(metrics['grad_norm'])
                 dt = time.perf_counter() - window_t0
                 tps = window_steps * tokens_per_step / dt
-                tflops = tps * flops_per_token / 1e12
+                tflops = tps * flops_per_token / world / 1e12
                 logger.info(
                     f'step {step + 1}/{args.steps} loss={loss:.4f} '
                     f'{tps:,.0f} tok/s '
                     f'({tflops:.1f} model-TFLOP/s/chip)')
-                if args.metrics_file:
-                    _write_metrics(args.metrics_file, {
+                if metrics_file:
+                    _write_metrics(metrics_file, {
                         'step': step + 1,
                         'loss': round(loss, 6),
                         'tokens_per_sec': round(tps, 1),
                         'model_tflops_per_chip': round(tflops, 2),
-                        'grad_norm': round(
-                            float(metrics['grad_norm']), 4),
+                        'grad_norm': round(grad_norms[step + 1], 4),
                         'time': time.time(),
                     })
                 window_t0, window_steps = time.perf_counter(), 0
@@ -499,8 +538,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                 eval_losses[step + 1] = eval_loss
                 logger.info(f'step {step + 1} eval_loss={eval_loss:.4f} '
                             f'({args.eval_batches} batches)')
-                if args.metrics_file:
-                    _write_metrics(args.metrics_file, {
+                if metrics_file:
+                    _write_metrics(metrics_file, {
                         'step': step + 1,
                         'eval_loss': round(eval_loss, 6),
                         'time': time.time(),
@@ -510,7 +549,19 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             if manager is not None:
                 due_fixed = (args.checkpoint_every > 0 and
                              (step + 1) % args.checkpoint_every == 0)
-                if ckpt is not None:
+                if ckpt is None and world > 1:
+                    # The gang's synchronous save; the auto cadence is
+                    # rank 0's, so every rank saves at the same step.
+                    due = due_fixed or (args.checkpoint_every == 0 and
+                                        distributed.agree(
+                                            storage_cadence.due()))
+                    if due:
+                        t0_save = time.perf_counter()
+                        save_whole(step + 1)
+                        storage_cadence.observe_cost(
+                            time.perf_counter() - t0_save)
+                        storage_cadence.arm()
+                elif ckpt is not None:
                     # Off-step-path snapshot: the loop pays only the
                     # device→host copy (payload_fn); serialize + local
                     # write + peer replicate + the storage save all ride
@@ -542,8 +593,11 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                     args.steps, lambda: trainer.host_state(state),
                     force=True)
             drained = checkpointd.wait_idle(timeout=600)
-            if drained and (ckpt is None or
-                            ckpt.last_storage_step != args.steps):
+            if world > 1:
+                if gang_saved[0] != args.steps:
+                    save_whole(args.steps)
+            elif drained and (ckpt is None or
+                              ckpt.last_storage_step != args.steps):
                 manager.save(args.steps, trainer.host_state(state))
     finally:
         if loader is not None:
@@ -554,7 +608,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     telemetry.emit(phase=telemetry.PHASE_IDLE)
     logger.info(f'Done: {args.steps - start_step} steps in {total:.1f}s.')
     return {'state': state, 'trainer': trainer, 'start_step': start_step,
-            'losses': losses, 'eval_losses': eval_losses,
+            'losses': losses, 'grad_norms': grad_norms,
+            'eval_losses': eval_losses,
             'restore': restore, 'seconds': total,
             'data': type(loader).__name__ if loader is not None else None}
 
@@ -563,7 +618,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO,
                             format='%(asctime)s %(name)s: %(message)s')
-    run(parse_args(argv))
+    try:
+        run(parse_args(argv))
+    finally:
+        distributed.shutdown()
     return 0
 
 

@@ -84,31 +84,52 @@ def init_lora(base: Params, rank: int, generator: torch.Generator,
     return out
 
 
-def merge(base: Params, lora: Params, alpha: float, rank: int) -> Params:
+def _block(a: torch.Tensor, b: torch.Tensor, split
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The factors whose product is this rank's block of A·B, for a base
+    weight split as ``split`` (a ``parallel.mesh.Split``): A's rows for
+    the input dim, B's columns for the output dim, both for a leading
+    dim."""
+    if split is None:
+        return a, b
+    n, i, d = split.parts, split.index, split.dim
+    if d == a.ndim - 2:
+        return a.chunk(n, d)[i], b
+    if d == a.ndim - 1:
+        return a, b.chunk(n, d)[i]
+    return a.chunk(n, d)[i], b.chunk(n, d)[i]
+
+
+def merge(base: Params, lora: Params, alpha: float, rank: int,
+          splits: Any = None) -> Params:
     """W_eff = W + (alpha/rank)·A·B for every adapted weight: the product
     in fp32, cast to the weight's type before the add (the reference's
     order). Differentiable in the adapters; the base is taken as it is
-    (the trainer's base carries no gradient)."""
+    (the trainer's base carries no gradient). With ``splits`` (a tree
+    like ``base`` of ``parallel.mesh.Split`` or None) the base holds this
+    rank's blocks, and each gets the block of A·B that is its own."""
     scale = alpha / rank
 
-    def walk(b_tree: Any, l_tree: Any) -> Any:
+    def walk(b_tree: Any, l_tree: Any, s_tree: Any) -> Any:
         if not isinstance(b_tree, dict):
             return b_tree
         out = {}
         for k, v in b_tree.items():
             l_sub = l_tree.get(k) if isinstance(l_tree, dict) else None
+            s_sub = s_tree.get(k) if isinstance(s_tree, dict) else None
             if (isinstance(l_sub, dict) and set(l_sub) == {'a', 'b'}
                     and _is_matrix(v)):
-                delta = torch.matmul(l_sub['a'].float(),
-                                     l_sub['b'].float()) * scale
+                a, b = _block(l_sub['a'], l_sub['b'], s_sub)
+                delta = torch.matmul(a.float(), b.float()) * scale
                 out[k] = v + delta.to(v.dtype)
             elif isinstance(v, dict):
-                out[k] = walk(v, l_sub if isinstance(l_sub, dict) else {})
+                out[k] = walk(v, l_sub if isinstance(l_sub, dict) else {},
+                              s_sub)
             else:
                 out[k] = v
         return out
 
-    return walk(base, lora)
+    return walk(base, lora, splits)
 
 
 @torch.no_grad()

@@ -16,9 +16,20 @@ place (``apply_updates``): one copy of the parameters lives at a time.
 Differences that remain: the global norm is summed in fp32 whatever the
 gradients' type (optax sums in the leaf type), and scalar factors such as
 the bias corrections are computed on the host.
+
+Sharded leaves: a transformation built with ``splits`` (one
+``parallel.mesh.Split`` or None per leaf) takes each leaf as this rank's
+block of the full leaf. The elementwise pieces (Adam, decay, the
+schedule) are exact on blocks as they are; the reductions that span a
+leaf (the global norm, adafactor's factored row and column statistics,
+the block RMS clip and the parameter-scale RMS) sum their block's part
+and add the other blocks' over the split's group, so the update equals
+the one-rank update on the full leaf. ``state_splits`` gives the split of
+every state tensor, for gathering the state whole.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,12 +75,45 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+Splits = Optional[Sequence[Any]]
+
+
+def _full_shape(t: torch.Tensor, split) -> Tuple[int, ...]:
+    return tuple(split.shape) if split is not None else tuple(t.shape)
+
+
+def _mean(t: torch.Tensor, dim: int, split) -> torch.Tensor:
+    """``t.mean(dim)`` of the full leaf: where ``dim`` is the split one,
+    the blocks' sums added over the split's group, over the full size."""
+    if split is None or split.dim != dim:
+        return t.mean(dim=dim)
+    return split.reduce(t.sum(dim=dim)) / split.shape[dim]
+
+
+def _rms(t: torch.Tensor, split) -> torch.Tensor:
+    """sqrt(mean(t²)) over the full leaf."""
+    if split is None:
+        return torch.sqrt(torch.mean(t * t))
+    return torch.sqrt(split.reduce(torch.sum(t * t)) /
+                      math.prod(split.shape))
+
+
+def _per_leaf(splits: Splits, n: int) -> List[Any]:
+    return list(splits) if splits is not None else [None] * n
+
+
 class Transform:
     """One gradient transformation: ``init(params) -> state`` and
     ``update(updates, state, params) -> (updates, state)``."""
 
     def init(self, params: Tensors) -> Any:
         del params
+        return None
+
+    def state_splits(self, splits: Sequence[Any]) -> Any:
+        """``init``'s state tree with each tensor's split (None: whole
+        on every rank) in its place."""
+        del splits
         return None
 
     def update(self, updates: Tensors, state: Any, params: Tensors
@@ -84,6 +128,9 @@ class Chain(Transform):
     def init(self, params: Tensors) -> List[Any]:
         return [t.init(params) for t in self.transforms]
 
+    def state_splits(self, splits):
+        return [t.state_splits(splits) for t in self.transforms]
+
     def update(self, updates, state, params):
         new_state = []
         for t, s in zip(self.transforms, state):
@@ -92,10 +139,28 @@ class Chain(Transform):
         return updates, new_state
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ x²) over every tensor, summed in fp32 (a 0-dim tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor],
+                splits: Splits = None) -> torch.Tensor:
+    """sqrt(Σ x²) over every tensor, summed in fp32 (a 0-dim tensor).
+    With ``splits`` a split tensor is a block: the blocks' sums are
+    added over each split's group (one sum per group), whole tensors
+    count once."""
+    if splits is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tensors))
+    whole, by_group = 0.0, {}
+    for t, split in zip(tensors, splits):
+        sq = torch.sum(torch.square(t.float()))
+        if split is None:
+            whole = whole + sq
+        else:
+            key = id(split.group)
+            part, first = by_group.get(key, (0.0, split))
+            by_group[key] = (part + sq, first)
+    total = whole
+    for part, split in by_group.values():
+        total = total + split.reduce(part)
+    return torch.sqrt(total)
 
 
 def _scalar(value: float, dtype: torch.dtype) -> float:
@@ -107,12 +172,13 @@ def _scalar(value: float, dtype: torch.dtype) -> float:
 class ClipByGlobalNorm(Transform):
     """Scale every update by max_norm / norm when norm >= max_norm."""
 
-    def __init__(self, max_norm: float) -> None:
+    def __init__(self, max_norm: float, splits: Splits = None) -> None:
         self.max_norm = max_norm
+        self.splits = splits
 
     def update(self, updates, state, params):
         del params
-        norm = global_norm(updates)
+        norm = global_norm(updates, self.splits)
         keep = norm < self.max_norm
         return [torch.where(keep, u, u / norm.to(u.dtype) * self.max_norm)
                 for u in updates], state
@@ -132,6 +198,9 @@ class ScaleByAdam(Transform):
                 'mu': [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                        for p in params],
                 'nu': [torch.zeros_like(p) for p in params]}
+
+    def state_splits(self, splits):
+        return {'count': None, 'mu': list(splits), 'nu': list(splits)}
 
     def update(self, updates, state, params):
         del params
@@ -177,6 +246,9 @@ class ScaleBySchedule(Transform):
         del params
         return {'count': 0}
 
+    def state_splits(self, splits):
+        return {'count': None}
+
     def update(self, updates, state, params):
         del params
         step = self.schedule(state['count'])
@@ -212,15 +284,32 @@ class ScaleByFactoredRms(Transform):
 
     def __init__(self, decay_rate: float = 0.8,
                  min_dim_size_to_factor: int = 128,
-                 epsilon: float = 1e-30) -> None:
+                 epsilon: float = 1e-30, splits: Splits = None) -> None:
         self.decay_rate = decay_rate
         self.min_dim = min_dim_size_to_factor
         self.epsilon = epsilon
+        self.splits = splits
+
+    def state_splits(self, splits):
+        rows, cols, full = [], [], []
+        for split in splits:
+            dims = (None if split is None else
+                    _factored_dims(split.shape, self.min_dim))
+            if dims is None:
+                rows.append(None)
+                cols.append(None)
+                full.append(split)
+                continue
+            d1, d0 = dims
+            rows.append(split.drop(d0))
+            cols.append(split.drop(d1))
+            full.append(None)
+        return {'count': None, 'v_row': rows, 'v_col': cols, 'v': full}
 
     def init(self, params):
         rows, cols, full = [], [], []
-        for p in params:
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+        for p, split in zip(params, _per_leaf(self.splits, len(params))):
+            dims = _factored_dims(_full_shape(p, split), self.min_dim)
             one = torch.zeros((1,), dtype=p.dtype, device=p.device)
             if dims is None:
                 rows.append(one)
@@ -241,12 +330,12 @@ class ScaleByFactoredRms(Transform):
         t = np.float32(state['count'] + 1)
         decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
         out, rows, cols, full = [], [], [], []
-        for g, v_row, v_col, v, p in zip(updates, state['v_row'],
-                                         state['v_col'], state['v'],
-                                         params):
+        for g, v_row, v_col, v, p, split in zip(
+                updates, state['v_row'], state['v_col'], state['v'],
+                params, _per_leaf(self.splits, len(params))):
             dtype = p.dtype
             grad_sqr = g * g + self.epsilon
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            dims = _factored_dims(_full_shape(p, split), self.min_dim)
             if dims is None:
                 v = (decay * v.float() +
                      (1.0 - decay) * grad_sqr.float()).to(dtype)
@@ -256,13 +345,16 @@ class ScaleByFactoredRms(Transform):
                 full.append(v)
                 continue
             d1, d0 = dims
-            v_row = (decay * v_row.float() + (1.0 - decay) * grad_sqr.float(
-            ).mean(dim=d0).to(dtype).float()).to(dtype)
-            v_col = (decay * v_col.float() + (1.0 - decay) * grad_sqr.float(
-            ).mean(dim=d1).to(dtype).float()).to(dtype)
+            sq = grad_sqr.float()
+            v_row = (decay * v_row.float() + (1.0 - decay) * _mean(
+                sq, d0, split).to(dtype).float()).to(dtype)
+            v_col = (decay * v_col.float() + (1.0 - decay) * _mean(
+                sq, d1, split).to(dtype).float()).to(dtype)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.float().mean(dim=reduced_d1,
-                                              keepdim=True).to(dtype)
+            row_col_mean = _mean(
+                v_row.float(), reduced_d1,
+                split.drop(d0) if split is not None else None
+            ).unsqueeze(reduced_d1).to(dtype)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             out.append(g * row_factor.unsqueeze(d0) *
@@ -277,26 +369,31 @@ class ScaleByFactoredRms(Transform):
 class ClipByBlockRms(Transform):
     """Divide each update by max(1, rms(update) / threshold)."""
 
-    def __init__(self, threshold: float) -> None:
+    def __init__(self, threshold: float, splits: Splits = None) -> None:
         self.threshold = threshold
+        self.splits = splits
 
     def update(self, updates, state, params):
         del params
-        return [u / torch.clamp(torch.sqrt(torch.mean(u * u)) /
-                                self.threshold, min=1.0)
-                for u in updates], state
+        return [u / torch.clamp(_rms(u, split) / self.threshold, min=1.0)
+                for u, split in zip(updates, _per_leaf(self.splits,
+                                                       len(updates)))
+                ], state
 
 
 class ScaleByParamBlockRms(Transform):
     """Multiply each update by max(rms(param), min_scale)."""
 
-    def __init__(self, min_scale: float = 1e-3) -> None:
+    def __init__(self, min_scale: float = 1e-3,
+                 splits: Splits = None) -> None:
         self.min_scale = min_scale
+        self.splits = splits
 
     def update(self, updates, state, params):
         out = []
-        for u, p in zip(updates, params):
-            rms = torch.sqrt(torch.mean(p * p))
+        for u, p, split in zip(updates, params,
+                               _per_leaf(self.splits, len(params))):
+            rms = _rms(p, split)
             out.append(u * torch.where(rms <= self.min_scale,
                                        self.min_scale, rms).to(u.dtype))
         return out, state
@@ -311,13 +408,15 @@ def adamw(learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
                  ScaleBySchedule(lambda count: -learning_rate(count)))
 
 
-def adafactor(learning_rate: Schedule) -> Transform:
+def adafactor(learning_rate: Schedule, splits: Splits = None
+              ) -> Transform:
     """optax.adafactor with its defaults (factored, decay_rate 0.8,
     min_dim_size_to_factor 128, clipping_threshold 1.0, parameter-scale
     multiplication, eps 1e-30, no momentum, no weight decay)."""
-    return Chain(ScaleByFactoredRms(), ClipByBlockRms(1.0),
-                 ScaleBySchedule(learning_rate), ScaleByParamBlockRms(),
-                 Scale(-1.0))
+    return Chain(ScaleByFactoredRms(splits=splits),
+                 ClipByBlockRms(1.0, splits),
+                 ScaleBySchedule(learning_rate),
+                 ScaleByParamBlockRms(splits=splits), Scale(-1.0))
 
 
 @torch.no_grad()

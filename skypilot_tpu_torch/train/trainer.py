@@ -1,7 +1,7 @@
-"""Trainer on one card: TrainConfig, Trainer, measure_throughput.
+"""Trainer over one card or a mesh of ranks: TrainConfig, Trainer,
+measure_throughput.
 
-Counterpart of ``skypilot_tpu/train/trainer.py`` for one device. The
-step runs eagerly: the model's loss (``loss_fn`` of the config's family,
+Counterpart of ``skypilot_tpu/train/trainer.py``. The step runs eagerly: the model's loss (``loss_fn`` of the config's family,
 remat as the config says), its gradient, gradient accumulation over
 strided microbatches, the optimizer chain of ``make_optimizer`` and an
 in-place parameter update (the JAX step donates the old state instead).
@@ -15,10 +15,24 @@ flight recorder as a synced record. Unsampled steps never wait for the
 card. ``host_state`` and ``load_state`` carry the state to the host and
 back for checkpoints (``train/launch.py``).
 
-Not ported yet (ROADMAP.md queue 1 item 8): pipeline and sharded meshes.
+Over ``torch.distributed`` ranks (one per card, ``parallel/distributed``)
+the mesh plan's ``data`` and ``fsdp`` axes train as the reference's
+sharded step does, its collectives made explicit (``parallel/mesh.py``):
+each rank holds its blocks of the parameters and optimizer state (the
+families' ``logical_axes`` under ``DEFAULT_RULES``: embed dims over
+``fsdp``, as in the reference); the global batch's rows split over
+``('data', 'fsdp')`` in rank order; a layer's weights are all-gathered
+where the layer starts, inside its checkpoint, and their gradients
+reduce-scattered back (a layer without a checkpoint keeps its block for
+the backward, ``mesh_lib.regathering``); the remaining gradients are
+summed over the ranks that hold the same block. Each rank's loss is its share of the
+global (mask-)weighted mean (``mesh_lib.batch_split``), so the update
+equals the one-rank update on the whole batch. The tensor, sequence,
+expert and stage axes are not ported yet (ROADMAP.md queue 1 items 8b-8e).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -34,48 +48,19 @@ from skypilot_tpu_torch.models import deepseek
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.train import lora as lora_lib
 from skypilot_tpu_torch.train import optim
 
 Batch = Dict[str, torch.Tensor]
 
-# Canonical mesh axis order (``skypilot_tpu/parallel/mesh.py``):
-# outermost first.
-MESH_AXES = ('data', 'stage', 'fsdp', 'sequence', 'expert', 'tensor')
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshPlan:
-    """Degree of each parallelism axis (the JAX ``MeshPlan``'s fields).
-    -1 on ``data`` absorbs the devices left; the port trains on one."""
-    data: int = -1
-    stage: int = 1
-    fsdp: int = 1
-    sequence: int = 1
-    expert: int = 1
-    tensor: int = 1
-
-    def resolve(self, num_devices: int) -> 'MeshPlan':
-        sizes = dataclasses.asdict(self)
-        fixed = math.prod(v for v in sizes.values() if v != -1)
-        free = [k for k, v in sizes.items() if v == -1]
-        if len(free) > 1:
-            raise ValueError('At most one mesh axis may be -1.')
-        if free:
-            if num_devices % fixed:
-                raise ValueError(
-                    f'{num_devices} devices not divisible by fixed axes '
-                    f'product {fixed} ({sizes}).')
-            sizes[free[0]] = num_devices // fixed
-        elif fixed != num_devices:
-            raise ValueError(
-                f'Mesh plan {sizes} needs {fixed} devices, got '
-                f'{num_devices}.')
-        return MeshPlan(**sizes)
-
-    def axis_sizes(self) -> Tuple[int, ...]:
-        d = dataclasses.asdict(self)
-        return tuple(d[a] for a in MESH_AXES)
+# Re-exported: the plan moved to parallel/mesh.py, as in the reference.
+MESH_AXES = mesh_lib.MESH_AXES
+MeshPlan = mesh_lib.MeshPlan
+# The axes the batch rows split over (PartitionSpec(('data', 'fsdp'),
+# None) in the reference).
+BATCH_AXES = ('data', 'fsdp')
 
 
 @dataclasses.dataclass
@@ -103,16 +88,20 @@ class TrainConfig:
     lora_targets: Tuple[str, ...] = ('wq', 'wk', 'wv', 'wo')
 
 
-def make_optimizer(config: TrainConfig) -> optim.Transform:
+def make_optimizer(config: TrainConfig,
+                   splits=None) -> optim.Transform:
+    """The reference's chain; ``splits`` (one ``mesh_lib.Split`` or None
+    per optimized leaf) when the leaves are blocks of sharded ones."""
     schedule = optim.warmup_cosine_decay_schedule(
         0.0, config.learning_rate, config.warmup_steps, 10_000)
     if config.optimizer == 'adafactor':
-        opt = optim.adafactor(learning_rate=schedule)
+        opt = optim.adafactor(learning_rate=schedule, splits=splits)
     else:
         opt = optim.adamw(schedule, b1=0.9, b2=0.95,
                           weight_decay=config.weight_decay,
                           mu_dtype=torch.bfloat16)
-    return optim.Chain(optim.ClipByGlobalNorm(config.grad_clip_norm), opt)
+    return optim.Chain(optim.ClipByGlobalNorm(config.grad_clip_norm,
+                                              splits), opt)
 
 
 def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
@@ -122,34 +111,62 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [params]
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every tensor of a state tree (dicts, lists, tuples);
-    other leaves (Python ints, None) as they are."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree) if torch.is_tensor(tree) else tree
+# The mesh axes not ported yet, each with its sub-item of ROADMAP.md
+# queue 1 item 8.
+UNPORTED_AXES = {
+    'tensor': ('8b', 'tensor parallelism'),
+    'sequence': ('8c', 'sequence parallelism (ring and Ulysses attention)'),
+    'stage': ('8d', 'pipeline parallelism'),
+    'expert': ('8e', 'expert parallelism'),
+}
+
+
+def unported_axis_message(axis: str, size: int) -> str:
+    item, what = UNPORTED_AXES[axis]
+    return (f'mesh {axis}={size}: {what} is not ported yet (ROADMAP.md '
+            f'queue 1 item {item}); the port trains over data and fsdp.')
 
 
 def _check_mesh(plan: MeshPlan) -> None:
-    if plan.stage > 1:
-        raise NotImplementedError(
-            'Pipeline parallelism (mesh stage > 1) is not ported yet: '
-            'ROADMAP.md queue 1 item 8, "more than one card".')
-    sharded = {name: n for name, n in dataclasses.asdict(plan).items()
-               if name not in ('data', 'stage') and n > 1}
-    if sharded or plan.data > 1:
-        raise NotImplementedError(
-            f'The port trains on one card; mesh axes {sharded or plan} '
-            'are not ported yet: ROADMAP.md queue 1 item 8, "more than '
-            'one card".')
+    for axis in ('stage', 'tensor', 'sequence', 'expert'):
+        size = getattr(plan, axis)
+        if size > 1:
+            raise NotImplementedError(unported_axis_message(axis, size))
+
+
+def _ordered_like(tree, ref):
+    """``tree`` with every dict's keys in ``ref``'s order (a tree from
+    elsewhere, such as the JAX package's sorted one, takes the family's
+    ``init`` order, which the leaves' splits follow)."""
+    if not isinstance(ref, dict):
+        return tree
+    if set(tree) != set(ref):
+        raise ValueError(f'parameter tree keys {sorted(tree)} differ from '
+                         f"the model's {sorted(ref)}")
+    return {k: _ordered_like(tree[k], ref[k]) for k in ref}
+
+
+def _map_splits(fn, tree, splits):
+    """``fn(tensor, split)`` over a state tree and its splits tree (the
+    same structure, a split or None where the tree has a tensor; None for
+    a subtree that is whole)."""
+    if isinstance(tree, dict):
+        return {k: _map_splits(fn, v, None if splits is None else splits[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            _map_splits(fn, v, None if splits is None else splits[i])
+            for i, v in enumerate(tree))
+    return fn(tree, splits) if torch.is_tensor(tree) else tree
 
 
 class Trainer:
-    """Initializes state and runs train and eval steps on one device."""
+    """Initializes state and runs train and eval steps on this rank's
+    device, over ``mesh`` (``mesh_lib.build_mesh(config.mesh_plan)``
+    over the ranks of the default process group unless given)."""
 
-    def __init__(self, config: TrainConfig, device: Device = None) -> None:
+    def __init__(self, config: TrainConfig, device: Device = None,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> None:
         self.config = config
         if config.accum_steps < 1:
             raise ValueError(f'accum_steps must be >= 1, got '
@@ -159,6 +176,9 @@ class Trainer:
                 f'global_batch_size {config.global_batch_size} not '
                 f'divisible by accum_steps {config.accum_steps}')
         _check_mesh(config.mesh_plan)
+        self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(
+            config.mesh_plan)
+        _check_mesh(self.mesh.plan)
         self._model_lib = models.module_for(config.model)
         self.device = resolve_device(device)
         # Only a model whose attention goes to the flash kernels needs
@@ -175,7 +195,8 @@ class Trainer:
         if self.device.type == 'cuda' and self.device.index is None:
             # What tensors report, so that devices compare equal.
             self.device = torch.device('cuda', torch.cuda.current_device())
-        self.optimizer = make_optimizer(config)
+        self._setup_sharding()
+        self.optimizer = make_optimizer(config, self._opt_splits)
         # Host-side step telemetry: dispatch-to-dispatch wall time (no
         # device sync).
         self._host_step = 0
@@ -184,6 +205,60 @@ class Trainer:
         # (count and seconds, recompile-storm detection); step()
         # brackets sampled steps with a probe.
         profiler.ensure_compile_listener()
+
+    # ---- sharding ----
+
+    def _setup_sharding(self) -> None:
+        """The batch rows' split, each model leaf's split (``_splits``,
+        a tree like the params: with LoRA the base's), and each optimized
+        leaf's split and the group its gradient is summed over. Every
+        process group is made here, in one order on every rank."""
+        c, mesh = self.config, self.mesh
+        self._logical = self._model_lib.logical_axes(c.model)
+        rows = mesh.axes_size(BATCH_AXES)
+        self._batch = None
+        if rows > 1:
+            if c.global_batch_size % (rows * c.accum_steps):
+                raise ValueError(
+                    f'global_batch_size {c.global_batch_size} does not '
+                    f'split into {rows} ranks x {c.accum_steps} '
+                    'accumulation microbatches of equal rows.')
+            self._batch = mesh_lib.BatchSplit(
+                rows, mesh.axes_index(BATCH_AXES), mesh.group(BATCH_AXES))
+        shapes = self._model_lib.init(c.model, device='meta')
+        self._splits = mesh_lib.tree_splits(mesh, self._logical, shapes)
+        self._sharded = any(s is not None
+                            for s in param_leaves(self._splits))
+        if self._lora:   # adapters whole on every rank, as the reference
+            n_opt = len(param_leaves(lora_lib.init_lora(
+                shapes, c.lora_rank, torch.Generator(),
+                targets=tuple(c.lora_targets))))
+            opt = [None] * n_opt
+        else:
+            opt = param_leaves(self._splits)
+        self._opt_splits = opt if self._sharded else None
+        # A leaf's gradient is summed over the batch ranks that hold the
+        # same block (its split's own axes were summed by the gather's
+        # reduce-scatter).
+        self._grad_groups = [
+            mesh.group(tuple(a for a in BATCH_AXES
+                             if s is None or a not in s.axes))
+            for s in opt]
+
+    def _shard_tree(self, tree, splits):
+        """This rank's blocks of a whole tree (copies), or the tree."""
+        if not self._sharded:
+            return tree
+        return _map_splits(mesh_lib.shard, tree, splits)
+
+    def local_rows(self, batch: Batch) -> Batch:
+        """This rank's rows of a global batch: block ``index`` of the
+        batch split in rank order (the batch as it is on one rank)."""
+        if self._batch is None:
+            return batch
+        b = self._batch
+        return {k: v.chunk(b.parts)[b.index].contiguous()
+                for k, v in batch.items()}
 
     # ---- state ----
 
@@ -202,19 +277,21 @@ class Trainer:
                    ) -> Dict[str, Any]:
         """{'params', 'opt_state', 'step'}, and with LoRA also 'base'.
 
-        ``params`` (the model's weights) defaults to the family's
+        ``params`` (the model's whole weights) defaults to the family's
         ``init`` from a generator seeded with config.seed (the JAX
-        PRNG's draws cannot be reproduced); given params are used as
-        they are, and updated in place by every step. With LoRA they
-        are the frozen base, and 'params' holds the adapters:
+        PRNG's draws cannot be reproduced); on one rank given params are
+        used as they are, and updated in place by every step. With LoRA
+        they are the frozen base, and 'params' holds the adapters:
         ``adapters`` as given, else ``init_lora`` from a CPU generator
-        seeded with config.seed + 1. Only 'params' enters the
-        optimizer."""
+        seeded with config.seed + 1. Only 'params' enters the optimizer.
+        On a sharded mesh every rank draws (or is given) the same whole
+        tree and keeps its blocks of it."""
         c = self.config
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(c.seed)
             params = self._model_lib.init(c.model, gen, device=self.device)
+        params = _ordered_like(params, self._splits)
         self._check_device(params)
         state: Dict[str, Any] = {}
         if self._lora:
@@ -226,8 +303,10 @@ class Trainer:
                 adapters = lora_lib.init_lora(params, c.lora_rank, gen,
                                               targets=tuple(c.lora_targets))
             self._check_device(adapters)
-            state['base'] = params
+            state['base'] = self._shard_tree(params, self._splits)
             params = adapters
+        else:
+            params = self._shard_tree(params, self._splits)
         leaves = param_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -235,21 +314,41 @@ class Trainer:
                      step=0)
         return state
 
+    def _state_splits(self) -> Dict[str, Any]:
+        """The split of every tensor of the state (None: whole)."""
+        if not self._sharded:
+            return {}
+        out = {'opt_state': self.optimizer.state_splits(self._opt_splits)}
+        if self._lora:
+            out['base'] = self._splits
+        else:
+            out['params'] = self._splits
+        return out
+
     def host_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
-        """A copy of ``state`` on the host, for a checkpoint: parameters,
-        optimizer state (its counts included), step, and with LoRA the
-        base. Later steps do not change it."""
-        def to_host(t):
-            t = t.detach()
+        """A copy of the whole ``state`` on the host, for a checkpoint:
+        parameters, optimizer state (its counts included), step, and with
+        LoRA the base. On a sharded mesh every rank gathers the blocks (a
+        collective: each rank calls it) into the tree a one-rank run
+        holds. Later steps do not change it."""
+        def to_host(t, split):
+            t = mesh_lib.gather(t.detach(), split)
             return t.clone() if t.device.type == 'cpu' else t.cpu()
-        return _tree_map(to_host, state)
+        splits = self._state_splits()
+        return {k: _map_splits(to_host, v, splits.get(k))
+                for k, v in state.items()}
 
     def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
         """A state from ``host_state``'s copy (or its unpickled form) on
-        this trainer's device, with the leaves' roles as ``init_state``
-        gives them: 'params' requires grad, the LoRA base does not."""
-        state = _tree_map(
-            lambda t: t.to(self.device, copy=True), host)
+        this trainer's device and mesh, whatever mesh wrote it, with the
+        leaves' roles as ``init_state`` gives them: 'params' requires
+        grad, the LoRA base does not."""
+        splits = self._state_splits()
+
+        def place(t, split):
+            return mesh_lib.shard(t, split).to(self.device, copy=True)
+        state = {k: _map_splits(place, v, splits.get(k))
+                 for k, v in host.items()}
         for p in param_leaves(state['params']):
             p.requires_grad_(True)
         if 'base' in state:
@@ -267,7 +366,9 @@ class Trainer:
         c = self.config
         if self._lora:
             params = lora_lib.merge(state['base'], params, c.lora_alpha,
-                                    c.lora_rank)
+                                    c.lora_rank, splits=self._splits)
+        if self._sharded:
+            params = mesh_lib.step_view(params, self._splits, self._logical)
         kwargs = {}
         if self._model_lib in (moe, deepseek):
             # Routed families: pads stay out of routing (the loss mask,
@@ -280,10 +381,17 @@ class Trainer:
 
     def _loss_and_grads(self, state, batch: Batch
                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """This rank's share of the loss and its gradients (the shares
+        of a batch split over ranks sum to the global ones; blocks of a
+        sharded leaf already hold their group's sum)."""
         params = state['params']
         leaves = param_leaves(params)
-        loss = self._forward_loss(state, params, batch)
-        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+        with mesh_lib.batch_split(self._batch), (
+                mesh_lib.regathering() if self._sharded
+                else contextlib.nullcontext()):
+            loss = self._forward_loss(state, params, batch)
+            grads = list(torch.autograd.grad(loss, leaves))
+        return loss.detach(), grads
 
     def step(self, state: Dict[str, Any], batch: Batch
              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -343,11 +451,14 @@ class Trainer:
             for i in range(accum):
                 mb = {k: v[i::accum].contiguous() for k, v in batch.items()}
                 loss, grads = self._loss_and_grads(state, mb)
-                if 'mask' in mb:
-                    w = mb['mask'].sum().float()
-                else:
-                    w = torch.tensor(float(mb['tokens'].numel()),
-                                     device=self.device)
+                # The microbatch's global token count: every rank
+                # weights its share alike.
+                with mesh_lib.batch_split(self._batch):
+                    if 'mask' in mb:
+                        w = mesh_lib.batch_total(mb['mask'].sum().float())
+                    else:
+                        w = torch.tensor(float(mesh_lib.batch_total(
+                            mb['tokens'].numel())), device=self.device)
                 for acc, g in zip(g_sum, grads):
                     acc.add_(w * g.float())
                 l_sum = l_sum + w * loss
@@ -361,7 +472,12 @@ class Trainer:
         else:
             loss, grads = self._loss_and_grads(state, batch)
         with torch.no_grad():
-            grad_norm = optim.global_norm(grads)
+            if self._batch is not None:
+                grads = [g if group is None else
+                         distributed.all_reduce(g, group)
+                         for g, group in zip(grads, self._grad_groups)]
+                loss = distributed.all_reduce(loss, self._batch.group)
+            grad_norm = optim.global_norm(grads, self._opt_splits)
             updates, opt_state = self.optimizer.update(
                 grads, state['opt_state'], leaves)
             del grads
@@ -376,21 +492,28 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: Dict[str, Any], batch: Batch
                   ) -> torch.Tensor:
-        """Loss only (no gradient, no update): the validation pass."""
-        return self._forward_loss(state, state['params'], batch)
+        """Loss only (no gradient, no update): the validation pass, over
+        the global batch whose rows this rank holds."""
+        with mesh_lib.batch_split(self._batch):
+            loss = self._forward_loss(state, state['params'], batch)
+        if self._batch is not None:
+            loss = distributed.all_reduce(loss, self._batch.group)
+        return loss
 
     # ---- data ----
 
     def synthetic_batch(self, step: int = 0) -> Batch:
         """Uniform random tokens from a generator seeded by ``step``
-        (int64, torch's index type); targets are tokens shifted by one."""
+        (int64, torch's index type); targets are tokens shifted by one.
+        The global batch is drawn whole; this rank's rows are returned."""
         c = self.config
         gen = torch.Generator(device=self.device)
         gen.manual_seed(step)
         tokens = torch.randint(0, c.model.vocab_size,
                                (c.global_batch_size, c.seq_len),
                                generator=gen, device=self.device)
-        return {'tokens': tokens, 'targets': torch.roll(tokens, -1, 1)}
+        return self.local_rows({'tokens': tokens,
+                                'targets': torch.roll(tokens, -1, 1)})
 
 
 def measure_throughput(trainer: Trainer, num_steps: int = 10,
@@ -414,7 +537,7 @@ def measure_throughput(trainer: Trainer, num_steps: int = 10,
     c = trainer.config
     tokens = num_steps * c.global_batch_size * c.seq_len
     tokens_per_sec = tokens / dt
-    n_devices = 1
+    n_devices = trainer.mesh.size
     model_cfg = dataclasses.replace(c.model, max_seq_len=c.seq_len)
     flops_per_token = model_cfg.train_flops_per_token()
     return {

@@ -15,9 +15,10 @@ CPU.
   ``tiny`` config in both (``get_config`` patched): per-step losses
   within 1e-4 (fp32, two layers, summed in another order on 8 virtual
   JAX devices against one).
-* The flags that need more than one card exit naming ROADMAP.md queue 1
-  item 8; the launcher refuses to start without a card unless given
-  ``--device cpu``.
+* The flags not ported yet exit naming their sub-item of ROADMAP.md
+  queue 1 item 8, and a mesh that does not fit the gang exits; the
+  launcher refuses to start without a card unless given ``--device
+  cpu``.
 * checkpointd snapshots cross between the two packages both ways, and
   their cadence agrees; a flight-recorder dump has the reference's keys.
 """
@@ -229,22 +230,34 @@ def test_every_reference_flag_is_accepted_with_its_default():
     assert set(got) - set(want) == {'--device'}
 
 
-@pytest.mark.parametrize('flags', [
-    ['--attention', 'ring'], ['--attention', 'ulysses'],
-    ['--num-slices', '2'], ['--mesh', 'data=-1,fsdp=8'],
-    ['--mesh', 'data=2'], ['--mesh', 'tensor=4'],
-    ['--mesh', 'data=1,stage=2']],
-    ids=lambda f: ' '.join(f))
-def test_multi_card_flags_exit_naming_queue_item_8(flags):
-    with pytest.raises(SystemExit, match='queue 1 item 8'):
+def _exits(flags, match):
+    return pytest.param(flags, match, id=' '.join(flags))
+
+
+@pytest.mark.parametrize('flags,match', [
+    _exits(['--attention', 'ring'], 'queue 1 item 8c'),
+    _exits(['--attention', 'ulysses'], 'queue 1 item 8c'),
+    # data and fsdp are ported: one process is refused a plan of more
+    # ranks, and slices that its data axis cannot hold.
+    _exits(['--num-slices', '2'], 'multiple of num_slices'),
+    _exits(['--mesh', 'data=-1,fsdp=8'], 'gang of 1 rank'),
+    _exits(['--mesh', 'data=2'], 'gang of 1 rank'),
+    _exits(['--mesh', 'tensor=4'], 'queue 1 item 8b'),
+    _exits(['--mesh', 'data=1,stage=2'], 'queue 1 item 8d'),
+    _exits(['--mesh', 'sequence=2'], 'queue 1 item 8c'),
+    _exits(['--mesh', 'expert=2'], 'queue 1 item 8e')])
+def test_multi_card_flags_exit_naming_queue_item_8(flags, match):
+    with pytest.raises(SystemExit, match=match):
         launch.run(_args('--steps', 1, *flags))
 
 
 def test_recipe_mesh_resolves_to_one_card():
     """examples/spot_finetune_recovery.yaml's --mesh data=1,fsdp=-1."""
     plan = launch.parse_mesh('data=1,fsdp=-1')
-    assert launch.resolve_one_card(plan) == trainer_lib.MeshPlan(
+    assert launch.resolve_plan(plan, 1) == trainer_lib.MeshPlan(
         data=1, fsdp=1)
+    assert launch.resolve_plan(plan, 4) == trainer_lib.MeshPlan(
+        data=1, fsdp=4)
     out = launch.run(_args('--steps', 1, '--mesh', 'data=1,fsdp=-1'))
     assert out['trainer'].config.mesh_plan.axis_sizes() == (1,) * 6
     with pytest.raises(ValueError, match='Unknown mesh axis'):
@@ -275,15 +288,23 @@ def test_launcher_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_gang_env_of_more_than_one_host_names_queue_item_8(monkeypatch):
+    """A gang of hosts is ported (item 8a): one process per card, rank
+    host_rank * cards + local rank (the gang itself is driven in
+    test_torch_launch_mesh.py); one host stays a no-op."""
     monkeypatch.setenv('XSKY_NUM_HOSTS', '2')
     monkeypatch.setenv('XSKY_HOST_RANK', '1')
-    monkeypatch.setenv('XSKY_COORDINATOR_ADDRESS', '10.0.0.1:8476')
     assert distributed.is_multihost()
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-        distributed.initialize()
+    assert distributed.gang_rank(1, 2) == (1, 2)
+    assert distributed.gang_rank(1, 2, local_rank=3, local_size=4) == (7, 8)
+    assert distributed.gang_rank(0, 3, local_rank=1, local_size=2) == (1, 6)
+    for bad in ((2, 2, 0, 1), (0, 2, 4, 4)):
+        with pytest.raises(ValueError):
+            distributed.gang_rank(*bad)
     monkeypatch.setenv('XSKY_NUM_HOSTS', '1')
+    monkeypatch.setenv('XSKY_HOST_RANK', '0')
     assert not distributed.is_multihost()
     distributed.initialize()   # one host: nothing to do
+    assert distributed.world_size() == 1 and distributed.rank() == 0
 
 
 def test_per_host_batch_and_elastic_generation_match_jax(monkeypatch):

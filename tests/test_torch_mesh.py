@@ -1,0 +1,167 @@
+"""The port's rank mesh and sharding rules (``parallel/mesh.py``) against
+the reference's (``skypilot_tpu/parallel/mesh.py``), on the CPU with no
+process group:
+
+* ``MeshPlan.resolve`` and its errors, word for word;
+* ``build_mesh``'s rank grid, with and without ``num_slices``, equal to
+  the device-id grid of the JAX ``build_mesh`` on the 8-device CPU mesh
+  for the reference tests' plans (and the same refusal);
+* each rank's block of a split dim (``Mesh.axes_index``) is the block
+  JAX's ``NamedSharding`` gives that device, for the batch rows over
+  ``('data', 'fsdp')`` and an embed dim over ``fsdp``;
+* the rules, and ``logical_to_spec`` over every leaf of every family's
+  ``logical_axes`` (tiny configs), equal the JAX ones; each family's
+  ``logical_axes`` is the reference's tree and mirrors its ``init``.
+"""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu import models as jax_models
+from skypilot_tpu.parallel import mesh as jax_mesh
+from skypilot_tpu_torch import models
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.train import trainer
+
+FAMILY_CONFIGS = ['tiny', 'mistral-tiny', 'qwen-tiny', 'qwen3-tiny',
+                  'gemma-tiny', 'gemma2-tiny', 'moe-tiny', 'deepseek-tiny',
+                  'deepseek-tiny-moe-only']
+
+# The plans of tests/unit_tests/test_model_and_trainer.py (TestMesh,
+# TestShardedTraining), with their slice counts.
+GRID_PLANS = [
+    (dict(fsdp=4), 1), (dict(fsdp=4, tensor=2), 1), (dict(fsdp=8), 1),
+    (dict(data=2, fsdp=2, tensor=2), 1),
+    (dict(data=2, fsdp=2, sequence=1, tensor=2), 1), (dict(data=8), 1),
+    (dict(data=2, fsdp=2, tensor=2), 2), (dict(data=4, fsdp=2), 2),
+    (dict(), 4),
+]
+
+
+def test_mesh_plan_and_axes_are_the_reference_s():
+    assert mesh_lib.MESH_AXES == jax_mesh.MESH_AXES
+    assert trainer.MeshPlan is mesh_lib.MeshPlan
+    assert trainer.MESH_AXES == mesh_lib.MESH_AXES
+    for kw, n in ((dict(), 8), (dict(fsdp=4), 8), (dict(data=2, fsdp=-1), 8),
+                  (dict(data=1, fsdp=-1, tensor=4), 8), (dict(data=1), 1),
+                  (dict(stage=2, expert=2), 8)):
+        want = jax_mesh.MeshPlan(**kw).resolve(n)
+        got = mesh_lib.MeshPlan(**kw).resolve(n)
+        assert got.axis_sizes() == want.axis_sizes()
+    for kw, n in ((dict(data=-1, fsdp=-1), 8), (dict(fsdp=3), 8),
+                  (dict(data=3, fsdp=3), 8), (dict(data=2), 1)):
+        with pytest.raises(ValueError) as want:
+            jax_mesh.MeshPlan(**kw).resolve(n)
+        with pytest.raises(ValueError) as got:
+            mesh_lib.MeshPlan(**kw).resolve(n)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize('kw,slices', GRID_PLANS,
+                         ids=[f'{k}-{s}' for k, s in GRID_PLANS])
+def test_rank_grid_equals_the_jax_device_grid(kw, slices):
+    devices = jax.devices()[:8]
+    want = jax_mesh.build_mesh(jax_mesh.MeshPlan(**kw), devices=devices,
+                               num_slices=slices)
+    got = mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw), num_slices=slices,
+                              world=8, rank=0)
+    ids = np.vectorize(lambda d: d.id)(want.devices)
+    np.testing.assert_array_equal(got.devices, ids)
+    assert got.shape == dict(want.shape)
+    for r in range(8):
+        coords = mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw),
+                                     num_slices=slices, world=8,
+                                     rank=r).coords
+        assert got.devices[tuple(coords[a] for a in
+                                 mesh_lib.MESH_AXES)] == r
+
+
+def test_multislice_refusals_are_the_reference_s():
+    for kw, n, slices in ((dict(data=3, fsdp=2), 6, 2),
+                          (dict(data=1, fsdp=4), 4, 2)):
+        with pytest.raises(ValueError) as want:
+            jax_mesh.build_mesh(jax_mesh.MeshPlan(**kw),
+                                devices=jax.devices()[:n],
+                                num_slices=slices)
+        with pytest.raises(ValueError) as got:
+            mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw), num_slices=slices,
+                                world=n, rank=0)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize('spec,shape', [
+    ((('data', 'fsdp'), None), (16, 4)),   # batch rows
+    ((None, 'fsdp'), (8, 16)),             # an embed dim
+    (('fsdp', None), (8, 3)),
+])
+@pytest.mark.parametrize('kw', [dict(data=2, fsdp=2, tensor=2),
+                                dict(fsdp=4, tensor=2), dict(data=8)],
+                         ids=['d2f2t2', 'f4t2', 'd8'])
+def test_each_rank_holds_the_block_jax_gives_its_device(kw, spec, shape):
+    jmesh = jax_mesh.build_mesh(jax_mesh.MeshPlan(**kw),
+                                devices=jax.devices()[:8])
+    index_map = jax.sharding.NamedSharding(
+        jmesh, jax.sharding.PartitionSpec(*spec)).devices_indices_map(shape)
+    for device, index in index_map.items():
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw), world=8,
+                                   rank=device.id)
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            parts = mesh.axes_size(axes)
+            block = shape[dim] // parts
+            assert (index[dim].start or 0) == mesh.axes_index(axes) * block
+            split = mesh_lib.Split(0, parts, mesh.axes_index(axes),
+                                   (shape[dim],), None, axes)
+            block_of = mesh_lib.shard(torch.arange(shape[dim]), split)
+            assert block_of.tolist() == list(range(shape[dim]))[index[dim]]
+
+
+def test_rules_are_the_reference_s():
+    assert mesh_lib.DEFAULT_RULES == jax_mesh.DEFAULT_RULES
+    assert mesh_lib.PIPELINE_RULES == jax_mesh.PIPELINE_RULES
+    for axes in (('batch', None, 'embed'), ('vocab', 'embed'),
+                 ('layers', 'expert', 'embed', 'mlp'), (None,),
+                 ('batch', 'activation_length', 'activation_heads')):
+        for rules in ('DEFAULT_RULES', 'PIPELINE_RULES'):
+            assert mesh_lib.logical_to_spec(
+                axes, getattr(mesh_lib, rules)) == tuple(
+                    jax_mesh.logical_to_spec(axes,
+                                             getattr(jax_mesh, rules)))
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize('name', FAMILY_CONFIGS)
+def test_logical_axes_and_specs_are_the_reference_s(name):
+    cfg = models.get_config(name)
+    jcfg = jax_models.get_config(name)
+    axes = models.module_for(cfg).logical_axes(cfg)
+    jaxes = jax_models.module_for(jcfg).logical_axes(jcfg)
+    assert axes == jaxes
+    shapes = dict(_leaves(models.module_for(cfg).init(cfg, device='meta')))
+    assert set(shapes) == set(p for p, _ in _leaves(axes))
+    for path, leaf_axes in _leaves(axes):
+        assert len(leaf_axes) == shapes[path].ndim, path
+        for rules in ('DEFAULT_RULES', 'PIPELINE_RULES'):
+            got = mesh_lib.logical_to_spec(leaf_axes,
+                                           getattr(mesh_lib, rules))
+            want = jax_mesh.logical_to_spec(_get(jaxes, path),
+                                            getattr(jax_mesh, rules))
+            assert got == tuple(want), (path, rules)

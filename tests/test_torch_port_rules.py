@@ -668,3 +668,36 @@ def test_capture_aux_reads_each_loss_term_and_restores_the_function():
     assert torch.equal(aux.values[0], want)
     ce = loss - cfg.router_aux_coef * want
     assert torch.isfinite(ce) and float(want) > 0
+
+
+def test_chip_smoke_mesh_phase_checks_every_rank():
+    """Phase [37] runs last, after [36]: the one-rank launcher in-process
+    and gangs of two rank processes (the XSKY_* env on a free local port)
+    through chip_smoke.mesh_rank, each rank zeroing the launch counts
+    just before its launcher run and reading them just after; every
+    rank's K1-K3 are held to the counts derived from its steps."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    r = chip_smoke.MESH_TRAIN
+    assert (r['model'], r['batch'], r['seq']) == (
+        'llama3-1b-qkvo_gup', 4, 4096)
+    assert chip_smoke.mesh_models()[r['model']].n_layers == 16
+    rank = inspect.getsource(chip_smoke.mesh_rank)
+    assert rank.index('zero_launches()') < rank.index('launch.run(') < \
+        rank.index('kernels.REGISTRY')
+    gang = inspect.getsource(chip_smoke.mesh_gang)
+    for name in ('XSKY_NUM_HOSTS', 'XSKY_HOST_RANK',
+                 'XSKY_COORDINATOR_ADDRESS', 'p.kill()'):
+        assert name in gang
+    body = inspect.getsource(chip_smoke.mesh_train_path)
+    for flag in ("'data=1,fsdp=2'", "'data=2'", "'--resume', 'auto'",
+                 'check_derived_launches(', "'launches_by_path'"):
+        assert flag in body
+    assert chip_smoke.mesh_derived(3) == {
+        'flash_fwd': 96, 'flash_bwd_dkv': 48, 'flash_bwd_dq': 48}
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'hooks_path(records)', 'mesh_train_path(records)',
+        "print(json.dumps({'ok': True")]
+    assert order == sorted(order)

@@ -334,10 +334,15 @@ def test_synthetic_batch_is_seeded_by_the_step():
     assert int(a['tokens'].max()) < llama.LLAMA_TINY.vocab_size
 
 
-@pytest.mark.parametrize('kw', [dict(mesh_plan=trainer.MeshPlan(stage=2)),
-                                dict(mesh_plan=trainer.MeshPlan(fsdp=2))],
-                         ids=['pipeline', 'fsdp'])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trainer.Trainer(trainer.TrainConfig(model=llama.LLAMA_TINY, **kw),
-                        device='cpu')
+@pytest.mark.parametrize('plan,error,match', [
+    (trainer.MeshPlan(stage=2), NotImplementedError, 'queue 1 item 8d'),
+    # fsdp is ported: one process is refused a plan of two ranks.
+    (trainer.MeshPlan(fsdp=2), ValueError, 'not divisible'),
+    (trainer.MeshPlan(tensor=2), NotImplementedError, 'queue 1 item 8b'),
+    (trainer.MeshPlan(sequence=2), NotImplementedError, 'queue 1 item 8c'),
+    (trainer.MeshPlan(expert=2), NotImplementedError, 'queue 1 item 8e'),
+], ids=['pipeline', 'fsdp', 'tensor', 'sequence', 'expert'])
+def test_unported_options_raise(plan, error, match):
+    with pytest.raises(error, match=match):
+        trainer.Trainer(trainer.TrainConfig(model=llama.LLAMA_TINY,
+                                            mesh_plan=plan), device='cpu')

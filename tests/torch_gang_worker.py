@@ -1,0 +1,206 @@
+"""One rank of a CPU gang of the port's Trainer or launcher, for the
+tests.
+
+    python tests/torch_gang_worker.py SPEC RANK WORLD PORT OUT
+    python tests/torch_gang_worker.py launch OUT [--fp32] -- ARGV...
+
+SPEC is a ``torch.save`` of a list of cases, each a dict: ``model`` (a
+port config), ``train`` (TrainConfig keyword arguments, ``mesh_plan``
+a dict), ``init`` (the whole initial parameter tree as numpy arrays, or
+None for the trainer's own draw), with LoRA ``adapters`` (numpy too, or
+None), ``batches`` (global batches as numpy dicts). The process joins a gloo gang of WORLD ranks on 127.0.0.1:PORT
+as rank RANK (one host each), runs every case (its rows of each batch,
+one step per batch) and writes to OUT, per case: the losses and grad
+norms of each step, the all-gathers each step made (counted when the
+case asks, ``count_gathers``) and the whole state as ``host_state``
+gathers it.
+The second form runs ``train/launch.py`` with ARGV as one rank of the
+gang its environment describes (``XSKY_*``), the model's config in fp32
+with ``--fp32``, and writes to OUT (JSON) the losses and grad norms the
+run returns on this rank and the step it started from. Imports no JAX.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from skypilot_tpu_torch import models  # noqa: E402
+from skypilot_tpu_torch.models import llama  # noqa: E402
+from skypilot_tpu_torch.parallel import distributed  # noqa: E402
+from skypilot_tpu_torch.train import trainer as trainer_lib  # noqa: E402
+
+
+def run_case(case):
+    kw = dict(case['train'])
+    kw['mesh_plan'] = trainer_lib.MeshPlan(**kw['mesh_plan'])
+    tr = trainer_lib.Trainer(
+        trainer_lib.TrainConfig(model=case['model'], **kw), device='cpu')
+    params = adapters = None
+    if case.get('init') is not None:
+        lib = models.module_for(case['model'])
+        params = getattr(lib, 'params_from_numpy', llama.params_from_numpy)(
+            case['init'], 'cpu')
+    if case.get('adapters') is not None:
+        adapters = llama.params_from_numpy(case['adapters'], 'cpu')
+    state = tr.init_state(params, adapters=adapters)
+    losses, norms, gathers = [], [], []
+    real_gather = distributed.all_gather
+    for batch in case['batches']:
+        local = tr.local_rows({k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        calls = []
+        if case.get('count_gathers'):
+            distributed.all_gather = lambda *a, **k: (
+                calls.append(1), real_gather(*a, **k))[1]
+        try:
+            state, metrics = tr.step(state, local)
+        finally:
+            distributed.all_gather = real_gather
+        losses.append(float(metrics['loss']))
+        norms.append(float(metrics['grad_norm']))
+        gathers.append(len(calls))
+    return {'losses': losses, 'grad_norms': norms, 'gathers': gathers,
+            'state': tr.host_state(state)}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _wait(procs, timeout: float) -> None:
+    """Wait for every process; kill them all when one fails or the
+    timeout passes, and raise then."""
+    import time
+    deadline = time.monotonic() + timeout
+    try:
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        codes = [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(code != 0 for code in codes):
+        raise RuntimeError(f'gang ranks exited with {codes} (None: killed '
+                           f'after {timeout} s)')
+
+
+class Gang:
+    """``cases`` running on a fresh gang of ``world`` worker processes
+    (gloo on a free local port), started at once; :meth:`results` waits
+    for them (``_wait``)."""
+
+    def __init__(self, cases, world: int, tmp_dir: str) -> None:
+        import subprocess
+        spec = os.path.join(tmp_dir, 'gang-spec.pt')
+        torch.save(cases, spec)
+        port = _free_port()
+        self.outs = [os.path.join(tmp_dir, f'gang-out-{r}.pt')
+                     for r in range(world)]
+        env = dict(os.environ, OMP_NUM_THREADS='1')
+        self.procs = []
+        try:
+            for r in range(world):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), spec,
+                     str(r), str(world), str(port), self.outs[r]],
+                    env=env))
+        except BaseException:
+            self.kill()
+            raise
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def results(self, timeout: float = 100.0):
+        _wait(self.procs, timeout)
+        return [torch.load(o, weights_only=False) for o in self.outs]
+
+
+def run_gang(cases, world: int, tmp_dir: str, timeout: float = 100.0):
+    """Each rank's results of ``cases`` on a gang of ``world``, in rank
+    order."""
+    return Gang(cases, world, tmp_dir).results(timeout)
+
+
+def launch_gang(argv, world: int, tmp_dir: str, fp32: bool = True,
+                env=None, timeout: float = 100.0):
+    """``train/launch.py`` with ``argv`` on a gang of ``world`` processes
+    (the gang env of ``world`` hosts on a free local port, ``env`` added)
+    → each rank's JSON (``launch_rank``), in rank order."""
+    import json
+    import subprocess
+    port = _free_port()
+    outs = [os.path.join(tmp_dir, f'launch-rank-{r}.json')
+            for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            rank_env = dict(os.environ, OMP_NUM_THREADS='1',
+                            XSKY_NUM_HOSTS=str(world),
+                            XSKY_HOST_RANK=str(r),
+                            XSKY_COORDINATOR_ADDRESS=f'127.0.0.1:{port}',
+                            **(env or {}))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), 'launch',
+                 outs[r]] + (['--fp32'] if fp32 else []) + ['--'] +
+                [str(a) for a in argv], env=rank_env))
+    except BaseException:
+        _wait(procs, 0)
+        raise
+    _wait(procs, timeout)
+    results = []
+    for o in outs:
+        with open(o, encoding='utf-8') as f:
+            results.append(json.load(f))
+    return results
+
+
+def launch_rank(argv):
+    import dataclasses
+    import json
+    import logging
+    from skypilot_tpu_torch.train import launch
+    out, flags = argv[0], argv[1:argv.index('--')]
+    if '--fp32' in flags:
+        get_config = models.get_config
+        models.get_config = lambda name: dataclasses.replace(
+            get_config(name), dtype=torch.float32)
+    logging.basicConfig(level=logging.INFO)
+    try:
+        run = launch.run(launch.parse_args(argv[argv.index('--') + 1:]))
+    finally:
+        distributed.shutdown()
+    with open(out, 'w', encoding='utf-8') as f:
+        json.dump({'losses': run['losses'], 'grad_norms': run['grad_norms'],
+                   'start_step': run['start_step']}, f)
+
+
+def main(argv):
+    if argv[0] == 'launch':
+        return launch_rank(argv[1:])
+    spec, rank, world, port, out = argv
+    distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
+    try:
+        cases = torch.load(spec, weights_only=False)
+        torch.save([run_case(c) for c in cases], out)
+    finally:
+        distributed.shutdown()
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])
