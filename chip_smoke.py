@@ -5593,11 +5593,31 @@ def hooks_path(records: dict) -> None:
         f'capture {time.perf_counter() - t2:.1f}')
 
 
-# ---- phase 37: data-parallel and FSDP training over ranks ----
+# ---- phase 37: data-parallel, FSDP and tensor-parallel training over ranks
 
 MESH_TRAIN = dict(model='llama3-1b-qkvo_gup', batch=4, seq=4096, steps=3,
                   fsdp_steps=2, data_steps=2)
 MESH_SMALL = dict(model='mesh-fp32-d128', batch=4, seq=1024, steps=3)
+# (g) Llama-3-8B's widths at 2 of its 32 layers, tensor=2 (the
+# train_llama3_8b.yaml recipe's tensor axis): 3 steps, a checkpoint at 2
+# resumed at one rank for step 3. (h) Gemma2-2B's widths at 2 of its 26
+# layers (head_dim 256, softcaps, the window on layer 0) at tensor=2.
+MESH_TENSOR = dict(model='llama3-8b-2l-qkvo_gup', layers=2, batch=2,
+                   seq=4096, steps=3, saved=2)
+MESH_GEMMA = dict(model='gemma2-2b-2l', layers=2, batch=1, seq=8192,
+                  steps=1)
+# Each tensor rank of (g) holds half of every split leaf and the whole
+# wk, wv and norms: 751,849,472 parameters against one rank's
+# 1,486,901,248 (both counted from the splits before the first call).
+MESH_TENSOR_PARAMS = 751_849_472
+MESH_ONE_RANK_PARAMS = 1_486_901_248
+# Two tensor ranks against one, bf16: the row-split products (wo,
+# w_down, the embedding) are summed over the ranks in fp32 and rounded
+# to bf16 once, where one rank's product rounds its own fp32 sum; the
+# vocabulary-parallel cross-entropy adds its exponentials in another
+# order. Step 1 and the resumed step 3 (the same parameters on both
+# sides) within this, predicted ~1e-4.
+MESH_TENSOR_RTOL = 1e-3
 # Two ranks against one, bf16: step 1 differs only by the order of sums
 # over ranks (the gradient's, the loss's); later steps also by the
 # updates those differences make. fp32 (f): the order of sums alone.
@@ -5610,10 +5630,16 @@ MESH_RANK_CODE = ('import sys; sys.path.insert(0, "."); import chip_smoke; '
 
 
 def mesh_models() -> dict:
+    from skypilot_tpu_torch.models import gemma
     from skypilot_tpu_torch.models import llama
     return {
         MESH_TRAIN['model']: dataclasses.replace(
             llama.LLAMA3_1B, remat=True, remat_policy='qkvo_gup'),
+        MESH_TENSOR['model']: dataclasses.replace(
+            llama.LLAMA3_8B, n_layers=MESH_TENSOR['layers'], remat=True,
+            remat_policy='qkvo_gup'),
+        MESH_GEMMA['model']: dataclasses.replace(
+            gemma.GEMMA2_2B, n_layers=MESH_GEMMA['layers']),
         # d_model 128, so adafactor factors statistics over the dim fsdp
         # splits; head_dim 32, which the flash kernels take.
         MESH_SMALL['model']: llama.LlamaConfig(
@@ -5640,6 +5666,7 @@ def mesh_numbers(out: dict, launches: dict) -> dict:
             'grad_norms': {int(k): v for k, v in out['grad_norms'].items()},
             'start_step': out['start_step'], 'launches': launches,
             'param_bytes': tensor_bytes(out['state']['params']),
+            'params': sum(t.numel() for t in tensors(out['state']['params'])),
             'opt_bytes': tensor_bytes(out['state']['opt_state']),
             'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
             'rank': distributed.rank(), 'world': distributed.world_size(),
@@ -5741,10 +5768,10 @@ def mesh_gang(runs, tmp: str, timeout: float = 400.0) -> list:
     return [list(per_run) for per_run in zip(*ranks)]
 
 
-def mesh_derived(steps: int) -> dict:
-    """K1 twice a layer a step (the qkvo_gup recompute runs the flash
-    forward again), K2 and K3 once."""
-    n = mesh_models()[MESH_TRAIN['model']].n_layers
+def mesh_derived(steps: int, model: str = MESH_TRAIN['model']) -> dict:
+    """K1 twice a layer a step (the per-layer remat recomputes the flash
+    forward), K2 and K3 once."""
+    n = mesh_models()[model].n_layers
     return {'flash_fwd': 2 * n * steps, 'flash_bwd_dkv': n * steps,
             'flash_bwd_dq': n * steps}
 
@@ -5764,25 +5791,43 @@ def check_mesh_losses(label: str, got: dict, want: dict, steps) -> dict:
 
 
 def mesh_train_path(records: dict) -> None:
+    import shutil
     import tempfile
     from skypilot_tpu_torch.train import launch
     r, small = MESH_TRAIN, MESH_SMALL
     cfg = mesh_models()[r['model']]
-    log(f'[37] data-parallel and FSDP training over torch.distributed '
-        f'ranks: Llama-3-1B bf16 ({cfg.n_layers} layers, d_model '
-        f'{cfg.d_model}, vocab {cfg.vocab_size}), remat qkvo_gup, '
+    tp, gm = MESH_TENSOR, MESH_GEMMA
+    tcfg, gcfg = mesh_models()[tp['model']], mesh_models()[gm['model']]
+    log(f'[37] data-parallel, FSDP and tensor-parallel training over '
+        f'torch.distributed ranks: Llama-3-1B bf16 ({cfg.n_layers} layers, '
+        f'd_model {cfg.d_model}, vocab {cfg.vocab_size}), remat qkvo_gup, '
         f'adafactor, global batch {r["batch"]}, seq {r["seq"]}, synthetic '
         'batches, warm-up cut to 1 step, through python -m '
         'skypilot_tpu_torch.train.launch: (a) one rank; (b) fsdp=2, (c) '
         'data=2 and (f) fp32 at d_model 128 on one gang of two rank '
         'processes sharing the card (gloo); (d) the fsdp checkpoint resumed '
-        'at data=1')
+        f'at data=1. On the same gang at --mesh data=1,fsdp=1,tensor=2: (g) '
+        f'Llama-3-8B\'s widths at {tcfg.n_layers} of 32 layers (d_model '
+        f'{tcfg.d_model}, {tcfg.n_heads}/{tcfg.n_kv_heads} heads, d_ff '
+        f'{tcfg.d_ff}, vocab {tcfg.vocab_size}; remat qkvo_gup, adafactor, '
+        f'seq {tp["seq"]}, global batch {tp["batch"]}), {tp["steps"]} steps '
+        f'and a checkpoint at {tp["saved"]} resumed at one rank, beside one '
+        f'rank\'s run; (h) Gemma2-2B\'s widths at {gcfg.n_layers} of 26 '
+        f'layers (head_dim {gcfg.head_dim}, softcaps, window '
+        f'{gcfg.sliding_window}), seq {gm["seq"]}, {gm["steps"]} step beside '
+        'one rank\'s')
     release_card()
 
     def flags(batch):
         return ['--model', r['model'], '--global-batch-size', str(batch),
                 '--seq-len', str(r['seq']), '--optimizer', 'adafactor',
                 '--device', 'cuda', '--log-every', '1']
+
+    def tensor_flags(run, steps):
+        return ['--model', run['model'], '--global-batch-size',
+                str(run['batch']), '--seq-len', str(run['seq']),
+                '--optimizer', 'adafactor', '--device', 'cuda',
+                '--log-every', '1', '--steps', str(steps)]
 
     small_flags = ['--model', small['model'], '--global-batch-size',
                    str(small['batch']), '--seq-len', str(small['seq']),
@@ -5797,11 +5842,12 @@ def mesh_train_path(records: dict) -> None:
             stack.enter_context(registered_config(name, model))
         stack.enter_context(short_warmup(1))
 
-        def one_rank(argv, label, steps):
+        def one_rank(argv, label, steps, model=r['model']):
             torch.cuda.reset_peak_memory_stats()
-            out = launch_run(argv, label)
-            check_derived_launches(label, out['launches'],
-                                   mesh_derived(steps - out['start_step']))
+            out = launch_run(argv, label,
+                             n_layers=mesh_models()[model].n_layers)
+            check_derived_launches(label, out['launches'], mesh_derived(
+                steps - out['start_step'], model))
             row = mesh_numbers(out, out['launches'])
             del out
             release_card()
@@ -5819,11 +5865,20 @@ def mesh_train_path(records: dict) -> None:
         del out
         release_card()
         seconds['one rank'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one_8b = one_rank(tensor_flags(tp, tp['steps']) + ['--mesh',
+                                                           'data=1'],
+                          '[37g] one rank', tp['steps'], tp['model'])
+        one_gemma = one_rank(tensor_flags(gm, gm['steps']) + ['--mesh',
+                                                              'data=1'],
+                             '[37h] one rank', gm['steps'], gm['model'])
+        seconds['one rank (g, h)'] = time.perf_counter() - t0
         ckpt = os.path.join(tmp, 'ckpt')
+        ckpt_t = os.path.join(tmp, 'ckpt-tensor')
         metrics = os.path.join(tmp, 'metrics.jsonl')
         dump = os.path.join(tmp, 'small-params.pt')
         t0 = time.perf_counter()
-        fsdp, data, small_ranks = mesh_gang([
+        fsdp, data, small_ranks, tensor, tensor_gemma = mesh_gang([
             {'argv': common + ['--steps', str(r['fsdp_steps']), '--mesh',
                                'data=1,fsdp=2', '--checkpoint-dir', ckpt,
                                '--checkpoint-every', str(r['fsdp_steps']),
@@ -5831,7 +5886,14 @@ def mesh_train_path(records: dict) -> None:
             {'argv': common + ['--steps', str(r['data_steps']), '--mesh',
                                'data=2'], 'dump': None},
             {'argv': small_flags + ['--mesh', 'data=1,fsdp=2'],
-             'dump': dump}], tmp)
+             'dump': dump},
+            {'argv': tensor_flags(tp, tp['steps']) + [
+                '--mesh', 'data=1,fsdp=1,tensor=2', '--checkpoint-dir',
+                ckpt_t, '--checkpoint-every', str(tp['saved'])],
+             'dump': None},
+            {'argv': tensor_flags(gm, gm['steps']) + [
+                '--mesh', 'data=1,fsdp=1,tensor=2'], 'dump': None}], tmp,
+            timeout=600.0)
         seconds['gang'] = time.perf_counter() - t0
         t0 = time.perf_counter()
         resumed = one_rank(common + ['--steps', str(r['steps']), '--mesh',
@@ -5839,6 +5901,15 @@ def mesh_train_path(records: dict) -> None:
                                      '--resume', 'auto'],
                            '[37d] resumed at data=1', r['steps'])
         seconds['resume'] = time.perf_counter() - t0
+        # (g): the step-2 checkpoint (the run's last, step 3, set aside)
+        # resumed at one rank for step 3.
+        t0 = time.perf_counter()
+        shutil.rmtree(os.path.join(ckpt_t, str(tp['steps'])))
+        resumed_8b = one_rank(tensor_flags(tp, tp['steps']) + [
+            '--mesh', 'data=1', '--checkpoint-dir', ckpt_t, '--resume',
+            'auto'], '[37g] tensor checkpoint resumed at one rank',
+            tp['steps'], tp['model'])
+        seconds['tensor resume'] = time.perf_counter() - t0
         with open(metrics, encoding='utf-8') as f:
             rows = [json.loads(line) for line in f]
         got_small = torch.load(dump, weights_only=True)
@@ -5922,8 +5993,90 @@ def mesh_train_path(records: dict) -> None:
         f'{[x["launches"] for x in small_ranks]}')
     if err > MESH_SMALL_ATOL:
         raise AssertionError(f'(f) parameters differ by {err:.3e}')
+    mesh_tensor_checks(records, one_8b, tensor, resumed_8b, one_gemma,
+                       tensor_gemma)
     seconds = json.dumps({k: round(v, 1) for k, v in seconds.items()})
     log(f'  [37] seconds: {seconds} on {nvidia_smi_line()}')
+
+
+def mesh_tensor_checks(records, one, ranks, resumed, one_gemma,
+                       gemma_ranks) -> None:
+    """[37] (g) and (h): the tensor ranks against one rank."""
+    tp, gm = MESH_TENSOR, MESH_GEMMA
+    for label, rows, steps, model in (
+            ('(g) tensor=2', ranks, tp['steps'], tp['model']),
+            ('(h) tensor=2', gemma_ranks, gm['steps'], gm['model'])):
+        for row in rows:
+            if row['backend'] != 'gloo' or row['world'] != 2:
+                raise AssertionError(f'{label}: rank {row["rank"]} on '
+                                     f'{row["backend"]} of {row["world"]}')
+            if row['losses'] != rows[0]['losses'] or \
+                    row['grad_norms'] != rows[0]['grad_norms']:
+                raise AssertionError(f'{label}: the ranks logged other '
+                                     f'losses: {[x["losses"] for x in rows]}')
+            # K1-K3 at the rank's local heads, counted in its process.
+            check_derived_launches(f'[37] {label} rank {row["rank"]}',
+                                   row['launches'],
+                                   mesh_derived(steps, model))
+    if one['params'] != MESH_ONE_RANK_PARAMS or any(
+            row['params'] != MESH_TENSOR_PARAMS for row in ranks):
+        raise AssertionError(
+            f'(g) parameters: one rank {one["params"]}, tensor ranks '
+            f'{[x["params"] for x in ranks]} (want {MESH_ONE_RANK_PARAMS} '
+            f'and {MESH_TENSOR_PARAMS} each)')
+    diffs = {}
+    for label, got, want, step in (
+            ('(g) step 1', ranks[0], one, 1),
+            ('(h) step 1', gemma_ranks[0], one_gemma, 1),
+            ('(g) the tensor checkpoint resumed at one rank, step 3',
+             resumed, ranks[0], tp['steps'])):
+        diffs[label] = abs(got['losses'][step] - want['losses'][step]) / (
+            abs(want['losses'][step]))
+        if diffs[label] > MESH_TENSOR_RTOL:
+            raise AssertionError(
+                f'{label}: loss {got["losses"][step]} against '
+                f'{want["losses"][step]} (rel {diffs[label]:.3e}, limit '
+                f'{MESH_TENSOR_RTOL:g})')
+    if resumed['start_step'] != tp['saved']:
+        raise AssertionError(f'(g) the resume started at '
+                             f'{resumed["start_step"]}')
+    log(f'  (g) Llama-3-8B widths, 2 layers, tensor=2: parameters per rank '
+        f'{[x["params"] for x in ranks]} ({[x["param_bytes"] for x in ranks]}'
+        f' bytes) against one rank\'s {one["params"]} '
+        f'({one["param_bytes"]} bytes; ratio '
+        f'{ranks[0]["params"] / one["params"]:.4f}); optimizer-state bytes '
+        f'{[x["opt_bytes"] for x in ranks]} against {one["opt_bytes"]}; peak '
+        f'memory (GiB) {[round(x["peak_gib"], 2) for x in ranks]} against '
+        f'{one["peak_gib"]:.2f}')
+    log(f'  (g) losses: tensor ranks {ranks[0]["losses"]}, one rank '
+        f'{one["losses"]}, the step-{tp["saved"]} checkpoint resumed at one '
+        f'rank {resumed["losses"]}; grad norms {ranks[0]["grad_norms"]} '
+        f'against {one["grad_norms"]}; relative differences '
+        f'{json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()})} '
+        f'(limit {MESH_TENSOR_RTOL:g}); both ranks equal')
+    log(f'  (h) Gemma2-2B widths, 2 layers, tensor=2 (D 256 at '
+        f'{mesh_models()[gm["model"]].n_heads // 2}/'
+        f'{mesh_models()[gm["model"]].n_kv_heads // 2} local heads): loss '
+        f'{gemma_ranks[0]["losses"]} against one rank\'s '
+        f'{one_gemma["losses"]}; parameters per rank '
+        f'{[x["params"] for x in gemma_ranks]} against '
+        f'{one_gemma["params"]}; peak memory (GiB) '
+        f'{[round(x["peak_gib"], 2) for x in gemma_ranks]} against '
+        f'{one_gemma["peak_gib"]:.2f}')
+    log(f'  (g)/(h) launches per rank: {[x["launches"] for x in ranks]}, '
+        f'{[x["launches"] for x in gemma_ranks]}: K1 = 2 x 2 x steps, K2 = '
+        'K3 = 2 x steps on each rank, nothing else')
+    paths = {'mesh_tensor_one_rank': one['launches'],
+             'mesh_tensor_resumed': resumed['launches'],
+             'mesh_tensor_gemma_one_rank': one_gemma['launches']}
+    for label, rows in (('mesh_tensor', ranks),
+                        ('mesh_tensor_gemma', gemma_ranks)):
+        paths[label] = {name: sum(row['launches'][name] for row in rows)
+                        for name in rows[0]['launches']}
+    for path, launches in paths.items():
+        for name in TRAIN_KERNELS:
+            records[name].setdefault('launches_by_path', {})[path] = (
+                launches[name])
 
 
 def hopper_kernels(build_log: str):

@@ -191,7 +191,7 @@ def _embed(config: GemmaConfig, params: Params,
     product of two values of the type is exact in fp32 and rounds once."""
     c = config
     normalizer = float(torch.tensor(c.d_model ** 0.5, dtype=c.dtype))
-    return qops.embed_rows(params['embed'], tokens).to(c.dtype) * normalizer
+    return llama.embed_lookup(params['embed'], tokens).to(c.dtype) * normalizer
 
 
 def _window(config: GemmaConfig, layer: int) -> Optional[int]:
@@ -214,10 +214,12 @@ def _layer(config: GemmaConfig, x: torch.Tensor, layer_params: Params,
     hd = c.head_dim
     b, s, _ = x.shape
     lp = layer_params
-    h = _rms_norm(x, lp['attn_norm'], c.norm_eps)
-    q = qops.matmul(h, lp['wq']).reshape(b, s, c.n_heads, hd)
-    k = qops.matmul(h, lp['wk']).reshape(b, s, c.n_kv_heads, hd)
-    v = qops.matmul(h, lp['wv']).reshape(b, s, c.n_kv_heads, hd)
+    wk, wv = llama.local_kv(c, lp['wk']), llama.local_kv(c, lp['wv'])
+    n_heads, n_kv = lp['wq'].shape[-1] // hd, wk.shape[-1] // hd
+    h = mesh_lib.tensor_input(_rms_norm(x, lp['attn_norm'], c.norm_eps))
+    q = qops.matmul(h, lp['wq']).reshape(b, s, n_heads, hd)
+    k = qops.matmul(h, wk).reshape(b, s, n_kv, hd)
+    v = qops.matmul(h, wv).reshape(b, s, n_kv, hd)
     q = llama._apply_rope(q, rope)
     k = llama._apply_rope(k, rope)
     opts = dict(window=window, logit_softcap=c.attn_logit_softcap,
@@ -230,16 +232,19 @@ def _layer(config: GemmaConfig, x: torch.Tensor, layer_params: Params,
         attn = attention_ops.dot_product_attention(
             q, k, v, causal=True, implementation=c.attention_impl,
             segment_ids=segment_ids, **opts)
-    attn_out = qops.matmul(attn.reshape(b, s, c.n_heads * hd), lp['wo'])
+    # The output norms act on the whole sums (after tensor_sum).
+    attn_out = mesh_lib.tensor_sum(qops.matmul(
+        attn.reshape(b, s, n_heads * hd), lp['wo']))
     if c.gemma2:
         attn_out = _rms_norm(attn_out, lp['post_attn_norm'], c.norm_eps)
     x = x + attn_out
 
-    h = _rms_norm(x, lp['mlp_norm'], c.norm_eps)
+    h = mesh_lib.tensor_input(_rms_norm(x, lp['mlp_norm'], c.norm_eps))
     gate = torch.nn.functional.gelu(qops.matmul(h, lp['w_gate']).float(),
                                     approximate='tanh')
     up = qops.matmul(h, lp['w_up']).float()
-    ffw_out = qops.matmul((gate * up).to(c.dtype), lp['w_down'])
+    ffw_out = mesh_lib.tensor_sum(qops.matmul((gate * up).to(c.dtype),
+                                              lp['w_down']))
     if c.gemma2:
         ffw_out = _rms_norm(ffw_out, lp['post_ffw_norm'], c.norm_eps)
     return x + ffw_out, new_cache
@@ -326,9 +331,13 @@ def loss_fn(config: GemmaConfig, params: Params, tokens: torch.Tensor,
             targets: torch.Tensor,
             loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy (fp32). The tied, soft-capped head
-    takes the whole logits at once, as the reference's does."""
-    nll = llama._token_nll(forward(config, params, tokens), targets)
-    return llama.masked_mean(nll, loss_mask)
+    takes the whole logits at once, as the reference's does. Under a
+    tensor split the head reads this rank's vocabulary rows of the
+    embedding, the softcap acts on its block of logits and the NLL is
+    vocabulary-parallel (``llama._token_nll``)."""
+    x, _ = _trunk(config, params, tokens, None, return_kv=False)
+    logits = lm_logits(config, params, mesh_lib.tensor_input(x))
+    return llama.masked_mean(llama._token_nll(logits, targets), loss_mask)
 
 
 def prefill_hidden(config: GemmaConfig, params: Params, tokens: torch.Tensor,

@@ -35,6 +35,7 @@ from skypilot_tpu_torch import Device, resolve_device
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import decode_attention as decode_ops
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
@@ -309,11 +310,15 @@ def _remat_context(config: LlamaConfig, layer_params: Params):
 def save_products(weights) -> Any:
     """``context_fn`` for a checkpoint: a selective policy that saves the
     output of every ``mm`` whose right operand is one of ``weights``
-    (matched by storage, so the order of the products does not matter)
-    and recomputes everything else."""
+    and recomputes everything else. A weight is matched by its storage,
+    so the order of the products does not matter, and neither does a
+    view of it (a layer of a stack, the KV heads a tensor rank reads of
+    a whole ``wk``); the checkpoint covers one layer, whose weights are
+    distinct stacks."""
     if not weights:
         return ckpt.noop_context_fn
-    saved = {w.data_ptr() for w in weights if torch.is_tensor(w)}
+    saved = {w.untyped_storage().data_ptr() for w in weights
+             if torch.is_tensor(w)}
     # A sharded step's layer weights (mesh_lib.Sharded) are gathered
     # inside the checkpoint, a new tensor in the forward and again in
     # the recompute: matched by the tensor each last gathered.
@@ -322,9 +327,10 @@ def save_products(weights) -> Any:
 
     def policy(ctx, op, *args, **kwargs):
         del ctx, kwargs
-        if op is mm and (args[1].data_ptr() in saved or any(
-                args[1].data_ptr() == w.data_ptr() for w in sharded)):
-            return ckpt.CheckpointPolicy.MUST_SAVE
+        if op is mm:
+            ptr = args[1].untyped_storage().data_ptr()
+            if ptr in saved or any(ptr == w.storage_ptr() for w in sharded):
+                return ckpt.CheckpointPolicy.MUST_SAVE
         return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
     return functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -633,6 +639,44 @@ def _swiglu(config, h: torch.Tensor, w_gate: torch.Tensor,
     return qops.matmul((gate * up).to(config.dtype), w_down)
 
 
+def check_tensor_heads(config, parts: int) -> None:
+    """Refuse a tensor split of ``parts`` that does not give every rank
+    whole query heads of one GQA layout: the query heads must split
+    evenly, and the KV heads too, or (more ranks than KV heads) each KV
+    head's query group must split evenly over the ranks that share it."""
+    h, kvh = config.n_heads, config.n_kv_heads
+    if h % parts or (kvh % parts and parts % kvh):
+        raise ValueError(
+            f'tensor={parts} does not split {h} query heads over '
+            f'{kvh} KV heads into equal GQA blocks: need n_heads % tensor '
+            '== 0 and n_kv_heads % tensor == 0 or tensor % n_kv_heads == 0.')
+
+
+def kv_heads(config) -> Tuple[int, int]:
+    """[first, stop) of the KV heads this rank's query heads read: all of
+    them outside a tensor split; inside, the KV heads of query heads
+    [r·H/T, (r+1)·H/T), which several ranks share when T > n_kv_heads."""
+    tp = mesh_lib.current_tensor_split()
+    if tp is None:
+        return 0, config.n_kv_heads
+    first, stop = tp.block(config.n_heads)
+    group = config.n_heads // config.n_kv_heads
+    return first // group, (stop - 1) // group + 1
+
+
+def local_kv(config, w):
+    """A leaf whose last dim holds every KV head (wk, wv; Qwen's bk, bv),
+    whole on every rank, as this rank's heads read it: its columns of
+    :func:`kv_heads`, through ``mesh_lib.tensor_input`` so that every
+    rank's part of its gradient is summed and the gradient leaves whole.
+    As it is outside a tensor split."""
+    if mesh_lib.current_tensor_split() is None:
+        return w
+    first, stop = kv_heads(config)
+    width = w.shape[-1] // config.n_kv_heads
+    return mesh_lib.tensor_input(w)[..., first * width:stop * width]
+
+
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            rope, kv_cache=None, cache_index=None, cache_positions=None,
            return_kv: bool = False,
@@ -642,15 +686,24 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
     With ``block_tables`` the cache is the page arena (see
     paged_cache_attend). Returns (x, new_kv_cache). A sharded step's
     weights are gathered here (``mesh_lib.gathered``), inside the
-    layer's checkpoint."""
+    layer's checkpoint. Under a tensor split (Megatron's layout) the
+    weights are this rank's heads and MLP columns, the head counts come
+    from their widths, the normed activations enter through
+    ``mesh_lib.tensor_input`` and the ``wo`` and ``w_down`` products
+    leave through ``mesh_lib.tensor_sum``."""
     c = config
     layer_params = mesh_lib.gathered(layer_params)
     hd = c.head_dim
     b, s, _ = x.shape
-    h = _rms_norm(x, layer_params['attn_norm'], c.norm_eps)
-    q = qops.matmul(h, layer_params['wq']).reshape(b, s, c.n_heads, hd)
-    k = qops.matmul(h, layer_params['wk']).reshape(b, s, c.n_kv_heads, hd)
-    v = qops.matmul(h, layer_params['wv']).reshape(b, s, c.n_kv_heads, hd)
+    wk = local_kv(c, layer_params['wk'])
+    wv = local_kv(c, layer_params['wv'])
+    n_heads = layer_params['wq'].shape[-1] // hd
+    n_kv = wk.shape[-1] // hd
+    h = mesh_lib.tensor_input(_rms_norm(x, layer_params['attn_norm'],
+                                        c.norm_eps))
+    q = qops.matmul(h, layer_params['wq']).reshape(b, s, n_heads, hd)
+    k = qops.matmul(h, wk).reshape(b, s, n_kv, hd)
+    v = qops.matmul(h, wv).reshape(b, s, n_kv, hd)
     q = _apply_rope(q, rope)
     k = _apply_rope(k, rope)
 
@@ -670,12 +723,14 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
             implementation=c.attention_impl, window=c.sliding_window,
             segment_ids=segment_ids)
 
-    attn = attn.reshape(b, s, c.n_heads * hd)
-    x = x + qops.matmul(attn, layer_params['wo'])
+    attn = attn.reshape(b, s, n_heads * hd)
+    x = x + mesh_lib.tensor_sum(qops.matmul(attn, layer_params['wo']))
 
-    h = _rms_norm(x, layer_params['mlp_norm'], c.norm_eps)
-    x = x + _swiglu(c, h, layer_params['w_gate'], layer_params['w_up'],
-                    layer_params['w_down'])
+    h = mesh_lib.tensor_input(_rms_norm(x, layer_params['mlp_norm'],
+                                        c.norm_eps))
+    x = x + mesh_lib.tensor_sum(_swiglu(
+        c, h, layer_params['w_gate'], layer_params['w_up'],
+        layer_params['w_down']))
     return x, new_cache
 
 
@@ -688,7 +743,7 @@ def _trunk(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     if positions is None:
         segment_ids, positions = positions_and_segments(
             c, tokens, serving=return_kv)
-    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    x = embed_lookup(params['embed'], tokens).to(c.dtype)
     kv = None
     if return_kv:
         shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,
@@ -716,8 +771,57 @@ def _layer_output(config, x, layer_params, rope, segment_ids):
     return _layer(config, x, layer_params, rope, segment_ids=segment_ids)[0]
 
 
+def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``. Under a tensor split the table
+    is this rank's vocabulary block: its rows (zero for a token outside
+    the block, ``qops.embed_rows``) summed over the group, whole on every
+    rank; the gradient reaches each block's own rows only."""
+    tp = mesh_lib.current_tensor_split()
+    if tp is None:
+        return qops.embed_rows(table, tokens)
+    start = tp.index * table.shape[0]
+    return mesh_lib.tensor_sum(qops.embed_rows(table, tokens, start=start))
+
+
+class _VocabParallelNll(torch.autograd.Function):
+    """Per-token NLL from this rank's vocabulary block of fp32 logits:
+    logsumexp from the group's max and sum of exponentials, minus the
+    target's logit from the rank whose block holds it. The gradient is
+    this block's softmax minus its part of the one-hot, times the
+    incoming gradient (no collective)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        local = targets.long() - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(inside, local, 0)
+        top = distributed.all_reduce(logits.detach().amax(-1), group,
+                                     op='max')
+        tgt = torch.where(inside, logits.gather(-1, local[..., None])[..., 0],
+                          0.0)
+        sums = distributed.all_reduce(torch.stack(
+            [torch.exp(logits - top[..., None]).sum(-1), tgt]), group)
+        lse = top + torch.log(sums[0])
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, inside = ctx.saved_tensors
+        dlogits = torch.exp(logits - lse[..., None])
+        dlogits.scatter_add_(-1, local[..., None],
+                             -inside[..., None].to(dlogits.dtype))
+        return dlogits * grad[..., None], None, None, None
+
+
 def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token next-token NLL: logsumexp minus the target's logit."""
+    """Per-token next-token NLL: logsumexp minus the target's logit.
+    Under a tensor split ``logits`` are this rank's vocabulary block
+    (``_VocabParallelNll``)."""
+    tp = mesh_lib.current_tensor_split()
+    if tp is not None:
+        return _VocabParallelNll.apply(
+            logits, targets, tp.index * logits.shape[-1], tp.group)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - tgt
 
@@ -736,7 +840,12 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
     time: each chunk's fp32 logits are checkpointed (recomputed in the
     backward), so only one chunk of [B, chunk, vocab] logits lives at a
     time. Padding and the max(count, 1) guard follow the JAX scan; the
-    count is the global batch's under a batch split (``masked_mean``)."""
+    count is the global batch's under a batch split (``masked_mean``).
+    Under a tensor split ``lm_head`` is this rank's vocabulary columns:
+    x enters through ``mesh_lib.tensor_input`` and each chunk's NLL is
+    vocabulary-parallel (its recompute runs the collectives again, the
+    same chunks in the same order on every rank)."""
+    x = mesh_lib.tensor_input(x)
     b, s, _ = x.shape
     if s <= chunk:
         logits = qops.matmul(x, lm_head,

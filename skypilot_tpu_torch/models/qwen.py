@@ -170,18 +170,29 @@ def _layer(config: QwenConfig, x: torch.Tensor, layer_params: Params, rope,
     hd = c.head_dim
     b, s, _ = x.shape
     lp = layer_params
-    h = llama._rms_norm(x, lp['attn_norm'], c.norm_eps)
+    wk, wv = llama.local_kv(c, lp['wk']), llama.local_kv(c, lp['wv'])
+    n_heads, n_kv = lp['wq'].shape[-1] // hd, wk.shape[-1] // hd
+    h = mesh_lib.tensor_input(llama._rms_norm(x, lp['attn_norm'],
+                                              c.norm_eps))
     q = qops.matmul(h, lp['wq'])
-    k = qops.matmul(h, lp['wk'])
-    v = qops.matmul(h, lp['wv'])
+    k = qops.matmul(h, wk)
+    v = qops.matmul(h, wv)
     if c.qkv_bias:
-        q, k, v = q + lp['bq'], k + lp['bk'], v + lp['bv']
-    q = q.reshape(b, s, c.n_heads, hd)
-    k = k.reshape(b, s, c.n_kv_heads, hd)
-    v = v.reshape(b, s, c.n_kv_heads, hd)
+        # bq is split with wq's heads; bk and bv are whole leaves read
+        # for this rank's KV heads.
+        q = q + lp['bq']
+        k = k + llama.local_kv(c, lp['bk'])
+        v = v + llama.local_kv(c, lp['bv'])
+    q = q.reshape(b, s, n_heads, hd)
+    k = k.reshape(b, s, n_kv, hd)
+    v = v.reshape(b, s, n_kv, hd)
     if c.qk_norm:
-        q = llama._rms_norm(q, lp['q_norm'], c.norm_eps)
-        k = llama._rms_norm(k, lp['k_norm'], c.norm_eps)
+        # Whole per-head-dim scales that every rank reads for its own
+        # heads: their gradient is summed over the tensor group.
+        q = llama._rms_norm(q, mesh_lib.tensor_input(lp['q_norm']),
+                            c.norm_eps)
+        k = llama._rms_norm(k, mesh_lib.tensor_input(lp['k_norm']),
+                            c.norm_eps)
     q = llama._apply_rope(q, rope)
     k = llama._apply_rope(k, rope)
 
@@ -193,11 +204,13 @@ def _layer(config: QwenConfig, x: torch.Tensor, layer_params: Params, rope,
         attn = attention_ops.dot_product_attention(
             q, k, v, causal=True, implementation=c.attention_impl,
             segment_ids=segment_ids)
-    attn = attn.reshape(b, s, c.n_heads * hd)
-    x = x + qops.matmul(attn, lp['wo'])
+    attn = attn.reshape(b, s, n_heads * hd)
+    x = x + mesh_lib.tensor_sum(qops.matmul(attn, lp['wo']))
 
-    h = llama._rms_norm(x, lp['mlp_norm'], c.norm_eps)
-    x = x + llama._swiglu(c, h, lp['w_gate'], lp['w_up'], lp['w_down'])
+    h = mesh_lib.tensor_input(llama._rms_norm(x, lp['mlp_norm'],
+                                              c.norm_eps))
+    x = x + mesh_lib.tensor_sum(llama._swiglu(c, h, lp['w_gate'],
+                                              lp['w_up'], lp['w_down']))
     return x, new_cache
 
 
@@ -214,7 +227,7 @@ def _trunk(config: QwenConfig, params: Params, tokens: torch.Tensor,
     if positions is None:
         segment_ids, positions = llama.positions_and_segments(
             c, tokens, serving=return_kv)
-    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    x = llama.embed_lookup(params['embed'], tokens).to(c.dtype)
     kv = None
     if return_kv:
         shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,

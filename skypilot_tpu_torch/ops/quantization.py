@@ -257,7 +257,10 @@ class _UpcastMatmul(torch.autograd.Function):
     gradient back as a full-size tensor; this backward instead upcasts
     one chunk at a time again and writes dW chunk by chunk into one
     tensor. Gradients come back in x's and w's types, as JAX casts a
-    cotangent to its primal's type. (``torch.mm(x, w, out_dtype=
+    cotangent to its primal's type. Under a tensor split ``w`` is the
+    LM head's block of vocabulary columns: the product and dW are that
+    block's, and dx is this rank's part (summed by the caller's
+    ``mesh.tensor_input``). (``torch.mm(x, w, out_dtype=
     torch.float32)`` computes the forward on the tensor cores, but torch
     2.11 has no gradient for it.)
     """
@@ -412,18 +415,33 @@ def expert_matmul(x: torch.Tensor, w,
     return _plain_expert_matmul(x, w, preferred_element_type)
 
 
-def embed_rows(table, tokens: torch.Tensor) -> torch.Tensor:
+def embed_rows(table, tokens: torch.Tensor,
+               start: Optional[int] = None) -> torch.Tensor:
     """``table[tokens]`` for a plain or row-quantized (axis -1) table.
 
     A plain table's gradient is autograd's scatter-add of the rows'
     gradients into one zero table (repeated tokens accumulate), as JAX's
     gather transposes to a scatter-add. A quantized table's rows come
-    back in the scale's type (fp32); the model casts them."""
+    back in the scale's type (fp32); the model casts them.
+
+    With ``start`` the table is the block of a larger vocabulary that
+    begins at row ``start``: a token inside the block takes its row, a
+    token outside it a row of zeros (and gives the block no gradient)."""
+    if start is None:
+        inside = None
+    else:
+        tokens = tokens - start
+        inside = (tokens >= 0) & (tokens < table.shape[0])
+        tokens = torch.where(inside, tokens, 0)
     if isinstance(table, QuantizedTensor):
         _check_axis(table, -1, 'embed_rows')
         rows = table.q[tokens]
-        return rows.to(table.scale.dtype) * table.scale[tokens][..., None]
-    return table[tokens]
+        rows = rows.to(table.scale.dtype) * table.scale[tokens][..., None]
+    else:
+        rows = table[tokens]
+    if inside is None:
+        return rows
+    return torch.where(inside[..., None], rows, rows.new_zeros(()))
 
 
 def tied_head(hidden: torch.Tensor, table,

@@ -20,10 +20,13 @@ ranks compare their cards' UUIDs through the store before the group is
 made, so the backend is chosen once, never switched after a failure.
 
 The collectives (:func:`all_gather`, :func:`reduce_scatter`,
-:func:`all_reduce`) take a group and a tensor on the rank's device. Under gloo a CUDA tensor is staged through host
-memory explicitly (gloo's CUDA support varies by op and version); NCCL
-never stages. A failed collective raises: nothing carries on with one
-rank.
+:func:`all_reduce`) take a group and a tensor on the rank's device.
+Under gloo a CUDA tensor is staged through host memory explicitly
+(gloo's CUDA support varies by op and version); NCCL never stages. gloo
+takes no bfloat16: an all-gather moves a bf16 block as its bytes (bit
+for bit), and an all-reduce sums it in fp32, rounding once (bytes
+cannot be summed). A failed collective raises: nothing carries on with
+one rank.
 """
 from __future__ import annotations
 
@@ -166,14 +169,18 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
     return t.detach().cpu() if _stages(t, group) else t
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, a new tensor on ``t``'s device
-    (every rank gets the same bits). Summed in fp32 for a 16-bit float."""
+def all_reduce(t: torch.Tensor, group=None, op: str = 'sum'
+               ) -> torch.Tensor:
+    """The sum (``op='max'``: the maximum) of ``t`` over ``group``, a new
+    tensor on ``t``'s device (every rank gets the same bits). A 16-bit
+    float goes over the wire in fp32 (gloo takes no bfloat16), so its sum
+    is taken in fp32 and rounded once."""
     wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
     buf = _wire(wide, group)
     if buf is wide:
         buf = wide.clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=(dist.ReduceOp.MAX if op == 'max'
+                             else dist.ReduceOp.SUM), group=group)
     return buf.to(t.device, t.dtype)
 
 

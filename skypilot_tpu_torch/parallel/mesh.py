@@ -7,13 +7,16 @@ the same way (:func:`build_mesh`: rank r sits where device r sits in the
 reference's mesh) and makes the collectives itself:
 
 * every parameter leaf carries a :class:`Split` (from its family's
-  ``logical_axes`` through :func:`logical_to_spec`): which dim is split
-  over which mesh axes, and this rank's block. :func:`shard` takes the
-  block, :func:`gather` puts the leaf back together;
+  ``logical_axes`` through :func:`logical_to_spec`): one :class:`Cut`
+  per split dim (its mesh axes, its group, this rank's block), so that
+  under fsdp x tensor ``wq`` is cut along its embed dim over ``fsdp`` and
+  its heads over ``tensor``. :func:`shard` takes the block,
+  :func:`gather` puts the leaf back together;
 * inside a training step a stacked layer leaf is a :class:`Sharded`
   view: indexing it by layer gives that layer's block, and
-  :func:`gathered` (called where a family's layer starts) all-gathers it
-  with a gradient that is reduce-scattered back (:class:`_Gather`). The
+  :func:`gathered` (called where a family's layer starts) all-gathers
+  its fsdp dims with a gradient that is reduce-scattered back
+  (:class:`_Gather`); a tensor dim stays this rank's block. The
   families call it inside their per-layer checkpoint, whose recompute
   gathers again; without one, :func:`regathering` saves the block in the
   gathered weight's place. No gathered weight is kept for the backward;
@@ -22,10 +25,20 @@ reference's mesh) and makes the collectives itself:
   count (:func:`batch_total`) and the router counts its capacity and
   load-balance statistics over the global batch (:func:`batch_offsets`),
   as the reference's SPMD step computes them. Each rank's loss is then
-  its share of the global loss, and the shares sum to it.
+  its share of the global loss, and the shares sum to it;
+* :func:`tensor_split` tells the families the tensor group (Megatron's
+  layout, with its collectives explicit where the reference's XLA
+  inserts them): a replicated activation enters a head-, MLP- or
+  vocabulary-split product through :func:`tensor_input` (identity; its
+  gradient summed over the group), and a row-split product's partial
+  leaves through :func:`tensor_sum` (summed over the group; its
+  gradient as it is). A whole leaf that each rank reads for its own
+  heads alone (``wk``, ``wv``) goes through :func:`tensor_input` too, so
+  every gradient leaves the backward whole on each tensor rank and the
+  trainer sums over the batch ranks only.
 
-Only the ``data`` and ``fsdp`` axes train above 1 in this slice;
-``Trainer`` refuses the others.
+The ``data``, ``fsdp`` and ``tensor`` axes train above 1; ``Trainer``
+refuses the others.
 """
 from __future__ import annotations
 
@@ -220,56 +233,99 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]],
 # ---- splits: one leaf's block on this rank --------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class Split:
-    """How one leaf lies on this rank: dim ``dim`` of the full ``shape``
-    cut into ``parts`` equal blocks over the ranks of ``group`` (the
-    mesh ``axes``), this rank holding block ``index``."""
+class Cut:
+    """Dim ``dim`` of a leaf cut into ``parts`` equal blocks over the
+    ranks of ``group`` (the mesh ``axes``), this rank holding block
+    ``index``."""
     dim: int
     parts: int
     index: int
-    shape: Tuple[int, ...]
     group: Any
     axes: Tuple[str, ...] = ()
+
+    @property
+    def kept(self) -> bool:
+        """Whether a step keeps this dim's block (a tensor dim: heads,
+        MLP columns, vocabulary) rather than gathering it (an fsdp dim)."""
+        return 'tensor' in self.axes
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How one leaf of the full ``shape`` lies on this rank: one Cut per
+    split dim, in dim order (at most two: an fsdp dim and a tensor dim).
+    ``group`` holds the ranks of every cut's axes together (the ranks
+    that hold the leaf's blocks)."""
+    shape: Tuple[int, ...]
+    cuts: Tuple[Cut, ...]
+    group: Any = None
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(a for c in self.cuts for a in c.axes)
+
+    def cut(self, dim: int) -> Optional[Cut]:
+        for c in self.cuts:
+            if c.dim == dim:
+                return c
+        return None
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Σ of ``t`` over the ranks that hold the leaf's blocks."""
         return distributed.all_reduce(t, self.group)
 
+    def reduce_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Σ of ``t`` over the ranks that hold the blocks of dim ``dim``
+        (``t`` as it is where that dim is whole)."""
+        c = self.cut(dim)
+        return t if c is None else distributed.all_reduce(t, c.group)
+
     def drop(self, dim: int) -> Optional['Split']:
         """The split of a statistic that reduces the leaf over ``dim``:
-        None where that was the split dim (the statistic is then whole on
-        every rank)."""
-        if dim == self.dim:
+        the other dims' cuts, or None where none is left (the statistic
+        is then whole on every rank)."""
+        cuts = tuple(dataclasses.replace(c, dim=c.dim - (dim < c.dim))
+                     for c in self.cuts if c.dim != dim)
+        if not cuts:
             return None
         shape = self.shape[:dim] + self.shape[dim + 1:]
-        return dataclasses.replace(
-            self, dim=self.dim - (dim < self.dim), shape=shape)
+        group = self.group if len(cuts) == len(self.cuts) else cuts[0].group
+        return Split(shape, cuts, group)
+
+    @property
+    def step_cuts(self) -> Tuple[Cut, ...]:
+        """The cuts a step gathers (every one but the tensor dims)."""
+        return tuple(c for c in self.cuts if not c.kept)
 
 
 def split_for(mesh: Mesh, spec: PartitionSpec,
               shape: Sequence[int]) -> Optional[Split]:
     """The Split of a leaf of ``shape`` under ``spec`` on this rank, or
     None when no dim is split over more than one rank."""
-    split = None
+    cuts = []
     for dim, entry in enumerate(spec):
         axes = () if entry is None else (
             entry if isinstance(entry, tuple) else (entry,))
         axes = tuple(a for a in axes if mesh.shape[a] > 1)
         if not axes:
             continue
-        if split is not None:
-            raise NotImplementedError(
-                f'spec {spec}: a leaf split along two dims needs a '
-                'tensor or expert axis, not ported yet (ROADMAP.md '
-                'queue 1 items 8b, 8e).')
         parts = mesh.axes_size(axes)
         if shape[dim] % parts:
             raise ValueError(
                 f'dim {dim} of a leaf of shape {tuple(shape)} does not '
                 f'split into {parts} equal blocks (spec {spec}).')
-        split = Split(dim, parts, mesh.axes_index(axes), tuple(shape),
-                      mesh.group(axes), axes)
-    return split
+        cuts.append(Cut(dim, parts, mesh.axes_index(axes),
+                        mesh.group(axes), axes))
+    if not cuts:
+        return None
+    if len(cuts) > 1 and any('expert' in c.axes for c in cuts):
+        raise NotImplementedError(
+            f'spec {spec}: a leaf split along an expert dim and another '
+            'needs expert parallelism, not ported yet (ROADMAP.md queue 1 '
+            'item 8e).')
+    group = (cuts[0].group if len(cuts) == 1 else
+             mesh.group(tuple(a for c in cuts for a in c.axes)))
+    return Split(tuple(shape), tuple(cuts), group)
 
 
 def tree_splits(mesh: Mesh, logical_tree, shape_tree,
@@ -288,38 +344,56 @@ def shard(leaf: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
     """This rank's block of ``leaf`` (a contiguous copy), or ``leaf``."""
     if split is None:
         return leaf
-    return leaf.chunk(split.parts, split.dim)[split.index].contiguous()
+    for c in split.cuts:
+        leaf = leaf.chunk(c.parts, c.dim)[c.index]
+    return leaf.contiguous()
+
+
+def _gather_cuts(block: torch.Tensor, cuts) -> torch.Tensor:
+    for c in cuts:
+        block = distributed.all_gather(block, c.dim, c.group)
+    return block
 
 
 def gather(block: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
     """The whole leaf from every rank's block (a collective: each rank
-    of the split's group calls it), or ``block``."""
+    of the split's group calls it; one all-gather per cut, in dim
+    order), or ``block``."""
     if split is None:
         return block
-    return distributed.all_gather(block.detach(), split.dim, split.group)
+    return _gather_cuts(block.detach(), split.cuts)
+
+
+def step_block(block: torch.Tensor, split: Split) -> torch.Tensor:
+    """What a step reads of a leaf (no gradient): its step cuts
+    gathered, its tensor dims this rank's block."""
+    return _gather_cuts(block.detach(), split.step_cuts)
 
 
 class _Gather(torch.autograd.Function):
-    """All-gather of a block in the forward; the gradient is the sum over
-    the group, scattered back to the blocks."""
+    """All-gather of a block along its step cuts in the forward; the
+    gradient is the sum over each cut's group, scattered back to the
+    blocks (in the reverse order)."""
 
     @staticmethod
     def forward(ctx, block, split):
         ctx.split = split
-        return distributed.all_gather(block, split.dim, split.group)
+        return _gather_cuts(block, split.step_cuts)
 
     @staticmethod
     def backward(ctx, grad):
-        s = ctx.split
-        return distributed.reduce_scatter(grad, s.dim, s.group), None
+        for c in reversed(ctx.split.step_cuts):
+            grad = distributed.reduce_scatter(grad, c.dim, c.group)
+        return grad, None
 
 
 class Sharded:
     """A stacked leaf inside a sharded step: ``block`` of the full
     ``split.shape``. ``view[i]`` is layer i's block (a Sharded of one
-    dim fewer); :meth:`gather` all-gathers it with a gradient.
-    ``shape``/``ndim`` are the full leaf's; ``data_ptr`` is the last
-    gathered tensor's, which a checkpoint's save policy matches."""
+    dim fewer); :meth:`gather` all-gathers its step cuts with a gradient
+    (a tensor dim stays this rank's block). ``shape``/``ndim`` are the
+    full leaf's; ``storage_ptr`` is the storage of the last gathered
+    tensor, which a checkpoint's save policy matches."""
 
     def __init__(self, block: torch.Tensor, split: Split) -> None:
         self.block = block
@@ -329,25 +403,26 @@ class Sharded:
         self._gathered_ptr: Optional[int] = None
 
     def __getitem__(self, i: int) -> 'Sharded':
-        if not isinstance(i, int) or self.split.dim == 0:
+        if not isinstance(i, int) or self.split.cut(0) is not None:
             raise TypeError('a Sharded leaf is indexed by layer only')
         return Sharded(self.block[i], self.split.drop(0))
 
     def gather(self) -> torch.Tensor:
         full = _Gather.apply(self.block, self.split)
-        self._gathered_ptr = full.data_ptr()
+        self._gathered_ptr = full.untyped_storage().data_ptr()
         if _REGATHER is not None:
             _REGATHER[id(full)] = (weakref.ref(full), self.block, self.split)
         return full
 
-    def data_ptr(self) -> Optional[int]:
+    def storage_ptr(self) -> Optional[int]:
         return self._gathered_ptr
 
 
 def gathered(layer_params: Dict[str, Any]) -> Dict[str, Any]:
-    """A layer's weights whole: each Sharded entry all-gathered (with its
-    gradient), the rest as they are. Families call this where a layer
-    starts, inside the layer's checkpoint."""
+    """A layer's weights as a step reads them: each Sharded entry
+    all-gathered along its step cuts (with its gradient), the rest as
+    they are. Families call this where a layer starts, inside the
+    layer's checkpoint."""
     if not any(isinstance(w, Sharded) for w in layer_params.values()):
         return layer_params
     return {k: w.gather() if isinstance(w, Sharded) else w
@@ -373,8 +448,7 @@ def _pack(t: torch.Tensor):
 
 def _unpack(saved):
     if isinstance(saved, _Block):
-        return distributed.all_gather(saved.block.detach(),
-                                      saved.split.dim, saved.split.group)
+        return step_block(saved.block, saved.split)
     return saved
 
 
@@ -401,12 +475,14 @@ def is_stacked(logical_axes: Sequence[Optional[str]]) -> bool:
 def step_view(params, splits, logical_tree):
     """The parameter tree a sharded step's loss reads: stacked layer
     leaves as Sharded views (gathered a layer at a time by the layer),
-    every other split leaf gathered now (with its gradient)."""
+    every other split leaf gathered now (with its gradient); a dim split
+    over ``tensor`` stays this rank's block, and a leaf split over
+    tensor dims alone is read as it is."""
     if isinstance(params, dict):
         return {k: step_view(params[k], splits[k], logical_tree[k])
                 for k in params}
-    if splits is None:
-        return params
+    if splits is None or not splits.step_cuts:
+        return params   # whole, or split over tensor dims alone
     if is_stacked(logical_tree):
         return Sharded(params, splits)
     return _Gather.apply(params, splits)
@@ -461,3 +537,87 @@ def batch_offsets(counts: torch.Tensor
         return torch.zeros_like(counts), counts
     rows = distributed.all_gather(counts.detach()[None], 0, _BATCH.group)
     return rows[:_BATCH.index].sum(0), rows.sum(0)
+
+
+# ---- the tensor region: heads, mlp and vocabulary over ranks ----------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """The heads, MLP columns and vocabulary of a model split in rank
+    order over ``group`` (the mesh's ``tensor`` axis): ``parts`` equal
+    blocks, this rank holding block ``index``."""
+    parts: int
+    index: int
+    group: Any
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """[start, stop) of this rank's block of ``n`` (heads, rows)."""
+        size = n // self.parts
+        return self.index * size, (self.index + 1) * size
+
+
+_TENSOR: Optional[TensorSplit] = None
+
+
+@contextlib.contextmanager
+def tensor_split(split: Optional[TensorSplit]):
+    """Within: the families read their weights as this rank's tensor
+    blocks (no-op for None). Active around a sharded step's forward and
+    backward (a checkpoint's recompute runs the collectives again)."""
+    global _TENSOR
+    prev, _TENSOR = _TENSOR, split
+    try:
+        yield
+    finally:
+        _TENSOR = prev
+
+
+def current_tensor_split() -> Optional[TensorSplit]:
+    return _TENSOR
+
+
+class _TensorInput(torch.autograd.Function):
+    """Identity in the forward; the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return distributed.all_reduce(grad, ctx.group), None
+
+
+class _TensorSum(torch.autograd.Function):
+    """The sum over the group in the forward; the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return distributed.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tensor_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whole on every rank of the tensor group, as read by this
+    rank's own heads, MLP columns or vocabulary block: the identity, with
+    its gradient (each rank's part) summed over the group, so that it
+    leaves whole. The replicated activation entering a split product
+    goes through it, and so does a whole leaf that each rank reads for
+    its own heads alone (wk, wv). As it is outside ``tensor_split``."""
+    if _TENSOR is None:
+        return x
+    return _TensorInput.apply(x, _TENSOR.group)
+
+
+def tensor_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every tensor rank's part ``x`` (after a row-split
+    product: ``wo``, ``w_down``, the vocabulary-split embedding), whole
+    on every rank; its gradient passes as it is. As it is outside
+    ``tensor_split``."""
+    if _TENSOR is None:
+        return x
+    return _TensorSum.apply(x, _TENSOR.group)

@@ -38,9 +38,12 @@ continues the token stream where the checkpoint left it (its loader
 skips the batches the checkpointed steps consumed); the reference
 restarts the stream at its first batch.
 
-Not ported yet: ``--attention ring|ulysses`` and the mesh axes tensor,
-sequence, stage and expert above 1 exit naming their sub-items of
-ROADMAP.md queue 1 item 8 (8b-8e).
+The mesh's ``tensor`` axis splits the dense families' heads, MLP and
+vocabulary over ranks (``train_llama3_8b.yaml``'s ``--mesh
+data=1,fsdp=-1,tensor=4``). Not ported yet: ``--attention ring|ulysses``
+and the mesh axes sequence, stage and expert above 1, and tensor above 1
+for the routed families or with LoRA, exit naming their sub-items of
+ROADMAP.md queue 1 item 8 (8b-ii, 8c-8e).
 """
 from __future__ import annotations
 
@@ -123,16 +126,22 @@ def parse_mesh(spec: str) -> trainer_lib.MeshPlan:
     return trainer_lib.MeshPlan(**kwargs)
 
 
-def resolve_plan(plan: trainer_lib.MeshPlan,
-                 world: int) -> trainer_lib.MeshPlan:
+def resolve_plan(plan: trainer_lib.MeshPlan, world: int, model=None,
+                 lora_rank: int = 0) -> trainer_lib.MeshPlan:
     """``plan`` resolved against the gang's ``world`` ranks; exits when
     it does not fit them, or names its sub-item of ROADMAP.md queue 1
-    item 8 for an axis not ported yet."""
+    item 8 for an axis not ported yet (8b-ii for ``tensor`` over a
+    routed ``model`` or LoRA adapters of ``lora_rank``)."""
     for axis in trainer_lib.UNPORTED_AXES:
         size = getattr(plan, axis)
         if size > 1:
             raise SystemExit(
                 f'--mesh: {trainer_lib.unported_axis_message(axis, size)}')
+    if model is not None:
+        msg = trainer_lib.unported_tensor_message(plan.tensor, model,
+                                                  lora_rank)
+        if msg:
+            raise SystemExit(f'--mesh: {msg}')
     try:
         return plan.resolve(world)
     except ValueError as e:
@@ -318,7 +327,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     device = resolve_device(args.device)
     distributed.initialize(device_type=device.type)
     world, rank = distributed.world_size(), distributed.rank()
-    plan = resolve_plan(parse_mesh(args.mesh), world)
+    plan = resolve_plan(parse_mesh(args.mesh), world,
+                        models.get_config(args.model), args.lora_rank)
     try:
         mesh = mesh_lib.build_mesh(plan, num_slices=args.num_slices)
     except ValueError as e:

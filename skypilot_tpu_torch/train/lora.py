@@ -92,12 +92,13 @@ def _block(a: torch.Tensor, b: torch.Tensor, split
     dim."""
     if split is None:
         return a, b
-    n, i, d = split.parts, split.index, split.dim
-    if d == a.ndim - 2:
-        return a.chunk(n, d)[i], b
-    if d == a.ndim - 1:
-        return a, b.chunk(n, d)[i]
-    return a.chunk(n, d)[i], b.chunk(n, d)[i]
+    for cut in split.cuts:
+        n, i, d = cut.parts, cut.index, cut.dim
+        if d != a.ndim - 1:
+            a = a.chunk(n, d)[i]
+        if d != a.ndim - 2:
+            b = b.chunk(n, d)[i]
+    return a, b
 
 
 def merge(base: Params, lora: Params, alpha: float, rank: int,

@@ -19,11 +19,14 @@ the bias corrections are computed on the host.
 
 Sharded leaves: a transformation built with ``splits`` (one
 ``parallel.mesh.Split`` or None per leaf) takes each leaf as this rank's
-block of the full leaf. The elementwise pieces (Adam, decay, the
+block of the full leaf, which may be split along several dims (fsdp's
+and tensor's). The elementwise pieces (Adam, decay, the
 schedule) are exact on blocks as they are; the reductions that span a
 leaf (the global norm, adafactor's factored row and column statistics,
 the block RMS clip and the parameter-scale RMS) sum their block's part
-and add the other blocks' over the split's group, so the update equals
+and add the other blocks' over the group of the dims they reduce (a
+factored statistic over a tensor dim over the tensor group, one over an
+fsdp dim over the fsdp group), so the update equals
 the one-rank update on the full leaf. ``state_splits`` gives the split of
 every state tensor, for gathering the state whole.
 """
@@ -83,11 +86,12 @@ def _full_shape(t: torch.Tensor, split) -> Tuple[int, ...]:
 
 
 def _mean(t: torch.Tensor, dim: int, split) -> torch.Tensor:
-    """``t.mean(dim)`` of the full leaf: where ``dim`` is the split one,
-    the blocks' sums added over the split's group, over the full size."""
-    if split is None or split.dim != dim:
+    """``t.mean(dim)`` of the full leaf: where ``dim`` is split, the
+    blocks' sums added over that dim's group, over the full size (the
+    other dims stay this rank's blocks)."""
+    if split is None or split.cut(dim) is None:
         return t.mean(dim=dim)
-    return split.reduce(t.sum(dim=dim)) / split.shape[dim]
+    return split.reduce_dim(t.sum(dim=dim), dim) / split.shape[dim]
 
 
 def _rms(t: torch.Tensor, split) -> torch.Tensor:
@@ -143,8 +147,10 @@ def global_norm(tensors: Sequence[torch.Tensor],
                 splits: Splits = None) -> torch.Tensor:
     """sqrt(Σ x²) over every tensor, summed in fp32 (a 0-dim tensor).
     With ``splits`` a split tensor is a block: the blocks' sums are
-    added over each split's group (one sum per group), whole tensors
-    count once."""
+    added over the group of the ranks that hold the leaf's blocks (every
+    split dim's ranks together; one sum per group), whole tensors count
+    once (a leaf whole on the tensor ranks is one leaf, not one per
+    rank)."""
     if splits is None:
         return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                               for t in tensors))

@@ -16,19 +16,24 @@ card. ``host_state`` and ``load_state`` carry the state to the host and
 back for checkpoints (``train/launch.py``).
 
 Over ``torch.distributed`` ranks (one per card, ``parallel/distributed``)
-the mesh plan's ``data`` and ``fsdp`` axes train as the reference's
-sharded step does, its collectives made explicit (``parallel/mesh.py``):
-each rank holds its blocks of the parameters and optimizer state (the
-families' ``logical_axes`` under ``DEFAULT_RULES``: embed dims over
-``fsdp``, as in the reference); the global batch's rows split over
-``('data', 'fsdp')`` in rank order; a layer's weights are all-gathered
-where the layer starts, inside its checkpoint, and their gradients
-reduce-scattered back (a layer without a checkpoint keeps its block for
-the backward, ``mesh_lib.regathering``); the remaining gradients are
-summed over the ranks that hold the same block. Each rank's loss is its share of the
-global (mask-)weighted mean (``mesh_lib.batch_split``), so the update
-equals the one-rank update on the whole batch. The tensor, sequence,
-expert and stage axes are not ported yet (ROADMAP.md queue 1 items 8b-8e).
+the mesh plan's ``data``, ``fsdp`` and ``tensor`` axes train as the
+reference's sharded step does, its collectives made explicit
+(``parallel/mesh.py``): each rank holds its blocks of the parameters and
+optimizer state (the families' ``logical_axes`` under ``DEFAULT_RULES``:
+embed dims over ``fsdp``; heads, MLP and vocabulary over ``tensor``, as
+in the reference); the global batch's rows split over ``('data',
+'fsdp')`` in rank order, so the tensor ranks see the same rows; a
+layer's weights are all-gathered along their fsdp dims where the layer
+starts, inside its checkpoint, and their gradients reduce-scattered back
+(a layer without a checkpoint keeps its block for the backward,
+``mesh_lib.regathering``); the dense families read their tensor blocks
+Megatron-style (``mesh_lib.tensor_split``), so every gradient leaves the
+backward whole on each tensor rank; the remaining gradients are summed
+over the batch ranks that hold the same block. Each rank's loss is its
+share of the global (mask-)weighted mean (``mesh_lib.batch_split``), so
+the update equals the one-rank update on the whole batch. The sequence,
+expert and stage axes are not ported yet (ROADMAP.md queue 1 items
+8c-8e), nor the tensor axis for the routed families and LoRA (8b-ii).
 """
 from __future__ import annotations
 
@@ -45,8 +50,10 @@ from skypilot_tpu_torch.agent import flight_recorder
 from skypilot_tpu_torch.agent import profiler
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.models import deepseek
+from skypilot_tpu_torch.models import gemma
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import moe
+from skypilot_tpu_torch.models import qwen
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -114,24 +121,50 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
 # The mesh axes not ported yet, each with its sub-item of ROADMAP.md
 # queue 1 item 8.
 UNPORTED_AXES = {
-    'tensor': ('8b', 'tensor parallelism'),
     'sequence': ('8c', 'sequence parallelism (ring and Ulysses attention)'),
     'stage': ('8d', 'pipeline parallelism'),
     'expert': ('8e', 'expert parallelism'),
 }
+# The families whose heads, MLP and vocabulary split over the tensor
+# axis (Megatron's layout); the routed families and LoRA adapters over
+# split weights wait for item 8b-ii.
+TENSOR_FAMILIES = (llama, qwen, gemma)
 
 
 def unported_axis_message(axis: str, size: int) -> str:
     item, what = UNPORTED_AXES[axis]
     return (f'mesh {axis}={size}: {what} is not ported yet (ROADMAP.md '
-            f'queue 1 item {item}); the port trains over data and fsdp.')
+            f'queue 1 item {item}); the port trains over data, fsdp and '
+            'tensor.')
 
 
-def _check_mesh(plan: MeshPlan) -> None:
-    for axis in ('stage', 'tensor', 'sequence', 'expert'):
+def unported_tensor_message(size: int, model, lora_rank: int
+                            ) -> Optional[str]:
+    """Why ``tensor=size`` cannot train ``model`` (with LoRA adapters of
+    ``lora_rank``) yet, or None where it can."""
+    if size <= 1:
+        return None
+    module = models.module_for(model)
+    if module not in TENSOR_FAMILIES:
+        what = f'the routed family {module.__name__.rsplit(".", 1)[-1]}'
+    elif lora_rank > 0:
+        what = 'LoRA adapters over split weights'
+    else:
+        return None
+    return (f'mesh tensor={size}: tensor parallelism for {what} is not '
+            'ported yet (ROADMAP.md queue 1 item 8b-ii); the dense '
+            'families train at tensor > 1 without LoRA.')
+
+
+def _check_mesh(plan: MeshPlan, config: 'TrainConfig') -> None:
+    for axis in ('stage', 'sequence', 'expert'):
         size = getattr(plan, axis)
         if size > 1:
             raise NotImplementedError(unported_axis_message(axis, size))
+    msg = unported_tensor_message(plan.tensor, config.model,
+                                  config.lora_rank)
+    if msg:
+        raise NotImplementedError(msg)
 
 
 def _ordered_like(tree, ref):
@@ -175,10 +208,10 @@ class Trainer:
             raise ValueError(
                 f'global_batch_size {config.global_batch_size} not '
                 f'divisible by accum_steps {config.accum_steps}')
-        _check_mesh(config.mesh_plan)
+        _check_mesh(config.mesh_plan, config)
         self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(
             config.mesh_plan)
-        _check_mesh(self.mesh.plan)
+        _check_mesh(self.mesh.plan, config)
         self._model_lib = models.module_for(config.model)
         self.device = resolve_device(device)
         # Only a model whose attention goes to the flash kernels needs
@@ -225,6 +258,12 @@ class Trainer:
                     'accumulation microbatches of equal rows.')
             self._batch = mesh_lib.BatchSplit(
                 rows, mesh.axes_index(BATCH_AXES), mesh.group(BATCH_AXES))
+        parts = mesh.shape['tensor']
+        self._tensor = None
+        if parts > 1:
+            llama.check_tensor_heads(c.model, parts)
+            self._tensor = mesh_lib.TensorSplit(
+                parts, mesh.coords['tensor'], mesh.group(('tensor',)))
         shapes = self._model_lib.init(c.model, device='meta')
         self._splits = mesh_lib.tree_splits(mesh, self._logical, shapes)
         self._sharded = any(s is not None
@@ -239,7 +278,9 @@ class Trainer:
         self._opt_splits = opt if self._sharded else None
         # A leaf's gradient is summed over the batch ranks that hold the
         # same block (its split's own axes were summed by the gather's
-        # reduce-scatter).
+        # reduce-scatter). Never over tensor: a leaf whole on the tensor
+        # ranks leaves the backward whole on each (the families read it
+        # on the replicated side, or through mesh_lib.tensor_input).
         self._grad_groups = [
             mesh.group(tuple(a for a in BATCH_AXES
                              if s is None or a not in s.axes))
@@ -386,7 +427,8 @@ class Trainer:
         sharded leaf already hold their group's sum)."""
         params = state['params']
         leaves = param_leaves(params)
-        with mesh_lib.batch_split(self._batch), (
+        with mesh_lib.batch_split(self._batch), \
+                mesh_lib.tensor_split(self._tensor), (
                 mesh_lib.regathering() if self._sharded
                 else contextlib.nullcontext()):
             loss = self._forward_loss(state, params, batch)
@@ -494,7 +536,8 @@ class Trainer:
                   ) -> torch.Tensor:
         """Loss only (no gradient, no update): the validation pass, over
         the global batch whose rows this rank holds."""
-        with mesh_lib.batch_split(self._batch):
+        with mesh_lib.batch_split(self._batch), \
+                mesh_lib.tensor_split(self._tensor):
             loss = self._forward_loss(state, state['params'], batch)
         if self._batch is not None:
             loss = distributed.all_reduce(loss, self._batch.group)

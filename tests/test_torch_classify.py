@@ -61,6 +61,22 @@ def _time_limit():
         signal.signal(signal.SIGALRM, previous)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for the port's tiny models. Under a whole run's
+    load (six pytest workers and the gang tests' rank processes on the
+    same cores) torch's OpenMP threads wait on one another at every small
+    op: the 60-step training test took 94.6-120 s there against 2 s alone
+    (0.8 s on one thread, 35 s on the default threads beside eight busy
+    processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _configs(num_classes, **kw):
     jmodel = dataclasses.replace(jax_llama.LLAMA_TINY, max_seq_len=SEQ,
                                  dtype=jnp.float32)

@@ -237,12 +237,12 @@ def _exits(flags, match):
 @pytest.mark.parametrize('flags,match', [
     _exits(['--attention', 'ring'], 'queue 1 item 8c'),
     _exits(['--attention', 'ulysses'], 'queue 1 item 8c'),
-    # data and fsdp are ported: one process is refused a plan of more
-    # ranks, and slices that its data axis cannot hold.
+    # data, fsdp and tensor are ported: one process is refused a plan
+    # of more ranks, and slices that its data axis cannot hold.
     _exits(['--num-slices', '2'], 'multiple of num_slices'),
     _exits(['--mesh', 'data=-1,fsdp=8'], 'gang of 1 rank'),
     _exits(['--mesh', 'data=2'], 'gang of 1 rank'),
-    _exits(['--mesh', 'tensor=4'], 'queue 1 item 8b'),
+    _exits(['--mesh', 'tensor=4'], 'gang of 1 rank'),
     _exits(['--mesh', 'data=1,stage=2'], 'queue 1 item 8d'),
     _exits(['--mesh', 'sequence=2'], 'queue 1 item 8c'),
     _exits(['--mesh', 'expert=2'], 'queue 1 item 8e')])

@@ -115,8 +115,8 @@ def test_each_rank_holds_the_block_jax_gives_its_device(kw, spec, shape):
             parts = mesh.axes_size(axes)
             block = shape[dim] // parts
             assert (index[dim].start or 0) == mesh.axes_index(axes) * block
-            split = mesh_lib.Split(0, parts, mesh.axes_index(axes),
-                                   (shape[dim],), None, axes)
+            split = mesh_lib.Split((shape[dim],), (mesh_lib.Cut(
+                0, parts, mesh.axes_index(axes), None, axes),))
             block_of = mesh_lib.shard(torch.arange(shape[dim]), split)
             assert block_of.tolist() == list(range(shape[dim]))[index[dim]]
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import signal
+import threading
 
 import pytest
 import torch
@@ -62,6 +63,22 @@ def _reset():
     flight_recorder.reset_for_test()
 
 
+def _own_thread_emits(monkeypatch):
+    """Only this test's thread reaches the spools. Serving loops that
+    other test modules of the same worker process left running (the
+    reference's ServingLoop has no close, and declares itself idle about
+    once a second through ``telemetry.emit``) read the spool directory
+    and rank from the environment as these tests set them: such an idle
+    sample, with no ``profile``, could replace a rank's spool file
+    between the test's last write and its read (seen as ``[] ==
+    [['host-bound']]`` under a whole run's load)."""
+    me = threading.get_ident()
+    for mod in (telemetry, jax_telemetry):
+        monkeypatch.setattr(
+            mod, 'emit', lambda *a, _emit=mod.emit, **k: (
+                _emit(*a, **k) if threading.get_ident() == me else None))
+
+
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     for env in (profiler.ENV_ENABLED, profiler.ENV_SAMPLE_EVERY,
@@ -70,6 +87,7 @@ def _clean(monkeypatch):
                 profiler.ENV_FAKE_HBM_LIMIT, profiler.ENV_WARMUP_STEPS,
                 telemetry.ENV_DIR, 'XSKY_CHAOS_PLAN', 'XSKY_HOST_RANK'):
         monkeypatch.delenv(env, raising=False)
+    _own_thread_emits(monkeypatch)
     _reset()
     yield
     _reset()

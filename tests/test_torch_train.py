@@ -338,7 +338,9 @@ def test_synthetic_batch_is_seeded_by_the_step():
     (trainer.MeshPlan(stage=2), NotImplementedError, 'queue 1 item 8d'),
     # fsdp is ported: one process is refused a plan of two ranks.
     (trainer.MeshPlan(fsdp=2), ValueError, 'not divisible'),
-    (trainer.MeshPlan(tensor=2), NotImplementedError, 'queue 1 item 8b'),
+    # tensor is ported for the dense families: one process is refused
+    # a plan of two ranks.
+    (trainer.MeshPlan(tensor=2), ValueError, 'not divisible'),
     (trainer.MeshPlan(sequence=2), NotImplementedError, 'queue 1 item 8c'),
     (trainer.MeshPlan(expert=2), NotImplementedError, 'queue 1 item 8e'),
 ], ids=['pipeline', 'fsdp', 'tensor', 'sequence', 'expert'])

@@ -17,7 +17,13 @@ gathers it.
 The second form runs ``train/launch.py`` with ARGV as one rank of the
 gang its environment describes (``XSKY_*``), the model's config in fp32
 with ``--fp32``, and writes to OUT (JSON) the losses and grad norms the
-run returns on this rank and the step it started from. Imports no JAX.
+run returns on this rank and the step it started from. The third,
+
+    python tests/torch_gang_worker.py call NAME SPEC RANK WORLD PORT OUT
+
+runs ``CALLS[NAME]`` (a collective check of the mesh pieces) on the
+``torch.save``d SPEC as rank RANK of a gloo gang and saves its result to
+OUT (``call_gang``). Imports no JAX.
 """
 from __future__ import annotations
 
@@ -190,9 +196,82 @@ def launch_rank(argv):
                    'start_step': run['start_step']}, f)
 
 
+def split_roundtrip(spec, rank, world):
+    """A leaf split along two dims at ``spec['plan']`` (its ``spec['axes']``
+    per dim): this rank's block, the leaf gathered back from every
+    rank's block, and what a step reads of it (its tensor dims kept)."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**spec['plan']))
+    full = torch.from_numpy(spec['leaf'])
+    split = mesh_lib.split_for(mesh, spec['axes'], tuple(full.shape))
+    block = mesh_lib.shard(full, split)
+    return {'block': block, 'whole': mesh_lib.gather(block, split),
+            'step': mesh_lib.step_block(block, split),
+            'cuts': [(c.dim, c.parts, c.index, c.axes) for c in split.cuts]}
+
+
+def vocab_parallel(spec, rank, world):
+    """The vocabulary-parallel embedding lookup and chunked cross-entropy
+    over this rank's vocabulary blocks (every rank a tensor rank; the
+    whole vocabulary for a world of one): the loss and the gradients of
+    the table's rows, the head's columns and the hidden input."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    table = torch.from_numpy(spec['table']).chunk(world)[rank].clone()
+    head = torch.from_numpy(spec['head']).chunk(world, 1)[rank].clone()
+    hidden = torch.from_numpy(spec['hidden'])
+    for t in (table, head, hidden):
+        t.requires_grad_(True)
+    split = mesh_lib.TensorSplit(world, rank, None) if world > 1 else None
+    with mesh_lib.tensor_split(split):
+        x = hidden + llama.embed_lookup(table, torch.from_numpy(
+            spec['tokens']))
+        loss = llama._chunked_ce(x, head, torch.from_numpy(spec['targets']),
+                                 torch.from_numpy(spec['mask']),
+                                 spec['chunk'])
+        grads = torch.autograd.grad(loss, [table, head, hidden])
+    return {'loss': loss.detach(), 'table': grads[0], 'head': grads[1],
+            'hidden': grads[2]}
+
+
+CALLS = {'split_roundtrip': split_roundtrip, 'vocab_parallel': vocab_parallel}
+
+
+def call_gang(name: str, spec, world: int, tmp_dir: str,
+              timeout: float = 100.0):
+    """``CALLS[name](spec, rank, world)`` on each rank of a fresh gloo
+    gang of ``world`` processes → each rank's result, in rank order."""
+    import subprocess
+    path = os.path.join(tmp_dir, f'call-{name}-{world}.pt')
+    torch.save(spec, path)
+    port = _free_port()
+    outs = [os.path.join(tmp_dir, f'call-{name}-{world}-{r}.pt')
+            for r in range(world)]
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), 'call', name,
+                 path, str(r), str(world), str(port), outs[r]], env=env))
+    except BaseException:
+        _wait(procs, 0)
+        raise
+    _wait(procs, timeout)
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
 def main(argv):
     if argv[0] == 'launch':
         return launch_rank(argv[1:])
+    if argv[0] == 'call':
+        name, spec, rank, world, port, out = argv[1:]
+        distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
+        try:
+            torch.save(CALLS[name](torch.load(spec, weights_only=False),
+                                   int(rank), int(world)), out)
+        finally:
+            distributed.shutdown()
+        return None
     spec, rank, world, port, out = argv
     distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
     try:
