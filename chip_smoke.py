@@ -69,12 +69,13 @@ Phases, in order; any failure exits non-zero:
      paged engine, a wave padded to 4 rows, on the card and on the CPU;
      the greedy tokens must be identical;
  13. int8 replica: bench.py serve's first rung through the port's HTTP
-     server (infer/server.py on 127.0.0.1): Llama-3-8B (16 of its 32
-     layers since phase 37 joined the script), int8 weights
+     server (infer/server.py on 127.0.0.1): Llama-3-8B (8 of its 32
+     layers since phase 38 joined the script, 16 since phase 37), int8
+     weights
      quantized on the card as the seeded init draws them, int8 KV, 16
      slots, max_target_len 2048, decode_steps 16; a prompt sent alone
      must give Orchestrator.generate's tokens on the same engine,
-     then 32 concurrent POST /generate of 512-token prompts, 128 new
+     then 16 concurrent POST /generate of 512-token prompts, 128 new
      tokens each: every request whole, K4 only, /metrics counters equal
      to what was sent; tok/s, mean TTFT (/metrics), peak memory, weight
      bytes (K4 only: 512-token prompts take the plain prefill attention,
@@ -107,11 +108,12 @@ Phases, in order; any failure exits non-zero:
      init, the optimizer state adapter-sized only; tokens/s, model
      TFLOP/s, peak memory;
  18. the converter and the server's --hf-checkpoint: a random Llama-3-1B
-     written in HF's layout (config.json + bf16 safetensors from numpy),
-     converted (equal bit for bit to the tree built directly from the same
-     tensors) and served by infer/server.py; the greedy tokens of three
-     prompts (16, 300 and 1000 tokens) equal Orchestrator.generate on the
-     directly built tree: K1 and K4 only;
+     (8 of its 16 layers) written in HF's layout (config.json + bf16
+     safetensors from numpy), converted (equal bit for bit to the tree
+     built directly from the same tensors) and served by
+     infer/server.py; the greedy tokens of three prompts (16, 300 and
+     1000 tokens) equal Orchestrator.generate on the directly built tree:
+     K1 and K4 only;
  19. small checks, card vs CPU (fp32 LLAMA_TINY widths, seq 1024): the
      converter's fp32 and bf16 trees equal bit for bit; three launcher
      steps from one --init-params and --data, full and LoRA, give the
@@ -121,7 +123,7 @@ Phases, in order; any failure exits non-zero:
      127.0.0.1: --model qwen3-8b --max-slots 32 --max-target-len 4096,
      bf16, random weights from a seeded generator; three prompts (16, 300
      and 1000 tokens) one at a time, then 32 concurrent prompts of
-     1000-1024 tokens, 64 new tokens each: K1 and K4 only, counted from
+     1000-1024 tokens, 32 new tokens each: K1 and K4 only, counted from
      the served requests alone; the three served prompts' tokens equal
      Orchestrator.generate on the same engine; tok/s, mean TTFT
      (/metrics), peak memory;
@@ -162,10 +164,10 @@ Phases, in order; any failure exits non-zero:
  26. Gemma2-9B replica: infer/server.py --model gemma2-9b --max-slots 8
      --max-target-len 8192 on 127.0.0.1, bf16, random weights from a
      seeded generator (head_dim 256, softcap 50, scale 1/16, a window of
-     4096 on even layers, a tied soft-capped head); two prompts of
-     6000-8000 tokens one at a time (prefilled in 1024-token chunks, then
-     decoded over their even layers' live window alone), then 8 concurrent
-     prompts of 1000-1024 tokens, 64 new tokens each: K1 = 42 layers x
+     4096 on even layers, a tied soft-capped head); a prompt of 6000-8000
+     tokens alone (prefilled in 1024-token chunks, then decoded over its
+     even layers' live window alone), then 8 concurrent prompts of
+     1000-1024 tokens, 32 new tokens each: K1 = 42 layers x
      prefill waves in the 1024 bucket, K4 = 42 x decode steps, no other
      kernel; the long prompts' served tokens equal Orchestrator.generate
      on the same engine; tok/s, mean TTFT (/metrics), peak memory;
@@ -179,9 +181,9 @@ Phases, in order; any failure exits non-zero:
      in-process, --model gemma2-2b --seq-len 8192 --global-batch-size 1
      --optimizer adafactor (bf16, random weights from the seeded init,
      head_dim 256, softcap 50, scale 1/16, a window of 4096 on even
-     layers, the tied fp32 head; 14 of its 26 layers since phase 37
-     joined the script) over uint32 token shards: 7 steps (2 warm-up, 5
-     measured); 2 steps with --checkpoint-every 2, then --steps 4
+     layers, the tied fp32 head; 8 of its 26 layers since phase 38
+     joined the script, 14 before) over uint32 token shards: 5 steps (2
+     warm-up, 3 measured); 2 steps with --checkpoint-every 2, then --steps 4
      --resume auto, whose losses must equal the uninterrupted run's
      within rel 1e-4; K1 = 2 x 14 layers x steps (the remat policy
      recomputes attention), K2 = K3 = 14 x steps, nothing else; tokens/s,
@@ -202,7 +204,7 @@ Phases, in order; any failure exits non-zero:
      the card): the build's time, weight bytes and peak memory (it must
      stay under half a bf16 expert stack above the finished tree); a
      3500-token prompt alone (prefilled in 1024-token chunks), then 16
-     concurrent prompts of 256-1536 tokens, 64 new tokens each: K1 = 32
+     concurrent prompts of 256-1536 tokens, 32 new tokens each: K1 = 32
      layers x prefill waves in the 1024 bucket, K4 = 32 x decode steps,
      no other kernel; /metrics counters equal what was sent; the prompt
      sent alone gives Orchestrator.generate's tokens on the same engine;
@@ -265,21 +267,38 @@ Phases, in order; any failure exits non-zero:
      Llama-3-1B bf16 (16 layers, remat qkvo_gup, adafactor, global batch
      4, seq 4096, synthetic batches, the warm-up cut to 1 step) through
      python -m skypilot_tpu_torch.train.launch: (a) one rank in-process
-     at --mesh data=1, 3 steps; one gang of two launcher processes on
-     the one card as ranks 0 and 1 of a gang of two hosts (the XSKY_* env,
-     a free local port; gloo, since they share the card) runs in turn
-     (b) --mesh data=1,fsdp=2, 2 steps, checkpointing at step 2, (c)
-     --mesh data=2, 2 steps, and (f) fp32 at d_model 128 (seq 1024, so
-     K1-K3 run) at fsdp=2: (b) and (c) give one rank's losses (step 1
-     within rel 1e-3, step 2 and step 1's grad norm within rel 1e-2),
-     both ranks the same, the metrics file from rank 0 alone; (d) one
-     rank resumes (b)'s checkpoint at --mesh data=1 to step 3: within
-     rel 1e-2 of (a)'s step 3; (e) each fsdp rank's parameter bytes
-     exactly half of (a)'s, optimizer-state bytes and peak memory
-     printed beside a one-rank run's at the same per-rank batch, K1 = 2
-     x 16 x steps and K2 = K3 = 16 x steps on every rank, nothing else;
-     (f) two ranks' parameters after 3 steps within 1e-5 of one rank's
-     on the card.
+     at --mesh data=1, 3 steps; one gang of two rank processes on the
+     one card, started by one launcher (train/launch.py's main with
+     --procs-per-host 2; gloo, since they share the card), runs in turn
+     (b) --mesh data=1,fsdp=2, 1 step, checkpointing at step 1, (c)
+     --mesh data=2, 1 step, and (f) fp32 at d_model 128 (seq 1024, so
+     K1-K3 run) at fsdp=2: (b) and (c) give one rank's step-1 loss
+     within rel 1e-3 and grad norm within rel 1e-2, both ranks the same,
+     the metrics file from rank 0 alone; (d) one rank resumes (b)'s
+     checkpoint at --mesh data=1 to step 3: steps 2 and 3 within rel
+     1e-2 of (a)'s; (e) each fsdp rank's parameter bytes exactly half of
+     (a)'s, optimizer-state bytes and peak memory printed beside a
+     one-rank run's at the same per-rank batch, K1 = 2 x 16 x steps and
+     K2 = K3 = 16 x steps on every rank, nothing else; (f) two ranks'
+     parameters after 2 steps within 1e-5 of one rank's on the card;
+     then on the same gang at --mesh data=1,fsdp=1,tensor=2 (g)
+     Llama-3-8B's widths at 2 of 32 layers, 2 steps and their
+     checkpoint, which one rank's Trainer loads for step 3 (steps 1-3
+     within rel 1e-3 of one rank's), and (h) Gemma2-2B's at 2
+     of 26 layers, 1 step, each beside one rank's run;
+ 38. expert parallelism, each gang started by one launcher with
+     --procs-per-host: (a) Mixtral-8x7B's widths at 2 of 32 layers (bf16,
+     remat, adamw, seq 4096, B2) at --mesh data=1,fsdp=1,expert=2, two
+     ranks, 2 steps and their checkpoint, which one rank's Trainer loads
+     for step 3 (step 2's update is the first at a nonzero learning
+     rate); (b) DeepSeek-V2-Lite's at 4 of 27 layers at
+     data=1,fsdp=2,expert=2, four ranks, 1 step; each beside one rank's
+     run of the same flags: every step's loss and grad norm within rel
+     1e-5, every rank the same, each rank's parameters exactly its
+     blocks' count, peaks printed, the resumed step 3 within rel 1e-5 of
+     one rank's, K1 = 2 x 2 and K2 = K3 = 2 a step on each rank of (a),
+     nothing in (b), and (b)'s share of dropped (token, choice) pairs
+     above 0.
 Phase 3 also holds K2 and K3 at Mixtral's training heads (bf16 B2 S4096
 H32/8 D128, causal: checked blockwise, two runs bit-identical, timed
 beside the plain backward and SDPA's): the `mixtral` entries of K2's and
@@ -300,8 +319,8 @@ Before each main path (4, 6, 8a, 8b, 10, 11, 13, 14, each run of 16, 17,
 to 0; just after, the kernels of that path must each have run, and no
 other. Phases 23, 24 (and its self-draft), 26, each run of 28, 30, 32
 and both runs of 33, both runs of 35, each served run of 36 and each
-rank of each run of 37 (its own process: counted there and reported in
-its JSON) hold each kernel to the count derived from the run's
+rank of each run of 37 and 38 (its own process: counted there and
+reported in its JSON) hold each kernel to the count derived from the run's
 prefills, steps and rounds, every other kernel to 0. A phase's first
 line says when it began.
 
@@ -2417,13 +2436,14 @@ QUANT_SERVE_KERNELS = ('decode_attention',)
 RUNG = dict(slots=16, max_len=2048, requests=32, prompt_len=512,
             new_tokens=128, decode_steps=16)
 # (prompts sent one at a time, concurrent requests) of each replica: [13]
-# sends the rung's 32 concurrent requests, [14] 16; each sends one prompt
+# sends 16 of the rung's 32 concurrent requests (32 until phase 38 took
+# the time), [14] 16: one for each of the 16 slots; each sends one prompt
 # alone (four took 69-109 s of [13] and 105 s of [14] in whole runs of
 # 882-1000 s), with every check.
-REPLICA_REQUESTS = {'int8': (1, 32), 'int4': (1, 16)}
-# Llama-3-8B's widths at 16 of its 32 layers: the whole script's time
-# limit took the depth when phase 37 was added.
-REPLICA_LAYERS = 16
+REPLICA_REQUESTS = {'int8': (1, 16), 'int4': (1, 16)}
+# Llama-3-8B's widths at 8 of its 32 layers: the whole script's time
+# limit took the depth when phases 37 (to 16) and 38 (to 8) were added.
+REPLICA_LAYERS = 8
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 600.0):
@@ -3144,6 +3164,11 @@ def random_hf_llama(root: str, cfg, dtype, seed: int) -> dict:
 HF_SERVE_KERNELS = ('flash_fwd', 'decode_attention')
 
 
+# [18]'s depth: 8 of Llama-3-1B's 16 layers (the script's time limit
+# took half when phase 38 was added; the converter's work is per layer).
+HF_LAYERS = 8
+
+
 def hf_checkpoint_path(records: dict) -> None:
     import tempfile
     import threading
@@ -3153,11 +3178,12 @@ def hf_checkpoint_path(records: dict) -> None:
     from skypilot_tpu_torch.models import convert
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train.trainer import param_leaves
-    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=False)
+    cfg = dataclasses.replace(llama.LLAMA3_1B, n_layers=HF_LAYERS,
+                              remat=False)
     new_tokens = 24
     log(f'[18] converter and --hf-checkpoint: a random Llama-3-1B '
-        f'({cfg.n_layers} layers) in HF\'s layout (config.json + bf16 '
-        'safetensors written with numpy), converted, and served by '
+        f'({cfg.n_layers} of its 16 layers) in HF\'s layout (config.json + '
+        'bf16 safetensors written with numpy), converted, and served by '
         'infer/server.py --hf-checkpoint on 127.0.0.1; greedy tokens '
         'against Orchestrator.generate on the tree built directly')
     with tempfile.TemporaryDirectory(prefix='xsky-hf-') as tmp:
@@ -3301,8 +3327,9 @@ def small_launch_checks() -> None:
 # serve_qwen.yaml's replica without its speculative flags, which phase 23
 # adds: 32 slots over a 4096-row cache, 32 concurrent prompts
 # of 1000-1024 tokens (so the prefill waves take the flash kernel's 1024
-# bucket), 64 new tokens each.
-QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=64)
+# bucket), 32 new tokens each (64 until the script's time limit took
+# half when phase 38 was added).
+QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=32)
 
 
 def qwen_replica(records: dict) -> dict:
@@ -3561,7 +3588,10 @@ SPEC_GAMMA = 4
 # The sampled request of [23] and [24]: its rounds are plain (only greedy
 # rounds speculate), so that both kinds run in one served run.
 SAMPLED_NEW = 16
-DRAFT_SERVE = dict(slots=16, max_len=2048, requests=16, new_tokens=64)
+# New tokens of the prompts [23] and [24] send one at a time (64 until
+# phase 38 took the time).
+SPEC_SINGLE_NEW = 32
+DRAFT_SERVE = dict(slots=16, max_len=2048, requests=16, new_tokens=32)
 # A self-draft with the target's own weights: bf16 near-ties between the
 # decode kernel's and the verify pass's logits are the only rejections.
 SELF_DRAFT_MIN_ACCEPT = 0.5
@@ -3688,8 +3718,8 @@ def serve_speculative(label: str, records: dict, path: str, url: str, orch,
         zero_launches()
     t0 = time.perf_counter()
     served = [http_json(url, '/generate', {
-        'prompt_tokens': p, 'max_new_tokens': 64})['output_tokens']
-        for p in singles]
+        'prompt_tokens': p, 'max_new_tokens': SPEC_SINGLE_NEW})[
+            'output_tokens'] for p in singles]
     singles_s = time.perf_counter() - t0
     before = http_json(url, '/metrics')
     streams, dt = concurrent_generate(url, bodies, cfg.vocab_size)
@@ -3724,7 +3754,8 @@ def serve_speculative(label: str, records: dict, path: str, url: str, orch,
         # Both prompts in one run: a round verifies (or drafts for) every
         # slot at the same shapes, and each slot's rows are its own, so a
         # greedy stream does not depend on the other prompt.
-        direct = orch.generate(list(singles), max_new_tokens=64)
+        direct = orch.generate(list(singles),
+                               max_new_tokens=SPEC_SINGLE_NEW)
     direct_s = time.perf_counter() - t0
     if served != direct:
         raise AssertionError(f'{label}: the server gave other tokens than '
@@ -4037,12 +4068,13 @@ def small_speculative_end_to_end() -> None:
 # ---- phases 26-27: the Gemma family ----
 
 # Phase [26]: Gemma2-9B behind infer/server.py, 8 slots over an 8192-row
-# cache (the model's context); two prompts of 6000-8000 tokens one at a
-# time (past the even layers' window of 4096: prefilled in 1024-token
-# chunks, then decoded over their live window alone), then 8 concurrent
-# prompts of 1000-1024 tokens (one prefill bucket, the flash kernel's).
+# cache (the model's context); a prompt of 6000-8000 tokens alone (past
+# the even layers' window of 4096: prefilled in 1024-token chunks, then
+# decoded over its live window alone; two until phase 38 took the time),
+# then 8 concurrent prompts of 1000-1024 tokens (one prefill bucket, the
+# flash kernel's), 32 new tokens each (64 before).
 GEMMA_SERVE = dict(slots=8, max_len=8192, long=(6000, 8000),
-                   prompt_len=(1000, 1024), requests=8, new_tokens=64)
+                   prompt_len=(1000, 1024), requests=8, new_tokens=32)
 
 
 def count_flash_waves(engine) -> list:
@@ -4092,7 +4124,7 @@ def gemma2_replica(records: dict) -> None:
     waves = count_flash_waves(replica.engine)
     rng = np.random.default_rng(26)
     singles = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in rng.integers(r['long'][0], r['long'][1] + 1, 2)]
+               for n in rng.integers(r['long'][0], r['long'][1] + 1, 1)]
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
                for n in rng.integers(r['prompt_len'][0],
                                      r['prompt_len'][1] + 1, r['requests'])]
@@ -4253,14 +4285,14 @@ def small_gemma_end_to_end() -> None:
 # ---- phases 28-29: Gemma training ----
 
 # Phase [28]: Gemma2-2B as `train/launch.py --model gemma2-2b --seq-len 8192
-# --global-batch-size 1 --optimizer adafactor` runs it: 2 warm-up and 5
+# --global-batch-size 1 --optimizer adafactor` runs it: 2 warm-up and 3
 # measured steps, then a run of 2 steps that checkpoints and one resumed
 # from it to step 4.
-# Gemma2-2B's widths at 14 of its 26 layers (an even count: Gemma-2
-# pairs windowed and global layers): the whole script's time limit took
-# the depth when phase 37 was added.
+# Gemma2-2B's widths at 8 of its 26 layers (an even count: Gemma-2 pairs
+# windowed and global layers): the whole script's time limit took the
+# depth when phases 37 (to 14) and 38 (to 8) were added.
 GEMMA_TRAIN = dict(model='gemma2-2b', seq=8192, batch=1, warmup=2,
-                   measured=5, saved=2, resumed=4, layers=14)
+                   measured=3, saved=2, resumed=4, layers=8)
 
 
 def gemma_head_ms(cfg, seq: int) -> float:
@@ -4490,11 +4522,11 @@ def small_gemma_train_checks() -> None:
 # Phase [30]: Mixtral-8x7B as examples/tpu/serve_mixtral.yaml sizes its
 # replica (16 slots over a 4096-row cache) on one card, with int8 weights
 # (its bf16 tree, 93.4 GB, is larger than the card; the recipe's --mesh
-# expert=8 needs queue 1 item 8): a prompt of the recipe's length (3500
+# expert=8 needs queue 1 item 8f): a prompt of the recipe's length (3500
 # tokens, chunked) alone, then 16 concurrent prompts of 256-1536 tokens;
 # the largest wave (16 rows of 1024) is then prefilled once on its own.
 MIXTRAL_SERVE = dict(slots=16, max_len=4096, singles=(3500,),
-                     prompt_len=(256, 1536), requests=16, new_tokens=64,
+                     prompt_len=(256, 1536), requests=16, new_tokens=32,
                      wave=1024)
 
 
@@ -5596,12 +5628,14 @@ def hooks_path(records: dict) -> None:
 # ---- phase 37: data-parallel, FSDP and tensor-parallel training over ranks
 
 MESH_TRAIN = dict(model='llama3-1b-qkvo_gup', batch=4, seq=4096, steps=3,
-                  fsdp_steps=2, data_steps=2)
-MESH_SMALL = dict(model='mesh-fp32-d128', batch=4, seq=1024, steps=3)
+                  fsdp_steps=1, data_steps=1)
+MESH_SMALL = dict(model='mesh-fp32-d128', batch=4, seq=1024, steps=2)
 # (g) Llama-3-8B's widths at 2 of its 32 layers, tensor=2 (the
-# train_llama3_8b.yaml recipe's tensor axis): 3 steps, a checkpoint at 2
-# resumed at one rank for step 3. (h) Gemma2-2B's widths at 2 of its 26
-# layers (head_dim 256, softcaps, the window on layer 0) at tensor=2.
+# train_llama3_8b.yaml recipe's tensor axis): 2 steps and their
+# checkpoint, which one rank's Trainer loads for step 3 (the warm-up's
+# step 1 has a learning rate of 0: step 2 is the first update). (h) Gemma2-2B's widths at 2
+# of its 26 layers (head_dim 256, softcaps, the window on layer 0) at
+# tensor=2.
 MESH_TENSOR = dict(model='llama3-8b-2l-qkvo_gup', layers=2, batch=2,
                    seq=4096, steps=3, saved=2)
 MESH_GEMMA = dict(model='gemma2-2b-2l', layers=2, batch=1, seq=8192,
@@ -5615,8 +5649,7 @@ MESH_ONE_RANK_PARAMS = 1_486_901_248
 # w_down, the embedding) are summed over the ranks in fp32 and rounded
 # to bf16 once, where one rank's product rounds its own fp32 sum; the
 # vocabulary-parallel cross-entropy adds its exponentials in another
-# order. Step 1 and the resumed step 3 (the same parameters on both
-# sides) within this, predicted ~1e-4.
+# order. Steps 1 and 2 and the resumed step 3 within this, predicted ~1e-4.
 MESH_TENSOR_RTOL = 1e-3
 # Two ranks against one, bf16: step 1 differs only by the order of sums
 # over ranks (the gradient's, the loss's); later steps also by the
@@ -5624,15 +5657,23 @@ MESH_TENSOR_RTOL = 1e-3
 MESH_FIRST_RTOL = 1e-3
 MESH_LATER_RTOL = 1e-2
 MESH_SMALL_ATOL = 1e-5
-# The line a rank process runs: chip_smoke.mesh_rank on its arguments.
-MESH_RANK_CODE = ('import sys; sys.path.insert(0, "."); import chip_smoke; '
+# The line a rank process runs: chip_smoke.mesh_rank on its arguments
+# (the repository root, which holds this file, first on its path).
+MESH_RANK_CODE = ('import sys; sys.path.insert(0, {root!r}); '
+                  'import chip_smoke; '
                   'sys.exit(chip_smoke.mesh_rank(sys.argv[1:]))')
 
 
 def mesh_models() -> dict:
+    from skypilot_tpu_torch.models import deepseek
     from skypilot_tpu_torch.models import gemma
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import moe
     return {
+        EP_MIXTRAL['model']: dataclasses.replace(
+            moe.MIXTRAL_8X7B, n_layers=EP_MIXTRAL['layers']),
+        EP_DEEPSEEK['model']: dataclasses.replace(
+            deepseek.DEEPSEEK_V2_LITE, n_layers=EP_DEEPSEEK['layers']),
         MESH_TRAIN['model']: dataclasses.replace(
             llama.LLAMA3_1B, remat=True, remat_policy='qkvo_gup'),
         MESH_TENSOR['model']: dataclasses.replace(
@@ -5675,15 +5716,23 @@ def mesh_numbers(out: dict, launches: dict) -> dict:
 
 
 def mesh_rank(argv) -> int:
-    """One rank of the [37] gang, in its own process: each run of the
-    JSON list at ``argv[0]`` ({'argv': launcher flags, 'dump': a path or
-    None}) through train/launch.py in turn, as the rank its XSKY_* env
-    names (the process group comes up in the first run and serves the
+    """One rank process of a gang that one launcher started
+    (train/launch.py's ``main`` with ``--procs-per-host``, which sets
+    XSKY_LOCAL_RANK): each run of the JSON list at ``argv[0]`` ({'argv':
+    launcher flags, 'dump': a path or None}) through train/launch.py in
+    turn (the process group comes up in the first run and serves the
     rest), the kernels counted from 0 before each; writes each run's
-    mesh_numbers to ``argv[1]`` (JSON) and, where a run has a 'dump',
-    its whole parameters there (rank 0)."""
+    mesh_numbers to ``rank<i>.json`` in the directory ``argv[1]`` and,
+    where a run has a 'dump', its whole parameters there (rank 0). Its
+    output goes to ``rank<i>.log`` there. The launcher's own arguments,
+    after ``argv[1]``, are the first run's."""
     from skypilot_tpu_torch.parallel import distributed
     from skypilot_tpu_torch.train import launch
+    local = os.environ[distributed.ENV_LOCAL_RANK]
+    out = os.path.join(argv[1], f'rank{local}')
+    fd = os.open(out + '.log', os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
     with open(argv[0], encoding='utf-8') as f:
         runs = json.load(f)
     logging.basicConfig(level=logging.INFO,
@@ -5697,69 +5746,56 @@ def mesh_rank(argv) -> int:
             for run in runs:
                 zero_launches()
                 torch.cuda.reset_peak_memory_stats()
-                out = launch.run(launch.parse_args(run['argv']))
+                out_run = launch.run(launch.parse_args(run['argv']))
                 torch.cuda.synchronize()
-                rows.append(mesh_numbers(out, {k.name: k.launches
-                                               for k in kernels.REGISTRY}))
+                rows.append(mesh_numbers(out_run, {
+                    k.name: k.launches for k in kernels.REGISTRY}))
                 if run['dump']:
-                    host = out['trainer'].host_state(out['state'])
+                    host = out_run['trainer'].host_state(out_run['state'])
                     if rows[-1]['rank'] == 0:
                         torch.save(host['params'], run['dump'])
                     del host
-                del out
+                del out_run
                 release_card()
     finally:
         distributed.shutdown()
-    with open(argv[1], 'w', encoding='utf-8') as f:
+    with open(out + '.json', 'w', encoding='utf-8') as f:
         json.dump(rows, f)
     return 0
 
 
-def mesh_gang(runs, tmp: str, timeout: float = 400.0) -> list:
-    """Two rank processes on the card (the gang env of two hosts on a
-    free local port) making ``runs`` (see mesh_rank) in turn; per run,
-    each rank's mesh_numbers in rank order. Any rank failing, or the gang
-    outliving ``timeout``, kills both and fails the phase."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        port = sock.getsockname()[1]
+def mesh_gang(runs, tmp: str, procs: int = 2) -> list:
+    """``runs`` (see mesh_rank) in turn on one gang of ``procs`` rank
+    processes sharing the card, started by one launcher: train/launch.py's
+    ``main`` with the first run's flags and ``--procs-per-host procs``,
+    each rank running mesh_rank. Per run, each rank's mesh_numbers in rank
+    order. A failing rank fails the host (and the phase), the end of every
+    rank's log printed; a rank that cannot reach its peers fails after
+    ``distributed.TIMEOUT``."""
+    from skypilot_tpu_torch.train import launch
     root = os.path.dirname(os.path.abspath(__file__))
     spec = os.path.join(tmp, 'gang-runs.json')
     with open(spec, 'w', encoding='utf-8') as f:
         json.dump(runs, f)
-    outs = [os.path.join(tmp, f'rank{r}.json') for r in range(2)]
-    logs = [os.path.join(tmp, f'rank{r}.log') for r in range(2)]
-    procs = []
-    try:
-        for r in range(2):
-            env = dict(os.environ, XSKY_NUM_HOSTS='2', XSKY_HOST_RANK=str(r),
-                       XSKY_COORDINATOR_ADDRESS=f'127.0.0.1:{port}')
-            with open(logs[r], 'w', encoding='utf-8') as log_file:
-                procs.append(subprocess.Popen(
-                    [sys.executable, '-c', MESH_RANK_CODE, spec, outs[r]],
-                    cwd=root, env=env, stdout=log_file,
-                    stderr=subprocess.STDOUT))
-        deadline = time.perf_counter() + timeout
-        while (any(p.poll() is None for p in procs)
-               and not any(p.poll() for p in procs)
-               and time.perf_counter() < deadline):
-            time.sleep(0.1)
-        codes = [p.poll() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(code != 0 for code in codes):
-        for r, path in enumerate(logs):
-            with open(path, encoding='utf-8') as f:
-                log(f'  rank {r} log (end):\n' + f.read()[-3000:])
-        raise AssertionError(f'[37] gang: rank exit codes {codes} (None: '
-                             f'killed after {timeout:.0f} s)')
+    argv = runs[0]['argv'] + ['--procs-per-host', str(procs)]
+    log(f'  python -m skypilot_tpu_torch.train.launch {" ".join(argv)} '
+        f'(launch.main, its {procs} rank processes running '
+        'chip_smoke.mesh_rank, which registers the cut configs)')
+    # The launcher's ranks run ``python`` + RANK_COMMAND + its arguments.
+    with mock.patch.object(launch, 'RANK_COMMAND', (
+            '-c', MESH_RANK_CODE.format(root=root), spec, tmp)):
+        code = launch.main(argv)
+    if code:
+        for r in range(procs):
+            path = os.path.join(tmp, f'rank{r}.log')
+            if os.path.exists(path):
+                with open(path, encoding='utf-8') as f:
+                    log(f'  rank {r} log (end):\n' + f.read()[-3000:])
+        raise AssertionError(f'gang of {procs}: the launcher exited with '
+                             f'{code}')
     ranks = []
-    for path in outs:
-        with open(path, encoding='utf-8') as f:
+    for r in range(procs):
+        with open(os.path.join(tmp, f'rank{r}.json'), encoding='utf-8') as f:
             rows = json.load(f)
         for row in rows:
             for key in ('losses', 'grad_norms'):
@@ -5810,12 +5846,12 @@ def mesh_train_path(records: dict) -> None:
         f'Llama-3-8B\'s widths at {tcfg.n_layers} of 32 layers (d_model '
         f'{tcfg.d_model}, {tcfg.n_heads}/{tcfg.n_kv_heads} heads, d_ff '
         f'{tcfg.d_ff}, vocab {tcfg.vocab_size}; remat qkvo_gup, adafactor, '
-        f'seq {tp["seq"]}, global batch {tp["batch"]}), {tp["steps"]} steps '
-        f'and a checkpoint at {tp["saved"]} resumed at one rank, beside one '
-        f'rank\'s run; (h) Gemma2-2B\'s widths at {gcfg.n_layers} of 26 '
-        f'layers (head_dim {gcfg.head_dim}, softcaps, window '
-        f'{gcfg.sliding_window}), seq {gm["seq"]}, {gm["steps"]} step beside '
-        'one rank\'s')
+        f'seq {tp["seq"]}, global batch {tp["batch"]}), {tp["saved"]} steps '
+        f'and their checkpoint, which one rank\'s Trainer loads for step '
+        f'{tp["steps"]}, beside one rank\'s {tp["steps"]} steps; (h) '
+        f'Gemma2-2B\'s widths at {gcfg.n_layers} of 26 layers (head_dim '
+        f'{gcfg.head_dim}, softcaps, window {gcfg.sliding_window}), seq '
+        f'{gm["seq"]}, {gm["steps"]} step beside one rank\'s')
     release_card()
 
     def flags(batch):
@@ -5887,13 +5923,12 @@ def mesh_train_path(records: dict) -> None:
                                'data=2'], 'dump': None},
             {'argv': small_flags + ['--mesh', 'data=1,fsdp=2'],
              'dump': dump},
-            {'argv': tensor_flags(tp, tp['steps']) + [
+            {'argv': tensor_flags(tp, tp['saved']) + [
                 '--mesh', 'data=1,fsdp=1,tensor=2', '--checkpoint-dir',
                 ckpt_t, '--checkpoint-every', str(tp['saved'])],
              'dump': None},
             {'argv': tensor_flags(gm, gm['steps']) + [
-                '--mesh', 'data=1,fsdp=1,tensor=2'], 'dump': None}], tmp,
-            timeout=600.0)
+                '--mesh', 'data=1,fsdp=1,tensor=2'], 'dump': None}], tmp)
         seconds['gang'] = time.perf_counter() - t0
         t0 = time.perf_counter()
         resumed = one_rank(common + ['--steps', str(r['steps']), '--mesh',
@@ -5901,14 +5936,11 @@ def mesh_train_path(records: dict) -> None:
                                      '--resume', 'auto'],
                            '[37d] resumed at data=1', r['steps'])
         seconds['resume'] = time.perf_counter() - t0
-        # (g): the step-2 checkpoint (the run's last, step 3, set aside)
-        # resumed at one rank for step 3.
+        # (g): the tensor run's step-2 checkpoint resumed at one rank for
+        # step 3.
         t0 = time.perf_counter()
-        shutil.rmtree(os.path.join(ckpt_t, str(tp['steps'])))
-        resumed_8b = one_rank(tensor_flags(tp, tp['steps']) + [
-            '--mesh', 'data=1', '--checkpoint-dir', ckpt_t, '--resume',
-            'auto'], '[37g] tensor checkpoint resumed at one rank',
-            tp['steps'], tp['model'])
+        resumed_8b = resume_at_one_rank('(g)', ckpt_t, tcfg, tp,
+                                        'adafactor')
         seconds['tensor resume'] = time.perf_counter() - t0
         with open(metrics, encoding='utf-8') as f:
             rows = [json.loads(line) for line in f]
@@ -6004,7 +6036,7 @@ def mesh_tensor_checks(records, one, ranks, resumed, one_gemma,
     """[37] (g) and (h): the tensor ranks against one rank."""
     tp, gm = MESH_TENSOR, MESH_GEMMA
     for label, rows, steps, model in (
-            ('(g) tensor=2', ranks, tp['steps'], tp['model']),
+            ('(g) tensor=2', ranks, tp['saved'], tp['model']),
             ('(h) tensor=2', gemma_ranks, gm['steps'], gm['model'])):
         for row in rows:
             if row['backend'] != 'gloo' or row['world'] != 2:
@@ -6028,8 +6060,10 @@ def mesh_tensor_checks(records, one, ranks, resumed, one_gemma,
     for label, got, want, step in (
             ('(g) step 1', ranks[0], one, 1),
             ('(h) step 1', gemma_ranks[0], one_gemma, 1),
-            ('(g) the tensor checkpoint resumed at one rank, step 3',
-             resumed, ranks[0], tp['steps'])):
+            ('(g) step 2', ranks[0], one, 2),
+            (f'(g) the tensor checkpoint resumed at one rank, step '
+             f'{tp["steps"]}',
+             resumed, one, tp['steps'])):
         diffs[label] = abs(got['losses'][step] - want['losses'][step]) / (
             abs(want['losses'][step]))
         if diffs[label] > MESH_TENSOR_RTOL:
@@ -6077,6 +6111,265 @@ def mesh_tensor_checks(records, one, ranks, resumed, one_gemma,
         for name in TRAIN_KERNELS:
             records[name].setdefault('launches_by_path', {})[path] = (
                 launches[name])
+
+
+# Phase [38]: expert parallelism, each gang started by one launcher with
+# --procs-per-host, its ranks sharing the card over gloo. (a) Mixtral-
+# 8x7B's widths at 2 of 32 layers ([32]'s cut), AdamW, seq 4096, B2 at
+# --mesh data=1,fsdp=1,expert=2: 2 steps and their checkpoint, resumed at
+# one rank for step 3 (the warm-up's step 1 has a learning rate of 0, so
+# step 2 is the first update the checkpoint holds); (b) DeepSeek-V2-Lite's at 4 of 27 layers ([33a]'s
+# cut), full-parameter AdamW, seq 4096, B2 at data=1,fsdp=2,expert=2
+# (four ranks; the expert stacks cut on their expert and embed dims): 1
+# step. Each beside one rank's run of the same flags.
+EP_MIXTRAL = dict(model='mixtral-8x7b-2l', layers=2, batch=2, seq=4096,
+                  steps=3, saved=2, mesh='data=1,fsdp=1,expert=2', procs=2)
+EP_DEEPSEEK = dict(model='deepseek-v2-lite-4l', layers=4, batch=2, seq=4096,
+                   steps=1, mesh='data=1,fsdp=2,expert=2', procs=4)
+# Expert ranks against one rank, bf16, step 1 (loss and grad norm): the
+# forward is one rank's but for the routed output's partials summed over
+# the ranks in fp32 before the one rounding; the backward sums a token's
+# dispatch gradient and the gate's over the ranks; (b) also sums its
+# fsdp halves of every gradient. Predicted below 1e-5 ([37]'s tensor
+# ranks read 3.688e-06). (a)'s step 2 (the same parameters on both sides,
+# the next batch) and the resumed step 3 (after the gang's update, the
+# first at a nonzero learning rate) are held to the same limit.
+EP_RTOL = 1e-5
+
+
+def split_params(cfg, plan: dict) -> int:
+    """The parameters one rank holds at mesh ``plan`` (axis -> size):
+    each leaf's elements over the sizes of the mesh axes its spec splits
+    it over (every block equal), counted on the meta device."""
+    from skypilot_tpu_torch import models
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    lib = models.module_for(cfg)
+    shapes = flat_tree(lib.init(cfg, device='meta'))
+    axes = flat_tree(lib.logical_axes(cfg))
+    total = 0
+    for path, leaf in shapes.items():
+        parts = 1
+        for entry in mesh_lib.logical_to_spec(axes[path]):
+            for axis in (entry if isinstance(entry, tuple) else
+                         (entry,) if entry else ()):
+                parts *= plan.get(axis, 1)
+        total += leaf.numel() // parts
+    return total
+
+
+class count_drops:
+    """Counts the (token, choice) pairs ``moe.route`` keeps and routes
+    while a run is made (the capacity drop's share)."""
+
+    def __enter__(self):
+        from skypilot_tpu_torch.models import moe
+        self.module, self.real = moe, moe.route
+        self.kept = self.routed = 0
+
+        def counted(*args, **kwargs):
+            r = self.real(*args, **kwargs)
+            self.kept += int(r.keep.sum())
+            self.routed += r.keep.numel()
+            return r
+        moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.real
+        return False
+
+
+def expert_flags(run: dict, steps: int) -> list:
+    return ['--model', run['model'], '--global-batch-size', str(run['batch']),
+            '--seq-len', str(run['seq']), '--optimizer', 'adamw',
+            '--device', 'cuda', '--log-every', '1', '--steps', str(steps)]
+
+
+def expert_train_path(records: dict) -> None:
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch.models import moe
+    a, b = EP_MIXTRAL, EP_DEEPSEEK
+    acfg, bcfg = mesh_models()[a['model']], mesh_models()[b['model']]
+    log(f'[38] expert parallelism, each gang of rank processes started by '
+        f'one python -m skypilot_tpu_torch.train.launch ... --procs-per-host'
+        f' N (the ranks share the card over gloo), beside one rank\'s run of '
+        f'the same flags: (a) Mixtral-8x7B\'s widths at {acfg.n_layers} of 32 '
+        f'layers ({acfg.n_experts} experts of d_ff {acfg.d_ff}, top-'
+        f'{acfg.experts_per_token}), bf16, remat, adamw, seq {a["seq"]}, '
+        f'global batch {a["batch"]}, --mesh {a["mesh"]} ({a["procs"]} ranks):'
+        f' {a["saved"]} steps and their checkpoint, resumed at one rank for '
+        f'step {a["steps"]}; (b) '
+        f'DeepSeek-V2-Lite\'s at {bcfg.n_layers} of 27 layers '
+        f'({bcfg.n_experts} experts top-{bcfg.experts_per_token} + '
+        f'{bcfg.n_shared_experts} shared, {bcfg.first_k_dense} dense layer),'
+        f' full-parameter adamw, seq {b["seq"]}, global batch {b["batch"]}, '
+        f'--mesh {b["mesh"]} ({b["procs"]} ranks): step 1')
+    release_card()
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix='xsky-expert-') as tmp, \
+            contextlib.ExitStack() as stack:
+        for name, model in mesh_models().items():
+            stack.enter_context(registered_config(name, model))
+        stack.enter_context(short_warmup(1))
+
+        def one_rank(argv, label, derived, drops=None):
+            release_card()
+            torch.cuda.reset_peak_memory_stats()
+            with drops or contextlib.nullcontext():
+                out = launch_run(argv, label, kernels_wanted=None)
+            check_derived_launches(label, out['launches'], derived)
+            row = mesh_numbers(out, out['launches'])
+            del out
+            release_card()
+            return row
+
+        t0 = time.perf_counter()
+        a_derived = mesh_derived(a['saved'], a['model'])
+        one_a = one_rank(expert_flags(a, a['steps']) + ['--mesh', 'data=1'],
+                         '[38a] one rank', mesh_derived(a['steps'],
+                                                        a['model']))
+        drops = count_drops()
+        one_b = one_rank(expert_flags(b, b['steps']) + ['--mesh', 'data=1'],
+                         '[38b] one rank', {}, drops)
+        seconds['one rank (a, b)'] = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, 'ckpt')
+        t0 = time.perf_counter()
+        gang_dir = os.path.join(tmp, 'gang-a')
+        os.makedirs(gang_dir)
+        # A fixed cadence: the launcher's automatic one would also save
+        # the 25 GB state after step 1.
+        (ranks_a,) = mesh_gang([{'argv': expert_flags(a, a['saved']) + [
+            '--mesh', a['mesh'], '--checkpoint-dir', ckpt,
+            '--checkpoint-every', str(a['saved'])], 'dump': None}],
+            gang_dir, procs=a['procs'])
+        seconds['gang (a)'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = resume_at_one_rank('(a)', ckpt, acfg, a, 'adamw')
+        shutil.rmtree(ckpt)
+        seconds['resume (a)'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gang_dir = os.path.join(tmp, 'gang-b')
+        os.makedirs(gang_dir)
+        (ranks_b,) = mesh_gang([{'argv': expert_flags(b, b['steps']) + [
+            '--mesh', b['mesh']], 'dump': None}], gang_dir,
+            procs=b['procs'])
+        seconds['gang (b)'] = time.perf_counter() - t0
+    diffs = {}
+    for label, rows, one, run, derived in (
+            ('(a)', ranks_a, one_a, a, a_derived),
+            ('(b)', ranks_b, one_b, b, {})):
+        cfg = mesh_models()[run['model']]
+        plan = dict(kv.split('=') for kv in run['mesh'].split(','))
+        want = split_params(cfg, {k: int(v) for k, v in plan.items()})
+        for row in rows:
+            if row['backend'] != 'gloo' or row['world'] != run['procs']:
+                raise AssertionError(f'{label}: rank {row["rank"]} on '
+                                     f'{row["backend"]} of {row["world"]}')
+            if row['losses'] != rows[0]['losses'] or \
+                    row['grad_norms'] != rows[0]['grad_norms']:
+                raise AssertionError(f'{label}: the ranks logged other '
+                                     f'losses: {[x["losses"] for x in rows]}')
+            check_derived_launches(f'[38] {label} rank {row["rank"]}',
+                                   row['launches'], derived)
+            if row['params'] != want:
+                raise AssertionError(f'{label}: rank {row["rank"]} holds '
+                                     f'{row["params"]} parameters, want '
+                                     f'{want}')
+        if one['params'] != split_params(cfg, {}):
+            raise AssertionError(f'{label}: one rank holds {one["params"]}')
+        for key in ('losses', 'grad_norms'):
+            for step in rows[0][key]:
+                got, ref = rows[0][key][step], one[key][step]
+                diffs[f'{label} step {step} {key}'] = abs(got - ref) / abs(ref)
+        log(f'  {label} --mesh {run["mesh"]}: losses {rows[0]["losses"]} '
+            f'against one rank\'s {one["losses"]}, grad norms '
+            f'{rows[0]["grad_norms"]} against {one["grad_norms"]}; all '
+            f'{run["procs"]} ranks '
+            f'equal; parameters per rank {[x["params"] for x in rows]} '
+            f'against one rank\'s {one["params"]} (ratio '
+            f'{rows[0]["params"] / one["params"]:.4f}; bytes '
+            f'{[x["param_bytes"] for x in rows]} against '
+            f'{one["param_bytes"]}); optimizer-state bytes '
+            f'{[x["opt_bytes"] for x in rows]} against {one["opt_bytes"]}; '
+            f'peak memory (GiB, each process its own) '
+            f'{[round(x["peak_gib"], 2) for x in rows]} against one rank\'s '
+            f'{one["peak_gib"]:.2f}; launches per rank '
+            f'{[x["launches"] for x in rows]}')
+    if resumed['start_step'] != a['saved']:
+        raise AssertionError(f'(a) the resume started at '
+                             f'{resumed["start_step"]}')
+    step = a['steps']
+    diffs[f'(a) resumed step {step} loss'] = abs(
+        resumed['losses'][step] - one_a['losses'][step]) / abs(
+            one_a['losses'][step])
+    log(f'  (a) the gang\'s step-{a["saved"]} checkpoint resumed at one rank:'
+        f' step {step} loss {resumed["losses"][step]!r} against the '
+        f'uninterrupted one rank\'s {one_a["losses"][step]!r} (the '
+        f'parameters that the gang\'s step {a["saved"]} moved at the full '
+        'learning rate)')
+    log(f'  (b) capacity: {moe.expert_capacity(bcfg, b["batch"] * b["seq"])}'
+        ' places an expert; the one '
+        f'rank\'s routing kept {drops.kept} of {drops.routed} (token, choice)'
+        f' pairs: dropped share {1 - drops.kept / drops.routed:.4f} (the '
+        'routing is the same on every expert rank)')
+    log(f'  [38] relative differences '
+        f'{json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()})} '
+        f'(limit {EP_RTOL:g})')
+    for label, diff in diffs.items():
+        if diff > EP_RTOL:
+            raise AssertionError(f'[38] {label}: rel {diff:.3e} > {EP_RTOL:g}')
+    if drops.kept >= drops.routed:
+        raise AssertionError('(b) no (token, choice) pair was dropped')
+    paths = {'expert_one_rank': one_a['launches'],
+             'expert_resumed': resumed['launches'],
+             'expert_ranks': {name: sum(row['launches'][name]
+                                        for row in ranks_a)
+                              for name in ranks_a[0]['launches']}}
+    for path, launches in paths.items():
+        for name in TRAIN_KERNELS:
+            records[name].setdefault('launches_by_path', {})[path] = (
+                launches[name])
+    seconds = json.dumps({k: round(v, 1) for k, v in seconds.items()})
+    log(f'  [38] seconds: {seconds} on {nvidia_smi_line()}')
+
+
+def resume_at_one_rank(label: str, ckpt: str, cfg, run: dict,
+                       optimizer: str) -> dict:
+    """A gang's checkpoint (its last step) loaded by one rank's Trainer,
+    built as train/launch.py builds it for the run's flags, which runs
+    the next step on the launcher's synthetic batch of that step (no
+    checkpoint written after it, as a relaunch with --resume auto would
+    write one). The launch counts cover that step."""
+    from skypilot_tpu_torch.train import launch
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    release_card()
+    manager = launch.StepCheckpoints(ckpt)
+    step = manager.latest_step()
+    t0 = time.perf_counter()
+    host = manager.restore(step)
+    with short_warmup(1):
+        tr = trainer_lib.Trainer(trainer_lib.TrainConfig(
+            model=dataclasses.replace(cfg, max_seq_len=max(
+                cfg.max_seq_len, run['seq'])),
+            global_batch_size=run['batch'], seq_len=run['seq'],
+            optimizer=optimizer), device='cuda')
+    state = tr.load_state(host)
+    del host
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    zero_launches()
+    state, metrics = tr.step(state, tr.synthetic_batch(step))
+    loss = float(metrics['loss'])
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    check_derived_launches(f'{label} the gang\'s checkpoint resumed at one '
+                           'rank', launches, mesh_derived(1, run['model']))
+    log(f'  {label} the gang\'s step-{step} checkpoint loaded by one rank\'s '
+        f'Trainer in {restore_s:.1f} s')
+    del state, tr
+    release_card()
+    return {'start_step': int(step), 'losses': {int(step) + 1: loss},
+            'launches': launches}
 
 
 def hopper_kernels(build_log: str):
@@ -6180,6 +6473,7 @@ def main() -> int:
     classifier_path(records)
     hooks_path(records)
     mesh_train_path(records)
+    expert_train_path(records)
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

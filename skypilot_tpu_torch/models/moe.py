@@ -22,7 +22,12 @@ term DeepSeek's loss shares; with ``remat`` each layer is a
 ``torch.utils.checkpoint`` that keeps the products of the layer's 2-D
 weights and recomputes the rest (the JAX
 ``dots_with_no_batch_dims_saveable``). The pipelined loss waits for
-ROADMAP.md queue 1 item 8d.
+ROADMAP.md queue 1 item 8d. Over the mesh's ``expert`` axis
+(``mesh_lib.expert_split``) each rank runs its block of the experts on
+the (token, choice) pairs routed to them, and the routed output is summed
+over the group; the routing, the capacity and the load-balance term stay
+the global batch's, whole on every rank, as the reference's SPMD step
+computes them.
 
 The reference expresses dispatch and combine as one-hot [T, E, C] einsums.
 At DeepSeek-V2-Lite's prefill wave (32 rows of 1024 tokens, C = 3840) each
@@ -327,6 +332,9 @@ def _moe_mlp(config, h: torch.Tensor, lp,
 
     ``lp`` holds the layer's ``router`` [D, E] (fp32) and the stacked
     expert weights ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D].
+    Under ``mesh_lib.expert_split`` the stacks are this rank's experts,
+    [E/x, ...], h is the same rows on every rank of the group, and the
+    output is summed over the group (``mesh_lib.expert_sum``).
     """
     c = config
     b, s, d = h.shape
@@ -336,22 +344,41 @@ def _moe_mlp(config, h: torch.Tensor, lp,
     r = route(c, lp['router'], x, token_mask=flat_mask, capacity=capacity,
               with_aux=with_aux)
     cap, k = r.capacity, c.experts_per_token
-    # Buffer place of every kept (token, choice); dropped ones point at the
-    # spare place e * cap, which is thrown away.
-    dest = torch.where(r.keep, r.expert * cap + r.place,
-                       e * cap).reshape(-1).long()
+    # Under an expert split this rank holds experts [first, stop) of the
+    # stacks and fills their buffers alone; the routing is every rank's.
+    ep = mesh_lib.current_expert_split()
+    first, stop = ep.block(e) if ep is not None else (0, e)
+    n = stop - first
+    keep = r.keep if ep is None else (
+        r.keep & (r.expert >= first) & (r.expert < stop))
+    # Buffer place of every kept (token, choice); dropped ones (and under
+    # a split the other ranks' ones) point at the spare place n * cap,
+    # which is thrown away.
+    dest = torch.where(keep, (r.expert - first) * cap + r.place,
+                       n * cap).reshape(-1).long()
     # Which (token, choice) fills each place (t * k: none). Kept places
     # are distinct, so only the spare place sees repeated writes.
-    choice = torch.full((e * cap + 1,), t * k, dtype=torch.long,
+    choice = torch.full((n * cap + 1,), t * k, dtype=torch.long,
                         device=x.device)
     choice[dest] = torch.arange(t * k, device=x.device)
-    choice = choice[:e * cap]
-    expert_in = _Dispatch.apply(x, choice, dest, k).reshape(e, cap, d)
+    choice = choice[:n * cap]
+    expert_in = _Dispatch.apply(mesh_lib.expert_input(x), choice, dest,
+                                k).reshape(n, cap, d)
     expert_out = _expert_mlp(expert_in, lp, c.dtype)
-    picked = _Combine.apply(expert_out.reshape(e * cap, d), dest,
+    picked = _Combine.apply(expert_out.reshape(n * cap, d), dest,
                             choice).reshape(t, k, d)            # [T, k, D]
-    weight = torch.where(r.keep, r.gate, 0.0).to(c.dtype)
-    out = torch.bmm(weight[:, None, :], picked)[:, 0]
+    # The gate values go through expert_input too: d gate_k = <dout,
+    # y_k> is made on the rank of expert k alone, and the router's
+    # gradient leaves whole on every rank.
+    weight = torch.where(keep, mesh_lib.expert_input(r.gate),
+                         0.0).to(c.dtype)
+    if ep is None:
+        out = torch.bmm(weight[:, None, :], picked)[:, 0]
+    else:
+        # This rank's experts' part in fp32, summed over the group and
+        # rounded once.
+        out = mesh_lib.expert_sum(torch.bmm(
+            weight.float()[:, None, :], picked.float())[:, 0]).to(c.dtype)
     return out.reshape(b, s, d), r.aux
 
 

@@ -9,9 +9,11 @@ runs one process per host. The port runs one process per card: a host
 with ``k`` cards starts ``k`` processes, told apart by
 ``XSKY_LOCAL_RANK`` (0 .. k-1) and ``XSKY_LOCAL_SIZE`` (k, default 1),
 and the process of local rank ``i`` on host ``h`` is rank ``h·k + i`` of
-a world of ``num_hosts·k``. :func:`initialize` brings up the default
-``torch.distributed`` process group over the coordinator's TCP store; a
-single process stays a no-op, as in the reference.
+a world of ``num_hosts·k``. :func:`run_host` starts those ``k``
+processes from the one process that the gang launcher runs on the host
+(``train/launch.py --procs-per-host``), and :func:`initialize` brings up
+the default ``torch.distributed`` process group over the coordinator's
+TCP store; a single process stays a no-op, as in the reference.
 
 The backend follows from the devices, and the choice is logged: gloo
 for CPU tensors; NCCL where every rank has a card of its own; gloo
@@ -30,10 +32,15 @@ one rank.
 """
 from __future__ import annotations
 
+import ctypes
 import datetime
 import logging
 import os
-from typing import Optional, Tuple
+import signal
+import socket
+import subprocess
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,6 +49,8 @@ logger = logging.getLogger(__name__)
 
 ENV_LOCAL_RANK = 'XSKY_LOCAL_RANK'
 ENV_LOCAL_SIZE = 'XSKY_LOCAL_SIZE'
+# The pid of the launcher that started a host's rank processes.
+ENV_LAUNCHER_PID = 'XSKY_LAUNCHER_PID'
 # Global rank of this process, set by initialize() for the telemetry
 # spool and the flight recorder's dump names.
 ENV_RANK = 'XSKY_RANK'
@@ -71,6 +80,135 @@ def local_card(local_rank: int) -> int:
     """The card index a process drives: its local rank, wrapped when the
     host runs more processes than it has cards (they share a card)."""
     return local_rank % max(torch.cuda.device_count(), 1)
+
+
+def is_rank_process() -> bool:
+    """Whether this process is one of a host's rank processes (its
+    launcher set ``XSKY_LOCAL_RANK``): such a process never starts
+    others."""
+    return ENV_LOCAL_RANK in os.environ
+
+
+def host_process_count(requested: str, device_type: str) -> int:
+    """How many rank processes this host runs: ``requested`` as a count,
+    or for ``'auto'`` one per card (one on the CPU or with no card)."""
+    if requested != 'auto':
+        count = int(requested)
+        if count < 1:
+            raise ValueError(f'--procs-per-host must be >= 1 or auto, got '
+                             f'{requested}')
+        return count
+    if device_type != 'cuda':
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def bind_to_launcher() -> None:
+    """In a rank process that :func:`run_host` started: ask the kernel to
+    send this process SIGKILL when its launcher ends (Linux
+    ``PR_SET_PDEATHSIG``), so no rank outlives the launcher, even one
+    killed outright; exit at once if the launcher has already ended. Run
+    in the rank itself, not between fork and exec, where a threaded
+    launcher must run no Python. A no-op elsewhere and off Linux."""
+    launcher = os.environ.get(ENV_LAUNCHER_PID)
+    if launcher is None:
+        return
+    try:
+        prctl = ctypes.CDLL(None, use_errno=True).prctl
+    except (OSError, AttributeError):   # not Linux
+        return
+    prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG
+    if os.getppid() != int(launcher):   # it ended before the prctl
+        logger.error(f'The launcher (pid {launcher}) has ended; exiting.')
+        os._exit(1)
+
+
+def _exit_code(code: int) -> int:
+    """A child's return code as a shell gives it (128 + N for signal N)."""
+    return 128 - code if code < 0 else code
+
+
+# How long a host's ranks have to end after SIGTERM before SIGKILL, and
+# how often the launcher looks at them.
+_GRACE_S = 10.0
+_POLL_S = 0.1
+
+
+def run_host(command: Sequence[str], count: int) -> int:
+    """Run ``count`` rank processes of ``command`` on this host, the i-th
+    with ``XSKY_LOCAL_RANK=i`` and ``XSKY_LOCAL_SIZE=count`` beside this
+    process's env (and, for a host alone whose env names no coordinator,
+    ``XSKY_COORDINATOR_ADDRESS`` on 127.0.0.1 and a free port), and
+    return the host's exit code: 0 when every rank exits 0, else the
+    first failing rank's code (128 + N for signal N), the others ended
+    (SIGTERM, then SIGKILL after ``_GRACE_S``: a rank blocked in a
+    collective does not see SIGTERM). SIGINT and SIGTERM sent to this
+    process go to every rank, and the host's code is then 128 + that
+    signal. No rank outlives this function, nor this process (each rank
+    binds itself to it: :func:`bind_to_launcher`)."""
+    env = dict(os.environ, **{ENV_LOCAL_SIZE: str(count),
+                              ENV_LAUNCHER_PID: str(os.getpid())})
+    if (int(env.get('XSKY_NUM_HOSTS', '1')) <= 1
+            and not env.get('XSKY_COORDINATOR_ADDRESS')):
+        env['XSKY_COORDINATOR_ADDRESS'] = f'127.0.0.1:{_free_port()}'
+    procs: List[subprocess.Popen] = []
+    received: List[int] = []
+
+    def forward(signum, frame):
+        del frame
+        received.append(signum)
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    handlers = {}
+    for signum in (signal.SIGINT, signal.SIGTERM):
+        try:
+            handlers[signum] = signal.signal(signum, forward)
+        except ValueError:   # not the main thread: nothing to forward
+            pass
+    failed = None
+    try:
+        for i in range(count):
+            procs.append(subprocess.Popen(
+                list(command), env=dict(env, **{ENV_LOCAL_RANK: str(i)})))
+        logger.info(f'Started {count} rank processes on this host (pids '
+                    f'{[p.pid for p in procs]}), coordinator '
+                    f'{env["XSKY_COORDINATOR_ADDRESS"]}.')
+        # The first failure seen is the cause; the others' (a peer gone
+        # from a collective) its consequence.
+        while failed is None:
+            codes = [p.poll() for p in procs]
+            failed = next((code for code in codes if code), None)
+            if None not in codes:
+                break
+            time.sleep(_POLL_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        deadline = time.monotonic() + _GRACE_S
+        for p in procs:
+            try:
+                p.wait(max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for signum, handler in handlers.items():
+            signal.signal(signum, handler)
+    if received:   # the host was stopped: its ranks' codes follow
+        return 128 + received[0]
+    if failed is not None:
+        logger.error(f'A rank process exited with {failed}; the host\'s '
+                     f'ranks exited with {[p.returncode for p in procs]}.')
+        return _exit_code(failed)
+    return 0
 
 
 def _choose_backend(store, rank: int, world: int, device_type: str) -> str:
@@ -104,6 +242,7 @@ def initialize(coordinator_address: Optional[str] = None,
     local_rank = int(os.environ.get(ENV_LOCAL_RANK, '0'))
     local_size = int(os.environ.get(ENV_LOCAL_SIZE, '1'))
     rank, world = gang_rank(host_rank, num_hosts, local_rank, local_size)
+    bind_to_launcher()
     if world <= 1 or not coordinator_address:
         logger.debug('Single process; no process group to bring up.')
         return

@@ -35,21 +35,28 @@ reference's mesh) and makes the collectives itself:
   gradient as it is). A whole leaf that each rank reads for its own
   heads alone (``wk``, ``wv``) goes through :func:`tensor_input` too, so
   every gradient leaves the backward whole on each tensor rank and the
-  trainer sums over the batch ranks only.
+  trainer sums over the batch ranks only;
+* :func:`expert_split` tells the routed families the expert group: each
+  rank holds the experts of its block and reads the same rows as the
+  other ranks of the group (the batch splits over ``('data', 'fsdp')``
+  only, as in the reference). The activation entering the dispatch and
+  the gate values entering the combine go through :func:`expert_input`,
+  and the routed output leaves through :func:`expert_sum`, so that here
+  too every gradient leaves the backward whole on each rank.
 
-The ``data``, ``fsdp`` and ``tensor`` axes train above 1; ``Trainer``
-refuses the others.
+The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes train above 1;
+``Trainer`` refuses the others.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-import weakref
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from skypilot_tpu_torch.parallel import distributed
 
@@ -246,14 +253,16 @@ class Cut:
     @property
     def kept(self) -> bool:
         """Whether a step keeps this dim's block (a tensor dim: heads,
-        MLP columns, vocabulary) rather than gathering it (an fsdp dim)."""
-        return 'tensor' in self.axes
+        MLP columns, vocabulary; an expert dim: the rank's experts)
+        rather than gathering it (an fsdp dim)."""
+        return 'tensor' in self.axes or 'expert' in self.axes
 
 
 @dataclasses.dataclass(frozen=True)
 class Split:
     """How one leaf of the full ``shape`` lies on this rank: one Cut per
-    split dim, in dim order (at most two: an fsdp dim and a tensor dim).
+    split dim, in dim order (at most two: an fsdp dim and a tensor or an
+    expert dim).
     ``group`` holds the ranks of every cut's axes together (the ranks
     that hold the leaf's blocks)."""
     shape: Tuple[int, ...]
@@ -294,7 +303,8 @@ class Split:
 
     @property
     def step_cuts(self) -> Tuple[Cut, ...]:
-        """The cuts a step gathers (every one but the tensor dims)."""
+        """The cuts a step gathers (every one but the tensor and expert
+        dims)."""
         return tuple(c for c in self.cuts if not c.kept)
 
 
@@ -318,11 +328,6 @@ def split_for(mesh: Mesh, spec: PartitionSpec,
                         mesh.group(axes), axes))
     if not cuts:
         return None
-    if len(cuts) > 1 and any('expert' in c.axes for c in cuts):
-        raise NotImplementedError(
-            f'spec {spec}: a leaf split along an expert dim and another '
-            'needs expert parallelism, not ported yet (ROADMAP.md queue 1 '
-            'item 8e).')
     group = (cuts[0].group if len(cuts) == 1 else
              mesh.group(tuple(a for c in cuts for a in c.axes)))
     return Split(tuple(shape), tuple(cuts), group)
@@ -366,7 +371,7 @@ def gather(block: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
 
 def step_block(block: torch.Tensor, split: Split) -> torch.Tensor:
     """What a step reads of a leaf (no gradient): its step cuts
-    gathered, its tensor dims this rank's block."""
+    gathered, its tensor and expert dims this rank's block."""
     return _gather_cuts(block.detach(), split.step_cuts)
 
 
@@ -391,9 +396,10 @@ class Sharded:
     """A stacked leaf inside a sharded step: ``block`` of the full
     ``split.shape``. ``view[i]`` is layer i's block (a Sharded of one
     dim fewer); :meth:`gather` all-gathers its step cuts with a gradient
-    (a tensor dim stays this rank's block). ``shape``/``ndim`` are the
-    full leaf's; ``storage_ptr`` is the storage of the last gathered
-    tensor, which a checkpoint's save policy matches."""
+    (a tensor or expert dim stays this rank's block). ``shape``/``ndim``
+    are the full leaf's; ``storage_ptr`` is the storage of the last
+    gathered tensor, which a checkpoint's save policy and
+    ``regathering`` match."""
 
     def __init__(self, block: torch.Tensor, split: Split) -> None:
         self.block = block
@@ -411,7 +417,9 @@ class Sharded:
         full = _Gather.apply(self.block, self.split)
         self._gathered_ptr = full.untyped_storage().data_ptr()
         if _REGATHER is not None:
-            _REGATHER[id(full)] = (weakref.ref(full), self.block, self.split)
+            _REGATHER[self._gathered_ptr] = (
+                StorageWeakRef(full.untyped_storage()), self.block,
+                self.split)
         return full
 
     def storage_ptr(self) -> Optional[int]:
@@ -429,36 +437,55 @@ def gathered(layer_params: Dict[str, Any]) -> Dict[str, Any]:
             for k, w in layer_params.items()}
 
 
-# id of a gathered layer weight -> (a weak reference to it, its block,
-# its split), while ``regathering`` is active.
+# storage of a gathered layer weight -> (a weak reference to that
+# storage, the weight's block, its split), while ``regathering`` is
+# active.
 _REGATHER: Optional[Dict[int, Tuple[Any, torch.Tensor, Split]]] = None
 
 
 class _Block(NamedTuple):
+    """A saved tensor that is a gathered weight or a view of one (a
+    slice, a transpose): the weight's block and split, and where the
+    saved tensor lies in the gathered weight's storage."""
     block: torch.Tensor
     split: Split
+    size: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    offset: int
 
 
 def _pack(t: torch.Tensor):
-    entry = _REGATHER.get(id(t)) if _REGATHER is not None else None
-    if entry is None or entry[0]() is not t:
+    """``t`` as autograd saves it: a gathered weight, or any view of one
+    (``llama.local_kv``'s slice of ``wk``, a transpose), by its block and
+    its place in the gathered storage; anything else as it is. Matched
+    by storage, through a weak reference, so nothing here keeps the
+    gathered storage alive."""
+    if _REGATHER is None:
         return t
-    return _Block(entry[1], entry[2])
+    entry = _REGATHER.get(t.untyped_storage().data_ptr())
+    if entry is None or entry[0].expired():
+        return t
+    return _Block(entry[1], entry[2], tuple(t.size()), tuple(t.stride()),
+                  t.storage_offset())
 
 
 def _unpack(saved):
+    """The saved tensor again: for a ``_Block`` the weight gathered anew
+    (its storage laid out as the first gather's) and the same view of
+    it, bit for bit what was saved."""
     if isinstance(saved, _Block):
-        return step_block(saved.block, saved.split)
+        full = step_block(saved.block, saved.split)
+        return full.as_strided(saved.size, saved.stride, saved.offset)
     return saved
 
 
 @contextlib.contextmanager
 def regathering():
     """Within (a sharded step's forward and backward): a gathered layer
-    weight that autograd saves for the backward is saved as its block and
-    gathered again when the backward reads it, so no gathered weight
-    outlives its layer's forward. A checkpointed layer's own hooks come
-    first: there the recompute gathers again."""
+    weight, or a view of one, that autograd saves for the backward is
+    saved as its block and gathered again when the backward reads it, so
+    no gathered weight outlives its layer's forward. A checkpointed
+    layer's own hooks come first: there the recompute gathers again."""
     global _REGATHER
     prev, _REGATHER = _REGATHER, {}
     try:
@@ -621,3 +648,47 @@ def tensor_sum(x: torch.Tensor) -> torch.Tensor:
     if _TENSOR is None:
         return x
     return _TensorSum.apply(x, _TENSOR.group)
+
+
+# ---- the expert region: routed experts over ranks ---------------------------
+
+_EXPERT: Optional[TensorSplit] = None
+
+
+@contextlib.contextmanager
+def expert_split(split: Optional[TensorSplit]):
+    """Within: the routed families hold the experts of this rank's block
+    of the group (the mesh's ``expert`` axis; a :class:`TensorSplit` of
+    its ranks) and run only the (token, choice) pairs routed to them
+    (no-op for None). Active around a sharded step's forward and
+    backward."""
+    global _EXPERT
+    prev, _EXPERT = _EXPERT, split
+    try:
+        yield
+    finally:
+        _EXPERT = prev
+
+
+def current_expert_split() -> Optional[TensorSplit]:
+    return _EXPERT
+
+
+def expert_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whole on every rank of the expert group, as read by this
+    rank's experts alone (the activation entering the dispatch, the gate
+    values entering the combine): the identity, with its gradient (each
+    rank's part) summed over the group. As it is outside
+    ``expert_split``."""
+    if _EXPERT is None:
+        return x
+    return _TensorInput.apply(x, _EXPERT.group)
+
+
+def expert_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every expert rank's part ``x`` (the routed output of
+    its experts), whole on every rank; its gradient passes as it is. As
+    it is outside ``expert_split``."""
+    if _EXPERT is None:
+        return x
+    return _TensorSum.apply(x, _EXPERT.group)

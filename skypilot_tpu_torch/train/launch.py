@@ -7,8 +7,16 @@ of ranks (one process per card).
         --checkpoint-dir /ckpt --resume auto
 
 Counterpart of ``skypilot_tpu/train/launch.py``, with every flag of the
-reference and one more: ``--device`` (the card by default: without one
-the launcher refuses to start unless given ``--device cpu``). It brings
+reference and two more: ``--device`` (the card by default: without one
+the launcher refuses to start unless given ``--device cpu``) and
+``--procs-per-host`` (``auto``: one rank process per card). The
+reference runs one process per host; the port runs one per card, so the
+one launcher the gang starts on a host with k > 1 cards starts k rank
+processes of itself with the same arguments (``XSKY_LOCAL_RANK``,
+``XSKY_LOCAL_SIZE``; ``distributed.run_host``), forwards SIGINT and
+SIGTERM to them and exits with the first failing rank's code, or 0 when
+every rank succeeded; a recipe's command line runs unchanged. A rank
+process (``XSKY_LOCAL_RANK`` set) never starts others. It brings
 up the process group from the gang env (``parallel/distributed.py``),
 resolves ``--mesh`` against its ranks (``--num-slices`` lays ``data``
 across slices), builds the ``Trainer``, feeds it token shards
@@ -27,8 +35,9 @@ step intact; the newest 3 are kept (the reference's orbax
 or ``$XSKY_CKPT_DIR``, and peers) hold pickled host copies, written off
 the step path by the checkpointd worker. On a gang, as in the
 reference, only the storage tier, which every rank must see (a shared
-mount, as the reference's bucket): every rank gathers the state, rank 0
-writes it synchronously, and the ranks meet at a barrier; every rank
+mount, as the reference's bucket): every rank joins the gathers of the
+state, rank 0 alone keeps it and writes it synchronously, and the ranks
+meet at a barrier; every rank
 restores from it onto its own mesh, so a checkpoint written at one mesh
 resumes at another (the elastic remesh). The reference writes orbax's
 distributed checkpoint there instead of one gathered file.
@@ -40,10 +49,14 @@ restarts the stream at its first batch.
 
 The mesh's ``tensor`` axis splits the dense families' heads, MLP and
 vocabulary over ranks (``train_llama3_8b.yaml``'s ``--mesh
-data=1,fsdp=-1,tensor=4``). Not ported yet: ``--attention ring|ulysses``
-and the mesh axes sequence, stage and expert above 1, and tensor above 1
-for the routed families or with LoRA, exit naming their sub-items of
-ROADMAP.md queue 1 item 8 (8b-ii, 8c-8e).
+data=1,fsdp=-1,tensor=4``), and its ``expert`` axis the routed
+families' experts (``train_deepseek_moe.yaml``'s ``--mesh
+data=-1,fsdp=4,expert=8``). The batch rows split over ``data`` and
+``fsdp`` only, so the ranks of one (data, fsdp) coordinate read the same
+rows of ``--data``. Not ported yet: ``--attention ring|ulysses``, the
+mesh axes sequence and stage above 1, tensor above 1 for the routed
+families, with LoRA or beside expert, and LoRA at expert above 1, exit
+naming their sub-items of ROADMAP.md queue 1 item 8 (8b-ii, 8c, 8d).
 """
 from __future__ import annotations
 
@@ -130,18 +143,13 @@ def resolve_plan(plan: trainer_lib.MeshPlan, world: int, model=None,
                  lora_rank: int = 0) -> trainer_lib.MeshPlan:
     """``plan`` resolved against the gang's ``world`` ranks; exits when
     it does not fit them, or names its sub-item of ROADMAP.md queue 1
-    item 8 for an axis not ported yet (8b-ii for ``tensor`` over a
-    routed ``model`` or LoRA adapters of ``lora_rank``)."""
-    for axis in trainer_lib.UNPORTED_AXES:
-        size = getattr(plan, axis)
-        if size > 1:
-            raise SystemExit(
-                f'--mesh: {trainer_lib.unported_axis_message(axis, size)}')
-    if model is not None:
-        msg = trainer_lib.unported_tensor_message(plan.tensor, model,
-                                                  lora_rank)
-        if msg:
-            raise SystemExit(f'--mesh: {msg}')
+    item 8 for an axis not ported yet (``Trainer``'s refusals,
+    ``trainer_lib.unported_mesh_message``: 8b-ii for ``tensor`` over a
+    routed ``model``, beside ``expert`` or with LoRA adapters of
+    ``lora_rank``, and for LoRA at ``expert`` > 1)."""
+    msg = trainer_lib.unported_mesh_message(plan, model, lora_rank)
+    if msg:
+        raise SystemExit(f'--mesh: {msg}')
     try:
         return plan.resolve(world)
     except ValueError as e:
@@ -265,6 +273,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Where training runs: the card by default "
                              "(the launcher refuses to start without "
                              "one); 'cpu' to run on the CPU")
+    parser.add_argument('--procs-per-host', default='auto',
+                        help="Rank processes this launcher starts on its "
+                             "host, one per card: 'auto' (the host's "
+                             "card count; 1 with --device cpu or no "
+                             "card) or a count. One stays this process.")
     return parser.parse_args(argv)
 
 
@@ -374,10 +387,11 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
     def save_whole(step: int) -> None:
         """The storage save of a gang: every rank gathers, rank 0
-        writes, all meet behind it."""
-        host = trainer.host_state(state)
+        keeps the whole state and writes it, all meet behind it."""
+        host = trainer.host_state(state, keep=rank == 0)
         if rank == 0:
             manager.save(step, host)
+        del host
         distributed.barrier()
         gang_saved[0] = step
 
@@ -451,15 +465,19 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     from skypilot_tpu_torch.train import data as data_lib
     feed = None
     loader = None
+    # The batch rows split over the data and fsdp ranks: the tensor and
+    # expert ranks of one (data, fsdp) coordinate load the same rows.
+    row_block, row_blocks = trainer.batch_rows()
     if args.data:
         # Each rank loads only its rows of the global batch; the
-        # rank-strided epoch permutation keeps samples disjoint.
+        # block-strided epoch permutation keeps blocks disjoint.
         paths = data_lib.expand_data_arg(args.data)
         loader = data_lib.make_loader(
-            paths, batch=per_host_batch(args.global_batch_size, world),
+            paths, batch=per_host_batch(args.global_batch_size, row_blocks),
             seq=args.seq_len,
             seed=args.seed, workers=args.data_workers,
-            host_rank=rank, num_hosts=world, flavor=args.data_loader)
+            host_rank=row_block, num_hosts=row_blocks,
+            flavor=args.data_loader)
         logger.info(
             f'Data: {len(paths)} shard(s), {loader.n_samples} samples '
             f'of seq {args.seq_len} ({type(loader).__name__}).')
@@ -470,7 +488,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     if args.eval_data:
         # Fail at launch, not hundreds of steps in when the first eval
         # fires.
-        per_host_batch(args.global_batch_size, world)
+        per_host_batch(args.global_batch_size, row_blocks)
 
     def to_device(host_batch):
         return {k: torch.from_numpy(v).to(trainer.device)
@@ -481,9 +499,10 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         pass: deterministic slice, no epoch drift across passes)."""
         paths = data_lib.expand_data_arg(args.eval_data)
         eval_loader = data_lib.make_loader(
-            paths, batch=per_host_batch(args.global_batch_size, world),
+            paths, batch=per_host_batch(args.global_batch_size, row_blocks),
             seq=args.seq_len, seed=args.seed, workers=1,
-            host_rank=rank, num_hosts=world, flavor=args.data_loader)
+            host_rank=row_block, num_hosts=row_blocks,
+            flavor=args.data_loader)
         try:
             eval_feed = data_lib.batches(eval_loader,
                                          vocab_size=model.vocab_size)
@@ -624,12 +643,28 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             'data': type(loader).__name__ if loader is not None else None}
 
 
+# A rank process of this host: this module, run again.
+RANK_COMMAND = ('-m', 'skypilot_tpu_torch.train.launch')
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    """Train as ``argv`` (default ``sys.argv[1:]``) says, in this process
+    or, where ``--procs-per-host`` comes to k > 1 and this process is no
+    rank yet, in k rank processes of ``python`` + ``RANK_COMMAND`` +
+    ``argv``; returns the exit code."""
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO,
                             format='%(asctime)s %(name)s: %(message)s')
+    argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
+    args = parse_args(argv)
+    count = distributed.host_process_count(
+        args.procs_per_host,
+        torch.device(args.device).type if args.device else 'cuda')
+    if count > 1 and not distributed.is_rank_process():
+        return distributed.run_host([sys.executable, *RANK_COMMAND, *argv],
+                                    count)
     try:
-        run(parse_args(argv))
+        run(args)
     finally:
         distributed.shutdown()
     return 0

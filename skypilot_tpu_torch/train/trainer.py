@@ -16,24 +16,27 @@ card. ``host_state`` and ``load_state`` carry the state to the host and
 back for checkpoints (``train/launch.py``).
 
 Over ``torch.distributed`` ranks (one per card, ``parallel/distributed``)
-the mesh plan's ``data``, ``fsdp`` and ``tensor`` axes train as the
-reference's sharded step does, its collectives made explicit
+the mesh plan's ``data``, ``fsdp``, ``expert`` and ``tensor`` axes train
+as the reference's sharded step does, its collectives made explicit
 (``parallel/mesh.py``): each rank holds its blocks of the parameters and
 optimizer state (the families' ``logical_axes`` under ``DEFAULT_RULES``:
-embed dims over ``fsdp``; heads, MLP and vocabulary over ``tensor``, as
-in the reference); the global batch's rows split over ``('data',
-'fsdp')`` in rank order, so the tensor ranks see the same rows; a
-layer's weights are all-gathered along their fsdp dims where the layer
-starts, inside its checkpoint, and their gradients reduce-scattered back
-(a layer without a checkpoint keeps its block for the backward,
-``mesh_lib.regathering``); the dense families read their tensor blocks
-Megatron-style (``mesh_lib.tensor_split``), so every gradient leaves the
-backward whole on each tensor rank; the remaining gradients are summed
-over the batch ranks that hold the same block. Each rank's loss is its
-share of the global (mask-)weighted mean (``mesh_lib.batch_split``), so
-the update equals the one-rank update on the whole batch. The sequence,
-expert and stage axes are not ported yet (ROADMAP.md queue 1 items
-8c-8e), nor the tensor axis for the routed families and LoRA (8b-ii).
+embed dims over ``fsdp``; heads, MLP and vocabulary over ``tensor``; the
+routed experts over ``expert``, as in the reference); the global batch's
+rows split over ``('data', 'fsdp')`` in rank order, so the tensor and
+expert ranks see the same rows; a layer's weights are all-gathered along
+their fsdp dims where the layer starts, inside its checkpoint, and their
+gradients reduce-scattered back (a layer without a checkpoint keeps its
+block for the backward, ``mesh_lib.regathering``); the dense families
+read their tensor blocks Megatron-style (``mesh_lib.tensor_split``) and
+the routed families run their own experts (``mesh_lib.expert_split``),
+so every gradient leaves the backward whole on each tensor and expert
+rank; the remaining gradients are summed over the batch ranks that hold
+the same block. Each rank's loss is its share of the global
+(mask-)weighted mean (``mesh_lib.batch_split``), so the update equals the
+one-rank update on the whole batch. The sequence and stage axes are not
+ported yet (ROADMAP.md queue 1 items 8c, 8d), nor the tensor axis for
+the routed families, LoRA or beside the expert axis, nor LoRA at expert
+> 1 (8b-ii).
 """
 from __future__ import annotations
 
@@ -123,7 +126,6 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
 UNPORTED_AXES = {
     'sequence': ('8c', 'sequence parallelism (ring and Ulysses attention)'),
     'stage': ('8d', 'pipeline parallelism'),
-    'expert': ('8e', 'expert parallelism'),
 }
 # The families whose heads, MLP and vocabulary split over the tensor
 # axis (Megatron's layout); the routed families and LoRA adapters over
@@ -134,8 +136,8 @@ TENSOR_FAMILIES = (llama, qwen, gemma)
 def unported_axis_message(axis: str, size: int) -> str:
     item, what = UNPORTED_AXES[axis]
     return (f'mesh {axis}={size}: {what} is not ported yet (ROADMAP.md '
-            f'queue 1 item {item}); the port trains over data, fsdp and '
-            'tensor.')
+            f'queue 1 item {item}); the port trains over data, fsdp, '
+            'expert and tensor.')
 
 
 def unported_tensor_message(size: int, model, lora_rank: int
@@ -156,13 +158,41 @@ def unported_tensor_message(size: int, model, lora_rank: int
             'families train at tensor > 1 without LoRA.')
 
 
-def _check_mesh(plan: MeshPlan, config: 'TrainConfig') -> None:
-    for axis in ('stage', 'sequence', 'expert'):
+def unported_expert_message(plan: MeshPlan, lora_rank: int
+                            ) -> Optional[str]:
+    """Why ``plan``'s expert axis cannot train (with LoRA adapters of
+    ``lora_rank``) yet, or None where it can."""
+    if plan.expert <= 1:
+        return None
+    if plan.tensor > 1:
+        what = (f'mesh expert={plan.expert} x tensor={plan.tensor}: tensor '
+                'parallelism beside expert parallelism')
+    elif lora_rank > 0:
+        what = f'mesh expert={plan.expert}: LoRA adapters at expert > 1'
+    else:
+        return None
+    return (f'{what} is not ported yet (ROADMAP.md queue 1 item 8b-ii); '
+            'the port trains the full model at expert > 1 with tensor 1.')
+
+
+def unported_mesh_message(plan: MeshPlan, model, lora_rank: int
+                          ) -> Optional[str]:
+    """Why ``plan`` cannot train ``model`` (with LoRA adapters of
+    ``lora_rank``) yet, naming its sub-item of ROADMAP.md queue 1 item
+    8, or None where it can: the one list of refusals that ``Trainer``
+    and ``train/launch.py``'s ``resolve_plan`` share."""
+    for axis in UNPORTED_AXES:
         size = getattr(plan, axis)
         if size > 1:
-            raise NotImplementedError(unported_axis_message(axis, size))
-    msg = unported_tensor_message(plan.tensor, config.model,
-                                  config.lora_rank)
+            return unported_axis_message(axis, size)
+    msg = unported_expert_message(plan, lora_rank)
+    if msg or model is None:
+        return msg
+    return unported_tensor_message(plan.tensor, model, lora_rank)
+
+
+def _check_mesh(plan: MeshPlan, config: 'TrainConfig') -> None:
+    msg = unported_mesh_message(plan, config.model, config.lora_rank)
     if msg:
         raise NotImplementedError(msg)
 
@@ -264,6 +294,11 @@ class Trainer:
             llama.check_tensor_heads(c.model, parts)
             self._tensor = mesh_lib.TensorSplit(
                 parts, mesh.coords['tensor'], mesh.group(('tensor',)))
+        parts = mesh.shape['expert']
+        self._expert = None
+        if parts > 1:
+            self._expert = mesh_lib.TensorSplit(
+                parts, mesh.coords['expert'], mesh.group(('expert',)))
         shapes = self._model_lib.init(c.model, device='meta')
         self._splits = mesh_lib.tree_splits(mesh, self._logical, shapes)
         self._sharded = any(s is not None
@@ -278,9 +313,11 @@ class Trainer:
         self._opt_splits = opt if self._sharded else None
         # A leaf's gradient is summed over the batch ranks that hold the
         # same block (its split's own axes were summed by the gather's
-        # reduce-scatter). Never over tensor: a leaf whole on the tensor
-        # ranks leaves the backward whole on each (the families read it
-        # on the replicated side, or through mesh_lib.tensor_input).
+        # reduce-scatter). Never over tensor or expert: a leaf whole on
+        # those ranks leaves the backward whole on each (the families
+        # read it on the replicated side, or through
+        # mesh_lib.tensor_input / expert_input), and an expert block's
+        # gradient is made on its own rank alone.
         self._grad_groups = [
             mesh.group(tuple(a for a in BATCH_AXES
                              if s is None or a not in s.axes))
@@ -291,6 +328,14 @@ class Trainer:
         if not self._sharded:
             return tree
         return _map_splits(mesh_lib.shard, tree, splits)
+
+    def batch_rows(self) -> Tuple[int, int]:
+        """(this rank's block, the number of blocks) of a global batch's
+        rows, which split over the data and fsdp ranks alone: (0, 1)
+        where they do not split."""
+        if self._batch is None:
+            return 0, 1
+        return self._batch.index, self._batch.parts
 
     def local_rows(self, batch: Batch) -> Batch:
         """This rank's rows of a global batch: block ``index`` of the
@@ -366,18 +411,23 @@ class Trainer:
             out['params'] = self._splits
         return out
 
-    def host_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+    def host_state(self, state: Dict[str, Any],
+                   keep: bool = True) -> Optional[Dict[str, Any]]:
         """A copy of the whole ``state`` on the host, for a checkpoint:
         parameters, optimizer state (its counts included), step, and with
         LoRA the base. On a sharded mesh every rank gathers the blocks (a
         collective: each rank calls it) into the tree a one-rank run
-        holds. Later steps do not change it."""
+        holds; a rank that writes no checkpoint passes ``keep=False`` and
+        keeps none of it (None). Later steps do not change it."""
         def to_host(t, split):
             t = mesh_lib.gather(t.detach(), split)
+            if not keep:
+                return None
             return t.clone() if t.device.type == 'cpu' else t.cpu()
         splits = self._state_splits()
-        return {k: _map_splits(to_host, v, splits.get(k))
+        host = {k: _map_splits(to_host, v, splits.get(k))
                 for k, v in state.items()}
+        return host if keep else None
 
     def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
         """A state from ``host_state``'s copy (or its unpickled form) on
@@ -428,7 +478,8 @@ class Trainer:
         params = state['params']
         leaves = param_leaves(params)
         with mesh_lib.batch_split(self._batch), \
-                mesh_lib.tensor_split(self._tensor), (
+                mesh_lib.tensor_split(self._tensor), \
+                mesh_lib.expert_split(self._expert), (
                 mesh_lib.regathering() if self._sharded
                 else contextlib.nullcontext()):
             loss = self._forward_loss(state, params, batch)
@@ -537,7 +588,8 @@ class Trainer:
         """Loss only (no gradient, no update): the validation pass, over
         the global batch whose rows this rank holds."""
         with mesh_lib.batch_split(self._batch), \
-                mesh_lib.tensor_split(self._tensor):
+                mesh_lib.tensor_split(self._tensor), \
+                mesh_lib.expert_split(self._expert):
             loss = self._forward_loss(state, state['params'], batch)
         if self._batch is not None:
             loss = distributed.all_reduce(loss, self._batch.group)

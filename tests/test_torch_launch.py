@@ -227,7 +227,7 @@ def test_every_reference_flag_is_accepted_with_its_default():
     from skypilot_tpu.train import launch as jax_launch
     want, got = _flags(jax_launch), _flags(launch)
     assert {k: got[k] for k in want} == want
-    assert set(got) - set(want) == {'--device'}
+    assert set(got) - set(want) == {'--device', '--procs-per-host'}
 
 
 def _exits(flags, match):
@@ -237,15 +237,15 @@ def _exits(flags, match):
 @pytest.mark.parametrize('flags,match', [
     _exits(['--attention', 'ring'], 'queue 1 item 8c'),
     _exits(['--attention', 'ulysses'], 'queue 1 item 8c'),
-    # data, fsdp and tensor are ported: one process is refused a plan
-    # of more ranks, and slices that its data axis cannot hold.
+    # data, fsdp, expert and tensor are ported: one process is refused a
+    # plan of more ranks, and slices that its data axis cannot hold.
     _exits(['--num-slices', '2'], 'multiple of num_slices'),
     _exits(['--mesh', 'data=-1,fsdp=8'], 'gang of 1 rank'),
     _exits(['--mesh', 'data=2'], 'gang of 1 rank'),
     _exits(['--mesh', 'tensor=4'], 'gang of 1 rank'),
     _exits(['--mesh', 'data=1,stage=2'], 'queue 1 item 8d'),
     _exits(['--mesh', 'sequence=2'], 'queue 1 item 8c'),
-    _exits(['--mesh', 'expert=2'], 'queue 1 item 8e')])
+    _exits(['--mesh', 'expert=2'], 'gang of 1 rank')])
 def test_multi_card_flags_exit_naming_queue_item_8(flags, match):
     with pytest.raises(SystemExit, match=match):
         launch.run(_args('--steps', 1, *flags))

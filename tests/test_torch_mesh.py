@@ -11,15 +11,27 @@ process group:
   ``('data', 'fsdp')`` and an embed dim over ``fsdp``;
 * the rules, and ``logical_to_spec`` over every leaf of every family's
   ``logical_axes`` (tiny configs), equal the JAX ones; each family's
-  ``logical_axes`` is the reference's tree and mirrors its ``init``.
+  ``logical_axes`` is the reference's tree and mirrors its ``init``;
+* an expert stack ``('layers', 'expert', 'embed', 'mlp')`` at
+  ``data=1,fsdp=2,expert=2`` on four gloo ranks
+  (``torch_gang_worker.call_gang``): ``split_for`` cuts its expert dim
+  (kept) and its embed dim (gathered in a step), each rank's block is
+  the one ``NamedSharding`` gives its device, the blocks gather back bit
+  for bit, a step reads the embed dim gathered and the rank's experts,
+  ``drop`` and ``reduce_dim`` over each dim (the expert cut's among
+  them) give the full leaf's statistics, and ``reduce`` its sum of
+  squares.
 """
 from __future__ import annotations
+
+import signal
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import torch_gang_worker
 from skypilot_tpu import models as jax_models
 from skypilot_tpu.parallel import mesh as jax_mesh
 from skypilot_tpu_torch import models
@@ -38,7 +50,21 @@ GRID_PLANS = [
     (dict(data=2, fsdp=2, sequence=1, tensor=2), 1), (dict(data=8), 1),
     (dict(data=2, fsdp=2, tensor=2), 2), (dict(data=4, fsdp=2), 2),
     (dict(), 4),
+    # multislice_moe.yaml's layout (data=2,fsdp=-1,expert=8 over 2
+    # slices) at 8 devices.
+    (dict(data=2, fsdp=-1, expert=2), 2),
 ]
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _fail(signum, frame):
+        raise TimeoutError('test exceeded its 120 s budget')
+    old = signal.signal(signal.SIGALRM, _fail)
+    signal.alarm(120)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 
 def test_mesh_plan_and_axes_are_the_reference_s():
@@ -165,3 +191,48 @@ def test_logical_axes_and_specs_are_the_reference_s(name):
             want = jax_mesh.logical_to_spec(_get(jaxes, path),
                                             getattr(jax_mesh, rules))
             assert got == tuple(want), (path, rules)
+
+
+EXPERT_PLAN = dict(data=1, fsdp=2, expert=2)
+EXPERT_AXES = ('layers', 'expert', 'embed', 'mlp')
+
+
+def test_an_expert_stack_splits_on_two_dims_and_gathers_back(tmp_path):
+    leaf = np.random.default_rng(0).standard_normal((2, 4, 8, 6)).astype(
+        np.float32)
+    spec = mesh_lib.logical_to_spec(EXPERT_AXES)
+    assert spec == (None, 'expert', 'fsdp', 'tensor')
+    ranks = torch_gang_worker.call_gang(
+        'expert_split_pieces', dict(plan=EXPERT_PLAN, leaf=leaf, axes=spec),
+        4, str(tmp_path))
+    jmesh = jax_mesh.build_mesh(jax_mesh.MeshPlan(**EXPERT_PLAN),
+                                devices=jax.devices()[:4])
+    want = {d.id: index for d, index in jax.sharding.NamedSharding(
+        jmesh, jax.sharding.PartitionSpec(*spec)).devices_indices_map(
+            leaf.shape).items()}
+    whole = torch.from_numpy(leaf)
+    for rank, got in enumerate(ranks):
+        assert [c[3] for c in got['cuts']] == [('expert',), ('fsdp',)]
+        assert got['kept'] == [True, False]
+        assert got['step_cuts'] == [(2, ('fsdp',))]
+        np.testing.assert_array_equal(got['block'].numpy(),
+                                      leaf[want[rank]])
+        np.testing.assert_array_equal(got['whole'].numpy(), leaf)
+        experts = want[rank][1]
+        np.testing.assert_array_equal(got['step'].numpy(),
+                                      leaf[:, experts])
+        # A statistic reduced over one dim keeps the other dims' cuts,
+        # renumbered; over dim 1 or 2 it is summed over that cut's ranks.
+        e, f = got['cuts'][0][2], got['cuts'][1][2]
+        assert got['drop'] == {
+            0: [(0, 2, e, ('expert',)), (1, 2, f, ('fsdp',))],
+            1: [(1, 2, f, ('fsdp',))],
+            2: [(1, 2, e, ('expert',))],
+            3: [(1, 2, e, ('expert',)), (2, 2, f, ('fsdp',))]}
+        for dim, reduced in got['reduced'].items():
+            full = whole.sum(dim)
+            rest = tuple(ix for d, ix in enumerate(want[rank]) if d != dim)
+            torch.testing.assert_close(reduced, full[rest], atol=1e-5,
+                                       rtol=0)
+        torch.testing.assert_close(got['norm'], torch.sum(whole * whole),
+                                   atol=1e-4, rtol=1e-6)

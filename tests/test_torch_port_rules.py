@@ -598,7 +598,7 @@ def test_chip_smoke_mixtral_phases_check_their_derived_launches():
         'replica.loop.close()')
     assert 'SERVE_KERNELS' in inspect.getsource(
         chip_smoke.small_mixtral_end_to_end)
-    assert chip_smoke.REPLICA_REQUESTS == {'int8': (1, 32), 'int4': (1, 16)}
+    assert chip_smoke.REPLICA_REQUESTS == {'int8': (1, 16), 'int4': (1, 16)}
     quantized = inspect.getsource(chip_smoke.quantized_replica)
     assert 'prompts[:n_singles]' in quantized and \
         'n_singles + n_requests' in quantized
@@ -671,9 +671,10 @@ def test_capture_aux_reads_each_loss_term_and_restores_the_function():
 
 
 def test_chip_smoke_mesh_phase_checks_every_rank():
-    """Phase [37] runs last, after [36]: the one-rank launcher in-process
-    and gangs of two rank processes (the XSKY_* env on a free local port)
-    through chip_smoke.mesh_rank, each rank zeroing the launch counts
+    """Phases [37] and [38] run last, after [36]: the one-rank launcher
+    in-process and gangs of rank processes, each gang started by one
+    launcher (train/launch.py's main with --procs-per-host, its ranks
+    running chip_smoke.mesh_rank), each rank zeroing the launch counts
     just before its launcher run and reading them just after; every
     rank's K1-K3 are held to the counts derived from its steps."""
     import inspect
@@ -686,10 +687,19 @@ def test_chip_smoke_mesh_phase_checks_every_rank():
     rank = inspect.getsource(chip_smoke.mesh_rank)
     assert rank.index('zero_launches()') < rank.index('launch.run(') < \
         rank.index('kernels.REGISTRY')
+    assert 'ENV_LOCAL_RANK' in rank
     gang = inspect.getsource(chip_smoke.mesh_gang)
-    for name in ('XSKY_NUM_HOSTS', 'XSKY_HOST_RANK',
-                 'XSKY_COORDINATOR_ADDRESS', 'p.kill()'):
+    for name in ('launch.main(', "'--procs-per-host'", "'RANK_COMMAND'",
+                 'MESH_RANK_CODE'):
         assert name in gang
+    expert = inspect.getsource(chip_smoke.expert_train_path)
+    for flag in ('mesh_gang(', "procs=a['procs']", "procs=b['procs']",
+                 'check_derived_launches(', "'launches_by_path'",
+                 'resume_at_one_rank('):
+        assert flag in expert
+    assert (chip_smoke.EP_MIXTRAL['mesh'], chip_smoke.EP_MIXTRAL['procs'],
+            chip_smoke.EP_DEEPSEEK['mesh'], chip_smoke.EP_DEEPSEEK['procs']
+            ) == ('data=1,fsdp=1,expert=2', 2, 'data=1,fsdp=2,expert=2', 4)
     body = inspect.getsource(chip_smoke.mesh_train_path)
     for flag in ("'data=1,fsdp=2'", "'data=2'", "'--resume', 'auto'",
                  'check_derived_launches(', "'launches_by_path'"):
@@ -699,5 +709,5 @@ def test_chip_smoke_mesh_phase_checks_every_rank():
     main = inspect.getsource(chip_smoke.main)
     order = [main.index(call) for call in (
         'hooks_path(records)', 'mesh_train_path(records)',
-        "print(json.dumps({'ok': True")]
+        'expert_train_path(records)', "print(json.dumps({'ok': True")]
     assert order == sorted(order)

@@ -342,7 +342,8 @@ def test_synthetic_batch_is_seeded_by_the_step():
     # a plan of two ranks.
     (trainer.MeshPlan(tensor=2), ValueError, 'not divisible'),
     (trainer.MeshPlan(sequence=2), NotImplementedError, 'queue 1 item 8c'),
-    (trainer.MeshPlan(expert=2), NotImplementedError, 'queue 1 item 8e'),
+    # expert is ported: one process is refused a plan of two ranks.
+    (trainer.MeshPlan(expert=2), ValueError, 'not divisible'),
 ], ids=['pipeline', 'fsdp', 'tensor', 'sequence', 'expert'])
 def test_unported_options_raise(plan, error, match):
     with pytest.raises(error, match=match):

@@ -1,6 +1,7 @@
 """Cases, runs and checks shared by the port's sharded-training tests
 (``test_torch_fsdp_train.py``, ``test_torch_dp_train.py``,
-``test_torch_tp_train.py``, ``test_torch_tp_mesh_train.py``).
+``test_torch_tp_train.py``, ``test_torch_tp_mesh_train.py``,
+``test_torch_ep_train.py``).
 
 A case is a tiny fp32 model and its TrainConfig keywords; it runs 3 steps
 on the same global batches (numpy, from a seed) three ways: the JAX
@@ -64,6 +65,13 @@ MODELS = {
                                           dtype=jnp.float32),
                       dataclasses.replace(deepseek.DEEPSEEK_TINY,
                                           dtype=torch.float32)),
+    # moe-tiny at capacity factor 0.5 (32 places an expert for the
+    # batch's 128 tokens x 2 choices over 4 experts: choices are
+    # dropped), with per-layer remat.
+    'moe_drop': (dataclasses.replace(jax_moe.MOE_TINY, dtype=jnp.float32,
+                                     capacity_factor=0.5, remat=True),
+                 dataclasses.replace(moe.MOE_TINY_F32, capacity_factor=0.5,
+                                     remat=True)),
     # The dense families a tensor split takes besides Llama: Qwen-2's
     # Q/K/V biases, Qwen-3's QK-norm, Gemma-2's tied head, softcaps,
     # window (8, under SEQ) and output norms.
@@ -96,7 +104,13 @@ TENSOR_CASES = {
     'qwen3': ('qwen3_tiny', dict(optimizer='adafactor'), False),
     'gemma2': ('gemma2_tiny', dict(), True),
 }
-ALL_CASES = {**CASES, **TENSOR_CASES}
+# The expert-parallel cases (tests/test_torch_ep_train.py): the routed
+# cases above and one with a capacity drop, whose adafactor statistics
+# span the expert blocks.
+EXPERT_CASES = {
+    'moe_drop': ('moe_drop', dict(optimizer='adafactor'), False),
+}
+ALL_CASES = {**CASES, **TENSOR_CASES, **EXPERT_CASES}
 
 
 def batches(masked: bool):

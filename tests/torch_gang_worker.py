@@ -17,7 +17,12 @@ gathers it.
 The second form runs ``train/launch.py`` with ARGV as one rank of the
 gang its environment describes (``XSKY_*``), the model's config in fp32
 with ``--fp32``, and writes to OUT (JSON) the losses and grad norms the
-run returns on this rank and the step it started from. The third,
+run returns on this rank and the step it started from;
+
+    python tests/torch_gang_worker.py host OUT_DIR [--fp32] -- ARGV...
+
+is the launcher of one host (``host_rank``): its ``--procs-per-host``
+rank processes each write ``OUT_DIR/rank-<i>.json`` so. The fourth,
 
     python tests/torch_gang_worker.py call NAME SPEC RANK WORLD PORT OUT
 
@@ -41,6 +46,38 @@ from skypilot_tpu_torch.parallel import distributed  # noqa: E402
 from skypilot_tpu_torch.train import trainer as trainer_lib  # noqa: E402
 
 
+class _LiveGathered:
+    """Counts the gathered layer weights (``mesh_lib.Sharded.gather``)
+    whose storage is alive when the backward starts (the step's
+    ``torch.autograd.grad``), through weak references to the storages."""
+
+    def __init__(self):
+        from torch.multiprocessing.reductions import StorageWeakRef
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        self.refs, self.live = [], []
+        self._mesh, self._ref = mesh_lib, StorageWeakRef
+        self._gather, self._grad = mesh_lib.Sharded.gather, torch.autograd.grad
+
+    def __enter__(self):
+        live = self
+
+        def gather(sharded):
+            full = live._gather(sharded)
+            live.refs.append(live._ref(full.untyped_storage()))
+            return full
+
+        def grad(*args, **kwargs):
+            live.live.append(sum(not r.expired() for r in live.refs))
+            return live._grad(*args, **kwargs)
+        self._mesh.Sharded.gather = gather
+        torch.autograd.grad = grad
+        return self
+
+    def __exit__(self, *exc):
+        self._mesh.Sharded.gather = self._gather
+        torch.autograd.grad = self._grad
+
+
 def run_case(case):
     kw = dict(case['train'])
     kw['mesh_plan'] = trainer_lib.MeshPlan(**kw['mesh_plan'])
@@ -54,7 +91,7 @@ def run_case(case):
     if case.get('adapters') is not None:
         adapters = llama.params_from_numpy(case['adapters'], 'cpu')
     state = tr.init_state(params, adapters=adapters)
-    losses, norms, gathers = [], [], []
+    losses, norms, gathers, live = [], [], [], []
     real_gather = distributed.all_gather
     for batch in case['batches']:
         local = tr.local_rows({k: torch.from_numpy(v)
@@ -64,14 +101,16 @@ def run_case(case):
             distributed.all_gather = lambda *a, **k: (
                 calls.append(1), real_gather(*a, **k))[1]
         try:
-            state, metrics = tr.step(state, local)
+            with _LiveGathered() as watch:
+                state, metrics = tr.step(state, local)
         finally:
             distributed.all_gather = real_gather
         losses.append(float(metrics['loss']))
         norms.append(float(metrics['grad_norm']))
         gathers.append(len(calls))
+        live.append((len(watch.refs), watch.live))
     return {'losses': losses, 'grad_norms': norms, 'gathers': gathers,
-            'state': tr.host_state(state)}
+            'live_gathered': live, 'state': tr.host_state(state)}
 
 
 def _free_port() -> int:
@@ -233,7 +272,62 @@ def vocab_parallel(spec, rank, world):
             'hidden': grads[2]}
 
 
-CALLS = {'split_roundtrip': split_roundtrip, 'vocab_parallel': vocab_parallel}
+def expert_split_pieces(spec, rank, world):
+    """A leaf split along an expert dim and an fsdp dim at
+    ``spec['plan']``: its cuts, block, whole leaf and step block (as
+    ``split_roundtrip``), the step cuts, and the statistics a reduction
+    over each dim leaves: ``drop``'s cuts, and ``reduce_dim`` of the
+    block's sum over that dim (the full leaf's sum over it, this rank's
+    block of the rest)."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    out = split_roundtrip(spec, rank, world)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**spec['plan']))
+    full = torch.from_numpy(spec['leaf'])
+    split = mesh_lib.split_for(mesh, spec['axes'], tuple(full.shape))
+    block = mesh_lib.shard(full, split)
+    out['step_cuts'] = [(c.dim, c.axes) for c in split.step_cuts]
+    out['kept'] = [c.kept for c in split.cuts]
+    out['drop'], out['reduced'] = {}, {}
+    for dim in range(full.ndim):
+        dropped = split.drop(dim)
+        out['drop'][dim] = (None if dropped is None else
+                            [(c.dim, c.parts, c.index, c.axes)
+                             for c in dropped.cuts])
+        out['reduced'][dim] = split.reduce_dim(block.sum(dim), dim)
+    out['norm'] = split.reduce(torch.sum(block * block))
+    return out
+
+
+def expert_grads(spec, rank, world):
+    """The loss and the whole gradient of every parameter leaf at step 1
+    of ``spec['case']`` at ``spec['plan']`` (the Trainer's own pieces:
+    this rank's rows, ``_loss_and_grads``, the sums over its batch
+    groups, then each leaf's blocks gathered), from ``spec['init']``."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    case = spec['case']
+    kw = dict(case['train'])
+    kw['mesh_plan'] = trainer_lib.MeshPlan(**kw['mesh_plan'])
+    tr = trainer_lib.Trainer(
+        trainer_lib.TrainConfig(model=case['model'], **kw), device='cpu')
+    lib = models.module_for(case['model'])
+    state = tr.init_state(getattr(lib, 'params_from_numpy',
+                                  llama.params_from_numpy)(case['init'],
+                                                           'cpu'))
+    local = tr.local_rows({k: torch.from_numpy(v)
+                           for k, v in case['batches'][0].items()})
+    loss, grads = tr._loss_and_grads(state, local)
+    if tr._batch is not None:
+        grads = [g if group is None else distributed.all_reduce(g, group)
+                 for g, group in zip(grads, tr._grad_groups)]
+        loss = distributed.all_reduce(loss, tr._batch.group)
+    splits = trainer_lib.param_leaves(tr._splits)
+    return {'loss': loss, 'grads': [mesh_lib.gather(g, s)
+                                    for g, s in zip(grads, splits)]}
+
+
+CALLS = {'split_roundtrip': split_roundtrip, 'vocab_parallel': vocab_parallel,
+         'expert_split_pieces': expert_split_pieces,
+         'expert_grads': expert_grads}
 
 
 def call_gang(name: str, spec, world: int, tmp_dir: str,
@@ -260,9 +354,31 @@ def call_gang(name: str, spec, world: int, tmp_dir: str,
     return [torch.load(o, weights_only=False) for o in outs]
 
 
+def host_rank(argv):
+    """``host OUT_DIR [--fp32] -- ARGV``: ``train/launch.py``'s ``main``
+    with ARGV, as the one launcher of a host: it starts the host's rank
+    processes (``--procs-per-host``) as this same command, and each rank
+    (``XSKY_LOCAL_RANK`` set) runs ``launch_rank`` into
+    ``OUT_DIR/rank-<local rank>.json``. Exits with ``main``'s code."""
+    from skypilot_tpu_torch.train import launch
+    out_dir, sep = argv[0], argv.index('--')
+    if distributed.is_rank_process():
+        local = os.environ[distributed.ENV_LOCAL_RANK]
+        launch_rank([os.path.join(out_dir, f'rank-{local}.json')] +
+                    argv[1:])
+        return 0
+    # The launcher's rank processes run this command: ``python`` and
+    # RANK_COMMAND, then the launcher's arguments.
+    launch.RANK_COMMAND = (os.path.abspath(__file__), 'host',
+                           *argv[:sep + 1])
+    return launch.main(argv[sep + 1:])
+
+
 def main(argv):
     if argv[0] == 'launch':
         return launch_rank(argv[1:])
+    if argv[0] == 'host':
+        sys.exit(host_rank(argv[1:]))
     if argv[0] == 'call':
         name, spec, rank, world, port, out = argv[1:]
         distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
