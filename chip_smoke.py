@@ -69,8 +69,8 @@ Phases, in order; any failure exits non-zero:
      paged engine, a wave padded to 4 rows, on the card and on the CPU;
      the greedy tokens must be identical;
  13. int8 replica: bench.py serve's first rung through the port's HTTP
-     server (infer/server.py on 127.0.0.1): Llama-3-8B (8 of its 32
-     layers since phase 38 joined the script, 16 since phase 37), int8
+     server (infer/server.py on 127.0.0.1): Llama-3-8B (4 of its 32
+     layers since phase 39 joined the script, 8 since 38, 16 since 37), int8
      weights
      quantized on the card as the seeded init draws them, int8 KV, 16
      slots, max_target_len 2048, decode_steps 16; a prompt sent alone
@@ -108,7 +108,7 @@ Phases, in order; any failure exits non-zero:
      init, the optimizer state adapter-sized only; tokens/s, model
      TFLOP/s, peak memory;
  18. the converter and the server's --hf-checkpoint: a random Llama-3-1B
-     (8 of its 16 layers) written in HF's layout (config.json + bf16
+     (4 of its 16 layers; 8 before phase 39) written in HF's layout (config.json + bf16
      safetensors from numpy), converted (equal bit for bit to the tree
      built directly from the same tensors) and served by
      infer/server.py; the greedy tokens of three prompts (16, 300 and
@@ -181,8 +181,8 @@ Phases, in order; any failure exits non-zero:
      in-process, --model gemma2-2b --seq-len 8192 --global-batch-size 1
      --optimizer adafactor (bf16, random weights from the seeded init,
      head_dim 256, softcap 50, scale 1/16, a window of 4096 on even
-     layers, the tied fp32 head; 8 of its 26 layers since phase 38
-     joined the script, 14 before) over uint32 token shards: 5 steps (2
+     layers, the tied fp32 head; 4 of its 26 layers since phase 39
+     joined the script, 8 since 38, 14 before) over uint32 token shards: 5 steps (2
      warm-up, 3 measured); 2 steps with --checkpoint-every 2, then --steps 4
      --resume auto, whose losses must equal the uninterrupted run's
      within rel 1e-4; K1 = 2 x 14 layers x steps (the remat policy
@@ -282,23 +282,44 @@ Phases, in order; any failure exits non-zero:
      K2 = K3 = 16 x steps on every rank, nothing else; (f) two ranks'
      parameters after 2 steps within 1e-5 of one rank's on the card;
      then on the same gang at --mesh data=1,fsdp=1,tensor=2 (g)
-     Llama-3-8B's widths at 2 of 32 layers, 2 steps and their
+     Llama-3-8B's widths at 1 of 32 layers, 2 steps and their
      checkpoint, which one rank's Trainer loads for step 3 (steps 1-3
      within rel 1e-3 of one rank's), and (h) Gemma2-2B's at 2
      of 26 layers, 1 step, each beside one rank's run;
  38. expert parallelism, each gang started by one launcher with
-     --procs-per-host: (a) Mixtral-8x7B's widths at 2 of 32 layers (bf16,
+     --procs-per-host: (a) Mixtral-8x7B's widths at 1 of 32 layers (bf16,
      remat, adamw, seq 4096, B2) at --mesh data=1,fsdp=1,expert=2, two
      ranks, 2 steps and their checkpoint, which one rank's Trainer loads
      for step 3 (step 2's update is the first at a nonzero learning
-     rate); (b) DeepSeek-V2-Lite's at 4 of 27 layers at
+     rate); (b) DeepSeek-V2-Lite's at 2 of 27 layers (one dense, one
+     routed) at
      data=1,fsdp=2,expert=2, four ranks, 1 step; each beside one rank's
      run of the same flags: every step's loss and grad norm within rel
      1e-5, every rank the same, each rank's parameters exactly its
      blocks' count, peaks printed, the resumed step 3 within rel 1e-5 of
-     one rank's, K1 = 2 x 2 and K2 = K3 = 2 a step on each rank of (a),
+     one rank's, K1 = 2 x 1 and K2 = K3 = 1 a step on each rank of (a),
      nothing in (b), and (b)'s share of dropped (token, choice) pairs
      above 0.
+ 39. serving under a mesh, each replica a gang of rank processes that
+     one `python -m skypilot_tpu_torch.infer.server --procs-per-host N`
+     launcher starts (the ranks share the card over gloo; requests over
+     HTTP to 127.0.0.1; each rank's kernels counted in its own process,
+     chip_smoke.serve_rank): (a) serve_mixtral.yaml's replica at --mesh
+     expert=2 (Mixtral-8x7B, 32 layers, int8 weights, 16 slots x 4096)
+     against [30]'s outputs: the 3500-token single (32 new tokens)
+     equal to [30]'s or parting at a near-tie, its first-token logprobs
+     within MESH_LP_ATOL, then [30]'s 16 concurrent prompts; each rank's
+     weights its blocks' bytes, its cache [30]'s; SIGTERM ends the gang;
+     (b) Llama-3-8B's widths at 4 of 32 layers at --mesh data=2,tensor=2
+     (four ranks, 16 slots x 2048: a greedy, a sampled and a penalized
+     single, then 16 concurrent prompts of 960-1024 tokens) beside one
+     rank of the same depth and seed: each rank's cache a quarter of one
+     rank's, 16 query and 4 KV heads a rank, a follower SIGKILLed
+     mid-decode fails the request and the gang (137); (c)
+     DeepSeek-V2-Lite's widths at 4 of 27 layers at --mesh
+     data=2,expert=2 (8 slots x 2048, K6 on 4 local slots a rank). Every
+     rank decodes the same tokens, bit for bit; K1, K4, K6 per rank as
+     derived from its own waves and steps.
 Phase 3 also holds K2 and K3 at Mixtral's training heads (bf16 B2 S4096
 H32/8 D128, causal: checked blockwise, two runs bit-identical, timed
 beside the plain backward and SDPA's): the `mixtral` entries of K2's and
@@ -2441,9 +2462,10 @@ RUNG = dict(slots=16, max_len=2048, requests=32, prompt_len=512,
 # alone (four took 69-109 s of [13] and 105 s of [14] in whole runs of
 # 882-1000 s), with every check.
 REPLICA_REQUESTS = {'int8': (1, 16), 'int4': (1, 16)}
-# Llama-3-8B's widths at 8 of its 32 layers: the whole script's time
-# limit took the depth when phases 37 (to 16) and 38 (to 8) were added.
-REPLICA_LAYERS = 8
+# Llama-3-8B's widths at 4 of its 32 layers: the whole script's time
+# limit took the depth when phases 37 (to 16), 38 (to 8) and 39 (to 4)
+# were added.
+REPLICA_LAYERS = 4
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 600.0):
@@ -3164,9 +3186,10 @@ def random_hf_llama(root: str, cfg, dtype, seed: int) -> dict:
 HF_SERVE_KERNELS = ('flash_fwd', 'decode_attention')
 
 
-# [18]'s depth: 8 of Llama-3-1B's 16 layers (the script's time limit
-# took half when phase 38 was added; the converter's work is per layer).
-HF_LAYERS = 8
+# [18]'s depth: 4 of Llama-3-1B's 16 layers (the script's time limit
+# took half when phase 38 was added, half again with 39; the converter's
+# work is per layer).
+HF_LAYERS = 4
 
 
 def hf_checkpoint_path(records: dict) -> None:
@@ -3329,7 +3352,7 @@ def small_launch_checks() -> None:
 # of 1000-1024 tokens (so the prefill waves take the flash kernel's 1024
 # bucket), 32 new tokens each (64 until the script's time limit took
 # half when phase 38 was added).
-QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=32)
+QWEN_SERVE = dict(slots=32, max_len=4096, requests=32, new_tokens=16)
 
 
 def qwen_replica(records: dict) -> dict:
@@ -3591,7 +3614,7 @@ SAMPLED_NEW = 16
 # New tokens of the prompts [23] and [24] send one at a time (64 until
 # phase 38 took the time).
 SPEC_SINGLE_NEW = 32
-DRAFT_SERVE = dict(slots=16, max_len=2048, requests=16, new_tokens=32)
+DRAFT_SERVE = dict(slots=16, max_len=2048, requests=16, new_tokens=16)
 # A self-draft with the target's own weights: bf16 near-ties between the
 # decode kernel's and the verify pass's logits are the only rejections.
 SELF_DRAFT_MIN_ACCEPT = 0.5
@@ -4074,7 +4097,7 @@ def small_speculative_end_to_end() -> None:
 # then 8 concurrent prompts of 1000-1024 tokens (one prefill bucket, the
 # flash kernel's), 32 new tokens each (64 before).
 GEMMA_SERVE = dict(slots=8, max_len=8192, long=(6000, 8000),
-                   prompt_len=(1000, 1024), requests=8, new_tokens=32)
+                   prompt_len=(1000, 1024), requests=8, new_tokens=16)
 
 
 def count_flash_waves(engine) -> list:
@@ -4288,11 +4311,11 @@ def small_gemma_end_to_end() -> None:
 # --global-batch-size 1 --optimizer adafactor` runs it: 2 warm-up and 3
 # measured steps, then a run of 2 steps that checkpoints and one resumed
 # from it to step 4.
-# Gemma2-2B's widths at 8 of its 26 layers (an even count: Gemma-2 pairs
+# Gemma2-2B's widths at 4 of its 26 layers (an even count: Gemma-2 pairs
 # windowed and global layers): the whole script's time limit took the
-# depth when phases 37 (to 14) and 38 (to 8) were added.
+# depth when phases 37 (to 14), 38 (to 8) and 39 (to 4) were added.
 GEMMA_TRAIN = dict(model='gemma2-2b', seq=8192, batch=1, warmup=2,
-                   measured=3, saved=2, resumed=4, layers=8)
+                   measured=3, saved=2, resumed=4, layers=4)
 
 
 def gemma_head_ms(cfg, seq: int) -> float:
@@ -4526,8 +4549,12 @@ def small_gemma_train_checks() -> None:
 # tokens, chunked) alone, then 16 concurrent prompts of 256-1536 tokens;
 # the largest wave (16 rows of 1024) is then prefilled once on its own.
 MIXTRAL_SERVE = dict(slots=16, max_len=4096, singles=(3500,),
-                     prompt_len=(256, 1536), requests=16, new_tokens=32,
-                     wave=1024)
+                     prompt_len=(256, 1536), requests=16, new_tokens=16,
+                     single_new=32, wave=1024)
+# What [30] served, for [39] (a) to hold the same replica under --mesh
+# expert=2 against: its prompts, the singles' streams with each step's
+# top-5 logprobs, and its weight and KV-cache bytes.
+MIXTRAL_REFERENCE: dict = {}
 
 
 def mixtral_replica(records: dict) -> None:
@@ -4617,7 +4644,7 @@ def mixtral_replica(records: dict) -> None:
         steps[0] = waves[0] = 0
         t0 = time.perf_counter()
         served = [http_json(url, '/generate', {
-            'prompt_tokens': p, 'max_new_tokens': r['new_tokens']})[
+            'prompt_tokens': p, 'max_new_tokens': r['single_new']})[
                 'output_tokens'] for p in singles]
         singles_s = time.perf_counter() - t0
         before = http_json(url, '/metrics')
@@ -4642,7 +4669,8 @@ def mixtral_replica(records: dict) -> None:
                 'outcome="ok"}': len(sent),
                 'xsky_serve_prompt_tokens_total': sum(map(len, sent)),
                 'xsky_serve_generated_tokens_total':
-                    len(sent) * r['new_tokens']}
+                    len(singles) * r['single_new']
+                    + len(prompts) * r['new_tokens']}
         got = {name: metric(after, name) for name in want}
         if got != want:
             raise AssertionError(f'/metrics counters {got}, sent {want}')
@@ -4658,12 +4686,24 @@ def mixtral_replica(records: dict) -> None:
         # with the serving loop held. (A concurrent request's tokens also
         # depend on the others in its prefill wave: they share the
         # experts' capacity.)
+        # (With each step's top-5 logprobs, which [39] (a) reads.)
+        from skypilot_tpu_torch.infer import orchestrator as orch_lib
         with replica.loop._lock:
-            direct = [replica.loop.orch.generate(
-                [p], max_new_tokens=r['new_tokens'])[0] for p in singles]
-        if served != direct:
+            direct = []
+            for p in singles:
+                direct.append(replica.loop.orch.submit(orch_lib.Request(
+                    prompt_tokens=p, max_new_tokens=r['single_new'],
+                    logprobs=5)))
+                replica.loop.orch.run_until_drained(max_steps=256)
+        if served != [q.output_tokens for q in direct]:
             raise AssertionError('the server gave other tokens than '
                                  'Orchestrator.generate')
+        MIXTRAL_REFERENCE.update(
+            singles=singles, prompts=prompts, streams=served,
+            logprobs=[q.token_logprobs for q in direct],
+            top=[[sorted(d.values(), reverse=True) for d in q.top_logprobs]
+                 for q in direct],
+            param_bytes=nbytes, kv_bytes=engine_kv_bytes(engine))
         out_tokens = r['requests'] * r['new_tokens']
         log(f'  prompts of {[len(p) for p in singles]} tokens one at a time '
             f'({singles_s:.2f} s): the served tokens equal '
@@ -5630,21 +5670,23 @@ def hooks_path(records: dict) -> None:
 MESH_TRAIN = dict(model='llama3-1b-qkvo_gup', batch=4, seq=4096, steps=3,
                   fsdp_steps=1, data_steps=1)
 MESH_SMALL = dict(model='mesh-fp32-d128', batch=4, seq=1024, steps=2)
-# (g) Llama-3-8B's widths at 2 of its 32 layers, tensor=2 (the
-# train_llama3_8b.yaml recipe's tensor axis): 2 steps and their
+# (g) Llama-3-8B's widths at 1 of its 32 layers (2 before phase 39), tensor=2
+# (the train_llama3_8b.yaml recipe's tensor axis): 2 steps and their
 # checkpoint, which one rank's Trainer loads for step 3 (the warm-up's
-# step 1 has a learning rate of 0: step 2 is the first update). (h) Gemma2-2B's widths at 2
-# of its 26 layers (head_dim 256, softcaps, the window on layer 0) at
-# tensor=2.
-MESH_TENSOR = dict(model='llama3-8b-2l-qkvo_gup', layers=2, batch=2,
+# step 1 has a learning rate of 0: step 2 is the first update). (h)
+# Gemma2-2B's widths at 2 of its 26 layers (an even count: Gemma-2 pairs
+# windowed and global layers; head_dim 256, softcaps, the window on layer
+# 0) at tensor=2.
+MESH_TENSOR = dict(model='llama3-8b-1l-qkvo_gup', layers=1, batch=2,
                    seq=4096, steps=3, saved=2)
 MESH_GEMMA = dict(model='gemma2-2b-2l', layers=2, batch=1, seq=8192,
                   steps=1)
 # Each tensor rank of (g) holds half of every split leaf and the whole
-# wk, wv and norms: 751,849,472 parameters against one rank's
-# 1,486,901,248 (both counted from the splits before the first call).
-MESH_TENSOR_PARAMS = 751_849_472
-MESH_ONE_RANK_PARAMS = 1_486_901_248
+# wk, wv and norms: 638,595,072 parameters against one rank's
+# 1,268,789,248 (at 2 layers 751,849,472 of 1,486,901,248; one layer is
+# 218,112,000 whole, 113,254,400 a tensor rank).
+MESH_TENSOR_PARAMS = 638_595_072
+MESH_ONE_RANK_PARAMS = 1_268_789_248
 # Two tensor ranks against one, bf16: the row-split products (wo,
 # w_down, the embedding) are summed over the ranks in fp32 and rounded
 # to bf16 once, where one rank's product rounds its own fp32 sum; the
@@ -5674,6 +5716,8 @@ def mesh_models() -> dict:
             moe.MIXTRAL_8X7B, n_layers=EP_MIXTRAL['layers']),
         EP_DEEPSEEK['model']: dataclasses.replace(
             deepseek.DEEPSEEK_V2_LITE, n_layers=EP_DEEPSEEK['layers']),
+        MESH_SERVE_C['model']: dataclasses.replace(
+            deepseek.DEEPSEEK_V2_LITE, n_layers=MESH_SERVE_C['layers']),
         MESH_TRAIN['model']: dataclasses.replace(
             llama.LLAMA3_1B, remat=True, remat_policy='qkvo_gup'),
         MESH_TENSOR['model']: dataclasses.replace(
@@ -5681,6 +5725,8 @@ def mesh_models() -> dict:
             remat_policy='qkvo_gup'),
         MESH_GEMMA['model']: dataclasses.replace(
             gemma.GEMMA2_2B, n_layers=MESH_GEMMA['layers']),
+        MESH_SERVE_B['model']: dataclasses.replace(
+            llama.LLAMA3_8B, n_layers=MESH_SERVE_B['layers']),
         # d_model 128, so adafactor factors statistics over the dim fsdp
         # splits; head_dim 32, which the flash kernels take.
         MESH_SMALL['model']: llama.LlamaConfig(
@@ -6115,16 +6161,17 @@ def mesh_tensor_checks(records, one, ranks, resumed, one_gemma,
 
 # Phase [38]: expert parallelism, each gang started by one launcher with
 # --procs-per-host, its ranks sharing the card over gloo. (a) Mixtral-
-# 8x7B's widths at 2 of 32 layers ([32]'s cut), AdamW, seq 4096, B2 at
+# 8x7B's widths at 1 of 32 layers (2 before phase 39), AdamW, seq 4096, B2 at
 # --mesh data=1,fsdp=1,expert=2: 2 steps and their checkpoint, resumed at
 # one rank for step 3 (the warm-up's step 1 has a learning rate of 0, so
-# step 2 is the first update the checkpoint holds); (b) DeepSeek-V2-Lite's at 4 of 27 layers ([33a]'s
-# cut), full-parameter AdamW, seq 4096, B2 at data=1,fsdp=2,expert=2
+# step 2 is the first update the checkpoint holds); (b) DeepSeek-V2-Lite's
+# at 2 of 27 layers (4 before phase 39; one dense, one routed layer),
+# full-parameter AdamW, seq 4096, B2 at data=1,fsdp=2,expert=2
 # (four ranks; the expert stacks cut on their expert and embed dims): 1
 # step. Each beside one rank's run of the same flags.
-EP_MIXTRAL = dict(model='mixtral-8x7b-2l', layers=2, batch=2, seq=4096,
+EP_MIXTRAL = dict(model='mixtral-8x7b-1l', layers=1, batch=2, seq=4096,
                   steps=3, saved=2, mesh='data=1,fsdp=1,expert=2', procs=2)
-EP_DEEPSEEK = dict(model='deepseek-v2-lite-4l', layers=4, batch=2, seq=4096,
+EP_DEEPSEEK = dict(model='deepseek-v2-lite-2l', layers=2, batch=2, seq=4096,
                    steps=1, mesh='data=1,fsdp=2,expert=2', procs=4)
 # Expert ranks against one rank, bf16, step 1 (loss and grad norm): the
 # forward is one rank's but for the routed output's partials summed over
@@ -6372,6 +6419,774 @@ def resume_at_one_rank(label: str, ckpt: str, cfg, run: dict,
             'launches': launches}
 
 
+# ---- phase 39: serving under a mesh ----
+
+# Phase [39]: a replica as a gang of rank processes sharing the card over
+# gloo (one `python -m skypilot_tpu_torch.infer.server --procs-per-host N`
+# launcher each, its ranks running chip_smoke.serve_rank, which registers
+# the cut configs and reports each rank's numbers through files), each
+# beside one rank: (a) serve_mixtral.yaml's replica at --mesh expert=2
+# against [30]'s own outputs; (b) Llama-3-8B's widths at 4 of 32 layers
+# at --mesh data=2,tensor=2; (c) DeepSeek-V2-Lite's at 4 of 27 layers at
+# --mesh data=2,expert=2. No speed is claimed for ranks sharing a card.
+# (a)'s concurrent prompts are [30]'s, every fourth cut to 1024 tokens
+# and the others to 512: none is prefilled in chunks, so the 16 requests
+# come in two waves (4 rows of the 1024 bucket, which runs K1, and 12
+# padded to 16 of the 512 bucket) and ~16 decode steps, where [30]'s
+# whole prompts (nine longer than the largest bucket, 1024) take ~84
+# (each chunk a tick of 4 decode steps); the 3500-token single still
+# runs the chunked prefill under the mesh. All 16 at 1024 make one
+# 16 x 1024 wave, more than two ranks sharing the card hold beside
+# their weights and caches.
+MESH_SERVE_A = dict(model='mixtral-8x7b', mesh='expert=2', procs=2,
+                    weight='int8', slots=16, max_len=4096, new_tokens=16,
+                    concurrent_new=16, concurrent_lens=(1024, 512, 512, 512))
+MESH_SERVE_B = dict(model='llama3-8b-4l', layers=4, mesh='data=2,tensor=2',
+                    procs=4, slots=16, max_len=2048, requests=16,
+                    prompt_len=(960, 1024), new_tokens=32,
+                    singles=(1000, 600, 300), kill_new=512, kill_after_s=2.0)
+MESH_SERVE_C = dict(model='deepseek-v2-lite-4l', layers=4,
+                    mesh='data=2,expert=2',
+                    procs=4, slots=8, max_len=2048, requests=8,
+                    prompt_len=(960, 1024), new_tokens=16, singles=(1000,))
+# First-token logprobs of a gang against one rank's (bf16 or int8 weights;
+# the tensor split adds bf16 partial products in fp32, the expert split
+# two fp32 terms, in another order than one rank's product).
+MESH_LP_ATOL = 0.05
+# A greedy stream may part from one rank's only where one rank's top-2
+# logprob gap is at most this (a near-tie under the same tolerance).
+MESH_TIE = MESH_LP_ATOL
+# How long a gang with a killed follower may take to fail as one.
+MESH_KILL_S = 60
+SERVE_RANK_CODE = ('import sys; sys.path.insert(0, {root!r}); '
+                   'import chip_smoke; '
+                   'sys.exit(chip_smoke.serve_rank(sys.argv[1:]))')
+SERVE_LAUNCHER_CODE = ('import sys; sys.path.insert(0, {root!r}); '
+                       'import chip_smoke; '
+                       'sys.exit(chip_smoke.serve_launcher(sys.argv[1:]))')
+
+
+def engine_kv_bytes(engine) -> int:
+    """Bytes of an engine's slot cache (K and V, values and scales)."""
+    import math
+    size = (1 if engine.config.kv_dtype == torch.int8
+            else torch.tensor([], dtype=engine.config.kv_dtype).element_size())
+    return (math.prod(engine._k_shape) + math.prod(engine._v_shape)) * size
+
+
+class RankWatch:
+    """One serving rank's numbers for [39], through files in ``ctl``:
+    after the engine is built, ``rank<i>-build.json`` (its place in the
+    mesh, weight and cache bytes, the build's seconds and peak); then a
+    thread answers each ``cmd-<n>`` the phase writes: 'zero' sets the
+    kernel counts, the decode steps, flash waves, decoded tokens and the
+    peak to 0, 'read' writes them to ``rank<i>-<n>.json``. The phase
+    writes a command only while the gang is idle."""
+
+    def __init__(self, ctl: str, local: str) -> None:
+        self.ctl, self.local = ctl, local
+        self.tokens = []
+        self.first = None
+
+    def attach(self, engine, build_s: float) -> None:
+        from skypilot_tpu_torch.ops import quantization as qops
+        from skypilot_tpu_torch.parallel import distributed
+        self.steps = count_decode_steps(engine)
+        self.waves = count_flash_waves(engine)
+        step = engine._decode_step_impl
+
+        def logged(state, *args, **kwargs):
+            # Per step: every slot's token, and before it the active
+            # flags, last tokens and lengths (the streams of requests
+            # served one at a time follow from them: slot_streams).
+            before = [state[k].tolist() for k in ('active', 'tokens',
+                                                   'lengths')]
+            out = step(state, *args, **kwargs)
+            self.tokens.append([out[1][0].tolist()] + before)
+            return out
+
+        engine._decode_step_impl = logged
+        whole = engine._whole_logits
+
+        def first_logits(logits):
+            # The first logits after 'zero': the first single's first
+            # token (a one-row prefill, or a chunked prompt's last chunk).
+            out = whole(logits)
+            if self.first is None:
+                lp = torch.log_softmax(out[0].float(), dim=-1)
+                self.first = (float(lp.max()), torch.topk(lp, 5).values
+                              .tolist())
+            return out
+
+        engine._whole_logits = first_logits
+        lay = engine.layout
+        c = engine.config.model
+        wq = engine.params.get('layers', engine.params.get('moe_layers'))
+        self._write('build', {
+            'rank': distributed.rank(), 'world': distributed.world_size(),
+            'pid': os.getpid(),
+            'backend': torch.distributed.get_backend(),
+            'mesh': engine.mesh.shape, 'slot_block': lay.slot_block,
+            'q_heads': (wq['wq'].shape[-1] // c.head_dim
+                        if 'wq' in wq and hasattr(c, 'head_dim') else None),
+            'kv_heads': engine._n_kv,
+            'param_bytes': qops.params_nbytes(engine.params),
+            'kv_bytes': engine_kv_bytes(engine), 'build_s': build_s,
+            'build_peak_gib': torch.cuda.max_memory_allocated() / 2**30})
+        import threading
+        threading.Thread(target=self._serve, daemon=True).start()
+
+    def _write(self, name: str, row: dict) -> None:
+        path = os.path.join(self.ctl, f'rank{self.local}-{name}.json')
+        with open(path + '.tmp', 'w', encoding='utf-8') as f:
+            json.dump(row, f)
+        os.replace(path + '.tmp', path)
+
+    def _serve(self) -> None:
+        n = 0
+        while True:
+            path = os.path.join(self.ctl, f'cmd-{n}')
+            if not os.path.exists(path):
+                time.sleep(0.05)
+                continue
+            with open(path, encoding='utf-8') as f:
+                cmd = f.read().strip()
+            if cmd == 'zero':
+                zero_launches()
+                self.steps[0] = self.waves[0] = 0
+                self.tokens.clear()
+                self.first = None
+                torch.cuda.reset_peak_memory_stats()
+                self._write(str(n), {'allocated_gib':
+                                     torch.cuda.memory_allocated() / 2**30})
+            else:
+                torch.cuda.synchronize()
+                self._write(str(n), {
+                    'launches': {k.name: k.launches
+                                 for k in kernels.REGISTRY},
+                    'steps': self.steps[0], 'waves': self.waves[0],
+                    'tokens': list(self.tokens),
+                    'first': self.first,
+                    'peak_gib': torch.cuda.max_memory_allocated() / 2**30})
+            n += 1
+
+
+def serve_rank(argv) -> int:
+    """One rank process of a serving gang (``server.main`` with
+    ``--procs-per-host``, XSKY_LOCAL_RANK set): the cut configs
+    registered, the engine's numbers reported (RankWatch, in the
+    directory ``argv[0]``, where its output goes to ``rank<i>.log``),
+    then the server's ``main`` on ``argv[1:]``."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.parallel import distributed
+    ctl = argv[0]
+    local = os.environ[distributed.ENV_LOCAL_RANK]
+    fd = os.open(os.path.join(ctl, f'rank{local}.log'),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    watch = RankWatch(ctl, local)
+    build = server_lib.build_engine
+
+    def built(args):
+        t0 = time.perf_counter()
+        engine = build(args)
+        torch.cuda.synchronize()
+        watch.attach(engine, time.perf_counter() - t0)
+        return engine
+
+    with contextlib.ExitStack() as stack:
+        for name, cfg in mesh_models().items():
+            stack.enter_context(registered_config(name, cfg))
+        stack.enter_context(mock.patch.object(server_lib, 'build_engine',
+                                              built))
+        return server_lib.main(argv[1:])
+
+
+def serve_launcher(argv) -> int:
+    """The launcher of a serving gang: ``server.main`` on ``argv[1:]``,
+    its ranks running serve_rank with the directory ``argv[0]``."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    root = os.path.dirname(os.path.abspath(__file__))
+    server_lib.RANK_COMMAND = ('-c', SERVE_RANK_CODE.format(root=root),
+                               argv[0])
+    with contextlib.ExitStack() as stack:
+        for name, cfg in mesh_models().items():    # its flags name them
+            stack.enter_context(registered_config(name, cfg))
+        return server_lib.main(argv[1:])
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f'/proc/{pid}/stat', encoding='utf-8') as f:
+            return f.read().rsplit(')', 1)[1].split()[0] != 'Z'
+    except OSError:
+        return False
+
+
+class MeshServer:
+    """A serving gang on the card: one launcher subprocess
+    (serve_launcher) and its rank processes."""
+
+    def __init__(self, label: str, flags, procs: int, tmp: str) -> None:
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.label, self.procs = label, procs
+        self.ctl = os.path.join(tmp, label.strip('()'))
+        os.makedirs(self.ctl, exist_ok=True)
+        self.url = None
+        port = _free_port()
+        argv = flags + ['--procs-per-host', str(procs), '--port', str(port)]
+        log(f'  {label} python -m skypilot_tpu_torch.infer.server '
+            f'{" ".join(argv)} (its ranks run chip_smoke.serve_rank)')
+        self.log_file = open(os.path.join(self.ctl, 'launcher.log'), 'w')
+        # The ranks share the card: their allocators return what they
+        # free (no reserved-but-unused segments held apart).
+        self.proc = subprocess.Popen(
+            [sys.executable, '-c', SERVE_LAUNCHER_CODE.format(root=root),
+             self.ctl, *argv], stdout=self.log_file,
+            stderr=subprocess.STDOUT, env=dict(
+                os.environ,
+                PYTORCH_CUDA_ALLOC_CONF='expandable_segments:True'))
+        self.url = f'http://127.0.0.1:{port}'
+        self.pids = []
+        self.n = 0
+
+    def logs(self) -> str:
+        out = []
+        for name in ['launcher'] + [f'rank{r}' for r in range(self.procs)]:
+            path = os.path.join(self.ctl, f'{name}.log')
+            if os.path.exists(path):
+                with open(path, encoding='utf-8', errors='replace') as f:
+                    out.append(f'  {name} log (end):\n' + f.read()[-2500:])
+        return '\n'.join(out)
+
+    def check(self, ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f'[39] {self.label} {what}\n{self.logs()}')
+
+    def wait_healthy(self, timeout: float) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            self.check(self.proc.poll() is None,
+                       f'the launcher exited with {self.proc.poll()}')
+            try:
+                if json.loads(http_json(self.url, '/health', timeout=5))[
+                        'status'] == 'healthy':
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.5)
+        self.check(False, f'no /health within {timeout} s')
+        return 0.0
+
+    def read(self, name: str) -> list:
+        rows = []
+        for r in range(self.procs):
+            path = os.path.join(self.ctl, f'rank{r}-{name}.json')
+            deadline = time.perf_counter() + 60
+            while not os.path.exists(path):
+                self.check(time.perf_counter() < deadline,
+                           f'rank {r} wrote no {name}')
+                time.sleep(0.05)
+            with open(path, encoding='utf-8') as f:
+                rows.append(json.load(f))
+        return rows
+
+    def command(self, cmd: str) -> list:
+        """Every rank's answer to ``cmd`` (sent while the gang is idle:
+        the last engine call's cleanup on a follower may trail rank 0's
+        answer, so the gang settles first)."""
+        time.sleep(1.0)
+        path = os.path.join(self.ctl, f'cmd-{self.n}')
+        with open(path + '.tmp', 'w', encoding='utf-8') as f:
+            f.write(cmd)
+        os.replace(path + '.tmp', path)
+        rows = self.read(str(self.n))
+        self.n += 1
+        return rows
+
+    def gone(self, timeout: float = 30.0) -> bool:
+        deadline = time.perf_counter() + timeout
+        while (any(_alive(p) for p in self.pids + [self.proc.pid])
+               and time.perf_counter() < deadline):
+            time.sleep(0.1)
+        return not any(_alive(p) for p in self.pids + [self.proc.pid])
+
+    def stop(self) -> None:
+        """SIGTERM to the launcher: every rank ends (143), none is left."""
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        code = self.proc.wait(60)
+        self.check(code == 128 + signal.SIGTERM,
+                   f'SIGTERM: the launcher exited with {code}')
+        self.check(self.gone(), 'left a rank process after SIGTERM')
+
+    def kill(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for pid in self.pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        self.log_file.close()
+
+
+def http_body(spec: dict) -> tuple:
+    """(route, body) of a single request: /generate, or for a penalized
+    one /v1/completions (greedy, the prompt as ids)."""
+    if 'presence_penalty' not in spec:
+        return '/generate', spec
+    return '/v1/completions', {
+        'prompt': spec['prompt_tokens'], 'max_tokens':
+            spec['max_new_tokens'], 'temperature': 0.0,
+        'presence_penalty': spec['presence_penalty'],
+        'frequency_penalty': spec['frequency_penalty']}
+
+
+def slot_streams(log) -> list:
+    """The streams of requests served one at a time, from a rank's decode
+    log (per step: next tokens, then the active flags, last tokens and
+    lengths before it): each run of steps with one active slot whose
+    length grows by one a step is a request, its stream the slot's last
+    token at its first step (its prefill's token) and then its token of
+    each step."""
+    streams, slot, length = [], None, None
+    for toks, active, last, lengths in log:
+        on = [i for i, a in enumerate(active) if a]
+        if len(on) != 1:
+            slot = None
+            continue
+        s = on[0]
+        if s != slot or lengths[s] != length + 1:
+            streams.append([last[s]])
+        streams[-1].append(toks[s])
+        slot, length = s, lengths[s]
+    return streams
+
+
+def held_stream(label: str, got, want, top, tie: float = MESH_TIE) -> str:
+    """``got`` equals ``want`` (one rank's stream, whose steps' sorted
+    top logprobs are ``top``; for a sampled stream, its Gumbel-perturbed
+    scores' two best), or parts from it at a near-tie: a step where one
+    rank's top-2 gap is at most ``tie``. → what was seen."""
+    if got == want:
+        return 'equal'
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    gap = top[j][0] - top[j][1] if j < len(top) else float('inf')
+    if gap > tie:
+        raise AssertionError(
+            f'[39] {label}: parts from one rank at step {j} ({got[j:j+3]} '
+            f'for {want[j:j+3]}) with one rank\'s top-2 gap {gap:.5f} > '
+            f'{MESH_TIE}: not a near-tie')
+    return f'parts at step {j}, top-2 gap {gap:.5f}'
+
+
+def held_logprobs(label: str, got: tuple, want: tuple) -> float:
+    err = max([abs(got[0] - want[0])] + [
+        abs(a - b) for a, b in zip(got[1], want[1])])
+    if err > MESH_LP_ATOL:
+        raise AssertionError(f'[39] {label}: first-token logprobs {got} '
+                             f'against one rank\'s {want}: {err:.5f} > '
+                             f'{MESH_LP_ATOL}')
+    return err
+
+
+def expected_rank_bytes(cfg, mesh_spec: str, world: int, rank: int,
+                        weight_dtype) -> int:
+    """The weight bytes a rank holds at ``mesh_spec``: the whole tree's
+    meta init (quantized as drawn) cut to the rank's serving blocks."""
+    from skypilot_tpu_torch import models
+    from skypilot_tpu_torch.ops import quantization as qops
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import launch
+    lib = models.module_for(cfg)
+    mesh = mesh_lib.build_mesh(launch.parse_mesh(mesh_spec), world=world,
+                               rank=rank)
+    with mock.patch.object(mesh_lib.Mesh, 'group', lambda self, axes: None):
+        splits = mesh_lib.serving_splits(mesh, lib.logical_axes(cfg),
+                                         lib.init(cfg, device='meta'))
+    return qops.params_nbytes(mesh_lib.block_tree(
+        lib.init(cfg, device='meta', weight_dtype=weight_dtype), splits))
+
+
+def check_mesh_ranks(label: str, gang: MeshServer, built: list, read: list,
+                     derived, whole_kv: int, kv_parts: int, cfg,
+                     weight_dtype, mesh_spec: str) -> dict:
+    """Per rank: the weight bytes its blocks come to, its cache
+    ``whole_kv / kv_parts`` bytes, its kernels as ``derived(row)`` gives
+    them from its own steps and waves (each kernel of the path at least
+    once), and every rank decoding the same tokens, bit for bit."""
+    for r, (b, row) in enumerate(zip(built, read)):
+        want = expected_rank_bytes(cfg, mesh_spec, len(built), r,
+                                   weight_dtype)
+        gang.check(b['param_bytes'] == want,
+                   f'rank {r}: {b["param_bytes"]} weight bytes, its blocks '
+                   f'come to {want}')
+        gang.check(b['kv_bytes'] * kv_parts == whole_kv,
+                   f'rank {r}: {b["kv_bytes"]} cache bytes, one rank\'s '
+                   f'{whole_kv} / {kv_parts}')
+        want_launches = derived(row)
+        check_derived_launches(f'{label} rank {r}', row['launches'],
+                               want_launches)
+        gang.check(all(row['launches'][k] > 0 for k in want_launches),
+                   f'rank {r}: a kernel of the path never ran: '
+                   f'{row["launches"]}')
+    gang.check(all(row['tokens'] == read[0]['tokens'] for row in read),
+               'the ranks decoded different tokens')
+    return {k: sum(row['launches'][k] for row in read)
+            for k in read[0]['launches']}
+
+
+def one_rank_singles(flags, singles):
+    """One rank's replica (build_replica, in this process) for ``flags``:
+    the singles served one at a time through its orchestrator with
+    top-5 logprobs, as [39]'s gangs get them over HTTP → (streams, each
+    step's sorted top logprobs, first-token (chosen, top-5), weight
+    bytes, cache bytes)."""
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.infer import sampling
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.ops import quantization as qops
+    replica = server_lib.build_replica(server_lib.parse_args(
+        flags + ['--port', '0']), host='127.0.0.1')
+    sample = sampling.sample_batched
+    margins = []
+
+    def sample_noted(logits, generator, temperature, top_k=None,
+                     top_p=None, rows=None):
+        # A sampled row's margin between its two best Gumbel-perturbed
+        # scores (the noise drawn again from the generator's state).
+        state = None if generator is None else generator.get_state()
+        out = sample(logits, generator, temperature, top_k, top_p, rows)
+        if state is not None:
+            again = torch.Generator(device=generator.device)
+            again.set_state(state)
+            scaled = sampling.filter_logits(logits, temperature, top_k,
+                                            top_p)
+            u = torch.rand(scaled.shape, generator=again,
+                           device=scaled.device).clamp_(min=1e-20)
+            best = torch.topk(scaled - torch.log(-torch.log(u)), 2).values
+            hot = temperature > 0
+            if hot.any():
+                margins.append(float((best[:, 0] - best[:, 1])[hot].max()))
+        return out
+
+    try:
+        orch = replica.loop.orch
+        streams, tops, first = [], [], []
+        with replica.loop._lock, mock.patch.object(
+                sampling, 'sample_batched', sample_noted):
+            for body in singles:
+                margins.clear()
+                q = orch.submit(orch_lib.Request(
+                    prompt_tokens=body['prompt_tokens'],
+                    max_new_tokens=body['max_new_tokens'], logprobs=5,
+                    eos_token_id=body.get('eos_token_id'),
+                    temperature=body.get('temperature', 0.0),
+                    top_p=body.get('top_p', 1.0),
+                    presence_penalty=body.get('presence_penalty', 0.0),
+                    frequency_penalty=body.get('frequency_penalty', 0.0)))
+                orch.run_until_drained(max_steps=256)
+                streams.append(q.output_tokens)
+                tops.append([sorted(d.values(), reverse=True)
+                             for d in q.top_logprobs])
+                first.append((q.token_logprobs[0], tops[-1][0]))
+                if body.get('temperature', 0.0) > 0:
+                    # Its steps' perturbed margins, as [v, v - margin]
+                    # pairs held_stream reads as a gap.
+                    tops[-1] = [[0.0, -m] for m in margins[:len(
+                        q.output_tokens)]]
+        return (streams, tops, first, qops.params_nbytes(
+            replica.engine.params), engine_kv_bytes(replica.engine))
+    finally:
+        replica.httpd.server_close()
+        replica.loop.close()
+        del replica
+        release_card()
+
+
+def mesh_gang_serve(label: str, flags, procs: int, tmp: str, singles,
+                    bodies, health_s: float):
+    """Start a gang, wait for /health, count from 0, serve ``singles``
+    one at a time (the first also for its first-token logprobs) and
+    ``bodies`` at once → (gang, build rows, read rows, singles' streams,
+    first-token logprobs, seconds)."""
+    gang = MeshServer(label, flags, procs, tmp)
+    seconds = {}
+    try:
+        seconds['health'] = gang.wait_healthy(health_s)
+        built = gang.read('build')
+        gang.pids = [row['pid'] for row in built]
+        warm = gang.command('zero')
+        log(f'  {label} ranks up in {seconds["health"]:.1f} s: weights '
+            f'{[x["param_bytes"] for x in built]} bytes, cache '
+            f'{[x["kv_bytes"] for x in built]}, build peaks '
+            f'{[round(x["build_peak_gib"], 2) for x in built]} GiB, '
+            f'allocated once warm {[round(x["allocated_gib"], 2) for x in warm]}'
+            ' GiB')
+        t0 = time.perf_counter()
+        served = [http_json(gang.url, *http_body(body)) for body in singles]
+        seconds['singles'] = time.perf_counter() - t0
+        # The streams as rank 0 decoded them (/generate takes no
+        # penalties: the penalized single goes through /v1/completions,
+        # whose text drops ids past the byte range).
+        streams = slot_streams(gang.command('read')[0]['tokens'])
+        gang.check(len(streams) == len(singles) and all(
+            s == x['output_tokens'] for s, x in zip(streams, served)
+            if 'output_tokens' in x), f'rank 0\'s streams {streams} '
+            f'against the served {served}')
+        if bodies:
+            _, seconds['concurrent'] = concurrent_generate(
+                gang.url, bodies, 10**9)
+        read = gang.command('read')
+        first = read[0]['first']
+        gang.check(all(row['first'] == first for row in read),
+                   'the ranks\' first-token logprobs differ')
+    except BaseException:
+        log(gang.logs())
+        gang.kill()
+        raise
+    return gang, built, read, streams, first, seconds
+
+
+def serve_mesh_path(records: dict) -> None:
+    import tempfile
+    release_card()   # the ranks share the card with this process
+    tmp = tempfile.mkdtemp(prefix='xsky-mesh-serve-')
+    log('[39] serving under a mesh: gangs of rank processes sharing the '
+        'card over gloo, each started by one server launcher, beside one '
+        f'rank; this process holds {torch.cuda.memory_reserved() / 2**30:.2f}'
+        ' GiB of the card')
+    paths = {'mesh_serve_a': mesh_serve_mixtral(tmp),
+             'mesh_serve_b': mesh_serve_llama(tmp),
+             'mesh_serve_c': mesh_serve_deepseek(tmp)}
+    for path, launches in paths.items():
+        for name, n in launches.items():
+            if n:
+                records[name].setdefault('launches_by_path', {})[path] = n
+    log(f'  [39] on {nvidia_smi_line()}')
+
+
+def mesh_serve_mixtral(tmp: str) -> dict:
+    """(a) serve_mixtral.yaml at --mesh expert=2 against [30] → the
+    ranks' summed launches."""
+    from skypilot_tpu_torch import models
+    a, ref = MESH_SERVE_A, MIXTRAL_REFERENCE
+    cfg = models.get_config(a['model'])
+    log(f'  (a) {a["model"]} int8 at --mesh {a["mesh"]} ({a["procs"]} '
+        f'ranks: {cfg.n_experts // 2} experts each, the attention, router, '
+        'embedding and head whole) against [30]\'s own outputs; [30]\'s '
+        f'concurrent prompts cut in turn to {a["concurrent_lens"]} tokens')
+    flags = ['--model', a['model'], '--weight-dtype', a['weight'],
+             '--max-slots', str(a['slots']), '--max-target-len',
+             str(a['max_len']), '--mesh', a['mesh']]
+    singles = [{'prompt_tokens': p, 'max_new_tokens': a['new_tokens']}
+               for p in ref['singles']]
+    cut = a['concurrent_lens']
+    bodies = [{'prompt_tokens': p[:cut[i % len(cut)]],
+               'max_new_tokens': a['concurrent_new']}
+              for i, p in enumerate(ref['prompts'])]
+    gang, built, read, streams, first, seconds = mesh_gang_serve(
+        '(a)', flags, a['procs'], tmp, singles, bodies, 900)
+    try:
+        derived = (lambda row: {'flash_fwd': cfg.n_layers * row['waves'],
+                                'decode_attention': cfg.n_layers
+                                * row['steps']})
+        launches = check_mesh_ranks('(a)', gang, built, read, derived,
+                                    ref['kv_bytes'], 1, cfg, torch.int8,
+                                    a['mesh'])
+        shares = [b['param_bytes'] / ref['param_bytes'] for b in built]
+        err = held_logprobs('(a)', first, (ref['logprobs'][0][0],
+                                          ref['top'][0][0]))
+        n = a['new_tokens']    # [30]'s first n of its 32
+        held = held_stream('(a) the 3500-token single', streams[0],
+                           ref['streams'][0][:n], ref['top'][0][:n])
+        log(f'  (a) each rank {[b["param_bytes"] for b in built]} weight '
+            f'bytes ({[round(x, 4) for x in shares]} of [30]\'s '
+            f'{ref["param_bytes"]}), cache {built[0]["kv_bytes"]} bytes (the '
+            'slots are whole over expert), build '
+            f'{[round(b["build_s"], 1) for b in built]} s, build peaks '
+            f'{[round(b["build_peak_gib"], 2) for b in built]} GiB, serving '
+            f'peaks {[round(x["peak_gib"], 2) for x in read]} GiB; kernels '
+            f'per rank {[nonzero(x["launches"]) for x in read]} = '
+            f'{cfg.n_layers} layers x (waves, steps) '
+            f'{[(x["waves"], x["steps"]) for x in read]}; the single: '
+            f'{held}; first-token logprobs within {err:.6f} of [30]\'s '
+            f'(limit {MESH_LP_ATOL}); both ranks decoded the same tokens; '
+            f'seconds {rounded(seconds)}')
+        gang.stop()
+    finally:
+        gang.kill()
+    release_card()
+    return launches
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def rounded(seconds: dict) -> str:
+    return json.dumps({k: round(v, 1) for k, v in seconds.items()})
+
+
+def mesh_prompts(rng, vocab: int, lengths) -> list:
+    return [[int(t) for t in rng.integers(0, vocab, int(n))]
+            for n in lengths]
+
+
+def mesh_serve_llama(tmp: str) -> dict:
+    """(b) Llama-3-8B's widths at 4 layers, data=2 x tensor=2, beside one
+    rank; a follower killed mid-decode → the ranks' summed launches."""
+    import signal
+    import threading
+    from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
+    b = MESH_SERVE_B
+    cfg = mesh_models()[b['model']]
+    rng = np.random.default_rng(39)
+    g, sampled, penalized = mesh_prompts(rng, cfg.vocab_size, b['singles'])
+    n = b['new_tokens']
+    singles = [{'prompt_tokens': g, 'max_new_tokens': n},
+               {'prompt_tokens': sampled, 'max_new_tokens': n,
+                'temperature': 0.8, 'top_p': 0.9},
+               {'prompt_tokens': penalized, 'max_new_tokens': n,
+                'presence_penalty': 0.5, 'frequency_penalty': 0.5,
+                'eos_token_id': tokenizer_lib.ByteTokenizer(
+                    cfg.vocab_size).eos_token_id}]
+    bodies = [{'prompt_tokens': p, 'max_new_tokens': n}
+              for p in mesh_prompts(rng, cfg.vocab_size, rng.integers(
+                  b['prompt_len'][0], b['prompt_len'][1] + 1,
+                  b['requests']))]
+    base = ['--model', b['model'], '--max-slots', str(b['slots']),
+            '--max-target-len', str(b['max_len'])]
+    log(f'  (b) {b["model"]} (Llama-3-8B\'s widths, {b["layers"]} of 32 '
+        f'layers, bf16) at --mesh {b["mesh"]} ({b["procs"]} ranks), beside '
+        'one rank of the same depth and seed')
+    with registered_config(b['model'], cfg):
+        one = one_rank_singles(base, singles)
+    gang, built, read, streams, first, seconds = mesh_gang_serve(
+        '(b)', base + ['--mesh', b['mesh']], b['procs'], tmp, singles,
+        bodies, 300)
+    try:
+        derived = (lambda row: {'flash_fwd': cfg.n_layers * row['waves'],
+                                'decode_attention': cfg.n_layers
+                                * row['steps']})
+        launches = check_mesh_ranks('(b)', gang, built, read, derived,
+                                    one[4], 4, cfg, None, b['mesh'])
+        heads = (cfg.n_heads // 2, cfg.n_kv_heads // 2)
+        gang.check(all((x['q_heads'], x['kv_heads']) == heads
+                       for x in built), 'local heads '
+                   f'{[(x["q_heads"], x["kv_heads"]) for x in built]}')
+        err = held_logprobs('(b)', first, one[2][0])
+        # The sampled single's scores are logits / T with the same noise:
+        # its tie is MESH_TIE / T.
+        helds = [held_stream(f'(b) single {i}', s, w, t, MESH_TIE / max(
+            body.get('temperature', 1.0), 1e-6)) for i, (s, w, t, body)
+                 in enumerate(zip(streams, one[0], one[1], singles))]
+        log(f'  (b) each rank {[x["param_bytes"] for x in built]} weight '
+            f'bytes (one rank {one[3]}), cache {built[0]["kv_bytes"]} bytes '
+            f'= one rank\'s {one[4]} / 4, {heads[0]} query and {heads[1]} KV '
+            f'heads a rank; peaks {[round(x["peak_gib"], 2) for x in read]} '
+            f'GiB; kernels per rank {[nonzero(x["launches"]) for x in read]}'
+            f' = {cfg.n_layers} layers x (waves, steps) '
+            f'{[(x["waves"], x["steps"]) for x in read]}; greedy, sampled '
+            f'(0.8, top-p 0.9) and penalized singles against one rank: '
+            f'{helds}; first-token logprobs within {err:.6f} (limit '
+            f'{MESH_LP_ATOL}); all {b["procs"]} ranks decoded the same '
+            f'tokens; seconds {rounded(seconds)}')
+        # A follower killed while a request decodes: the request and the
+        # gang fail within MESH_KILL_S, no process left.
+        outcome = []
+
+        def request():
+            try:
+                outcome.append(http_json(gang.url, '/generate', {
+                    'prompt_tokens': g, 'max_new_tokens': b['kill_new']},
+                    timeout=MESH_KILL_S))
+            except Exception as e:  # pylint: disable=broad-except
+                outcome.append(e)
+        thread = threading.Thread(target=request, daemon=True)
+        thread.start()
+        time.sleep(b['kill_after_s'])
+        t0 = time.perf_counter()
+        os.kill(gang.pids[-1], signal.SIGKILL)
+        code = gang.proc.wait(MESH_KILL_S)
+        thread.join(MESH_KILL_S)
+        gang.check(code == 128 + signal.SIGKILL,
+                   f'the launcher exited with {code} after a follower\'s '
+                   'SIGKILL')
+        gang.check(bool(outcome) and not isinstance(outcome[0], dict),
+                   f'the request in flight did not fail: {outcome}')
+        gang.check(gang.gone(), 'left a rank process after the kill')
+        log(f'  (b) a follower SIGKILLed mid-decode: the gang ended with '
+            f'{code} and the request failed ({type(outcome[0]).__name__}) '
+            f'in {time.perf_counter() - t0:.1f} s (limit {MESH_KILL_S}); no '
+            'process left')
+    finally:
+        gang.kill()
+    release_card()
+    return launches
+
+
+def mesh_serve_deepseek(tmp: str) -> dict:
+    """(c) DeepSeek-V2-Lite's widths at 4 layers, data=2 x expert=2,
+    beside one rank → the ranks' summed launches."""
+    c = MESH_SERVE_C
+    cfg = mesh_models()[c['model']]
+    rng = np.random.default_rng(391)
+    singles = [{'prompt_tokens': p, 'max_new_tokens': c['new_tokens']}
+               for p in mesh_prompts(rng, cfg.vocab_size, c['singles'])]
+    bodies = [{'prompt_tokens': p, 'max_new_tokens': c['new_tokens']}
+              for p in mesh_prompts(rng, cfg.vocab_size, rng.integers(
+                  c['prompt_len'][0], c['prompt_len'][1] + 1,
+                  c['requests']))]
+    base = ['--model', c['model'], '--max-slots', str(c['slots']),
+            '--max-target-len', str(c['max_len'])]
+    log(f'  (c) {c["model"]} (DeepSeek-V2-Lite\'s widths, 4 of 27 layers, '
+        f'bf16, dense MLA cache) at --mesh {c["mesh"]} ({c["procs"]} '
+        'ranks), beside one rank')
+    with registered_config(c['model'], cfg):
+        one = one_rank_singles(base, singles)
+    gang, built, read, streams, first, seconds = mesh_gang_serve(
+        '(c)', base + ['--mesh', c['mesh']], c['procs'], tmp, singles,
+        bodies, 300)
+    try:
+        derived = (lambda row: {'mla_decode': cfg.n_layers * row['steps']})
+        launches = check_mesh_ranks('(c)', gang, built, read, derived,
+                                    one[4], 2, cfg, None, c['mesh'])
+        local = c['slots'] // 2
+        gang.check(all(x['slot_block'][1] - x['slot_block'][0] == local
+                       for x in built), 'local slots')
+        err = held_logprobs('(c)', first, one[2][0])
+        held = held_stream('(c) the single', streams[0], one[0][0],
+                           one[1][0])
+        log(f'  (c) each rank {[x["param_bytes"] for x in built]} weight '
+            f'bytes (one rank {one[3]}), cache {built[0]["kv_bytes"]} bytes '
+            f'= one rank\'s {one[4]} / 2 (slots '
+            f'{[tuple(x["slot_block"]) for x in built]}); peaks '
+            f'{[round(x["peak_gib"], 2) for x in read]} GiB; kernels per '
+            f'rank {[nonzero(x["launches"]) for x in read]} = '
+            f'{cfg.n_layers} layers x steps {[x["steps"] for x in read]} '
+            f'over {local} local slots; the single: {held}; first-token '
+            f'logprobs within {err:.6f} (limit {MESH_LP_ATOL}); all ranks '
+            f'decoded the same tokens; seconds {rounded(seconds)}')
+        gang.stop()
+    finally:
+        gang.kill()
+    release_card()
+    return launches
+
+
 def hopper_kernels(build_log: str):
     """(name, registers, spill-store bytes) of each wgmma kernel and
     pre-pass, of the fp32 flash backward at D 256, of the decode split
@@ -6474,6 +7289,7 @@ def main() -> int:
     hooks_path(records)
     mesh_train_path(records)
     expert_train_path(records)
+    serve_mesh_path(records)
     for rec in records.values():
         rec['launches'] = sum(rec['launches_by_path'].values())
     log(f'[total] chip_smoke wall time {time.perf_counter() - start:.1f} s '

@@ -38,11 +38,31 @@ Counterpart of ``skypilot_tpu/infer/engine.py``:
     multi-token pass (speculative decoding's greedy verification) on the
     dense cache; a paged engine opts out, as in the reference.
 
+  * Under a mesh (``mesh``: a ``parallel/mesh.py`` rank mesh, one
+    process per card) the engine is one rank of a replica, laid out as
+    the reference's engine shards its cache: this rank's block of the
+    slots over ``('data', 'fsdp')`` and its KV heads over ``'tensor'``
+    (a custom cache layout, MLA's latent, splits its slots only), its
+    blocks of the weights that the training rules split over ``tensor``
+    (heads, MLP columns, vocabulary) and ``expert`` (the routed
+    experts), whole over the slot axes. Every rank runs every engine
+    call in the same order (``infer/gang.py``): a prefill wave is
+    computed whole on every rank, each writing its own slots' rows; a
+    decode step runs this rank's slots, samples them with the noise one
+    process would draw for the whole batch, and all-gathers the tokens
+    over the slot group. The per-slot state (lengths, tokens, flags,
+    counts) is whole on every rank. The vocabulary-split head's logits
+    are all-gathered over the tensor group before sampling (B x V fp32
+    a step), so every rank samples from the same bits. The paged cache
+    is refused under a mesh, as in the reference, and so are the axes
+    and families not ported yet.
+
 Every method runs on the engine's device under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -56,6 +76,30 @@ from skypilot_tpu_torch.infer import paged_kv
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+# The reference's refusal (skypilot_tpu/infer/engine.py).
+PAGED_MESH = ('mesh sharding is not supported with the paged cache (the '
+              'page arena has no slot axis to shard).')
+# Speculation under a mesh: ROADMAP.md queue 1 item 8f-ii.
+SPECULATIVE_MESH = ('speculative decoding under a mesh is not ported yet '
+                    '(ROADMAP.md queue 1 item 8f-ii); serve under a mesh '
+                    'without --draft-model or --spec-ngram.')
+
+
+def mesh_refusal(plan, model, paged: bool = False) -> Optional[str]:
+    """Why the port cannot serve ``model`` at the mesh ``plan`` (a
+    ``mesh_lib.MeshPlan``) yet, naming where the work stands, or None
+    where it can: the paged cache (the reference's text), the axes not
+    ported (``sequence``, 8c; ``stage``, 8d) and tensor parallelism for
+    the routed families (8b-ii), the refusals the Trainer shares."""
+    if plan is None:
+        return None
+    if paged:
+        return PAGED_MESH
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    return trainer_lib.unported_mesh_message(plan, model, 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +256,7 @@ class InferenceEngine:
     """Owns params + KV cache; exposes prefill/insert/decode."""
 
     def __init__(self, config: EngineConfig, params: llama.Params,
-                 device: Device = None) -> None:
+                 device: Device = None, mesh=None) -> None:
         self.device = resolve_device(device)
         # Kernel builds count in the process's profile from here on.
         profiler.ensure_compile_listener()
@@ -222,14 +266,43 @@ class InferenceEngine:
             raise ValueError(f'kv_dtype {config.kv_dtype}: need bf16, '
                              'fp32 or int8')
         self.config = config
+        c = config.model
+        msg = mesh_refusal(mesh and mesh.plan, c, config.paged)
+        if msg:
+            raise NotImplementedError(msg)
+        self.mesh = mesh
+        # This rank's place in the replica (None: one process), and the
+        # split of each weight leaf (``mesh_lib.serving_splits``).
+        self.layout: Optional[mesh_lib.ServingLayout] = None
+        self.splits = None
+        if mesh is not None:
+            self.layout = mesh_lib.serving_layout(mesh, config.max_slots)
+            if self.layout.tensor is not None:
+                llama.check_tensor_heads(c, self.layout.tensor.parts)
+            self.splits = mesh_lib.serving_splits(
+                mesh, self._model_lib.logical_axes(c),
+                self._model_lib.init(c, device='meta'))
+        if (self.splits is not None
+                and qops.leaf_quantizer(config.weight_dtype) is not None):
+            _check_quantized_blocks(params, self.splits)
         if config.weight_dtype == torch.int8:
             params = qops.quantize_params(params)
         elif config.weight_dtype == 'int4':
             params = qops.quantize_params_int4(params)
+        if self.splits is not None:
+            # Whole leaves are quantized first, then cut (int8 scales
+            # must see every contraction row).
+            params = mesh_lib.block_tree(params, self.splits)
         self.params = params
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
-        c = config.model
+        n_kv = None   # a custom cache layout has no KV heads
+        if hasattr(c, 'n_kv_heads'):
+            with self._region():
+                n_kv = llama.local_kv_heads(c)
+        self._n_kv = n_kv
+        slots = (config.max_slots if self.layout is None
+                 else self.layout.local_slots)
         self._page_alloc: Optional[paged_kv.PageAllocator] = None
         if config.paged:
             page = config.kv_page_size
@@ -269,7 +342,7 @@ class InferenceEngine:
             # Families with a non-[KVH, HD] cache layout (MLA's
             # compressed latent) declare their own shapes.
             self._k_shape, self._v_shape = self._model_lib.kv_cache_shapes(
-                c, config.max_slots, config.max_target_len)
+                c, slots, config.max_target_len)
             if config.kv_dtype == torch.int8:
                 raise NotImplementedError(
                     'int8 KV is not supported for families with a '
@@ -277,8 +350,7 @@ class InferenceEngine:
                     'already ~20x smaller than a dense KV cache).')
         else:
             self._k_shape = self._v_shape = (
-                c.n_layers, config.max_slots, config.max_target_len,
-                c.n_kv_heads, c.head_dim)
+                c.n_layers, slots, config.max_target_len, n_kv, c.head_dim)
         # A family with routed experts: its prefill waves are padded as
         # the reference pads them (see _wave_rows).
         self._routed = hasattr(c, 'n_experts')
@@ -290,6 +362,38 @@ class InferenceEngine:
                     '(verify_forward + the standard KV layout); '
                     f'{self._model_lib.__name__} lacks it.')
             self._prefix_cache = PrefixCache(config.prefix_cache_entries)
+
+    # ---- the mesh ----
+
+    @contextlib.contextmanager
+    def _region(self):
+        """Within: the model reads this rank's tensor and expert blocks
+        (a no-op for one process)."""
+        lay = self.layout
+        with mesh_lib.tensor_split(lay and lay.tensor), \
+                mesh_lib.expert_split(lay and lay.expert):
+            yield
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits of the whole vocabulary: a tensor split's blocks
+        all-gathered over its group (the same bits on every rank)."""
+        if self.layout is None or self.layout.tensor is None:
+            return logits
+        return distributed.all_gather(logits, -1, self.layout.tensor.group)
+
+    def _local(self, t):
+        """This rank's slots' rows of a per-slot tensor (None passes)."""
+        if t is None or self.layout is None:
+            return t
+        first, stop = self.layout.slot_block
+        return t[first:stop]
+
+    def _all_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a per-slot tensor of this rank's slots:
+        all-gathered over the slot group."""
+        if self.layout is None or self.layout.parts == 1:
+            return t
+        return distributed.all_gather(t, 0, self.layout.group)
 
     # ---- state ----
 
@@ -410,9 +514,11 @@ class InferenceEngine:
         products on the time-to-first-token path for one useful row.
         """
         c = self.config.model
-        last_hidden, kv = self._model_lib.prefill_hidden(
-            c, self.params, tokens, true_lens)
-        logits = self._model_lib.lm_logits(c, self.params, last_hidden)
+        with self._region():
+            last_hidden, kv = self._model_lib.prefill_hidden(
+                c, self.params, tokens, true_lens)
+            logits = self._whole_logits(
+                self._model_lib.lm_logits(c, self.params, last_hidden))
         first_tokens = sampling.sample_batched(logits, generator,
                                                temperature, top_k, top_p)
         return (first_tokens, kv,
@@ -428,16 +534,30 @@ class InferenceEngine:
                 torch.as_tensor(true_lens, device=self.device))
 
     @torch.no_grad()
-    def _insert_batch(self, state, kv, first_tokens, true_lens, slots):
+    def _insert_batch(self, state, kv, first_tokens, true_lens, slots,
+                      host_slots):
         """Write a batched prefill into decode slots (in place): cache
         rows [0, bucket) of each slot from its prefix, the rest zeroed,
-        and the slot's length, token, active flag and counts reset."""
+        and the slot's length, token, active flag and counts reset. Under
+        a mesh only this rank's slots (``host_slots``, the slots as a
+        host list) are written into its cache."""
         cfg = self.config
         slots = slots.long()
         k = kv['k'][:, :, :cfg.max_target_len]
         v = kv['v'][:, :, :cfg.max_target_len]
-        llama.write_cache_slots(state['kv_k'], k, slots)
-        llama.write_cache_slots(state['kv_v'], v, slots)
+        rows = local = slots
+        if self.layout is not None:
+            first, stop = self.layout.slot_block
+            mine = [i for i, s in enumerate(host_slots)
+                    if first <= s < stop]
+            rows = torch.as_tensor(mine, dtype=torch.long,
+                                   device=self.device)
+            local = torch.as_tensor([host_slots[i] - first for i in mine],
+                                    dtype=torch.long, device=self.device)
+            k, v = k[:, rows], v[:, rows]
+        if len(local):
+            llama.write_cache_slots(state['kv_k'], k, local)
+            llama.write_cache_slots(state['kv_v'], v, local)
         self._set_slots(state, first_tokens, true_lens, slots)
         return state
 
@@ -528,7 +648,7 @@ class InferenceEngine:
                 self._slot_tables(slots))
         else:
             state = self._insert_batch(state, kv, first_tokens, true_lens,
-                                       slot_ids)
+                                       slot_ids, list(slots))
         return state, first_tokens.tolist()
 
     def prefill(self, prompt_tokens,
@@ -589,19 +709,20 @@ class InferenceEngine:
         c = self.config.model
         positions = start + torch.arange(tokens.shape[1],
                                          device=self.device)[None, :]
-        hidden, new_kv = self._model_lib.verify_hidden(
-            c, self.params, tokens, positions, scratch_kv)
-        if not need_logits:
-            return None, new_kv
-        return (self._model_lib.lm_logits(c, self.params,
-                                          hidden[:, last_idx]), new_kv)
+        with self._region():
+            hidden, new_kv = self._model_lib.verify_hidden(
+                c, self.params, tokens, positions, scratch_kv)
+            if not need_logits:
+                return None, new_kv
+            return (self._whole_logits(self._model_lib.lm_logits(
+                c, self.params, hidden[:, last_idx])), new_kv)
 
     def _make_scratch_cache(self, prefix_kv=None) -> Dict[str, torch.Tensor]:
         """[L, 1, max_target_len, KVH, HD] scratch in the model's type,
         optionally seeded with a cached prefix (rows beyond it start zero
         and are overwritten by the chunk passes)."""
         c = self.config.model
-        shape = (c.n_layers, 1, self.config.max_target_len, c.n_kv_heads,
+        shape = (c.n_layers, 1, self.config.max_target_len, self._n_kv,
                  c.head_dim)
         scratch = {key: torch.zeros(shape, dtype=c.dtype, device=self.device)
                    for key in ('k', 'v')}
@@ -674,7 +795,7 @@ class InferenceEngine:
                 torch.as_tensor([slot], device=dev))
         if self._page_alloc is not None:
             return self._insert_batch_paged(*args, self._slot_tables([slot]))
-        return self._insert_batch(*args)
+        return self._insert_batch(*args, [slot])
 
     def release_slot(self, state, slot: int):
         state['active'][slot] = False
@@ -708,17 +829,27 @@ class InferenceEngine:
                 c, self.params, state['tokens'], write_pos, kv,
                 state['block_tables'])
         else:
-            logits, new_kv = self._model_lib.decode_forward(
-                c, self.params, state['tokens'], write_pos, kv)
+            # Under a mesh: this rank's slots, and the whole vocabulary.
+            with self._region():
+                logits, new_kv = self._model_lib.decode_forward(
+                    c, self.params, self._local(state['tokens']),
+                    self._local(write_pos), kv)
+                logits = self._whole_logits(logits)
         counts = state['counts']
         if penalties is not None:
-            presence, frequency = penalties
-            cnt = counts.float()
+            presence, frequency = (self._local(p) for p in penalties)
+            cnt = self._local(counts).float()
             logits = (logits - presence[:, None] * (cnt > 0)
                       - frequency[:, None] * cnt)
-        next_tokens = sampling.sample_batched(logits, generator,
-                                              temperatures, top_k, top_p)
+        rows = (None if self.layout is None else
+                (self.config.max_slots, self.layout.slot_block[0]))
+        next_tokens = sampling.sample_batched(
+            logits, generator, self._local(temperatures), self._local(top_k),
+            self._local(top_p), rows=rows)
         lp = _logprobs_info(logits, next_tokens, logprobs_k)
+        next_tokens = self._all_slots(next_tokens)
+        if lp is not None:
+            lp = tuple(self._all_slots(a) for a in lp)
         if penalties is not None:
             # Saturating add at uint8 max; inactive slots excluded.
             slots_idx = torch.arange(counts.shape[0], device=self.device)
@@ -863,7 +994,7 @@ class InferenceEngine:
         straight into per-slot rows, which the page arena does not expose
         (speculation then refuses the engine)."""
         return (hasattr(self._model_lib, 'verify_forward')
-                and self._page_alloc is None)
+                and self._page_alloc is None and self.mesh is None)
 
     @torch.no_grad()
     def verify_step(self, state, proposals):
@@ -884,6 +1015,8 @@ class InferenceEngine:
         are untouched, and rejected rows lie past the new length, where
         later writes overwrite them: rollback is just the length.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(SPECULATIVE_MESH)
         proposals = torch.as_tensor(proposals, device=self.device).to(
             torch.int32)
         gamma = proposals.shape[1]
@@ -932,6 +1065,25 @@ class InferenceEngine:
         for key in ('lengths', 'tokens', 'active'):
             state[key] = other_state[key].clone()
         return state
+
+
+def _check_quantized_blocks(params, splits) -> None:
+    """Refuse full-precision leaves given as blocks to an engine that
+    quantizes: their int8 scales would see one block of the contraction
+    rows, not the whole leaf's (quantize whole leaves, then cut, as
+    ``qops.block`` does)."""
+    if isinstance(params, dict):
+        for key, value in params.items():
+            if isinstance(value, dict):
+                _check_quantized_blocks(value, splits[key])
+            elif (splits[key] is not None and not qops.is_quantized(value)
+                  and qops.quantizes(key, value.shape)
+                  and tuple(value.shape) != tuple(splits[key].shape)):
+                raise ValueError(
+                    f'{key}: a full-precision block of shape '
+                    f'{tuple(value.shape)} (whole {splits[key].shape}) '
+                    'cannot be quantized: give whole leaves or blocks '
+                    'quantized whole, then cut.')
 
 
 class ChunkedPrefill:

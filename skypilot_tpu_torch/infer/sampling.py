@@ -9,7 +9,7 @@ distributions, not draws).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,20 +54,29 @@ def sample_batched(logits: torch.Tensor,
                    generator: Optional[torch.Generator],
                    temperature: torch.Tensor,
                    top_k: Optional[torch.Tensor] = None,
-                   top_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   top_p: Optional[torch.Tensor] = None,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Per-row sampling → int32 tokens [B]. logits [B, V];
     temperature/top_k/top_p [B].
 
     Rows with temperature <= 0 are greedy; top_k == 0 / top_p >= 1
     disable the respective filter for that row. ``generator`` None means
     the caller knows every row is greedy: no noise is drawn.
+
+    ``rows`` = (total, first): ``logits`` are rows [first, first + B) of
+    a batch of ``total`` rows (a rank's slots): the noise is drawn for
+    the whole batch, as one process draws it, and these rows kept, so
+    each row's draw does not depend on how the batch is split.
     """
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
         return greedy
     scaled = filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(scaled.shape, generator=generator,
-                   device=scaled.device).clamp_(min=1e-20)
+    shape = scaled.shape if rows is None else (rows[0],) + scaled.shape[1:]
+    u = torch.rand(shape, generator=generator, device=scaled.device)
+    if rows is not None:
+        u = u[rows[1]:rows[1] + scaled.shape[0]]
+    u = u.clamp_(min=1e-20)
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)),
                            dim=-1).to(torch.int32)
     return torch.where(temperature > 0.0, sampled, greedy)

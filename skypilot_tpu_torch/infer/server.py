@@ -5,9 +5,20 @@
 
 Counterpart of ``skypilot_tpu/infer/server.py``: the same routes, the
 same flags (a replica's command line carries over) and the same warm-up
-before ``/health`` answers, over the port's engine. One flag more:
+before ``/health`` answers, over the port's engine. Two flags more:
 ``--device`` (default: the card; without one the server refuses to start
-unless given ``--device cpu``).
+unless given ``--device cpu``) and ``--procs-per-host``.
+
+Under ``--mesh`` (e.g. ``expert=8``, serve_mixtral.yaml's) a replica is a
+gang of rank processes, one per card (``infer/gang.py``): the launcher
+that the host runs starts ``--procs-per-host`` of them (``auto``: one per
+card) as ``train/launch.py`` does, each brings up its process group from
+the gang env and resolves the mesh over the world, and builds its blocks
+of the weights (the training rules' tensor and expert splits, drawn or
+converted whole a layer at a time and cut as they land) and of the slot
+cache (``InferenceEngine(mesh=...)``). Global rank 0 warms up, serves
+HTTP and mirrors every engine call to the others; ``/health`` answers
+once every rank is warm.
 
 Endpoints (the wire surface of an ``xsky serve`` replica):
   GET  /health              → 200 once the engine is warm
@@ -31,6 +42,7 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -43,20 +55,18 @@ from skypilot_tpu_torch import models
 from skypilot_tpu_torch.agent import telemetry
 from skypilot_tpu_torch.infer import anatomy as anatomy_lib
 from skypilot_tpu_torch.infer import engine as engine_lib
+from skypilot_tpu_torch.infer import gang as gang_lib
 from skypilot_tpu_torch.infer import metrics as metrics_lib
 from skypilot_tpu_torch.infer import openai_api
 from skypilot_tpu_torch.infer import orchestrator as orch_lib
 from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
+from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import quantization as qops
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
-
-# Flags of the reference whose paths are not ported yet: each refuses to
-# start, naming where the work stands in ROADMAP.md.
-_NOT_PORTED = {
-    'mesh': ('--mesh', 'ROADMAP.md queue 1 item 8f: serving under a mesh'),
-}
 
 
 class ServingLoop:
@@ -530,8 +540,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              'scales); int4 halves it again (packed '
                              'nibbles, group-128 scales)')
     parser.add_argument('--mesh', default=None,
-                        help='Sharding over several cards (not ported '
-                             'yet: refuses to start)')
+                        help="e.g. 'tensor=4' to shard across cards: one "
+                             'rank process per card (--procs-per-host)')
+    parser.add_argument('--procs-per-host', default='auto',
+                        help="Rank processes this launcher starts on its "
+                             "host under --mesh, one per card: 'auto' "
+                             '(the host\'s card count; 1 with --device '
+                             'cpu or no card) or a count')
     parser.add_argument('--tokenizer', default='byte',
                         help="'byte' (built-in reversible byte-level) "
                              'or a local HuggingFace tokenizer path '
@@ -579,20 +594,34 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "(the server refuses to start without one); "
                              "'cpu' to run on the CPU")
     args = parser.parse_args(argv)
-    for dest, (flag, where) in _NOT_PORTED.items():
-        if getattr(args, dest):
-            parser.error(f'{flag} is not ported to the PyTorch server yet '
-                         f'({where})')
+    if args.mesh:
+        from skypilot_tpu_torch.train.launch import parse_mesh
+        try:
+            args.mesh_plan = parse_mesh(args.mesh)
+        except ValueError as e:
+            parser.error(f'--mesh: {e}')
+        if args.draft_model or args.spec_ngram:
+            parser.error(f'--mesh: {engine_lib.SPECULATIVE_MESH}')
+        msg = engine_lib.mesh_refusal(
+            args.mesh_plan,
+            None if args.hf_checkpoint else models.get_config(args.model),
+            args.kv_page_size > 0)
+        if msg:
+            parser.error(f'--mesh: {msg}')
+    else:
+        args.mesh_plan = None
     return args
 
 
 @dataclasses.dataclass
 class Replica:
     """A warm replica: the HTTP server (not yet serving) and what it
-    serves."""
+    serves; under a mesh of more than one rank, ``gang`` is the engine
+    the orchestrator talks to (``gang_lib.EngineProxy``)."""
     httpd: ThreadingHTTPServer
     loop: ServingLoop
     engine: engine_lib.InferenceEngine
+    gang: Optional[gang_lib.EngineProxy] = None
 
 
 def _orchestrator(args: argparse.Namespace,
@@ -635,11 +664,10 @@ def _orchestrator(args: argparse.Namespace,
     return orch
 
 
-def build_replica(args: argparse.Namespace,
-                  host: str = '0.0.0.0') -> Replica:
-    """Weights, engine, warm-up, serving loop and HTTP server for
-    ``args``; the server listens on (host, args.port) once the caller
-    runs ``httpd.serve_forever()``."""
+def build_engine(args: argparse.Namespace) -> engine_lib.InferenceEngine:
+    """The weights and the engine for ``args``: under ``--mesh`` this
+    rank's blocks of both (the process group up: ``distributed.
+    initialize``)."""
     device = resolve_device(args.device)
     hf_params = None
     if args.hf_checkpoint:
@@ -685,17 +713,54 @@ def build_replica(args: argparse.Namespace,
     # and each scale sees one layer, so the bytes are those of
     # quantize_params(init(...)); the engine's own quantize pass then
     # leaves the tree as it is. (A bf16 weight_dtype quantizes nothing.)
+    # Under a mesh each leaf is cut to this rank's block as it lands (a
+    # stack one layer at a time), so no rank holds a whole split leaf.
+    mesh = splits = None
+    if args.mesh_plan is not None:
+        msg = engine_lib.mesh_refusal(args.mesh_plan, model, config.paged)
+        if msg:
+            raise NotImplementedError(msg)
+        mesh = mesh_lib.build_mesh(args.mesh_plan)
+        shapes = model_lib.init(model, device='meta')
+        splits = mesh_lib.serving_splits(
+            mesh, model_lib.logical_axes(model), shapes)
+        logger.info('Rank %d of a %s mesh (%s)', mesh.rank, args.mesh,
+                    mesh.shape)
     if hf_params is not None:
-        params = qops.quantize_params_to(hf_params, weight_dtype, device)
+        params = qops.quantize_params_to(
+            hf_params, weight_dtype, device,
+            None if splits is None else mesh_lib.tree_cuts(splits))
         del hf_params
+    elif splits is not None:
+        with llama.draw_cuts(mesh_lib.draw_cuts_of(splits, shapes)):
+            params = mesh_lib.block_tree(
+                model_lib.init(model, device=device,
+                               weight_dtype=weight_dtype), splits)
     else:
         params = model_lib.init(model, device=device,
                                 weight_dtype=weight_dtype)
     if device.type == 'cuda':
         torch.cuda.empty_cache()   # the one-layer scratch of the build
-    engine = engine_lib.InferenceEngine(config, params, device=device)
-    orch = _orchestrator(args, engine)
+    return engine_lib.InferenceEngine(config, params, device=device,
+                                      mesh=mesh)
+
+
+def build_replica(args: argparse.Namespace,
+                  host: str = '0.0.0.0') -> Replica:
+    """Weights, engine, warm-up, serving loop and HTTP server for
+    ``args``; the server listens on (host, args.port) once the caller
+    runs ``httpd.serve_forever()``. Under a mesh of several ranks this is
+    global rank 0's part; the others run :func:`follow_replica`."""
+    engine = build_engine(args)
+    model = engine.config.model
+    config = engine.config
+    proxy = None
+    if distributed.world_size() > 1:
+        proxy = gang_lib.EngineProxy(engine, distributed.CommandChannel())
+    orch = _orchestrator(args, proxy or engine)
     warm_up(orch)
+    if proxy is not None:
+        proxy.barrier()   # every rank warm
     loop = ServingLoop(orch)
     try:
         tokenizer = tokenizer_lib.get_tokenizer(args.tokenizer,
@@ -712,15 +777,55 @@ def build_replica(args: argparse.Namespace,
         build_handler(loop, config, tokenizer=tokenizer,
                       model_id=args.model_id or default_id,
                       max_queue=args.max_queue))
-    return Replica(httpd, loop, engine)
+    return Replica(httpd, loop, engine, proxy)
+
+
+def follow_replica(args: argparse.Namespace) -> None:
+    """A rank other than 0 of a replica under a mesh: its engine runs
+    rank 0's calls until rank 0 stops the gang."""
+    gang_lib.follow(build_engine(args), distributed.CommandChannel())
+
+
+# A rank process of this host: this module, run again.
+RANK_COMMAND = ('-m', 'skypilot_tpu_torch.infer.server')
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """Serve as ``argv`` (default ``sys.argv[1:]``) says: one process, or
+    under ``--mesh`` one rank of a gang, or, where ``--procs-per-host``
+    comes to k > 1 and this process is no rank yet, the launcher of k
+    rank processes of ``python`` + ``RANK_COMMAND`` + ``argv`` (its exit
+    code: the first failing rank's)."""
     logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
     args = parse_args(argv)
-    replica = build_replica(args)
-    logger.info('Serving on :%d', replica.httpd.server_address[1])
-    replica.httpd.serve_forever()
+    if args.mesh_plan is None:
+        replica = build_replica(args)
+        logger.info('Serving on :%d', replica.httpd.server_address[1])
+        replica.httpd.serve_forever()
+        return 0
+    device_type = torch.device(args.device).type if args.device else 'cuda'
+    count = distributed.host_process_count(args.procs_per_host,
+                                           device_type)
+    if count > 1 and not distributed.is_rank_process():
+        return distributed.run_host([sys.executable, *RANK_COMMAND, *argv],
+                                    count)
+    distributed.initialize(device_type=device_type)
+    try:
+        if distributed.rank() != 0:
+            follow_replica(args)
+            return 0
+        replica = build_replica(args)
+        logger.info('Serving on :%d (rank 0 of %d)',
+                    replica.httpd.server_address[1],
+                    distributed.world_size())
+        try:
+            replica.httpd.serve_forever()
+        finally:
+            if replica.gang is not None:
+                replica.gang.stop()
+    finally:
+        distributed.shutdown()
     return 0
 
 

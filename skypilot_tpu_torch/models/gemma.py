@@ -267,8 +267,8 @@ def _trunk(config: GemmaConfig, params: Params, tokens: torch.Tensor,
     x = _embed(c, params, tokens)
     kv = None
     if return_kv:
-        shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,
-                                                       c.head_dim)
+        shape = (c.n_layers,) + tuple(tokens.shape) + (
+            llama.local_kv_heads(c), c.head_dim)
         kv = {'k': torch.empty(shape, dtype=c.dtype, device=x.device),
               'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
     rope = llama._rope_tables(positions, c.head_dim, c.rope_theta)

@@ -22,6 +22,7 @@ loss come in later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -133,6 +134,7 @@ class Draws:
 
     def __init__(self, config, generator: Optional[torch.Generator],
                  device: Device, weight_dtype=None) -> None:
+        self._cuts = _DRAW_CUTS
         self.device = resolve_device(device)
         if generator is None and self.device.type != 'meta':
             generator = torch.Generator(device=self.device)
@@ -156,20 +158,33 @@ class Draws:
     def _quantized(self, name: str, shape) -> bool:
         return self._quantize is not None and qops.quantizes(name, shape)
 
+    def _cuts_of(self, name: str, shape) -> qops.Cuts:
+        """The cuts of the leaf ``name`` of this whole shape
+        (``draw_cuts``), or () for a whole leaf."""
+        if self._cuts is None:
+            return ()
+        return self._cuts.get((name, tuple(shape)), ())
+
     def dense(self, name: str, shape, fan_in: int, dtype=None):
         """One unstacked weight (the embedding, the LM head)."""
+        cuts = self._cuts_of(name, shape)
         w = self._drawn(shape, fan_in, dtype)
-        return self._quantize(name, w) if self._quantized(name, shape) else w
+        w = self._quantize(name, w) if self._quantized(name, shape) else w
+        return qops.block(w, cuts)
 
     def stack(self, name: str, shape, fan_in: int, n: Optional[int] = None,
               dtype=None):
         """``n`` (the model's layers unless given) layers of ``shape``,
         stacked on a leading axis."""
         n = self.n_layers if n is None else n
+        cuts = self._cuts_of(name, (n,) + tuple(shape))
         if self._quantized(name, shape):
             return qops.quantized_stack(
                 name, n, lambda _: self._drawn(shape, fan_in, dtype),
-                self._quantize)
+                self._quantize, cuts)
+        if cuts:
+            return qops.stacked_blocks(
+                n, lambda _: self._drawn(shape, fan_in, dtype), cuts)
         out = torch.empty((n,) + tuple(shape), dtype=dtype or self.dtype,
                           device=self.device)
         for layer in range(n):
@@ -179,6 +194,29 @@ class Draws:
     def full(self, shape, value: float, dtype=None) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype or self.dtype,
                           device=self.device)
+
+
+# The cuts of the weights the next ``init`` draws (``draw_cuts``): None,
+# or {(leaf name, whole shape): cuts}.
+_DRAW_CUTS: Optional[Dict[Tuple[str, Tuple[int, ...]], Any]] = None
+
+
+@contextlib.contextmanager
+def draw_cuts(cuts):
+    """Within: a family's ``init`` (its ``Draws``) keeps this rank's block
+    of each drawn weight: ``cuts`` maps (leaf name, whole shape) to the
+    leaf's cuts (``mesh_lib.draw_cuts_of``), and each such leaf is drawn
+    whole, a stack one layer at a time, quantized whole and cut
+    (``qops.block``), so that the draws and the blocks' bytes are those
+    of a whole ``init`` cut afterwards, while no whole stacked weight is
+    ever held. Constant leaves (norms, biases) come whole: the caller
+    cuts them (``mesh_lib.block_tree``)."""
+    global _DRAW_CUTS
+    prev, _DRAW_CUTS = _DRAW_CUTS, cuts
+    try:
+        yield
+    finally:
+        _DRAW_CUTS = prev
 
 
 def logical_axes(config: LlamaConfig) -> Params:
@@ -664,6 +702,13 @@ def kv_heads(config) -> Tuple[int, int]:
     return first // group, (stop - 1) // group + 1
 
 
+def local_kv_heads(config) -> int:
+    """How many KV heads this rank's K/V (and its serving cache) hold:
+    :func:`kv_heads`' count."""
+    first, stop = kv_heads(config)
+    return stop - first
+
+
 def local_kv(config, w):
     """A leaf whose last dim holds every KV head (wk, wv; Qwen's bk, bv),
     whole on every rank, as this rank's heads read it: its columns of
@@ -746,7 +791,7 @@ def _trunk(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     x = embed_lookup(params['embed'], tokens).to(c.dtype)
     kv = None
     if return_kv:
-        shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,
+        shape = (c.n_layers,) + tuple(tokens.shape) + (local_kv_heads(c),
                                                        c.head_dim)
         kv = {'k': torch.empty(shape, dtype=c.dtype, device=x.device),
               'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
@@ -935,7 +980,7 @@ def decode_forward(config: LlamaConfig, params: Params,
     (fp32 logits [B,V], kv).
     """
     c = config
-    x = qops.embed_rows(params['embed'], last_tokens[:, None]).to(c.dtype)
+    x = embed_lookup(params['embed'], last_tokens[:, None]).to(c.dtype)
     rope = _rope_tables(positions[:, None], c.head_dim, c.rope_theta,
                         c.rope_scaling)
     for layer in range(c.n_layers):
@@ -964,7 +1009,7 @@ def paged_decode_forward(config: LlamaConfig, params: Params,
     page. Returns (fp32 logits [B, V], kv).
     """
     c = config
-    x = qops.embed_rows(params['embed'], last_tokens[:, None]).to(c.dtype)
+    x = embed_lookup(params['embed'], last_tokens[:, None]).to(c.dtype)
     rope = _rope_tables(positions[:, None], c.head_dim, c.rope_theta,
                         c.rope_scaling)
     arena = kv['k']
@@ -989,7 +1034,7 @@ def verify_hidden(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     none) projects only those through ``lm_logits``: eager PyTorch cannot
     drop an unused [B, S, V] product as XLA does."""
     c = config
-    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    x = embed_lookup(params['embed'], tokens).to(c.dtype)
     rope = _rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling)
     for layer in range(c.n_layers):
         ck = _cache_layer(kv['k'], layer)

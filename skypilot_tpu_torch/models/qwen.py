@@ -230,8 +230,8 @@ def _trunk(config: QwenConfig, params: Params, tokens: torch.Tensor,
     x = llama.embed_lookup(params['embed'], tokens).to(c.dtype)
     kv = None
     if return_kv:
-        shape = (c.n_layers,) + tuple(tokens.shape) + (c.n_kv_heads,
-                                                       c.head_dim)
+        shape = (c.n_layers,) + tuple(tokens.shape) + (
+            llama.local_kv_heads(c), c.head_dim)
         kv = {'k': torch.empty(shape, dtype=c.dtype, device=x.device),
               'v': torch.empty(shape, dtype=c.dtype, device=x.device)}
     rope = llama._rope_tables(positions, c.head_dim, c.rope_theta)
@@ -259,7 +259,7 @@ def _cached_trunk(config: QwenConfig, params: Params, tokens: torch.Tensor,
     decode step, which goes to the decode kernel, or [B, S]) → the
     final-normed hidden [B, S, D]."""
     c = config
-    x = qops.embed_rows(params['embed'], tokens).to(c.dtype)
+    x = llama.embed_lookup(params['embed'], tokens).to(c.dtype)
     rope = llama._rope_tables(positions, c.head_dim, c.rope_theta)
     for layer in range(c.n_layers):
         cache = (llama._cache_layer(kv['k'], layer),

@@ -28,7 +28,7 @@ branches are for serving only and refuse a gradient.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -549,18 +549,79 @@ def leaf_quantizer(weight_dtype) -> Optional[Callable[[str, Any], Any]]:
                      "torch.int8 or 'int4'")
 
 
+# One cut of a leaf: (dim, parts, index), this rank keeping block
+# ``index`` of ``parts`` equal blocks along ``dim``.
+Cuts = Tuple[Tuple[int, int, int], ...]
+
+
+def _chunk(t: torch.Tensor, dim: int, parts: int, index: int
+           ) -> torch.Tensor:
+    return t.chunk(parts, dim)[index]
+
+
+def block(leaf, cuts: Cuts):
+    """This rank's block of a plain or quantized leaf (a contiguous copy),
+    ``cuts`` counted on its logical dims. A quantized leaf is cut with
+    its scales: int8 scales (one per output column) are kept whole along
+    the contraction dim, whose cut leaves them as they are, and cut with
+    every other dim; an int4 leaf's contraction cut must fall on its
+    groups of rows, whose scales go with them. Quantizing the whole leaf
+    and then cutting gives the scales the whole leaf has."""
+    for dim, parts, index in cuts:
+        dim %= leaf.ndim
+        if isinstance(leaf, QuantizedTensor):
+            cdim = leaf.ndim + leaf.axis
+            scale = leaf.scale if dim == cdim else _chunk(
+                leaf.scale, dim - (dim > cdim), parts, index)
+            leaf = QuantizedTensor(_chunk(leaf.q, dim, parts, index),
+                                   scale, leaf.axis)
+        elif isinstance(leaf, Quantized4Tensor):
+            if (dim == leaf.ndim + leaf.axis
+                    and (leaf.shape[dim] // parts) % leaf.group):
+                raise ValueError(
+                    f'int4 weights of {leaf.shape[dim]} contraction rows '
+                    f'in groups of {leaf.group} do not split into {parts} '
+                    'blocks of whole groups: the tensor split cuts a '
+                    'group. Serve this split with --weight-dtype int8.')
+            leaf = Quantized4Tensor(
+                _chunk(leaf.q_packed, dim, parts, index),
+                _chunk(leaf.scale, dim, parts, index), leaf.axis,
+                leaf.group)
+        else:
+            leaf = _chunk(leaf, dim, parts, index)
+    if isinstance(leaf, QuantizedTensor):
+        return QuantizedTensor(leaf.q.contiguous(), leaf.scale.contiguous(),
+                               leaf.axis)
+    if isinstance(leaf, Quantized4Tensor):
+        return Quantized4Tensor(leaf.q_packed.contiguous(),
+                                leaf.scale.contiguous(), leaf.axis,
+                                leaf.group)
+    return leaf.contiguous()
+
+
+def layer_cuts(cuts: Cuts) -> Cuts:
+    """The cuts of one layer of a stacked leaf (whose leading layer dim
+    is never cut)."""
+    if any(dim == 0 for dim, _, _ in cuts):
+        raise ValueError('a stacked leaf is never cut along its layers')
+    return tuple((dim - 1, parts, index) for dim, parts, index in cuts)
+
+
 def quantized_stack(name: str, n: int, layer: Callable[[int], torch.Tensor],
-                    leaf_fn: Callable[[str, Any], Any]):
+                    leaf_fn: Callable[[str, Any], Any],
+                    cuts: Cuts = ()):
     """A stacked ``[n, ...]`` weight quantized one layer at a time:
     ``layer(i)`` gives layer i's full-precision slice, ``leaf_fn`` (see
     leaf_quantizer) quantizes it, and its values and scales land in the
     stack's own tensors. The contraction axis is counted from the end, so
     each layer's scales come from that layer alone: the bytes are those
     of ``leaf_fn(name, whole stack)``, while no more than one layer is
-    ever held in full precision."""
+    ever held in full precision. With ``cuts`` (the stack's, see
+    :func:`block`) each quantized layer is cut to this rank's block
+    before it lands, so the stack is only ever held as blocks."""
     out = None
     for i in range(n):
-        part = leaf_fn(name, layer(i))
+        part = block(leaf_fn(name, layer(i)), layer_cuts(cuts))
         fields = {f.name: getattr(part, f.name)
                   for f in dataclasses.fields(part)
                   if torch.is_tensor(getattr(part, f.name))}
@@ -573,27 +634,55 @@ def quantized_stack(name: str, n: int, layer: Callable[[int], torch.Tensor],
     return dataclasses.replace(part, **out)
 
 
-def quantize_params_to(params: Params, weight_dtype, device) -> Params:
+def stacked_blocks(n: int, layer: Callable[[int], torch.Tensor],
+                   cuts: Cuts) -> torch.Tensor:
+    """A full-precision ``[n, ...]`` stack of this rank's blocks (see
+    :func:`block`; ``cuts`` are the stack's), ``layer(i)`` giving layer
+    i whole: one layer is whole at a time."""
+    out = None
+    for i in range(n):
+        part = block(layer(i), layer_cuts(cuts))
+        if out is None:
+            out = torch.empty((n,) + tuple(part.shape), dtype=part.dtype,
+                              device=part.device)
+        out[i] = part
+    return out
+
+
+def quantize_params_to(params: Params, weight_dtype, device,
+                       cuts=None) -> Params:
     """quantize_params (``torch.int8``) or quantize_params_int4
     (``'int4'``) of ``params`` (a converted tree on the host, say), its
     result on ``device``: each leaf moves there before it is quantized,
     a stacked ``[L, ...]`` weight one layer at a time (quantized_stack),
     so the device never holds more than one layer of a full-precision
-    stack. Leaves that stay full precision move as they are."""
+    stack. Leaves that stay full precision move as they are. ``cuts``, a
+    tree like ``params`` of :data:`Cuts` (or None), keeps this rank's
+    block of each leaf: quantized whole, then cut (:func:`block`), a
+    stack layer by layer, so no whole stacked leaf reaches ``device``."""
     leaf_fn = leaf_quantizer(weight_dtype)
     out = {}
     for key, value in params.items():
+        cut = () if cuts is None or cuts.get(key) is None else cuts[key]
         if isinstance(value, dict):
-            out[key] = quantize_params_to(value, weight_dtype, device)
+            out[key] = quantize_params_to(value, weight_dtype, device,
+                                          None if cuts is None
+                                          else cuts.get(key))
         elif leaf_fn is not None and _to_quantize(key, value):
             if value.ndim >= 3:
                 out[key] = quantized_stack(
                     key, value.shape[0],
-                    lambda i, value=value: value[i].to(device), leaf_fn)
+                    lambda i, value=value: value[i].to(device), leaf_fn,
+                    cut)
             else:
-                out[key] = leaf_fn(key, value.to(device))
+                out[key] = block(leaf_fn(key, value.to(device)), cut)
+        elif cut and value.ndim >= 3:
+            # A full-precision stack: moved and cut one layer at a time.
+            out[key] = stacked_blocks(
+                value.shape[0], lambda i, value=value: value[i].to(device),
+                cut)
         else:
-            out[key] = value.to(device)
+            out[key] = block(value.to(device), cut)
     return out
 
 

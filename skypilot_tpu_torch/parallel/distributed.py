@@ -36,6 +36,7 @@ import ctypes
 import datetime
 import logging
 import os
+import pickle
 import signal
 import socket
 import subprocess
@@ -256,6 +257,8 @@ def initialize(coordinator_address: Optional[str] = None,
     backend = _choose_backend(store, rank, world, device_type)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world, timeout=TIMEOUT)
+    global _STORE
+    _STORE = store
     os.environ[ENV_RANK] = str(rank)
     shared = ' (ranks share a card)' if (
         device_type == 'cuda' and backend == 'gloo') else ''
@@ -263,6 +266,10 @@ def initialize(coordinator_address: Optional[str] = None,
         f'torch.distributed up: rank {rank}/{world} (host {host_rank}/'
         f'{num_hosts}, local {local_rank}/{local_size}), backend '
         f'{backend}{shared}, coordinator {coordinator_address}.')
+
+
+# The coordinator's store of the group ``initialize`` brought up.
+_STORE = None
 
 
 def rank() -> int:
@@ -290,8 +297,70 @@ def agree(flag: bool) -> bool:
 
 def shutdown() -> None:
     """Tear the default group down (each process once, at its end)."""
+    global _STORE
     if dist.is_initialized():
         dist.destroy_process_group()
+    _STORE = None
+
+
+class CommandChannel:
+    """Rank 0's commands to every other rank of the group, in order,
+    through the coordinator's TCP store (:func:`initialize`): rank 0
+    sends a picklable object (:meth:`send`), each other rank takes the
+    next one (:meth:`recv`). A receiver waits without a limit: a follower of an idle
+    serving replica waits for hours, where a collective would fail after
+    ``TIMEOUT``. It fails when the store does (rank 0, which holds it,
+    gone). Every ``_PRUNE_EVERY`` commands each receiver posts how far it
+    has read, and rank 0 deletes the commands that every receiver has
+    read, so the store holds a bounded backlog."""
+
+    _KEY = 'xsky/cmd/'
+    _READ = 'xsky/cmd-read/'
+    _PRUNE_EVERY = 256
+    # One wait on the store; a receiver that times out waits again.
+    _WAIT = datetime.timedelta(hours=1)
+
+    def __init__(self, store=None) -> None:
+        self._store = store if store is not None else _STORE
+        if self._store is None:
+            raise RuntimeError('no process group: distributed.initialize '
+                               'brings one up first')
+        self._rank = rank()
+        self._world = world_size()
+        self._next = 0      # the next command's index
+        self._pruned = 0    # rank 0: commands below this are deleted
+
+    def send(self, obj) -> None:
+        self._store.set(f'{self._KEY}{self._next}', pickle.dumps(obj))
+        self._next += 1
+        if self._next % self._PRUNE_EVERY == 0:
+            self._prune()
+
+    def recv(self):
+        key = f'{self._KEY}{self._next}'
+        while True:
+            try:
+                self._store.wait([key], self._WAIT)
+                break
+            except RuntimeError as e:   # DistStoreError where it exists
+                if 'timeout' not in str(e).lower():
+                    raise
+        obj = pickle.loads(self._store.get(key))
+        self._next += 1
+        if self._next % self._PRUNE_EVERY == 0:
+            self._store.set(f'{self._READ}{self._rank}', str(self._next))
+        return obj
+
+    def _prune(self) -> None:
+        read = []
+        for r in range(1, self._world):
+            key = f'{self._READ}{r}'
+            read.append(int(self._store.get(key))
+                        if self._store.check([key]) else 0)
+        upto = min(read, default=self._next)
+        for i in range(self._pruned, upto):
+            self._store.delete_key(f'{self._KEY}{i}')
+        self._pruned = max(self._pruned, upto)
 
 
 # ---- collectives ----

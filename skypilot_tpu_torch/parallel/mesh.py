@@ -692,3 +692,121 @@ def expert_sum(x: torch.Tensor) -> torch.Tensor:
     if _EXPERT is None:
         return x
     return _TensorSum.apply(x, _EXPERT.group)
+
+
+# ---- serving: slots over the batch axes, weights over tensor and expert -----
+
+# The mesh axes a serving replica's slots split over (the reference's
+# KV-cache spec: slots over ('data', 'fsdp'), KV heads over 'tensor').
+SLOT_AXES = ('data', 'fsdp')
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingLayout:
+    """How one replica's engine lies on this rank: its ``slots`` split in
+    rank order into ``parts`` equal blocks over ``group`` (the ranks along
+    ``SLOT_AXES``), this rank decoding block ``index``; the heads, MLP
+    columns and vocabulary over ``tensor`` and the routed experts over
+    ``expert`` (each a :class:`TensorSplit`, or None for one rank). The
+    weights are whole over the slot axes."""
+    slots: int
+    parts: int
+    index: int
+    group: Any
+    tensor: Optional[TensorSplit]
+    expert: Optional[TensorSplit]
+
+    @property
+    def local_slots(self) -> int:
+        return self.slots // self.parts
+
+    @property
+    def slot_block(self) -> Tuple[int, int]:
+        """[first, stop) of the slots this rank decodes."""
+        first = self.index * self.local_slots
+        return first, first + self.local_slots
+
+
+def serving_layout(mesh: Mesh, slots: int) -> ServingLayout:
+    """The serving layout of ``slots`` decode slots on this rank of
+    ``mesh``; makes its process groups (every rank, in one order)."""
+    parts = mesh.axes_size(SLOT_AXES)
+    if slots % parts:
+        raise ValueError(
+            f'max_slots {slots} does not split into {parts} equal blocks '
+            f'over the mesh\'s data x fsdp ranks ({mesh.shape["data"]} x '
+            f'{mesh.shape["fsdp"]}): give a multiple of {parts}.')
+    group = mesh.group(SLOT_AXES)
+    splits = {}
+    for axis in ('tensor', 'expert'):
+        n = mesh.shape[axis]
+        splits[axis] = (TensorSplit(n, mesh.coords[axis], mesh.group((axis,)))
+                        if n > 1 else None)
+    return ServingLayout(slots, parts, mesh.axes_index(SLOT_AXES), group,
+                         splits['tensor'], splits['expert'])
+
+
+def serving_splits(mesh: Mesh, logical_tree, shape_tree,
+                   rules: LogicalRules = DEFAULT_RULES):
+    """The Split (or None) of every leaf of ``shape_tree`` as a serving
+    replica holds it: the training rules' cuts over ``tensor`` and
+    ``expert`` alone (a leaf is whole over the slot axes, which split
+    slots, not weights)."""
+    if isinstance(shape_tree, dict):
+        return {k: serving_splits(mesh, logical_tree[k], v, rules)
+                for k, v in shape_tree.items()}
+    split = split_for(mesh, logical_to_spec(logical_tree, rules),
+                      shape_tree.shape)
+    cuts = () if split is None else tuple(c for c in split.cuts if c.kept)
+    if not cuts:
+        return None
+    group = (cuts[0].group if len(cuts) == 1 else
+             mesh.group(tuple(a for c in cuts for a in c.axes)))
+    return Split(split.shape, cuts, group)
+
+
+def split_cuts(split: Optional[Split]) -> Tuple[Tuple[int, int, int], ...]:
+    """``split``'s cuts as ``qops.block`` takes them: (dim, parts,
+    index) each."""
+    if split is None:
+        return ()
+    return tuple((c.dim, c.parts, c.index) for c in split.cuts)
+
+
+def draw_cuts_of(splits, shapes) -> Dict[Tuple[str, Tuple[int, ...]],
+                                         Tuple[Tuple[int, int, int], ...]]:
+    """{(leaf name, whole shape): its cuts} over a tree of Splits and the
+    tree of shapes it splits (a family's meta ``init``): what
+    ``llama.draw_cuts`` takes. Leaves of one name and shape (the
+    attention of DeepSeek's dense and routed layers) share their logical
+    axes, hence their cuts."""
+    out: Dict[Tuple[str, Tuple[int, ...]], Any] = {}
+
+    def walk(split, shape, name):
+        if isinstance(shape, dict):
+            for k in shape:
+                walk(split[k], shape[k], k)
+            return
+        key, cuts = (name, tuple(shape.shape)), split_cuts(split)
+        if out.setdefault(key, cuts) != cuts:
+            raise ValueError(f'leaves {key} are cut two ways')
+    walk(splits, shapes, None)
+    return out
+
+
+def block_tree(params, splits):
+    """This rank's blocks of ``params``: a leaf of the whole shape is cut
+    (``qops.block``), a leaf already of its block's shape kept."""
+    from skypilot_tpu_torch.ops import quantization as qops
+    if isinstance(params, dict):
+        return {k: block_tree(params[k], splits[k]) for k in params}
+    if splits is None or tuple(params.shape) != tuple(splits.shape):
+        return params
+    return qops.block(params, split_cuts(splits))
+
+
+def tree_cuts(splits):
+    """``split_cuts`` of every leaf of a tree of Splits."""
+    if isinstance(splits, dict):
+        return {k: tree_cuts(v) for k, v in splits.items()}
+    return split_cuts(splits)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import signal
+import threading
 import time
 
 import pytest
@@ -211,8 +212,25 @@ def _newer_heartbeat(spool, first):
     return sample if sample and sample['hb_ts'] > first['hb_ts'] else None
 
 
+def _own_thread_emits(monkeypatch):
+    """Only this test's thread reaches the spools and the chaos counts. A
+    reference ServingLoop that another test module of the same worker
+    process left running declares itself idle about once a second through
+    ``telemetry.emit``, reading the spool directory and rank from the
+    environment as this test sets them: its emit is one more
+    ``telemetry.stall`` hit (the fired count), and its idle sample (step
+    None, new progress) replaces the rank's spool file between the test's
+    writes and its read."""
+    me = threading.get_ident()
+    for mod in (telemetry, jax_telemetry):
+        monkeypatch.setattr(
+            mod, 'emit', lambda *a, _emit=mod.emit, **k: (
+                _emit(*a, **k) if threading.get_ident() == me else None))
+
+
 def test_telemetry_stall_freezes_progress_while_the_heartbeat_goes_on(
         monkeypatch, tmp_path):
+    _own_thread_emits(monkeypatch)
     monkeypatch.setenv('XSKY_TELEMETRY_INTERVAL_S', '0')
     monkeypatch.setenv('XSKY_HOST_RANK', '0')
     plan = {'points': {'telemetry.stall': {'match': {'rank': 0},

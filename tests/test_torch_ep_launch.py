@@ -184,7 +184,11 @@ def test_refusals_that_stay_name_their_items(plan, lora, match):
 
 
 def test_the_server_still_refuses_a_mesh(capsys):
+    """serve_mixtral.yaml's --mesh expert=8 parses (item 8f); the server
+    still refuses a mesh with speculation (item 8f-ii)."""
+    assert server_lib.parse_args(['--model', 'mixtral-8x7b', '--mesh',
+                                  'expert=8']).mesh_plan.expert == 8
     with pytest.raises(SystemExit):
         server_lib.parse_args(['--model', 'mixtral-8x7b', '--mesh',
-                               'expert=8'])
-    assert 'queue 1 item 8f' in capsys.readouterr().err
+                               'expert=8', '--spec-ngram'])
+    assert 'queue 1 item 8f-ii' in capsys.readouterr().err

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import signal
+import threading
 import time
 
 import jax
@@ -178,8 +179,22 @@ def test_engine_decode_steps_match_the_reference(params, logprobs):
                                   np.asarray(js['lengths']))
 
 
+def _own_thread_injects(monkeypatch):
+    """Only this test's thread reaches the chaos points. A reference
+    ServingLoop that another test module of the same worker process left
+    running steps its orchestrator about once a second, and each step
+    traverses ``infer.decode_stall``: one more hit, and the plan's rule
+    may fire on that thread instead of this test's second tick."""
+    me = threading.get_ident()
+    for mod in (chaos, jax_chaos):
+        monkeypatch.setattr(
+            mod, 'inject', lambda *a, _inject=mod.inject, **k: (
+                _inject(*a, **k) if threading.get_ident() == me else None))
+
+
 @pytest.mark.parametrize('fast', [True, False], ids=['fast', 'legacy'])
 def test_decode_stall_lengthens_one_tick(params, monkeypatch, fast):
+    _own_thread_injects(monkeypatch)
     monkeypatch.setenv('XSKY_DECODE_FAST_TICK', '1' if fast else '0')
     plan = {'points': {'infer.decode_stall': {'skip_first': 1,
                                               'first_n': 1,

@@ -236,3 +236,156 @@ def test_an_expert_stack_splits_on_two_dims_and_gathers_back(tmp_path):
                                        rtol=0)
         torch.testing.assert_close(got['norm'], torch.sum(whole * whole),
                                    atol=1e-4, rtol=1e-6)
+
+
+# ---- the serving layout: slots over data x fsdp, weights over tensor and
+# expert --------------------------------------------------------------------
+
+def _no_groups(monkeypatch):
+    """Layouts and splits made with no process group (every group None)."""
+    monkeypatch.setattr(mesh_lib.Mesh, 'group', lambda self, axes: None)
+
+
+@pytest.mark.parametrize('kw', [dict(data=2, fsdp=2, tensor=2),
+                                dict(data=4, expert=2), dict(data=8),
+                                dict(data=1, fsdp=2, tensor=4)],
+                         ids=['d2f2t2', 'd4e2', 'd8', 'f2t4'])
+def test_a_rank_serves_the_cache_block_jax_gives_its_device(kw,
+                                                            monkeypatch):
+    """Each rank's slots and KV heads are the block of the reference's
+    KV-cache spec, ``(None, ('data', 'fsdp'), None, 'tensor', None)``,
+    that ``NamedSharding`` gives its device (at tensor 4 over 2 KV heads
+    two ranks share each head, as the reference replicates it)."""
+    _no_groups(monkeypatch)
+    from skypilot_tpu_torch.models import llama
+    cfg = models.get_config('tiny')        # 4 query heads, 2 KV heads
+    slots, kvh = 8, cfg.n_kv_heads
+    jmesh = jax_mesh.build_mesh(jax_mesh.MeshPlan(**kw),
+                                devices=jax.devices()[:8])
+    spec = jax.sharding.PartitionSpec(None, ('data', 'fsdp'), None,
+                                      'tensor' if kw.get('tensor', 1) <= kvh
+                                      else None, None)
+    index_map = jax.sharding.NamedSharding(jmesh, spec).devices_indices_map(
+        (2, slots, 16, kvh, 16))
+    for device, index in index_map.items():
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw), world=8,
+                                   rank=device.id)
+        layout = mesh_lib.serving_layout(mesh, slots)
+        first, stop = layout.slot_block
+        assert (first, stop) == (index[1].start or 0, index[1].stop or slots)
+        with mesh_lib.tensor_split(layout.tensor):
+            heads = llama.kv_heads(cfg)
+        want = range(kvh)[index[3]]
+        if kw.get('tensor', 1) > kvh:      # a shared head: the rank's own
+            group = kw['tensor'] // kvh
+            want = range(mesh.coords['tensor'] // group,
+                         mesh.coords['tensor'] // group + 1)
+        assert heads == (want.start, want.stop)
+
+
+def _int8(shape, seed=0):
+    from skypilot_tpu_torch.ops import quantization as qops
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    return w, qops.quantize(w, -2)
+
+
+@pytest.mark.parametrize('dim', [1, 2], ids=['contraction', 'columns'])
+@pytest.mark.parametrize('kind', ['int8', 'int4'])
+def test_quantized_blocks_put_back_equal_the_whole_leaf(kind, dim):
+    """A quantized stacked weight [L, in, out] cut along its contraction
+    rows or its output columns: the blocks' values and scales, put back
+    together, are the whole leaf's (int8 scales per output column stay
+    whole under a row cut; int4's row groups go with their scales), and
+    each block dequantizes to the whole leaf's dequantized block."""
+    from skypilot_tpu_torch.ops import quantization as qops
+    w = torch.randn((2, 512, 64), generator=torch.Generator().manual_seed(1))
+    whole = (qops.quantize(w, -2) if kind == 'int8'
+             else qops.quantize4(w, -2, 128))
+    parts = 2
+    blocks = [qops.block(whole, ((dim, parts, i),)) for i in range(parts)]
+    deq = (qops.dequantize if kind == 'int8' else qops.dequantize4)
+    full = deq(whole, torch.float32)
+    for i, b in enumerate(blocks):
+        torch.testing.assert_close(deq(b, torch.float32),
+                                   full.chunk(parts, dim)[i], rtol=0,
+                                   atol=0)
+    if kind == 'int8':
+        q = torch.cat([b.q for b in blocks], dim)
+        scale = (blocks[0].scale if dim == 1 else
+                 torch.cat([b.scale for b in blocks], dim - 1))
+        assert torch.equal(q, whole.q) and torch.equal(scale, whole.scale)
+        if dim == 1:
+            assert all(torch.equal(b.scale, whole.scale) for b in blocks)
+    else:
+        assert torch.equal(torch.cat([b.q_packed for b in blocks], dim),
+                           whole.q_packed)
+        assert torch.equal(torch.cat([b.scale for b in blocks], dim),
+                           whole.scale)
+
+
+def test_an_int4_cut_inside_a_row_group_is_refused():
+    from skypilot_tpu_torch.ops import quantization as qops
+    w = torch.randn((256, 64), generator=torch.Generator().manual_seed(2))
+    with pytest.raises(ValueError, match='cuts a group'):
+        qops.block(qops.quantize4(w, -2, 128), ((0, 4, 1),))
+
+
+@pytest.mark.parametrize('weight_dtype', [None, 'int8', 'int4'])
+@pytest.mark.parametrize('name,kw', [
+    ('tiny', dict(data=1, tensor=2)), ('qwen-tiny', dict(data=1, tensor=2)),
+    ('gemma2-tiny', dict(data=1, tensor=2)),
+    ('moe-tiny', dict(data=1, expert=2)),
+    ('deepseek-tiny', dict(data=1, expert=2))],
+    ids=['llama', 'qwen', 'gemma2', 'moe', 'deepseek'])
+def test_blocks_drawn_as_init_draws_are_the_whole_init_cut(
+        name, kw, weight_dtype, monkeypatch):
+    """A rank's tree drawn with its cuts (``llama.draw_cuts``: each
+    weight drawn whole, a stack one layer at a time, quantized, then cut;
+    the constant leaves cut after) equals the whole ``init`` (quantized
+    as drawn) cut afterwards (``mesh_lib.block_tree``), bit for bit, leaf
+    by leaf, on every rank of the plan; the serving splits cut only
+    tensor and expert dims. int4 under a tensor split whose row cut
+    falls inside a row group is refused."""
+    _no_groups(monkeypatch)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import quantization as qops
+    cfg = models.get_config(name)
+    lib = models.module_for(cfg)
+    wd = {'int8': torch.int8, 'int4': 'int4', None: None}[weight_dtype]
+    whole = lib.init(cfg, device='cpu', weight_dtype=wd)
+    shapes = lib.init(cfg, device='meta')
+    for rank in range(2):
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**kw), world=2,
+                                   rank=rank)
+        splits = mesh_lib.serving_splits(mesh, lib.logical_axes(cfg),
+                                         shapes)
+        assert all(c.kept for s in _tree_leaves(splits) if s is not None
+                   for c in s.cuts)
+        if weight_dtype == 'int4' and 'tensor' in kw:
+            # wo's and w_down's contraction rows are cut: 32 and 64 rows
+            # a block, inside the tiny models' row groups (64 and 128).
+            with pytest.raises(ValueError, match='cuts a group'):
+                with llama.draw_cuts(mesh_lib.draw_cuts_of(splits, shapes)):
+                    lib.init(cfg, device='cpu', weight_dtype=wd)
+            continue
+        with llama.draw_cuts(mesh_lib.draw_cuts_of(splits, shapes)):
+            drawn = mesh_lib.block_tree(
+                lib.init(cfg, device='cpu', weight_dtype=wd), splits)
+        want = mesh_lib.block_tree(whole, splits)
+        for got_leaf, want_leaf in zip(_tree_leaves(drawn), _tree_leaves(want)):
+            if qops.is_quantized(want_leaf):
+                for f in ('q', 'q_packed', 'scale'):
+                    if hasattr(want_leaf, f):
+                        assert torch.equal(getattr(got_leaf, f),
+                                           getattr(want_leaf, f))
+            else:
+                assert torch.equal(got_leaf, want_leaf)
+        assert qops.params_nbytes(drawn) < qops.params_nbytes(whole)
+        assert _tree_leaves(mesh_lib.tree_cuts(splits)) == [
+            mesh_lib.split_cuts(s) for s in _tree_leaves(splits)]
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]

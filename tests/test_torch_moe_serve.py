@@ -10,7 +10,8 @@ a sliding window converts to the reference's tree bit for bit and gives
 its logits (the window carried in the config, ignored by both models).
 ``moe-tiny`` replicas through ``infer/server.py`` (int8 weights built as
 drawn, and ``--spec-ngram``; a converted checkpoint) serve their own
-orchestrator's tokens; ``--mesh`` and the paged cache are refused.
+orchestrator's tokens; ``--mesh tensor=2`` and the paged cache are
+refused.
 
 Weights come from the JAX ``init`` in fp32 with the norm scales redrawn
 from a numpy seed; the JAX engine takes its masked XLA decode path
@@ -328,13 +329,18 @@ def test_moe_replica_serves_its_orchestrators_tokens(hf_dir, case):
 
 
 def test_mesh_and_paged_replicas_are_refused(capsys):
-    """``--mesh expert=8`` (serve_mixtral.yaml's sharding) exits naming
-    queue 1 item 8; a paged moe-tiny replica raises as the reference's
-    engine does (no paged hook for the family)."""
+    """``--mesh expert=8`` (serve_mixtral.yaml's sharding) parses, and
+    ``--mesh tensor=2`` exits naming queue 1 item 8b-ii (tensor
+    parallelism for the routed families); a paged moe-tiny replica
+    raises as the reference's engine does (no paged hook for the
+    family)."""
+    args = server_lib.parse_args(['--model', 'mixtral-8x7b', '--mesh',
+                                  'expert=8'])
+    assert args.mesh_plan.expert == 8
     with pytest.raises(SystemExit):
         server_lib.parse_args(['--model', 'mixtral-8x7b', '--mesh',
-                               'expert=8'])
-    assert 'queue 1 item 8' in capsys.readouterr().err
+                               'tensor=2'])
+    assert 'queue 1 item 8b-ii' in capsys.readouterr().err
     with pytest.raises(NotImplementedError,
                        match='moe has no paged_decode_forward hook'):
         server_lib.build_replica(server_lib.parse_args(

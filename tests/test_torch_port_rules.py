@@ -259,17 +259,21 @@ def test_server_refuses_to_start_without_a_card(no_card):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--mesh', 'data=2'], 'queue 1 item 8'),
-    (['--mesh', 'tensor=4'], 'queue 1 item 8'),
+    (['--mesh', 'sequence=2'], 'queue 1 item 8c'),
+    (['--mesh', 'stage=2'], 'queue 1 item 8d'),
 ])
 def test_server_flags_not_ported_yet_exit_naming_their_item(capsys, flags,
                                                             item):
+    """The server serves under --mesh (item 8f); the mesh axes not ported
+    yet still exit, naming their sub-item."""
     from skypilot_tpu_torch.infer import server as server_lib
     with pytest.raises(SystemExit) as exit_info:
         server_lib.parse_args(['--model', 'tiny'] + flags)
     assert exit_info.value.code == 2
     err = capsys.readouterr().err
-    assert f'{flags[0]} is not ported' in err and item in err
+    assert f'{flags[0]}: ' in err and 'not ported' in err and item in err
+    assert server_lib.parse_args(['--model', 'tiny', '--mesh',
+                                  'data=2']).mesh_plan.data == 2
 
 
 def test_chip_smoke_quantized_phases_name_their_kernels():
@@ -594,7 +598,8 @@ def test_chip_smoke_mixtral_phases_check_their_derived_launches():
         replica.index('count_flash_waves(') < replica.index(
         'zero_launches()') < replica.index('/generate') < replica.index(
         'check_derived_launches(') < replica.index(
-        "'mixtral_serve'") < replica.index('.generate(') < replica.index(
+        "'mixtral_serve'") < replica.index(
+        '.submit(orch_lib.Request(') < replica.index(
         'replica.loop.close()')
     assert 'SERVE_KERNELS' in inspect.getsource(
         chip_smoke.small_mixtral_end_to_end)
@@ -710,4 +715,46 @@ def test_chip_smoke_mesh_phase_checks_every_rank():
     order = [main.index(call) for call in (
         'hooks_path(records)', 'mesh_train_path(records)',
         'expert_train_path(records)', "print(json.dumps({'ok': True")]
+    assert order == sorted(order)
+
+
+def test_chip_smoke_serving_mesh_phase_checks_every_rank():
+    """Phase [39] runs last: each replica a gang that one server launcher
+    starts (``--procs-per-host``, its ranks running
+    chip_smoke.serve_rank, which reports through files), (a)
+    serve_mixtral.yaml's at expert=2 against [30]'s outputs, (b) at
+    data=2 x tensor=2 and (c) at data=2 x expert=2 beside one rank; every
+    rank's kernels held to the counts derived from its own steps and
+    waves, every rank's tokens and weight and cache bytes checked."""
+    import inspect
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    assert (chip_smoke.MESH_SERVE_A['model'], chip_smoke.MESH_SERVE_A[
+        'mesh'], chip_smoke.MESH_SERVE_A['procs']) == (
+        'mixtral-8x7b', 'expert=2', 2)
+    assert (chip_smoke.MESH_SERVE_B['mesh'], chip_smoke.MESH_SERVE_B[
+        'procs'], chip_smoke.MESH_SERVE_C['mesh'],
+        chip_smoke.MESH_SERVE_C['procs']) == (
+        'data=2,tensor=2', 4, 'data=2,expert=2', 4)
+    rank = inspect.getsource(chip_smoke.serve_rank)
+    assert "'build_engine'" in rank and 'ENV_LOCAL_RANK' in rank
+    watch = inspect.getsource(chip_smoke.RankWatch)
+    assert watch.index('zero_launches()') < watch.index('kernels.REGISTRY')
+    launcher = inspect.getsource(chip_smoke.serve_launcher)
+    assert 'RANK_COMMAND' in launcher and 'SERVE_RANK_CODE' in launcher
+    check = inspect.getsource(chip_smoke.check_mesh_ranks)
+    for name in ('check_derived_launches(', 'expected_rank_bytes(',
+                 "'kv_bytes'", "'tokens'"):
+        assert name in check
+    for phase in (chip_smoke.mesh_serve_mixtral, chip_smoke.mesh_serve_llama,
+                  chip_smoke.mesh_serve_deepseek):
+        body = inspect.getsource(phase)
+        assert body.index('mesh_gang_serve(') < body.index(
+            'check_mesh_ranks(') < body.index('held_logprobs(')
+    assert 'gang.stop()' in inspect.getsource(chip_smoke.mesh_serve_mixtral)
+    assert 'SIGKILL' in inspect.getsource(chip_smoke.mesh_serve_llama)
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        'mixtral_replica(records)', 'expert_train_path(records)',
+        'serve_mesh_path(records)', "print(json.dumps({'ok': True")]
     assert order == sorted(order)

@@ -28,7 +28,17 @@ rank processes each write ``OUT_DIR/rank-<i>.json`` so. The fourth,
 
 runs ``CALLS[NAME]`` (a collective check of the mesh pieces) on the
 ``torch.save``d SPEC as rank RANK of a gloo gang and saves its result to
-OUT (``call_gang``). Imports no JAX.
+OUT (``call_gang``). The fifth,
+
+    python tests/torch_gang_worker.py serve SPEC RANK WORLD PORT OUT
+
+serves each case of SPEC (``serve_case``: a model, its whole initial tree
+as numpy, a mesh plan, EngineConfig keywords and requests) as one rank of
+a replica under that mesh: rank 0 drives an orchestrator through the
+gang's engine proxy, the others follow (``infer/gang.py``); each rank
+saves its slot-cache shape, its weight blocks' shapes and bytes, the
+tokens of every decode step it ran, and rank 0 the requests' outputs
+(``serve_gang``). Imports no JAX.
 """
 from __future__ import annotations
 
@@ -354,6 +364,84 @@ def call_gang(name: str, spec, world: int, tmp_dir: str,
     return [torch.load(o, weights_only=False) for o in outs]
 
 
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def serve_case(case, rank, channel):
+    """One case of a serving gang on this rank (see the module doc)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import gang as gang_lib
+    from skypilot_tpu_torch.infer import orchestrator as orch_lib
+    from skypilot_tpu_torch.ops import quantization as qops
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = case['model']
+    lib = models.module_for(cfg)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshPlan(**case['plan']))
+    params = getattr(lib, 'params_from_numpy', llama.params_from_numpy)(
+        case['init'], 'cpu')
+    engine = engine_lib.InferenceEngine(
+        engine_lib.EngineConfig(model=cfg, **case['engine']), params,
+        device='cpu', mesh=mesh)
+    decoded = []
+    step = engine._decode_step_impl
+
+    def record(*args, **kwargs):
+        out = step(*args, **kwargs)
+        decoded.append(out[1][0].clone())
+        return out
+    engine._decode_step_impl = record
+    out = {'k_shape': tuple(engine._k_shape),
+           'shapes': _shapes(engine.params),
+           'param_bytes': qops.params_nbytes(engine.params),
+           'slot_block': engine.layout.slot_block, 'decoded': decoded}
+    if rank != 0:
+        gang_lib.follow(engine, channel)
+        return out
+    proxy = gang_lib.EngineProxy(engine, channel)
+    orch = orch_lib.Orchestrator(proxy,
+                                 decode_steps=case.get('decode_steps', 1))
+    requests = [orch.submit(orch_lib.Request(**r))
+                for r in case['requests']]
+    orch.run_until_drained(max_steps=case.get('max_steps', 64))
+    proxy.stop()
+    out['outputs'] = [dict(tokens=r.output_tokens,
+                           logprobs=r.token_logprobs,
+                           top=r.top_logprobs, error=r.error)
+                      for r in requests]
+    return out
+
+
+def serve_gang(cases, world: int, tmp_dir: str, timeout: float = 100.0,
+               name: str = 'serve'):
+    """``serve_case`` of each case on a fresh gloo gang of ``world``
+    processes, started now → a callable that waits and returns each
+    rank's results, in rank order."""
+    import subprocess
+    path = os.path.join(tmp_dir, f'{name}-spec.pt')
+    torch.save(cases, path)
+    port = _free_port()
+    outs = [os.path.join(tmp_dir, f'{name}-out-{r}.pt')
+            for r in range(world)]
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), 'serve', path,
+                 str(r), str(world), str(port), outs[r]], env=env))
+    except BaseException:
+        _wait(procs, 0)
+        raise
+
+    def results():
+        _wait(procs, timeout)
+        return [torch.load(o, weights_only=False) for o in outs]
+    return results
+
+
 def host_rank(argv):
     """``host OUT_DIR [--fp32] -- ARGV``: ``train/launch.py``'s ``main``
     with ARGV, as the one launcher of a host: it starts the host's rank
@@ -379,6 +467,18 @@ def main(argv):
         return launch_rank(argv[1:])
     if argv[0] == 'host':
         sys.exit(host_rank(argv[1:]))
+    if argv[0] == 'serve':
+        spec, rank, world, port, out = argv[1:]
+        distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
+        try:
+            torch.set_num_threads(1)
+            channel = distributed.CommandChannel()
+            cases = torch.load(spec, weights_only=False)
+            torch.save([serve_case(c, int(rank), channel) for c in cases],
+                       out)
+        finally:
+            distributed.shutdown()
+        return None
     if argv[0] == 'call':
         name, spec, rank, world, port, out = argv[1:]
         distributed.initialize(f'127.0.0.1:{port}', int(world), int(rank))
